@@ -1,0 +1,26 @@
+"""CUDA backend — single-device selection.
+
+The single-device half of ``mpi_k_selection_tpu/backends/tpu.py``: the
+planner names the algorithm, and selection runs on one device. The
+distributed half (a process group over several cards) is not ported yet.
+"""
+
+from __future__ import annotations
+
+from mpi_k_selection_tpu_torch import api
+
+NAME = "cuda"
+
+
+def plan(n: int, algorithm: str = "auto") -> str:
+    """The algorithm a selection of ``n`` elements runs (api's rule)."""
+    return api.resolve_algorithm(algorithm, n)
+
+
+def kselect(x, k: int, *, algorithm: str = "auto", device=None, **kwargs):
+    """Exact k-th smallest (1-indexed) on one device."""
+    return api.kselect(x, k, algorithm=algorithm, device=device, **kwargs)
+
+
+def median(x, *, device=None, **kwargs):
+    return api.median(x, device=device, **kwargs)

@@ -1,0 +1,222 @@
+// Hopper (sm_90a) kernels of the single-array radix select.
+//
+// radix_histogram<W>  replaces mpi_k_selection_tpu/ops/pallas/histogram.py:
+//                     pallas_radix_histogram (W = uint32) and
+//                     pallas_radix_histogram64 (W = uint64).
+//   Computes the (2^radix_bits,) counts of the digit (key >> shift) & mask
+//   over the keys whose bits above the digit equal *prefix (every key when
+//   prefix is null). key = raw ^ key_xor, or the float transform when
+//   is_float (neg ? ~raw : raw | MSB), so the kernel reads the caller's raw
+//   array in place: no key pass, no pad copy, no hi/lo plane split.
+//   Bound: bytes. One read of n words (4n or 8n bytes) per pass; the
+//   arithmetic is a few integer operations per key. The design streams the
+//   input with 16-byte loads, kUnroll of them in flight per thread, and
+//   counts into per-warp shared-memory sub-histograms so that a hot bin
+//   (all keys equal) serialises one warp's atomics, not the block's. Each
+//   block adds its sums into the int64 global output with one atomic per
+//   bin. A misaligned base (a sliced tensor) takes the scalar loop.
+//
+// match_counts<W>     replaces mpi_k_selection_tpu/ops/pallas/histogram.py:
+//                     pallas_match_counts.
+//   For each 128-element row r and each of nq prefixes q, out[q, r] counts
+//   the keys of the row whose top resolved bits equal prefixes[q] (the
+//   caller passes mshift = key bits - resolved bits). Elements past n are
+//   masked. 64-bit keys are read as whole words: no hi plane.
+//   Bound: bytes. One read of the n words plus 4 * nq * rows bytes written.
+//   The design gives each row to one warp: lane l reads elements l, l+32,
+//   l+64 and l+96 (four coalesced loads), and each prefix's count is the
+//   population count of four warp ballots.
+//
+// Launches go on the caller's stream; each entry point returns
+// cudaGetLastError() so that the Python wrapper raises on a refused launch.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 4;
+constexpr int kRow = 128;
+
+template <typename W> struct Signed;
+template <> struct Signed<uint32_t> { using type = int32_t; };
+template <> struct Signed<uint64_t> { using type = int64_t; };
+
+// The sortable key of a raw word. For floats the arithmetic shift spreads
+// the sign bit into the xor mask: ~0 for negatives, MSB otherwise.
+template <typename W>
+__device__ __forceinline__ W to_key(W raw, bool is_float, W key_xor) {
+  constexpr int B = sizeof(W) * 8;
+  using S = typename Signed<W>::type;
+  const W m = is_float ? ((W)((S)raw >> (B - 1)) | ((W)1 << (B - 1))) : key_xor;
+  return raw ^ m;
+}
+
+// The words of one 16-byte load, in address order.
+__device__ __forceinline__ void unpack(const uint4& v, uint32_t (&w)[4]) {
+  w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+}
+__device__ __forceinline__ void unpack(const uint4& v, uint64_t (&w)[2]) {
+  w[0] = ((uint64_t)v.y << 32) | v.x;
+  w[1] = ((uint64_t)v.w << 32) | v.z;
+}
+
+template <typename W>
+__global__ void __launch_bounds__(kThreads)
+radix_histogram_kernel(const W* __restrict__ data, long long n, int shift,
+                       int radix_bits, int is_float, W key_xor,
+                       const W* __restrict__ prefix,
+                       unsigned long long* __restrict__ out, int vec) {
+  extern __shared__ unsigned int sub[];  // kWarps x 2^radix_bits
+  const int nb = 1 << radix_bits;
+  for (int i = threadIdx.x; i < kWarps * nb; i += blockDim.x) sub[i] = 0u;
+  __syncthreads();
+
+  unsigned int* mine = sub + (threadIdx.x >> 5) * nb;
+  const bool has_prefix = prefix != nullptr;
+  const W want = has_prefix ? *prefix : (W)0;
+  // the prefix shift is only formed when there is a prefix: without one,
+  // shift + radix_bits may equal the word width, a shift C++ leaves undefined
+  const int pshift = has_prefix ? shift + radix_bits : 0;
+  const W dmask = (W)(nb - 1);
+  const bool fl = is_float != 0;
+
+  auto count = [&](W raw) {
+    const W key = to_key(raw, fl, key_xor);
+    if (!has_prefix || (key >> pshift) == want)
+      atomicAdd(mine + (unsigned)((key >> shift) & dmask), 1u);
+  };
+
+  constexpr int V = 16 / sizeof(W);
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long nvec = vec ? n / V : 0;
+  const uint4* vdata = reinterpret_cast<const uint4*>(data);
+  long long i = tid;
+  for (; i + (kUnroll - 1) * stride < nvec; i += kUnroll * stride) {
+    uint4 v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) v[u] = __ldg(vdata + i + u * stride);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      W w[V];
+      unpack(v[u], w);
+#pragma unroll
+      for (int j = 0; j < V; ++j) count(w[j]);
+    }
+  }
+  for (; i < nvec; i += stride) {
+    W w[V];
+    unpack(__ldg(vdata + i), w);
+#pragma unroll
+    for (int j = 0; j < V; ++j) count(w[j]);
+  }
+  for (long long e = nvec * V + tid; e < n; e += stride) count(data[e]);
+  __syncthreads();
+
+  for (int b = threadIdx.x; b < nb; b += blockDim.x) {
+    unsigned long long s = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += sub[w * nb + b];
+    if (s) atomicAdd(out + b, s);
+  }
+}
+
+template <typename W>
+__global__ void __launch_bounds__(kThreads)
+match_counts_kernel(const W* __restrict__ data, long long n, long long rows,
+                    int mshift, int is_float, W key_xor,
+                    const W* __restrict__ prefixes, int nq,
+                    int* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const long long nwarp = ((long long)gridDim.x * blockDim.x) >> 5;
+  const bool fl = is_float != 0;
+  for (long long r = warp; r < rows; r += nwarp) {  // warp-uniform loop
+    W top[kRow / 32];
+    bool ok[kRow / 32];
+#pragma unroll
+    for (int j = 0; j < kRow / 32; ++j) {
+      const long long pos = r * kRow + j * 32 + lane;
+      ok[j] = pos < n;
+      top[j] = ok[j] ? to_key(data[pos], fl, key_xor) >> mshift : (W)0;
+    }
+    for (int q = 0; q < nq; ++q) {
+      const W p = prefixes[q];
+      int c = 0;
+#pragma unroll
+      for (int j = 0; j < kRow / 32; ++j)
+        c += __popc(__ballot_sync(0xffffffffu, ok[j] && top[j] == p));
+      if (lane == 0) out[(long long)q * rows + r] = c;
+    }
+  }
+}
+
+template <typename W>
+int launch_histogram(const void* data, long long n, int shift, int radix_bits,
+                     int is_float, W key_xor, const void* prefix, void* out,
+                     int grid, void* stream) {
+  const size_t smem = (size_t)kWarps * (1u << radix_bits) * sizeof(unsigned int);
+  const int vec = (reinterpret_cast<uintptr_t>(data) % 16) == 0;
+  radix_histogram_kernel<W><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      static_cast<const W*>(data), n, shift, radix_bits, is_float, key_xor,
+      static_cast<const W*>(prefix), static_cast<unsigned long long*>(out), vec);
+  return (int)cudaGetLastError();
+}
+
+template <typename W>
+int launch_match_counts(const void* data, long long n, long long rows,
+                        int mshift, int is_float, W key_xor,
+                        const void* prefixes, int nq, void* out, int grid,
+                        void* stream) {
+  match_counts_kernel<W><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      static_cast<const W*>(data), n, rows, mshift, is_float, key_xor,
+      static_cast<const W*>(prefixes), nq, static_cast<int*>(out));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int ksel_radix_histogram32(const void* data, long long n, int shift,
+                           int radix_bits, int is_float, unsigned int key_xor,
+                           const void* prefix, void* out, int grid,
+                           void* stream) {
+  return launch_histogram<uint32_t>(data, n, shift, radix_bits, is_float,
+                                    key_xor, prefix, out, grid, stream);
+}
+
+int ksel_radix_histogram64(const void* data, long long n, int shift,
+                           int radix_bits, int is_float,
+                           unsigned long long key_xor, const void* prefix,
+                           void* out, int grid, void* stream) {
+  return launch_histogram<uint64_t>(data, n, shift, radix_bits, is_float,
+                                    key_xor, prefix, out, grid, stream);
+}
+
+int ksel_match_counts32(const void* data, long long n, long long rows,
+                        int mshift, int is_float, unsigned int key_xor,
+                        const void* prefixes, int nq, void* out, int grid,
+                        void* stream) {
+  return launch_match_counts<uint32_t>(data, n, rows, mshift, is_float,
+                                       key_xor, prefixes, nq, out, grid,
+                                       stream);
+}
+
+int ksel_match_counts64(const void* data, long long n, long long rows,
+                        int mshift, int is_float, unsigned long long key_xor,
+                        const void* prefixes, int nq, void* out, int grid,
+                        void* stream) {
+  return launch_match_counts<uint64_t>(data, n, rows, mshift, is_float,
+                                       key_xor, prefixes, nq, out, grid,
+                                       stream);
+}
+
+const char* ksel_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

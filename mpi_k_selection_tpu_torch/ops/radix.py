@@ -1,0 +1,272 @@
+"""Exact k-selection by radix descent (PyTorch).
+
+Counterpart of ``mpi_k_selection_tpu/ops/radix.py``. Each pass counts digit
+occurrences among the elements that still match the current bit prefix,
+narrows the prefix by ``radix_bits`` bits, and rebases k; after
+``key_bits / radix_bits`` passes the answer's bits are fully determined.
+Counts are exact integers, so the answer is always the true k-th smallest
+(1-indexed, duplicates included).
+
+The cutover (the production fast path): after ``ncut`` passes, if the
+surviving population fits ``cutover_budget``, collect those survivors and
+sort them instead of running the remaining passes; otherwise run one more
+pass and try again; only then finish the fixed schedule
+(:func:`run_cutover_ladder`).
+
+Device discipline: ``prefix``, ``kk`` and every count stay on the device,
+and the histogram kernel reads the prefix through a device pointer, so
+the passes before the cutover queue without a host sync. Each rung of the
+ladder reads one population to the host (the JAX package's ``lax.cond``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mpi_k_selection_tpu_torch.ops.cuda.histogram import ROW, match_counts
+from mpi_k_selection_tpu_torch.ops.histogram import masked_radix_histogram, prepare_raw
+from mpi_k_selection_tpu_torch.utils import dtypes as _dt
+
+
+def default_radix_bits() -> int:
+    """4 for every dtype and device: 4-bit digits keep the pass schedule of
+    the JAX package's kernel path, and the plain method, the kernels' CPU
+    stand-in, walks the same schedule as the card."""
+    return 4
+
+
+def cutover_passes(n: int, total_bits: int, radix_bits: int, budget: int) -> int | None:
+    """Number of full histogram passes to run before the first
+    collect-and-sort attempt, or None when the fixed schedule is better.
+
+    Chosen so the expected surviving population (``n >> resolved_bits`` for
+    full-range uniform keys) is <= budget/16, the JAX package's rule
+    (ops/radix.py:cutover_passes there); data denser than the model falls
+    to the next rung of the ladder."""
+    if n < (1 << 20):  # small inputs: pass cost is trivial, skip the cutover
+        return None
+    npasses = total_bits // radix_bits
+    r = radix_bits
+    while r < total_bits and (n >> r) > max(budget >> 4, 64):
+        r += radix_bits
+    ncut = r // radix_bits
+    if ncut >= npasses:
+        return None
+    if (npasses - ncut - 1) * n <= 100_000_000:  # collect ~ 1 pass
+        return None
+    return ncut
+
+
+def resolve_cutover(cutover, n, total_bits, radix_bits, budget):
+    """Cutover pass count: ``"auto"`` -> :func:`cutover_passes`, None ->
+    disabled, int -> forced (validated against the pass count)."""
+    npasses = total_bits // radix_bits
+    if cutover == "auto":
+        return cutover_passes(n, total_bits, radix_bits, budget)
+    if cutover is None:
+        return None
+    ncut = int(cutover)
+    if not 1 <= ncut < npasses:
+        raise ValueError(f"cutover={ncut} out of range [1, {npasses - 1}]")
+    return ncut
+
+
+def run_cutover_ladder(ncut, npasses, pop0, pred, step, finish_small, finish_full_from, state):
+    """The 2-rung cutover ladder: try the collect after ``ncut`` passes; if
+    the surviving population overflows, run ONE more pass and try again;
+    only then run the remaining fixed passes.
+
+    ``pred(pop)`` is the fits-the-budget test (a host read of ``pop``);
+    ``step(p, state) -> (state, pop)`` runs pass p;
+    ``finish_small(resolved_passes)`` / ``finish_full_from(p0)`` return the
+    functions that finish from ``state``."""
+    if pred(pop0):
+        return finish_small(ncut)(state)
+    if ncut + 1 < npasses:
+        state, pop = step(ncut, state)
+        if pred(pop):
+            return finish_small(ncut + 1)(state)
+        return finish_full_from(ncut + 1)(state)
+    return finish_full_from(ncut)(state)
+
+
+def bucket_walk_step(hist, kk, prefix, kdt, radix_bits):
+    """One descent step on a bucket histogram: pick the bucket holding the
+    k-th element, rebase k within it, extend the prefix. ``prefix=None`` on
+    the first (prefix-free) step. All on the device; returns
+    ``(prefix, kk, bucket_count)``, each of shape (1,)."""
+    cum = torch.cumsum(hist, 0)
+    bucket = (cum >= kk).to(torch.int32).argmax().reshape(1)
+    count = hist.gather(0, bucket)
+    kk = kk - (cum.gather(0, bucket) - count)
+    bkey = bucket.to(kdt)
+    if prefix is not None:
+        bkey = (prefix << radix_bits) | bkey
+    return bkey, kk, count
+
+
+class _Descent:
+    """Per-select state: the words the kernels read (the raw input when its
+    dtype folds into the kernels, else its widened keys), the key
+    transform, and the one-pass bucket walk."""
+
+    def __init__(self, x: torch.Tensor, radix_bits=None):
+        if radix_bits is None:
+            radix_bits = default_radix_bits()
+        total_bits = _dt.key_bits(x.dtype)
+        if radix_bits < 1 or total_bits % radix_bits:
+            raise ValueError(f"radix_bits={radix_bits} must divide key bits {total_bits}")
+        self.radix_bits = radix_bits
+        self.total_bits = total_bits
+        self.npasses = total_bits // radix_bits
+        self.kdt = _dt.key_dtype(x.dtype)
+        self.n = x.numel()
+        raw = prepare_raw(x)
+        if raw is not None:
+            self.words, self.key_op, self.key_xor = raw
+        else:
+            # sub-32-bit keys, widened to non-negative int32 words
+            self.words = _dt.to_sortable_bits(x.reshape(-1))
+            self.key_op, self.key_xor = "none", 0
+        # whole 32/64-bit keys per word: the match-count kernel serves the
+        # collect; narrower keys collect through _collect_prefix_matches
+        self.use_counts = total_bits >= 32
+
+    def key_of(self, words: torch.Tensor) -> torch.Tensor:
+        return _dt.keys_from_raw(words, self.key_op, self.key_xor)
+
+    def one_pass(self, p, prefix, kk):
+        shift = self.total_bits - (p + 1) * self.radix_bits
+        hist = masked_radix_histogram(
+            self.words,
+            shift=shift,
+            radix_bits=self.radix_bits,
+            prefix=prefix if p else None,
+            key_op=self.key_op,
+            key_xor=self.key_xor,
+        )
+        return bucket_walk_step(hist, kk, prefix if p else None, self.kdt, self.radix_bits)
+
+
+def _gather_candidates(prep: _Descent, cnt, resolved_bits: int, prefixes, budget: int):
+    """Up to ``budget`` matching keys per prefix, from per-row match counts
+    ``cnt`` (K, R): each candidate slot finds its row by a search over the
+    running counts, gathers that whole 128-element row, and takes its
+    match of the right rank. Returns ``(values (K, budget) in key space,
+    padded with the order-maximum, pops (K,))``."""
+    n, dev = prep.n, cnt.device
+    nq, rows = cnt.shape
+    off = torch.cumsum(cnt, 1, dtype=torch.int64)
+    pops = off[:, -1]
+    target = torch.arange(1, budget + 1, device=dev).expand(nq, budget).contiguous()
+    b = torch.searchsorted(off, target).clamp_(max=rows - 1)
+    prev = torch.where(b > 0, off.gather(1, (b - 1).clamp(min=0)), 0)
+    rank = target - prev  # 1-based rank within row b
+    pos = b[..., None] * ROW + torch.arange(ROW, device=dev)  # (K, budget, ROW)
+    keys = prep.key_of(prep.words[pos.clamp(max=n - 1)])
+    carrier_bits = keys.element_size() * 8
+    top = _dt.shift_right_logical(keys, prep.total_bits - resolved_bits, carrier_bits)
+    rmatch = (top == prefixes[:, None, None]) & (pos < n)
+    within = torch.cumsum(rmatch, 2)
+    local = ((within == rank[..., None]) & rmatch).to(torch.int32).argmax(2)
+    vals = keys.gather(2, local[..., None])[..., 0]
+    vals = torch.where(target <= pops[:, None], vals, _dt.max_key(prep.total_bits))
+    return vals, pops
+
+
+def _collect_via_counts(prep: _Descent, resolved_passes: int, prefixes, budget: int):
+    """Collect up to ``budget`` candidates per prefix through the
+    match-count kernel: one streaming read counts every prefix's matches
+    per 128-element row, then each candidate slot gathers just its row.
+    ``prefixes`` is (K,) in key space. The kernel reads whole 32/64-bit
+    words, so any resolved width works (the JAX package's kernel reads the
+    hi plane of 64-bit keys and needs ``resolved_bits <= 32``)."""
+    res = resolved_passes * prep.radix_bits
+    cnt = match_counts(
+        prep.words, resolved_bits=res, prefixes=prefixes,
+        key_op=prep.key_op, key_xor=prep.key_xor,
+    )
+    return _gather_candidates(prep, cnt, res, prefixes, budget)
+
+
+def _collect_prefix_matches(prep: _Descent, resolved_bits: int, prefix, budget: int):
+    """The collect for sub-32-bit keys (non-negative int32 key words): the
+    per-row match counts in tensor ops over the key width, then the same
+    slot gather as :func:`_collect_via_counts`."""
+    u = prep.words
+    rows = -(-prep.n // ROW)
+    match = (u >> (prep.total_bits - resolved_bits)) == prefix
+    match = torch.nn.functional.pad(match, (0, rows * ROW - prep.n))
+    cnt = match.view(1, rows, ROW).sum(dim=2, dtype=torch.int32)
+    return _gather_candidates(prep, cnt, resolved_bits, prefix, budget)
+
+
+def _select_key_on_prep(prep: _Descent, k, *, cutover="auto", cutover_budget: int = 8192):
+    """The radix descent on a prebuilt :class:`_Descent`, returning the
+    answer in key space, shape (1,)."""
+    n, rb, npasses, kdt = prep.n, prep.radix_bits, prep.npasses, prep.kdt
+    dev = prep.words.device
+    kk = torch.as_tensor(k, dtype=torch.int64, device=dev).reshape(1).clamp(1, n)
+    prefix = torch.zeros(1, dtype=kdt, device=dev)
+    ncut = resolve_cutover(cutover, n, prep.total_bits, rb, cutover_budget)
+    if ncut is None:
+        for p in range(npasses):
+            prefix, kk, _ = prep.one_pass(p, prefix, kk)
+        return prefix
+
+    pop = None
+    for p in range(ncut):
+        prefix, kk, pop = prep.one_pass(p, prefix, kk)
+
+    def finish_small(resolved_passes):
+        def fn(state):
+            prefix, kk = state
+            if prep.use_counts:
+                cand, _ = _collect_via_counts(prep, resolved_passes, prefix, cutover_budget)
+            else:
+                cand, _ = _collect_prefix_matches(prep, resolved_passes * rb, prefix, cutover_budget)
+            s = _dt.order_bias(torch.sort(_dt.order_bias(cand[0], prep.total_bits)).values, prep.total_bits)
+            return s.gather(0, (kk - 1).clamp(0, cutover_budget - 1))
+
+        return fn
+
+    def finish_full_from(p0):
+        def fn(state):
+            prefix, kk = state
+            for p in range(p0, npasses):
+                prefix, kk, _ = prep.one_pass(p, prefix, kk)
+            return prefix
+
+        return fn
+
+    def step(p, state):
+        prefix, kk, pop = prep.one_pass(p, *state)
+        return (prefix, kk), pop
+
+    return run_cutover_ladder(
+        ncut, npasses, pop, lambda q: int(q) <= cutover_budget, step,
+        finish_small, finish_full_from, (prefix, kk),
+    )
+
+
+def radix_select(
+    x: torch.Tensor,
+    k,
+    *,
+    radix_bits: int | None = None,
+    cutover: int | str | None = "auto",
+    cutover_budget: int = 8192,
+) -> torch.Tensor:
+    """Exact k-th smallest element of ``x`` (k is 1-indexed; a tensor k is
+    clamped to [1, n]) as a 0-d tensor of ``x``'s dtype on its device.
+
+    ``cutover``: ``"auto"`` resolves via :func:`cutover_passes`; an int
+    forces that pass count; None runs the fixed schedule."""
+    if cutover_budget < 1:
+        raise ValueError(f"cutover_budget={cutover_budget} must be >= 1")
+    x = x.reshape(-1)
+    # CUDA float64 bitcasts are exact, so the port has no f64 approximation
+    # to warn about: the reference's f64 shells have no counterpart here
+    prep = _Descent(x, radix_bits)  # ksel: noqa[KSL003] -- no f64 approximation exists in the port (native f64 bitcasts)
+    ans = _select_key_on_prep(prep, k, cutover=cutover, cutover_budget=cutover_budget)
+    return _dt.from_sortable_bits(ans, x.dtype).reshape(())

@@ -1,0 +1,90 @@
+"""Timing and structured result records.
+
+The only module of the port that reads a clock. On a CUDA device a time is
+taken with CUDA events around the calls and ends in a
+``torch.cuda.synchronize()``: PyTorch returns before the device finishes,
+so a host clock without the synchronise would time the enqueue. On the
+CPU the host clock is the device clock.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import time
+from typing import Any, Callable
+
+import torch
+
+
+def time_fn(fn: Callable[[], Any], *, repeats: int = 1, warmup: int = 0, device="cuda"):
+    """Best-of-``repeats`` seconds of one ``fn()`` call, and its last
+    result. ``device`` says where ``fn`` runs its work."""
+    result = None
+    for _ in range(warmup):
+        result = fn()
+    cuda = torch.device(device).type == "cuda"
+    best = float("inf")
+    for _ in range(max(1, repeats)):
+        if cuda:
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0.record()
+            result = fn()
+            t1.record()
+            torch.cuda.synchronize()
+            seconds = t0.elapsed_time(t1) / 1e3
+        else:
+            c0 = time.perf_counter()
+            result = fn()
+            seconds = time.perf_counter() - c0
+        best = min(best, seconds)
+    return best, result
+
+
+def cuda_ms(fn: Callable[[], Any], *, iters: int = 10, warmup: int = 2) -> float:
+    """Mean milliseconds of one ``fn()`` on the current CUDA device over
+    ``iters`` back-to-back calls between two events, after ``warmup``."""
+    for _ in range(warmup):
+        fn()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+@dataclasses.dataclass
+class ResultRecord:
+    """One run's record, as the JAX package's CLI writes it."""
+
+    answer: Any
+    n: int
+    k: int
+    backend: str
+    algorithm: str
+    dtype: str
+    seconds: float
+    device: str = ""
+    extra: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def elems_per_sec_per_chip(self) -> float:
+        if self.seconds <= 0:
+            return float("inf")
+        return self.n / self.seconds  # one device
+
+    def to_json(self) -> str:
+        d = dataclasses.asdict(self)
+        d["elems_per_sec_per_chip"] = self.elems_per_sec_per_chip
+        return json.dumps(d, default=str)
+
+    def print_reference_style(self) -> None:
+        # the reference's output contract: "kth element=%d \ntime: %f\n"
+        # (TODO-kth-problem-cgm.c:280)
+        print(f"kth element={self.answer} \ntime: {self.seconds:f}")

@@ -1,0 +1,74 @@
+"""The PyTorch port stands alone: no file of ``mpi_k_selection_tpu_torch``
+and no line of ``chip_smoke.py`` imports JAX or the JAX package, and
+importing the port loads neither, nor builds a kernel."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT = REPO / "mpi_k_selection_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "mpi_k_selection_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.lineno, node.module
+        elif (
+            isinstance(node, ast.Call)
+            and getattr(node.func, "attr", getattr(node.func, "id", None)) in ("import_module", "__import__")
+            and node.args
+            and isinstance(node.args[0], ast.Constant)
+        ):
+            yield node.lineno, str(node.args[0].value)
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10 and files[-1].exists()
+    bad = [
+        f"{f.relative_to(REPO)}:{line}: {mod}"
+        for f in files
+        for line, mod in _imports(f)
+        if _forbidden(mod)
+    ]
+    assert bad == []
+
+
+def test_scanner_catches_a_jax_import(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text(
+        "import numpy\nimport jax.numpy as jnp\nfrom mpi_k_selection_tpu.ops import radix\n"
+        "import mpi_k_selection_tpu_torch\nimportlib.import_module('jax')\n"
+    )
+    assert [m for _, m in _imports(probe) if _forbidden(m)] == [
+        "jax.numpy", "mpi_k_selection_tpu.ops", "jax",
+    ]
+
+
+def test_importing_the_port_loads_no_jax_and_builds_nothing():
+    code = (
+        "import sys\n"
+        "import mpi_k_selection_tpu_torch, mpi_k_selection_tpu_torch.cli\n"
+        "import mpi_k_selection_tpu_torch.backends.cuda\n"
+        "from mpi_k_selection_tpu_torch.ops.cuda import build\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'mpi_k_selection_tpu')]\n"
+        "assert not bad, bad\n"
+        "assert not build._libs\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
