@@ -7,23 +7,36 @@ Phases, each of which must pass (any failure exits non-zero):
 1. Build the kernels of ``mpi_k_selection_tpu_torch/csrc`` with ``nvcc``
    and print ``ptxas`` registers, shared memory and spills.
 2. Hold each kernel against its plain PyTorch version, exactly (integer
-   counts, no tolerance), on 2^27 seeded random words: 32- and 64-bit,
-   every ``key_op``, with and without a prefix, and ``match_counts``.
-3. Drive the main path through ``kselect`` / ``median`` with the launch
-   counts set to 0: the median and k in {1, 250, N/2, N} of 2^30 int32
-   ``uniform`` (seed 0), 2^27 float64 ``normal`` and 2^27 int32 ``equal``,
-   each answer equal bit for bit to a NumPy ``np.partition`` oracle over the
-   same ``datagen`` data, and the median's rank certificate checked. Every
-   kernel must have launched.
-4. Time on the card with CUDA events (warm): the selects, each kernel at its
-   main-path shape, the plain versions, and ``torch.kthvalue`` as a one-call
-   yardstick (timed only; the port never calls it). Each time is printed
-   beside its bound: the bytes the work must move at 3.35 TB/s. Before it
-   is timed, each kernel is held exactly against its plain version on the
-   same tensor (a prefix-free pass, a pass under a prefix, and the collect's
-   count at 24 bits); the kernels line reports that comparison's error.
-5. Profile two medians with ``torch.profiler``: device time by kernel and
-   the device's idle share of the median's latency.
+   counts, no tolerance), on 2^27 seeded random words, 32- and 64-bit and
+   every ``key_op``: the histogram with and without a prefix,
+   ``match_counts``, the multi-prefix histogram at K in {1, 3, 64} with a
+   repeated prefix and radix widths 4 and 8, and ``tau_counts`` in both
+   directions against a key of the data and one absent from it.
+3. Drive the main paths, each with the launch counts set to 0 just before
+   it and read just after (each of its kernels must have launched and no
+   plain version may have run), each answer equal
+   bit for bit to a NumPy oracle over the same ``datagen`` data: the
+   median and k in {1, 250, N/2, N} of 2^30 int32 ``uniform`` (seed 0),
+   2^27 float64 ``normal`` and 2^27 int32 ``equal`` (the median's rank
+   certificate checked); ``quantiles`` at 0.5/0.9/0.99/0.999 of the 2^30
+   int32 and the 2^27 float64 array; ``kselect_many`` with 64 evenly
+   spaced ranks of 2^27 int32 (its peak memory printed); ``topk`` (k=128,
+   largest and smallest, indices and value bits) of 2^26 float32
+   ``normal`` and of the 2^27 float64 array. Every kernel must have
+   launched over the paths.
+4. Time on the card with CUDA events (warm), each time beside its bound
+   (the larger of the bytes the work must move at 3.35 TB/s and its
+   operations at the 67 TFLOP/s scalar rate): the selects with
+   ``torch.kthvalue`` as a one-call yardstick; ``quantiles`` at K=4
+   against four single selects; the shared radix walk against the sort
+   leg at K = 4, 64 and 128 (the crossover of the many-ranks dispatch);
+   ``topk`` against ``torch.topk`` and a full ``torch.sort`` (yardsticks
+   only: the port calls neither for top-k); each kernel at its main-path
+   shape beside its plain version, held exactly against it on the same
+   tensor first (the kernels line reports that comparison's error).
+5. Profile two medians, one K=4 ``quantiles`` of 2^30 int32 and one
+   ``topk`` of 2^26 float32 with ``torch.profiler``: device time by kernel
+   and the device's idle share.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one JSON
 object describing every kernel, and
@@ -48,20 +61,32 @@ KERNELS = {
     "radix_histogram64": HIST_SRC + ":534",  # pallas_radix_histogram64
     "match_counts32": HIST_SRC + ":1023",  # pallas_match_counts
     "match_counts64": HIST_SRC + ":1023",  # pallas_match_counts (64-bit keys)
+    "radix_histogram_multi32": HIST_SRC + ":765",  # pallas_radix_histogram_multi
+    "radix_histogram_multi64": HIST_SRC + ":861",  # pallas_radix_histogram64_multi
+    "tau_counts32": HIST_SRC + ":1142",  # pallas_tau_counts
+    "tau_counts64": HIST_SRC + ":1142",  # pallas_tau_counts (64-bit keys)
 }
 SOURCE = "mpi_k_selection_tpu_torch/csrc/histogram.cu"
+QS = (0.5, 0.9, 0.99, 0.999)
+TOPK = 128
 
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def bound(nbytes: float, nkeys: float):
+def bound(nbytes: float, nkeys: float, ops_per_key: float = OPS_PER_KEY):
     """(bound_ms, bound_by): the larger of the bytes over the memory rate
     and the key operations over the scalar rate."""
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    o_ms = nkeys * OPS_PER_KEY / SCALAR_OPS_PER_S * 1e3
+    o_ms = nkeys * ops_per_key / SCALAR_OPS_PER_S * 1e3
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def multi_ops_per_key(nq: int) -> int:
+    """The multi-prefix histogram's operations per key: the key transform,
+    shifts and count, and one compare with each of the nq prefixes."""
+    return OPS_PER_KEY + nq
 
 
 def rand_words(n: int, bits: int, gen) -> torch.Tensor:
@@ -70,6 +95,15 @@ def rand_words(n: int, bits: int, gen) -> torch.Tensor:
     w = torch.randint(-(1 << 31), 1 << 31, (n * bits // 32,), dtype=torch.int64, device="cuda", generator=gen)
     w = w.to(torch.int32)
     return w if bits == 32 else w.view(torch.int64)
+
+
+def absent_key(keys: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
+    """A key near ``start`` that no element of ``keys`` holds."""
+    for d in range(1, 1 << 16):
+        t = start ^ d
+        if not bool((keys == t).any()):
+            return t
+    fail("no absent key found")
 
 
 def phase_build():
@@ -92,30 +126,49 @@ def phase_kernels_vs_plain(gen):
 
     n = 1 << 27
     err = {name: 0 for name in KERNELS}
+
+    def hold(name, kernel, plain, what, **kw):
+        d = (kernel(**kw) - plain(**kw)).abs().max().item()
+        err[name] = max(err[name], d)
+        if d:
+            fail(f"{name} != plain at {what}")
+
     for bits in (32, 64):
         w = rand_words(n, bits, gen)
         for key_op, key_xor in (("none", 0), ("xor", 1 << (bits - 1)), ("float", 0)):
-            probe = dt.keys_from_raw(w[n // 3 : n // 3 + 1], key_op, key_xor)
+            keys = dt.keys_from_raw(w, key_op, key_xor)
+            probe = keys[n // 3 : n // 3 + 1]
             for rb in (4, 8):
                 for shift, live in ((bits - rb, False), (bits - 3 * rb, True), (0, True)):
                     p = dt.shift_right_logical(probe, shift + rb, bits).contiguous() if live else None
-                    kw = dict(shift=shift, radix_bits=rb, prefix=p, key_op=key_op, key_xor=key_xor)
-                    d = (H.radix_histogram(w, **kw) - H.radix_histogram_plain(w, **kw)).abs().max().item()
-                    err[f"radix_histogram{bits}"] = max(err[f"radix_histogram{bits}"], d)
-                    if d:
-                        fail(f"radix_histogram{bits} != plain at {key_op} rb={rb} shift={shift} prefix={live}")
+                    hold(f"radix_histogram{bits}", H.radix_histogram, H.radix_histogram_plain,
+                         f"{key_op} rb={rb} shift={shift} prefix={live}",
+                         words=w, shift=shift, radix_bits=rb, prefix=p, key_op=key_op, key_xor=key_xor)
+                # K prefixes of data keys, the last one repeated
+                for nq in (1, 3, 64):
+                    pos = [7 + (n - 8) * i // max(1, nq - 2) for i in range(max(1, nq - 1))]
+                    picks = keys[(pos + pos[-1:])[:nq]]
+                    for shift in (bits - 3 * rb, 0):
+                        p = dt.shift_right_logical(picks, shift + rb, bits).contiguous()
+                        hold(f"radix_histogram_multi{bits}", H.radix_histogram_multi, H.radix_histogram_multi_plain,
+                             f"{key_op} rb={rb} shift={shift} K={nq}",
+                             words=w, shift=shift, radix_bits=rb, prefixes=p, key_op=key_op, key_xor=key_xor)
             for res, nq in ((24, 1), (bits // 2 + 4, 3)):
-                keys3 = dt.keys_from_raw(w[[7, n // 3, n - 1]], key_op, key_xor)
-                p = dt.shift_right_logical(keys3[:nq], bits - res, bits).contiguous()
-                kw = dict(resolved_bits=res, prefixes=p, key_op=key_op, key_xor=key_xor)
-                d = (H.match_counts(w, **kw) - H.match_counts_plain(w, **kw)).abs().max().item()
-                err[f"match_counts{bits}"] = max(err[f"match_counts{bits}"], d)
-                if d:
-                    fail(f"match_counts{bits} != plain at {key_op} res={res} K={nq}")
+                p = dt.shift_right_logical(keys[[7, n // 3, n - 1]][:nq], bits - res, bits).contiguous()
+                hold(f"match_counts{bits}", H.match_counts, H.match_counts_plain, f"{key_op} res={res} K={nq}",
+                     words=w, resolved_bits=res, prefixes=p, key_op=key_op, key_xor=key_xor)
+            for tau in (probe.clone(), absent_key(keys, probe)):
+                for largest in (True, False):
+                    hold(f"tau_counts{bits}", H.tau_counts, H.tau_counts_plain, f"{key_op} largest={largest}",
+                         words=w, tau=tau, largest=largest, key_op=key_op, key_xor=key_xor)
+            del keys
         # a storage offset breaks 16-byte alignment: the scalar loop
         kw = dict(shift=bits - 4, radix_bits=4)
         if not torch.equal(H.radix_histogram(w[1:], **kw), H.radix_histogram_plain(w[1:], **kw)):
             fail(f"radix_histogram{bits} != plain on a misaligned view")
+        kw = dict(kw, shift=bits - 8, prefixes=w[:3].clone() & 15)
+        if not torch.equal(H.radix_histogram_multi(w[1:], **kw), H.radix_histogram_multi_plain(w[1:], **kw)):
+            fail(f"radix_histogram_multi{bits} != plain on a misaligned view")
         del w
     torch.cuda.synchronize()
     for name, e in err.items():
@@ -124,15 +177,16 @@ def phase_kernels_vs_plain(gen):
 
 def oracle(x: np.ndarray, ks):
     """k-th smallest for each k in key order, as raw bytes."""
-    from mpi_k_selection_tpu_torch.utils import dtypes as dt
+    from mpi_k_selection_tpu_torch.cli import oracle_many
 
-    keys = dt.np_to_sortable_bits(x)
-    part = np.partition(keys, [k - 1 for k in ks])
-    return {k: dt.np_from_sortable_bits(part[k - 1 : k], x.dtype).tobytes() for k in ks}
+    ks = sorted(set(ks))
+    return dict(zip(ks, (v.tobytes() for v in oracle_many(x, ks))))
 
 
 def phase_main_path():
     import mpi_k_selection_tpu_torch as kt
+    from mpi_k_selection_tpu_torch import api
+    from mpi_k_selection_tpu_torch.cli import topk_oracle
     from mpi_k_selection_tpu_torch.ops.cuda import histogram as H
     from mpi_k_selection_tpu_torch.utils import datagen
     from mpi_k_selection_tpu_torch.utils.debug import rank_certificate
@@ -142,69 +196,125 @@ def phase_main_path():
         ("int32 uniform 2^30", 1 << 30, "uniform", np.int32),
         ("float64 normal 2^27", 1 << 27, "normal", np.float64),
         ("int32 equal 2^27", 1 << 27, "equal", np.int32),
+        ("float32 normal 2^26", 1 << 26, "normal", np.float32),
     )
-    data = {}
-    wants = {}
+    n27 = 1 << 27
+    many_ks = [round(n27 * (i + 1) / 64) for i in range(64)]  # 64 evenly spaced ranks, the last n
+    data, wants, tops = {}, {}, {}
     for label, n, pattern, dtype in cases:
         x = datagen.generate(n, pattern=pattern, seed=0, dtype=dtype)
-        ks = (1, 250, n // 2, n)
-        wants[label] = oracle(x, ks)
+        if n > 1 << 26:  # the selects' arrays
+            wants[label] = oracle(x, [1, 250, n // 2, n] + api.quantile_ranks(QS, n))
+        if dtype != np.int32:
+            tops[label] = {largest: topk_oracle(x, TOPK, largest) for largest in (True, False)}
+        if n == 1 << 30:
+            wants["int32 uniform 2^27"] = oracle(x[:n27], many_ks)
         data[label] = tensor_from_numpy(x, "cuda")
         del x
     torch.cuda.synchronize()
 
-    H.reset_counts()
-    answers = {}
-    per_median = {}
-    for label, _, _, _ in cases:
+    launches = {kn: 0 for kn in H.LAUNCHES}  # summed over every path below
+    answers, many, per_call = {}, {}, {}
+
+    def counted(what, fn, bits, kinds):
+        """Drives one path with every count set to 0 just before it and read
+        just after; fails unless each of its kernels ``kinds`` (at the key
+        width ``bits``) launched and no plain version ran."""
+        H.reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got, plain = dict(H.LAUNCHES), dict(H.PLAIN_CALLS)
+        per_call[what] = {kn: v for kn, v in got.items() if v}
+        missing = [f"{kind}{bits}" for kind in kinds if not got[f"{kind}{bits}"]]
+        if missing or any(plain.values()):
+            fail(f"{what}: kernels {missing} never launched; plain calls {plain}")
+        for kn, v in got.items():
+            launches[kn] += v
+        return out
+
+    select = ("radix_histogram", "match_counts")
+    many_kinds = ("radix_histogram", "radix_histogram_multi", "match_counts")
+    for label in ("int32 uniform 2^30", "float64 normal 2^27", "int32 equal 2^27"):
         x = data[label]
         n = x.numel()
-        before = dict(H.LAUNCHES)
-        answers[(label, n // 2)] = kt.median(x)
-        per_median[label] = {kn: v - before[kn] for kn, v in H.LAUNCHES.items() if v > before[kn]}
+        bits = 8 * x.element_size()
+        # one hot bin: both rungs overflow and the full schedule runs, no collect
+        kinds = select[:1] if "equal" in label else select
+        answers[(label, n // 2)] = counted(f"median, {label}", lambda: kt.median(x), bits, kinds)
         for k in (1, 250, n):
-            answers[(label, k)] = kt.kselect(x, k)
+            answers[(label, k)] = counted(f"kselect k={k}, {label}", lambda: kt.kselect(x, k), bits, select[:1])
+    for label in ("int32 uniform 2^30", "float64 normal 2^27"):
+        x = data[label]
+        many[label] = (api.quantile_ranks(QS, x.numel()),
+                       counted(f"quantiles, {label}", lambda: kt.quantiles(x, QS), 8 * x.element_size(), many_kinds))
+    x27 = data["int32 uniform 2^30"][:n27]
     torch.cuda.synchronize()
-    launches = dict(H.LAUNCHES)
-    plain = dict(H.PLAIN_CALLS)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    many["int32 uniform 2^27"] = (many_ks, counted("kselect_many K=64, int32 uniform 2^27",
+                                                   lambda: kt.kselect_many(x27, many_ks), 32, many_kinds))
+    extra_peak = torch.cuda.max_memory_allocated() - base
+    topk_out = {}
+    for label in ("float32 normal 2^26", "float64 normal 2^27"):
+        for largest in (True, False):
+            topk_out[(label, largest)] = counted(
+                f"topk k={TOPK} largest={largest}, {label}", lambda: kt.topk(data[label], TOPK, largest=largest),
+                8 * data[label].element_size(), select + ("tau_counts",),
+            )
 
     for (label, k), ans in answers.items():
         got = tensor_to_numpy(ans.reshape(1))
         if got.tobytes() != wants[label][k]:
             fail(f"{label} k={k}: got {got[0]!r}, oracle {np.frombuffer(wants[label][k], got.dtype)[0]!r}")
         print(f"[main] {label} k={k}: {got[0]!r} == oracle")
-    for label, _, _, _ in cases:
+    for label, (ks, ans) in many.items():
+        got = tensor_to_numpy(ans)
+        want = b"".join(wants[label][k] for k in ks)
+        if got.shape != (len(ks),) or got.tobytes() != want:
+            fail(f"{label} ranks {ks[:4]}...: got {got[:4]!r}..., oracle mismatch")
+        print(f"[main] {label}: {len(ks)} ranks == oracle (first {got[:4].tolist()})")
+    for (label, largest), (v, i) in topk_out.items():
+        wv, wi = tops[label][largest]
+        if not np.array_equal(i.cpu().numpy(), wi) or tensor_to_numpy(v).tobytes() != wv.tobytes():
+            fail(f"topk {label} largest={largest} != oracle")
+        print(f"[main] topk k={TOPK} largest={largest} {label}: indices and value bits == oracle")
+    for label in ("int32 uniform 2^30", "float64 normal 2^27", "int32 equal 2^27"):
         n = data[label].numel()
         less, leq = rank_certificate(data[label], answers[(label, n // 2)])
         if not int(less) < n // 2 <= int(leq):
             fail(f"{label} median rank certificate ({int(less)}, {int(leq)}]")
-    for label, counts in per_median.items():
-        print(f"[main] launches of one median, {label}: {counts}")
-    print(f"[main] launches {launches}; plain calls {plain}")
+    for what, counts in per_call.items():
+        print(f"[main] launches of one {what}: {counts}")
+    print(f"[main] kselect_many K=64 of 2^27 int32: peak device memory above the resident data "
+          f"{extra_peak / 2**20:.1f} MiB")
+    print(f"[main] launches over every path {launches}; plain calls 0 on each path")
     if any(v == 0 for v in launches.values()):
-        fail(f"a kernel of the main path never launched: {launches}")
-    if any(plain.values()):
-        fail(f"the plain versions ran on the card's main path: {plain}")
-    return data, launches
+        fail(f"a kernel of the main paths never launched: {launches}")
+    return data, launches, per_call, extra_peak
 
 
 def phase_timing(data):
     import mpi_k_selection_tpu_torch as kt
+    from mpi_k_selection_tpu_torch import api
     from mpi_k_selection_tpu_torch.ops.cuda import histogram as H
+    from mpi_k_selection_tpu_torch.ops.radix import radix_select_many, row_cumsum
+    from mpi_k_selection_tpu_torch.ops.sort import sort_select
     from mpi_k_selection_tpu_torch.utils import dtypes as dt
     from mpi_k_selection_tpu_torch.utils.timing import cuda_ms
 
     x30 = data["int32 uniform 2^30"]
     f64 = data["float64 normal 2^27"]
     eq = data["int32 equal 2^27"]
+    f32 = data["float32 normal 2^26"]
     x27 = x30[: 1 << 27]
     i64 = x27.to(torch.int64)
     rows = []
 
-    def row(what, n, itemsize, ms, extra=""):
-        b, by = bound(n * itemsize, n)
+    def row(what, n, itemsize, ms, extra="", ops_per_key=OPS_PER_KEY, nbytes=None):
+        b, by = bound(n * itemsize if nbytes is None else nbytes, n, ops_per_key)
         rows.append({"what": what, "n": n, "ms": ms, "bound_ms": b, "bound_by": by})
-        print(f"[time] {what:<44} {ms:10.4f} ms   bound {b:8.4f} ms ({by}){extra}")
+        print(f"[time] {what:<52} {ms:10.4f} ms   bound {b:8.4f} ms ({by}){extra}")
+        return b, by
 
     for label, x in (("median int32 uniform 2^30", x30), ("median int32 uniform 2^27", x27),
                      ("median int64 uniform 2^27", i64), ("median float64 normal 2^27", f64),
@@ -213,6 +323,43 @@ def phase_timing(data):
         row(label, x.numel(), x.element_size(), ms)
         kms = cuda_ms(lambda: torch.kthvalue(x, max(1, x.numel() // 2)), iters=2, warmup=1)
         row(label.replace("median", "torch.kthvalue"), x.numel(), x.element_size(), kms)
+
+    # many ranks: one shared walk against K single selects, and against the
+    # sort leg (the crossover of api.many_sort_dispatch_queries)
+    for label, x in (("int32 uniform 2^30", x30), ("float64 normal 2^27", f64)):
+        ranks = api.quantile_ranks(QS, x.numel())
+        ms = cuda_ms(lambda: kt.quantiles(x, QS), iters=5)
+        row(f"quantiles K=4 {label}", x.numel(), x.element_size(), ms)
+        ms4 = cuda_ms(lambda: [kt.kselect(x, k) for k in ranks], iters=3)
+        row(f"4 x kselect at the same ranks {label}", x.numel(), x.element_size(), ms4)
+    for nq in (4, 64, 128):
+        ks = torch.tensor([round((1 << 27) * (i + 1) / nq) for i in range(nq)], device="cuda")
+        ms = cuda_ms(lambda: radix_select_many(x27, ks), iters=3)
+        row(f"radix walk K={nq} int32 uniform 2^27", 1 << 27, 4, ms, ops_per_key=multi_ops_per_key(nq))
+        sms = cuda_ms(lambda: sort_select(x27, ks), iters=3)
+        row(f"sort leg K={nq} int32 uniform 2^27", 1 << 27, 4, sms)
+    print(f"[time] many_sort_dispatch_queries(2^27) = {api.many_sort_dispatch_queries(1 << 27)}")
+    # the K=4 collect's running sums over its (4, 2^23) row counts: one scan
+    # along the rows against the flattened scan the port uses (row_cumsum)
+    qk = dt.to_sortable_bits(kt.quantiles(x30, QS))
+    cnt = H.match_counts(x30.view(torch.int32), resolved_bits=24, key_op="xor", key_xor=1 << 31,
+                         prefixes=dt.shift_right_logical(qk, 8, 32).contiguous())
+    if not torch.equal(row_cumsum(cnt), torch.cumsum(cnt, 1, dtype=torch.int64)):
+        fail("row_cumsum != torch.cumsum along the rows")
+    nbytes = cnt.numel() * 12  # int32 counts read, int64 sums written
+    row("torch.cumsum(dim=1), (4, 2^23) row counts", cnt.numel(), 4,
+        cuda_ms(lambda: torch.cumsum(cnt, 1, dtype=torch.int64), iters=3), nbytes=nbytes)
+    row("row_cumsum, (4, 2^23) row counts", cnt.numel(), 4, cuda_ms(lambda: row_cumsum(cnt)), nbytes=nbytes)
+    del cnt
+
+    # top-k against one-call yardsticks (timed only)
+    for label, x in (("float32 normal 2^26", f32), ("float64 normal 2^27", f64)):
+        ms = cuda_ms(lambda: kt.topk(x, TOPK), iters=5)
+        row(f"topk k={TOPK} {label}", x.numel(), x.element_size(), ms)
+        tms = cuda_ms(lambda: torch.topk(x, TOPK), iters=5)
+        row(f"torch.topk k={TOPK} {label}", x.numel(), x.element_size(), tms)
+        sms = cuda_ms(lambda: torch.sort(x, descending=True, stable=True), iters=3)
+        row(f"torch.sort {label}", x.numel(), x.element_size(), sms)
 
     def exact(kernel, plain, what, **kw):
         """max |kernel - plain| over the outputs; any difference fails."""
@@ -248,30 +395,67 @@ def phase_timing(data):
         row(f"radix_histogram{name}", n, bits // 8, ms, f"   plain {pms:.4f} ms")
         mms = cuda_ms(lambda: H.match_counts(**mkw))
         mpms = cuda_ms(lambda: H.match_counts_plain(**mkw), iters=3, warmup=1)
-        rows_out = -(-n // 128) * 4
-        b, by = bound(n * bits // 8 + rows_out, n)
-        rows.append({"what": f"match_counts{name}", "n": n, "ms": mms, "bound_ms": b, "bound_by": by})
-        print(f"[time] {'match_counts' + name:<44} {mms:10.4f} ms   bound {b:8.4f} ms ({by})   plain {mpms:.4f} ms")
+        b, by = row(f"match_counts{name}", n, bits // 8, mms, f"   plain {mpms:.4f} ms",
+                    nbytes=n * bits // 8 + -(-n // 128) * 4)
         if name in ("32 int32 2^30", "64 float64 2^27"):
             kern[f"radix_histogram{bits}"] = (ms, pms, *bound(n * bits // 8, n), herr)
             kern[f"match_counts{bits}"] = (mms, mpms, b, by, merr)
         torch.cuda.empty_cache()
+
+    # the multi-prefix histogram at the many-ranks passes: K=4 quantile
+    # prefixes at pass 1 (2^30 int32, 2^27 float64), and K=64 and 128 at
+    # 2^27 int32; tau_counts at the top-k collect (tau = the 128th largest)
+    for name, words, key_op, key_xor, bits, nq, main in (
+        ("32 int32 2^30 K=4", x30, "xor", 1 << 31, 32, 4, True),
+        ("64 float64 2^27 K=4", f64, "float", 0, 64, 4, True),
+        ("32 int32 2^27 K=64", x27, "xor", 1 << 31, 32, 64, False),
+        ("32 int32 2^27 K=128", x27, "xor", 1 << 31, 32, 128, False),
+    ):
+        w = words.view(torch.int32 if bits == 32 else torch.int64)
+        n = w.numel()
+        ranks = api.quantile_ranks(QS, n) if nq == 4 else [round(n * (i + 1) / nq) for i in range(nq)]
+        qkeys = dt.to_sortable_bits(kt.kselect_many(words, ranks))  # the answers' keys
+        kw = dict(words=w, shift=bits - 8, radix_bits=4, key_op=key_op, key_xor=key_xor,
+                  prefixes=dt.shift_right_logical(qkeys, bits - 4, bits).contiguous())
+        err = exact(H.radix_histogram_multi, H.radix_histogram_multi_plain, f"radix_histogram_multi{name}", **kw)
+        ms = cuda_ms(lambda: H.radix_histogram_multi(**kw))
+        pms = cuda_ms(lambda: H.radix_histogram_multi_plain(**kw), iters=3, warmup=1)
+        b, by = row(f"radix_histogram_multi{name}", n, bits // 8, ms, f"   plain {pms:.4f} ms",
+                    ops_per_key=multi_ops_per_key(nq))
+        print(f"[check] radix_histogram_multi{name} == plain: max_abs_err {err}")
+        if main:
+            kern[f"radix_histogram_multi{bits}"] = (ms, pms, b, by, err)
+        torch.cuda.empty_cache()
+    for name, words, key_op, key_xor, bits in (
+        ("32 float32 2^26", f32, "float", 0, 32), ("64 float64 2^27", f64, "float", 0, 64),
+    ):
+        w = words.view(torch.int32 if bits == 32 else torch.int64)
+        n = w.numel()
+        tau = dt.to_sortable_bits(kt.kselect(words, n - TOPK + 1)).reshape(1)  # the 128th largest key
+        kw = dict(words=w, tau=tau, largest=True, key_op=key_op, key_xor=key_xor)
+        err = exact(H.tau_counts, H.tau_counts_plain, f"tau_counts{name}", **kw)
+        ms = cuda_ms(lambda: H.tau_counts(**kw))
+        pms = cuda_ms(lambda: H.tau_counts_plain(**kw), iters=3, warmup=1)
+        b, by = row(f"tau_counts{name}", n, bits // 8, ms, f"   plain {pms:.4f} ms",
+                    nbytes=n * bits // 8 + -(-n // 128) * 8)
+        print(f"[check] tau_counts{name} == plain: max_abs_err {err}")
+        kern[f"tau_counts{bits}"] = (ms, pms, b, by, err)
+        torch.cuda.empty_cache()
     return rows, kern
 
 
-def phase_profile(x: torch.Tensor, label: str, median_ms: float):
-    """Device time by kernel for three medians of ``x`` (torch.profiler),
-    and the device's busy share of the median's event-timed latency."""
-    import mpi_k_selection_tpu_torch as kt
+def phase_profile(fn, label: str, call_ms: float):
+    """Device time by kernel over three calls of ``fn`` (torch.profiler),
+    and the device's busy share of the call's event-timed latency."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     reps = 3
-    kt.median(x)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            kt.median(x)
+            fn()
         torch.cuda.synchronize()
     # device-side events only (kernels, copies): the host ops that launch
     # them report the same time again
@@ -287,16 +471,16 @@ def phase_profile(x: torch.Tensor, label: str, median_ms: float):
         return None
     for name, calls, ms in dev[:12]:
         print(f"[profile] {label}: {ms:9.4f} ms  {calls:4d}x  {name[:90]}")
-    idle = max(0.0, 1.0 - busy / median_ms)
-    print(f"[profile] {label}: device busy {busy:.4f} ms of {median_ms:.4f} ms per median; idle share {idle:.3f}")
-    return {"what": label, "busy_ms": busy, "median_ms": median_ms, "idle_share": idle,
+    idle = max(0.0, 1.0 - busy / call_ms)
+    print(f"[profile] {label}: device busy {busy:.4f} ms of {call_ms:.4f} ms per call; idle share {idle:.3f}")
+    return {"what": label, "busy_ms": busy, "call_ms": call_ms, "idle_share": idle,
             "top": [{"name": n[:120], "calls": c, "ms": m} for n, c, m in dev[:12]]}
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the card")
-    import mpi_k_selection_tpu_torch  # noqa: F401  (fails here, before any output, outside the repo)
+    import mpi_k_selection_tpu_torch as kt  # fails here, before any output, outside the repo
 
     torch.cuda.init()
     name = torch.cuda.get_device_name(0)
@@ -309,11 +493,21 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     phase_build()
     phase_kernels_vs_plain(gen)
-    data, launches = phase_main_path()
+    data, launches, per_call, extra_peak = phase_main_path()
     rows, kern = phase_timing(data)
+
+    def ms_of(what):
+        return next(r["ms"] for r in rows if r["what"] == what)
+
+    x30 = data["int32 uniform 2^30"]
     profiles = [
-        phase_profile(data[label], label, next(r["ms"] for r in rows if r["what"] == "median " + label))
-        for label in ("int32 uniform 2^30", "float64 normal 2^27")
+        phase_profile(lambda: kt.median(x30), "median int32 uniform 2^30", ms_of("median int32 uniform 2^30")),
+        phase_profile(lambda: kt.median(data["float64 normal 2^27"]), "median float64 normal 2^27",
+                      ms_of("median float64 normal 2^27")),
+        phase_profile(lambda: kt.quantiles(x30, QS), "quantiles K=4 int32 uniform 2^30",
+                      ms_of("quantiles K=4 int32 uniform 2^30")),
+        phase_profile(lambda: kt.topk(data["float32 normal 2^26"], TOPK), f"topk k={TOPK} float32 normal 2^26",
+                      ms_of(f"topk k={TOPK} float32 normal 2^26")),
     ]
 
     kernels = []
@@ -324,7 +518,8 @@ def main() -> int:
             "launches": launches[kname], "max_abs_err": err, "ms": ms,
             "plain_ms": pms, "bound_ms": b, "bound_by": by, "library_ms": None,
         })
-    print(json.dumps({"timings": rows, "profiles": profiles}))
+    print(json.dumps({"timings": rows, "profiles": profiles, "launches_per_call": per_call,
+                      "kselect_many_k64_extra_peak_bytes": extra_peak}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

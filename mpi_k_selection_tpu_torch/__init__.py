@@ -1,21 +1,34 @@
 """Exact k-selection in PyTorch with hand-written CUDA kernels for Hopper.
 
 The PyTorch / CUDA port of ``mpi_k_selection_tpu`` (which stays the JAX
-reference). Ported so far: exact single-array selection, the reference's
-main path::
+reference). Ported so far: exact selection of one rank, of many ranks and
+1-D top-k::
 
     import mpi_k_selection_tpu_torch as kt
-    kt.kselect(x, k)     # exact k-th smallest (1-indexed), 0-d tensor
-    kt.median(x)         # lower median, k = max(1, n // 2)
+    kt.kselect(x, k)             # exact k-th smallest (1-indexed), 0-d tensor
+    kt.median(x)                 # lower median, k = max(1, n // 2)
+    kt.kselect_many(x, ks)       # every k in ks, one shared walk
+    kt.quantiles(x, [0.5, 0.99]) # nearest-rank quantiles
+    kt.topk(x, k)                # (values, int64 indices), ties by position
 
 ``x`` is a torch tensor (selection runs on its device) or anything NumPy
-takes (moved to ``device``, default ``"cuda"``). The radix passes run the
-kernels of ``csrc/histogram.cu``, built with ``nvcc`` at first use; a CPU
-tensor runs their plain PyTorch versions.
+takes (moved to ``device``, default ``"cuda"``). The radix passes and the
+top-k collect run the kernels of ``csrc/histogram.cu``, built with
+``nvcc`` at first use; a CPU tensor runs their plain PyTorch versions.
 """
 
-from mpi_k_selection_tpu_torch.api import as_selection_array, kselect, median
-from mpi_k_selection_tpu_torch.ops.radix import radix_select
+from mpi_k_selection_tpu_torch.api import (
+    as_selection_array,
+    kselect,
+    kselect_many,
+    median,
+    quantiles,
+)
+from mpi_k_selection_tpu_torch.ops.radix import radix_select, radix_select_many
 from mpi_k_selection_tpu_torch.ops.sort import sort_select
+from mpi_k_selection_tpu_torch.ops.topk import batched_topk, topk
 
-__all__ = ["as_selection_array", "kselect", "median", "radix_select", "sort_select"]
+__all__ = [
+    "as_selection_array", "batched_topk", "kselect", "kselect_many", "median", "quantiles",
+    "radix_select", "radix_select_many", "sort_select", "topk",
+]

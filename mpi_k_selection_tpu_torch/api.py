@@ -6,12 +6,15 @@ Entry points run on the CUDA device unless the caller passes
 
 from __future__ import annotations
 
+import math
+import warnings
+
 import numpy as np
 import torch
 
-from mpi_k_selection_tpu_torch.ops.radix import radix_select
+from mpi_k_selection_tpu_torch.ops.radix import radix_select, radix_select_many
 from mpi_k_selection_tpu_torch.ops.sort import sort_select
-from mpi_k_selection_tpu_torch.utils.debug import check_concrete_k
+from mpi_k_selection_tpu_torch.utils.debug import check_concrete_k, check_concrete_ks
 from mpi_k_selection_tpu_torch.utils.interop import tensor_from_numpy
 
 ALGORITHMS = ("auto", "radix", "sort")
@@ -37,6 +40,18 @@ def resolve_algorithm(algorithm: str, n: int) -> str:
     return algorithm
 
 
+def many_sort_dispatch_queries(n: int) -> int:
+    """Query count at and above which :func:`kselect_many` sorts once and
+    gathers instead of running the shared radix walk: ``13*log2(n) - 230``,
+    clamped to [64, 192]. The walk costs about one read per pass whatever
+    K, plus K compares per key; the sort about ``n log n``, so the
+    crossover grows with ``log2(n)``. The rule is the JAX package's, fitted
+    on its own device; it is not yet measured on a CUDA card
+    (``chip_smoke.py`` times both legs at K = 4, 64 and 128). The answers
+    do not depend on it."""
+    return int(min(192, max(64, round(13 * math.log2(max(n, 2)) - 230))))
+
+
 def kselect(x, k, *, algorithm: str = "auto", device=None, **kwargs) -> torch.Tensor:
     """Exact k-th smallest element (1-indexed k, reference semantics:
     ``kth-problem-seq.c:32-33``), a 0-d tensor on the input's device.
@@ -48,6 +63,72 @@ def kselect(x, k, *, algorithm: str = "auto", device=None, **kwargs) -> torch.Te
     if resolve_algorithm(algorithm, x.numel()) == "radix":
         return radix_select(x, k, **kwargs)
     return sort_select(x, k)
+
+
+def kselect_many(x, ks, *, device=None, **kwargs) -> torch.Tensor:
+    """Exact k-th smallest for every (1-indexed) k in ``ks`` over one array,
+    in ``ks`` order and with ``ks``'s shape (a scalar k returns a 0-d
+    tensor, as :func:`kselect` does).
+
+    Small inputs (n <= 2^14) and many queries (K >=
+    :func:`many_sort_dispatch_queries`) sort once and gather; otherwise the
+    radix walk shares every pass across the queries
+    (:func:`~mpi_k_selection_tpu_torch.ops.radix.radix_select_many`, which
+    ``kwargs`` go to)."""
+    x = as_selection_array(x, device)
+    n = x.numel()
+    if n == 0:
+        raise ValueError("kselect_many requires a non-empty input")
+    check_concrete_ks(ks, n)
+    sort_at = many_sort_dispatch_queries(n)
+    n_queries = ks.numel() if isinstance(ks, torch.Tensor) else int(np.size(ks))
+    if n <= 1 << 14 or n_queries >= sort_at:
+        if kwargs:
+            warnings.warn(
+                f"kselect_many: this shape takes the sort path (small input or "
+                f">= {sort_at} queries at this n); radix options {sorted(kwargs)} are ignored",
+                stacklevel=2,
+            )
+        out = sort_select(x, ks)
+    else:
+        out = radix_select_many(x, ks, **kwargs)
+    return restore_k_shape(out, ks)
+
+
+def quantile_ranks(qs, n: int) -> list[int]:
+    """Nearest-rank 1-indexed ks for quantiles ``qs`` over ``n`` elements:
+    ``k = max(1, ceil(q * n))``, computed in float64 on the host (a float32
+    round trip perturbs q, 0.99 -> 0.99000001, enough to move
+    ``ceil(q * n)`` by one rank)."""
+    qs_list = [float(q) for q in np.atleast_1d(np.asarray(qs, dtype=np.float64))]
+    for q in qs_list:
+        if not 0.0 <= q <= 1.0:
+            raise ValueError(f"quantile {q} outside [0, 1]")
+    return [max(1, min(n, math.ceil(q * n))) for q in qs_list]
+
+
+def quantile_ks(qs, n: int, device) -> torch.Tensor:
+    """:func:`quantile_ranks` as an int64 tensor on ``device``."""
+    return torch.tensor(quantile_ranks(qs, n), dtype=torch.int64, device=device)
+
+
+def restore_k_shape(out: torch.Tensor, ks) -> torch.Tensor:
+    """Shape contract of the ``*_many`` entry points: answers carry
+    ``ks``'s shape, so a scalar k returns a 0-d tensor."""
+    if isinstance(ks, (list, tuple)):
+        return out  # a container is a 1-D list of queries
+    ndim = ks.dim() if isinstance(ks, torch.Tensor) else np.ndim(ks)
+    return out.reshape(()) if ndim == 0 else out
+
+
+def quantiles(x, qs, *, device=None, **kwargs) -> torch.Tensor:
+    """Exact order statistics at quantiles ``qs`` (nearest rank: every
+    answer is an element of ``x``), a (len(qs),) tensor on the input's
+    device."""
+    x = as_selection_array(x, device)
+    if x.numel() == 0:
+        raise ValueError("quantiles requires a non-empty input")
+    return kselect_many(x, quantile_ks(qs, x.numel(), x.device), **kwargs)
 
 
 def median(x, *, device=None, **kwargs) -> torch.Tensor:

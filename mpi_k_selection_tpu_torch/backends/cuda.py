@@ -24,3 +24,13 @@ def kselect(x, k: int, *, algorithm: str = "auto", device=None, **kwargs):
 
 def median(x, *, device=None, **kwargs):
     return api.median(x, device=device, **kwargs)
+
+
+def kselect_many(x, ks, *, device=None, **kwargs):
+    """Exact k-th smallest for every k in ``ks`` on one device."""
+    return api.kselect_many(x, ks, device=device, **kwargs)
+
+
+def quantiles(x, qs, *, device=None, **kwargs):
+    """Exact nearest-rank quantiles on one device."""
+    return api.quantiles(x, qs, device=device, **kwargs)

@@ -1,6 +1,7 @@
 """Command-line driver: ``python -m mpi_k_selection_tpu_torch``.
 
-The k-th mode of the JAX package's CLI (``cli.py:_run_kth``) on the CUDA
+The k-th, quantiles and top-k modes of the JAX package's CLI
+(``cli.py:_run_kth``, ``_run_quantiles``, ``_run_topk``) on the CUDA
 backend::
 
     # median of 2^30 int32, checked against a NumPy oracle
@@ -8,6 +9,13 @@ backend::
 
     # the reference's sequential operating point (k=250) on the CPU
     python -m mpi_k_selection_tpu_torch --n 100000000 --k 250 --device cpu
+
+    # p50/p90/p99 of 2^27 float64, one shared walk
+    python -m mpi_k_selection_tpu_torch --n 134217728 --dtype float64 --gen normal \
+        --quantiles 0.5,0.9,0.99 --verify
+
+    # the 128 largest of 2^26 float32 (values and indices)
+    python -m mpi_k_selection_tpu_torch --n 67108864 --dtype float32 --gen normal --topk 128 --verify
 """
 
 from __future__ import annotations
@@ -19,7 +27,9 @@ import numpy as np
 import torch
 
 from mpi_k_selection_tpu_torch import config
+from mpi_k_selection_tpu_torch.ops.topk import METHODS
 from mpi_k_selection_tpu_torch.utils import datagen
+from mpi_k_selection_tpu_torch.utils import dtypes as _dt
 from mpi_k_selection_tpu_torch.utils.timing import ResultRecord, time_fn
 
 DTYPES = (
@@ -48,6 +58,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", choices=DTYPES, default="int32")
     p.add_argument("--seed", type=int, default=config.DEFAULT_SEED)
     p.add_argument("--algorithm", choices=("auto", "radix", "sort"), default="auto")
+    p.add_argument(
+        "--quantiles", default=None,
+        help="comma-separated quantiles in [0,1] (e.g. 0.5,0.9,0.99): exact nearest-rank "
+        "order statistics from one shared walk",
+    )
+    p.add_argument("--topk", type=int, default=None, help="return the top-k instead of the k-th")
+    p.add_argument("--smallest", action="store_true", help="top-k smallest instead of largest")
+    p.add_argument(
+        "--topk-method", choices=METHODS, default="auto",
+        help="top-k algorithm (ops/topk.py; block is not ported yet)",
+    )
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     p.add_argument("--repeats", type=int, default=1)
     p.add_argument("--verify", action="store_true", help="check against a NumPy oracle")
@@ -55,14 +76,31 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def oracle(x: np.ndarray, k: int):
-    """The k-th smallest of ``x`` in key order (utils/dtypes.py), by
-    ``np.partition`` over the keys."""
-    from mpi_k_selection_tpu_torch.utils import dtypes as _dt
-
+def oracle_many(x: np.ndarray, ks) -> np.ndarray:
+    """The k-th smallest of ``x`` in key order (utils/dtypes.py) for each
+    k in ``ks``, by one ``np.partition`` over the keys."""
     keys = _dt.np_to_sortable_bits(x.reshape(-1))
-    kth = np.partition(keys, k - 1)[k - 1]
-    return _dt.np_from_sortable_bits(np.array([kth]), x.dtype)[0]
+    idx = np.asarray(ks, dtype=np.int64) - 1
+    return _dt.np_from_sortable_bits(np.partition(keys, np.unique(idx))[idx], x.dtype)
+
+
+def oracle(x: np.ndarray, k: int):
+    """:func:`oracle_many` for one k."""
+    return oracle_many(x, [k])[0]
+
+
+def topk_oracle(x: np.ndarray, k: int, largest: bool = True):
+    """``(values, indices)`` of the top-k of 1-D ``x`` in key order, ties
+    by ascending position: the threshold key by ``np.partition``, then
+    its candidates (every key at or beyond it) sorted by (key, position)."""
+    keys = _dt.np_to_sortable_bits(x)
+    n = keys.size
+    if not largest:
+        keys = ~keys  # unsigned: reverses the order
+    tau = np.partition(keys, n - k)[n - k]
+    cand = np.flatnonzero(keys >= tau)
+    idx = cand[np.lexsort((cand, ~keys[cand]))[:k]]
+    return x[idx], idx
 
 
 def _run_kth(args, x: np.ndarray):
@@ -80,12 +118,7 @@ def _run_kth(args, x: np.ndarray):
         repeats=args.repeats, warmup=1, device=args.device,
     )
     answer = tensor_to_numpy(answer.reshape(1))[0]
-    dev = torch.device(args.device)
-    record = ResultRecord(
-        answer=answer.item(), n=n, k=k, backend=backend.NAME,
-        algorithm=algorithm, dtype=args.dtype, seconds=seconds,
-        device=torch.cuda.get_device_name(dev) if dev.type == "cuda" else str(dev),
-    )
+    record = _record(args, n, k, answer.item(), algorithm, seconds)
     ok = True
     if args.verify:
         want = oracle(x, k)
@@ -95,13 +128,72 @@ def _run_kth(args, x: np.ndarray):
     return record, ok
 
 
+def _record(args, n, k, answer, algorithm, seconds):
+    from mpi_k_selection_tpu_torch.backends import cuda as backend
+
+    dev = torch.device(args.device)
+    return ResultRecord(
+        answer=answer, n=n, k=k, backend=backend.NAME, algorithm=algorithm, dtype=args.dtype,
+        seconds=seconds,
+        device=torch.cuda.get_device_name(dev) if dev.type == "cuda" else str(dev),
+    )
+
+
+def _run_quantiles(args, x: np.ndarray):
+    from mpi_k_selection_tpu_torch import api
+    from mpi_k_selection_tpu_torch.backends import cuda as backend
+    from mpi_k_selection_tpu_torch.utils.interop import tensor_from_numpy, tensor_to_numpy
+
+    try:
+        qs = [float(q) for q in args.quantiles.split(",") if q.strip()]
+    except ValueError as e:
+        raise SystemExit(f"error: bad --quantiles value: {e}") from e
+    xd = tensor_from_numpy(x, args.device)
+    seconds, values = time_fn(
+        lambda: backend.quantiles(xd, qs), repeats=args.repeats, warmup=1, device=args.device
+    )
+    values = tensor_to_numpy(values)
+    record = _record(args, x.size, 0, values.tolist(), "quantiles", seconds)
+    record.extra["quantiles"] = qs
+    ok = True
+    if args.verify:
+        want = oracle_many(x, api.quantile_ranks(qs, x.size))
+        ok = values.tobytes() == want.tobytes()
+        record.extra["oracle"] = want.tolist()
+        record.extra["exact_match"] = ok
+    return record, ok
+
+
+def _run_topk(args, x: np.ndarray):
+    from mpi_k_selection_tpu_torch.ops.topk import topk
+    from mpi_k_selection_tpu_torch.utils.interop import tensor_from_numpy, tensor_to_numpy
+
+    k = args.topk
+    xd = tensor_from_numpy(x, args.device)
+    seconds, (values, idx) = time_fn(
+        lambda: topk(xd, k, largest=not args.smallest, method=args.topk_method),
+        repeats=args.repeats, warmup=1, device=args.device,
+    )
+    values = tensor_to_numpy(values)
+    record = _record(args, x.size, k, values[:8].tolist(), "topk", seconds)
+    ok = True
+    if args.verify:
+        want_v, want_i = topk_oracle(x, k, largest=not args.smallest)
+        ok = values.tobytes() == want_v.tobytes() and np.array_equal(idx.cpu().numpy(), want_i)
+        record.extra["exact_match"] = ok
+    return record, ok
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
     from mpi_k_selection_tpu_torch.utils.interop import numpy_dtype
 
+    if args.quantiles is not None and args.topk is not None:
+        raise SystemExit("error: --quantiles and --topk are exclusive")
+    run = _run_quantiles if args.quantiles is not None else _run_topk if args.topk is not None else _run_kth
     x = datagen.generate(args.n, pattern=args.gen, seed=args.seed, dtype=numpy_dtype(args.dtype))
     try:
-        record, ok = _run_kth(args, x)
+        record, ok = run(args, x)
     except (ValueError, RuntimeError) as e:
         raise SystemExit(f"error: {e}") from e
     if args.json:

@@ -1,4 +1,5 @@
-// Hopper (sm_90a) kernels of the single-array radix select.
+// Hopper (sm_90a) kernels of the radix select, the multi-rank select and
+// the threshold top-k.
 //
 // radix_histogram<W>  replaces mpi_k_selection_tpu/ops/pallas/histogram.py:
 //                     pallas_radix_histogram (W = uint32) and
@@ -26,6 +27,33 @@
 //   The design gives each row to one warp: lane l reads elements l, l+32,
 //   l+64 and l+96 (four coalesced loads), and each prefix's count is the
 //   population count of four warp ballots.
+//
+// radix_histogram_multi<W>  replaces mpi_k_selection_tpu/ops/pallas/histogram.py:
+//                     pallas_radix_histogram_multi (W = uint32) and
+//                     pallas_radix_histogram64_multi (W = uint64).
+//   For each of nq prefixes q, out[q, :] is radix_histogram's output under
+//   prefixes[q]: one read of the data serves every query. Two queries may
+//   hold the same prefix (close or repeated ranks); each gets the whole
+//   histogram. 64-bit keys are read as whole words: the Pallas kernel's
+//   shift >= 32 reroute to the hi plane has no counterpart.
+//   Bound: bytes for small nq, operations for large nq. One read of the n
+//   words; each key is compared with all nq prefixes (staged in shared
+//   memory, read as warp broadcasts). The block counts into one shared
+//   (nq, 2^radix_bits) uint32 histogram (above 48 KB the launch first
+//   raises the kernel's dynamic shared memory limit; the caller splits the
+//   queries so that one launch fits 227 KB), and adds its non-zero bins
+//   into the int64 output with one global atomic each. A sorted-prefix
+//   search would cut the compares to log2(nq); not done yet.
+//
+// tau_counts<W>       replaces mpi_k_selection_tpu/ops/pallas/histogram.py:
+//                     pallas_tau_counts.
+//   For each 128-element row r, out[r] counts the keys strictly beyond the
+//   full-width key *tau (greater when largest, else less, in unsigned key
+//   order) and out[rows + r] the keys equal to it. Elements past n are
+//   masked. tau is read through a device pointer, so the caller never
+//   syncs for it.
+//   Bound: bytes. One read of the n words plus 8 * rows bytes written. The
+//   geometry is match_counts': one warp per row, two ballots per load.
 //
 // Launches go on the caller's stream; each entry point returns
 // cudaGetLastError() so that the Python wrapper raises on a refused launch.
@@ -63,32 +91,11 @@ __device__ __forceinline__ void unpack(const uint4& v, uint64_t (&w)[2]) {
   w[1] = ((uint64_t)v.w << 32) | v.z;
 }
 
-template <typename W>
-__global__ void __launch_bounds__(kThreads)
-radix_histogram_kernel(const W* __restrict__ data, long long n, int shift,
-                       int radix_bits, int is_float, W key_xor,
-                       const W* __restrict__ prefix,
-                       unsigned long long* __restrict__ out, int vec) {
-  extern __shared__ unsigned int sub[];  // kWarps x 2^radix_bits
-  const int nb = 1 << radix_bits;
-  for (int i = threadIdx.x; i < kWarps * nb; i += blockDim.x) sub[i] = 0u;
-  __syncthreads();
-
-  unsigned int* mine = sub + (threadIdx.x >> 5) * nb;
-  const bool has_prefix = prefix != nullptr;
-  const W want = has_prefix ? *prefix : (W)0;
-  // the prefix shift is only formed when there is a prefix: without one,
-  // shift + radix_bits may equal the word width, a shift C++ leaves undefined
-  const int pshift = has_prefix ? shift + radix_bits : 0;
-  const W dmask = (W)(nb - 1);
-  const bool fl = is_float != 0;
-
-  auto count = [&](W raw) {
-    const W key = to_key(raw, fl, key_xor);
-    if (!has_prefix || (key >> pshift) == want)
-      atomicAdd(mine + (unsigned)((key >> shift) & dmask), 1u);
-  };
-
+// Streams data[0, n) with 16-byte loads (kUnroll in flight per thread)
+// when vec, else with scalar loads, and calls count(word) on every word.
+template <typename W, typename F>
+__device__ __forceinline__ void stream_words(const W* __restrict__ data,
+                                             long long n, int vec, F&& count) {
   constexpr int V = 16 / sizeof(W);
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -114,6 +121,33 @@ radix_histogram_kernel(const W* __restrict__ data, long long n, int shift,
     for (int j = 0; j < V; ++j) count(w[j]);
   }
   for (long long e = nvec * V + tid; e < n; e += stride) count(data[e]);
+}
+
+template <typename W>
+__global__ void __launch_bounds__(kThreads)
+radix_histogram_kernel(const W* __restrict__ data, long long n, int shift,
+                       int radix_bits, int is_float, W key_xor,
+                       const W* __restrict__ prefix,
+                       unsigned long long* __restrict__ out, int vec) {
+  extern __shared__ unsigned int sub[];  // kWarps x 2^radix_bits
+  const int nb = 1 << radix_bits;
+  for (int i = threadIdx.x; i < kWarps * nb; i += blockDim.x) sub[i] = 0u;
+  __syncthreads();
+
+  unsigned int* mine = sub + (threadIdx.x >> 5) * nb;
+  const bool has_prefix = prefix != nullptr;
+  const W want = has_prefix ? *prefix : (W)0;
+  // the prefix shift is only formed when there is a prefix: without one,
+  // shift + radix_bits may equal the word width, a shift C++ leaves undefined
+  const int pshift = has_prefix ? shift + radix_bits : 0;
+  const W dmask = (W)(nb - 1);
+  const bool fl = is_float != 0;
+
+  stream_words(data, n, vec, [&](W raw) {
+    const W key = to_key(raw, fl, key_xor);
+    if (!has_prefix || (key >> pshift) == want)
+      atomicAdd(mine + (unsigned)((key >> shift) & dmask), 1u);
+  });
   __syncthreads();
 
   for (int b = threadIdx.x; b < nb; b += blockDim.x) {
@@ -155,6 +189,74 @@ match_counts_kernel(const W* __restrict__ data, long long n, long long rows,
 }
 
 template <typename W>
+__global__ void __launch_bounds__(kThreads)
+radix_histogram_multi_kernel(const W* __restrict__ data, long long n,
+                             int shift, int radix_bits, int is_float,
+                             W key_xor, const W* __restrict__ prefixes,
+                             int nq, unsigned long long* __restrict__ out,
+                             int vec) {
+  // shared: nq prefixes, then the nq x 2^radix_bits counters
+  extern __shared__ unsigned long long smem_multi[];
+  W* pref = reinterpret_cast<W*>(smem_multi);
+  unsigned int* hist = reinterpret_cast<unsigned int*>(pref + nq);
+  const int nb = 1 << radix_bits;
+  const int nbins = nq * nb;
+  for (int i = threadIdx.x; i < nq; i += blockDim.x) pref[i] = prefixes[i];
+  for (int i = threadIdx.x; i < nbins; i += blockDim.x) hist[i] = 0u;
+  __syncthreads();
+
+  const int pshift = shift + radix_bits;  // < word bits: every query has a prefix
+  const W dmask = (W)(nb - 1);
+  const bool fl = is_float != 0;
+  stream_words(data, n, vec, [&](W raw) {
+    const W key = to_key(raw, fl, key_xor);
+    const W top = key >> pshift;
+    unsigned int* bin = hist + (unsigned)((key >> shift) & dmask);
+    for (int q = 0; q < nq; ++q)  // no early exit: repeated prefixes all count
+      if (pref[q] == top) atomicAdd(bin + q * nb, 1u);
+  });
+  __syncthreads();
+
+  for (int i = threadIdx.x; i < nbins; i += blockDim.x) {
+    const unsigned int c = hist[i];
+    if (c) atomicAdd(out + i, (unsigned long long)c);
+  }
+}
+
+template <typename W>
+__global__ void __launch_bounds__(kThreads)
+tau_counts_kernel(const W* __restrict__ data, long long n, long long rows,
+                  int is_float, W key_xor, const W* __restrict__ tau_ptr,
+                  int largest, int* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const long long nwarp = ((long long)gridDim.x * blockDim.x) >> 5;
+  const bool fl = is_float != 0;
+  const W tau = *tau_ptr;
+  for (long long r = warp; r < rows; r += nwarp) {  // warp-uniform loop
+    W key[kRow / 32];
+    bool ok[kRow / 32];
+#pragma unroll
+    for (int j = 0; j < kRow / 32; ++j) {
+      const long long pos = r * kRow + j * 32 + lane;
+      ok[j] = pos < n;
+      key[j] = ok[j] ? to_key(data[pos], fl, key_xor) : (W)0;
+    }
+    int beyond = 0, equal = 0;
+#pragma unroll
+    for (int j = 0; j < kRow / 32; ++j) {
+      const bool b = largest ? key[j] > tau : key[j] < tau;
+      beyond += __popc(__ballot_sync(0xffffffffu, ok[j] && b));
+      equal += __popc(__ballot_sync(0xffffffffu, ok[j] && key[j] == tau));
+    }
+    if (lane == 0) {
+      out[r] = beyond;
+      out[rows + r] = equal;
+    }
+  }
+}
+
+template <typename W>
 int launch_histogram(const void* data, long long n, int shift, int radix_bits,
                      int is_float, W key_xor, const void* prefix, void* out,
                      int grid, void* stream) {
@@ -174,6 +276,38 @@ int launch_match_counts(const void* data, long long n, long long rows,
   match_counts_kernel<W><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       static_cast<const W*>(data), n, rows, mshift, is_float, key_xor,
       static_cast<const W*>(prefixes), nq, static_cast<int*>(out));
+  return (int)cudaGetLastError();
+}
+
+template <typename W>
+int launch_histogram_multi(const void* data, long long n, int shift,
+                           int radix_bits, int is_float, W key_xor,
+                           const void* prefixes, int nq, void* out, int grid,
+                           void* stream) {
+  // the prefixes, then the counters (ops/cuda/histogram.py:_multi_smem_bytes)
+  const size_t smem =
+      (size_t)nq * (sizeof(W) + (1u << radix_bits) * sizeof(unsigned int));
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        radix_histogram_multi_kernel<W>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int vec = (reinterpret_cast<uintptr_t>(data) % 16) == 0;
+  radix_histogram_multi_kernel<W><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      static_cast<const W*>(data), n, shift, radix_bits, is_float, key_xor,
+      static_cast<const W*>(prefixes), nq,
+      static_cast<unsigned long long*>(out), vec);
+  return (int)cudaGetLastError();
+}
+
+template <typename W>
+int launch_tau_counts(const void* data, long long n, long long rows,
+                      int is_float, W key_xor, const void* tau, int largest,
+                      void* out, int grid, void* stream) {
+  tau_counts_kernel<W><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      static_cast<const W*>(data), n, rows, is_float, key_xor,
+      static_cast<const W*>(tau), largest, static_cast<int*>(out));
   return (int)cudaGetLastError();
 }
 
@@ -213,6 +347,40 @@ int ksel_match_counts64(const void* data, long long n, long long rows,
   return launch_match_counts<uint64_t>(data, n, rows, mshift, is_float,
                                        key_xor, prefixes, nq, out, grid,
                                        stream);
+}
+
+int ksel_radix_histogram_multi32(const void* data, long long n, int shift,
+                                 int radix_bits, int is_float,
+                                 unsigned int key_xor, const void* prefixes,
+                                 int nq, void* out, int grid, void* stream) {
+  return launch_histogram_multi<uint32_t>(data, n, shift, radix_bits, is_float,
+                                          key_xor, prefixes, nq, out, grid,
+                                          stream);
+}
+
+int ksel_radix_histogram_multi64(const void* data, long long n, int shift,
+                                 int radix_bits, int is_float,
+                                 unsigned long long key_xor,
+                                 const void* prefixes, int nq, void* out,
+                                 int grid, void* stream) {
+  return launch_histogram_multi<uint64_t>(data, n, shift, radix_bits, is_float,
+                                          key_xor, prefixes, nq, out, grid,
+                                          stream);
+}
+
+int ksel_tau_counts32(const void* data, long long n, long long rows,
+                      int is_float, unsigned int key_xor, const void* tau,
+                      int largest, void* out, int grid, void* stream) {
+  return launch_tau_counts<uint32_t>(data, n, rows, is_float, key_xor, tau,
+                                     largest, out, grid, stream);
+}
+
+int ksel_tau_counts64(const void* data, long long n, long long rows,
+                      int is_float, unsigned long long key_xor,
+                      const void* tau, int largest, void* out, int grid,
+                      void* stream) {
+  return launch_tau_counts<uint64_t>(data, n, rows, is_float, key_xor, tau,
+                                     largest, out, grid, stream);
 }
 
 const char* ksel_error_string(int code) {

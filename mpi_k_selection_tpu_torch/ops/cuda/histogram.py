@@ -1,6 +1,7 @@
-"""The select path's Hopper kernels: wrappers, plain versions and counters.
+"""The select and top-k paths' Hopper kernels: wrappers, plain versions
+and counters.
 
-Counterpart of ``mpi_k_selection_tpu/ops/pallas/histogram.py``. Two
+Counterpart of ``mpi_k_selection_tpu/ops/pallas/histogram.py``. Four
 functions, each a CUDA kernel (``csrc/histogram.cu``) behind a wrapper:
 
 - :func:`radix_histogram` — the ``(2^radix_bits,)`` int64 counts of the
@@ -10,8 +11,14 @@ functions, each a CUDA kernel (``csrc/histogram.cu``) behind a wrapper:
 - :func:`match_counts` — the ``(K, R)`` int32 counts, per 128-element row,
   of the keys whose top ``resolved_bits`` bits equal each of K prefixes. It
   replaces ``pallas_match_counts``.
+- :func:`radix_histogram_multi` — the ``(K, 2^radix_bits)`` int64 digit
+  histograms under each of K prefixes, in one read. It replaces
+  ``pallas_radix_histogram_multi`` and ``pallas_radix_histogram64_multi``.
+- :func:`tau_counts` — the ``(2, R)`` int32 counts, per 128-element row, of
+  the keys strictly beyond one full-width key tau and of those equal to it.
+  It replaces ``pallas_tau_counts``.
 
-Both read RAW words — the input's own bits, viewed as int32 or int64 — and
+All read RAW words — the input's own bits, viewed as int32 or int64 — and
 apply the sortable-key transform on the fly (``key_op``: ``"none"``,
 ``"xor"`` with ``key_xor``, or ``"float"``; utils/dtypes.py:key_fold).
 Prefixes are key-space values in the carrier dtype (int32 / int64 bit
@@ -19,7 +26,7 @@ patterns) and stay on the device.
 
 A wrapper given a CUDA tensor launches its kernel or raises; given a CPU
 tensor it computes the same function with plain tensor ops
-(:func:`radix_histogram_plain`, :func:`match_counts_plain`). ``LAUNCHES``
+(the ``*_plain`` functions). ``LAUNCHES``
 counts kernel launches and ``PLAIN_CALLS`` the plain versions' calls, so a
 run can show which one it went through.
 """
@@ -40,11 +47,17 @@ LAUNCHES = {
     "radix_histogram64": 0,
     "match_counts32": 0,
     "match_counts64": 0,
+    "radix_histogram_multi32": 0,
+    "radix_histogram_multi64": 0,
+    "tau_counts32": 0,
+    "tau_counts64": 0,
 }
-PLAIN_CALLS = {"radix_histogram": 0, "match_counts": 0}
+PLAIN_CALLS = {"radix_histogram": 0, "match_counts": 0, "radix_histogram_multi": 0, "tau_counts": 0}
 
 _THREADS = 256  # kThreads in csrc/histogram.cu
 _BLOCKS_PER_SM = 8  # 2048 resident threads per SM
+_SMEM_PER_BLOCK = 227 * 1024  # the opt-in limit of one block's shared memory
+_SMEM_PER_SM = 228 * 1024
 
 
 def reset_counts() -> None:
@@ -114,6 +127,34 @@ def match_counts_plain(words, *, resolved_bits, prefixes, key_op="none", key_xor
     return match.view(-1, rows, ROW).sum(dim=2, dtype=torch.int32)
 
 
+def radix_histogram_multi_plain(words, *, shift, radix_bits, prefixes, key_op="none", key_xor=0):
+    """Plain PyTorch version of :func:`radix_histogram_multi` (same
+    contract): one masked bincount per prefix."""
+    w = _signed_words(words)
+    bits = w.element_size() * 8
+    nb = 1 << radix_bits
+    key = _dt.keys_from_raw(w, key_op, key_xor)
+    digit = _dt.shift_right_logical(key, shift, bits) & (nb - 1)
+    top = _dt.shift_right_logical(key, shift + radix_bits, bits)
+    return torch.stack([
+        torch.bincount(torch.where(top == p, digit, nb), minlength=nb + 1)[:nb] for p in prefixes
+    ])
+
+
+def tau_counts_plain(words, *, tau, largest=True, key_op="none", key_xor=0):
+    """Plain PyTorch version of :func:`tau_counts` (same contract)."""
+    w = _signed_words(words)
+    bits = w.element_size() * 8
+    n = w.numel()
+    rows = -(-n // ROW)
+    key = _dt.keys_from_raw(w, key_op, key_xor)
+    kb, tb = _dt.order_bias(key, bits), _dt.order_bias(tau, bits)  # signed order = key order
+    beyond = kb > tb if largest else kb < tb
+    match = torch.stack([beyond, key == tau])
+    match = torch.nn.functional.pad(match, (0, rows * ROW - n))  # tail: no match
+    return match.view(2, rows, ROW).sum(dim=2, dtype=torch.int32)
+
+
 def _lib():
     from mpi_k_selection_tpu_torch.ops.cuda import build
 
@@ -126,6 +167,12 @@ def _lib():
             f.restype = i
             f = getattr(lib, f"ksel_match_counts{bits}")
             f.argtypes = [p, ll, ll, i, i, xt, p, i, p, i, p]
+            f.restype = i
+            f = getattr(lib, f"ksel_radix_histogram_multi{bits}")
+            f.argtypes = [p, ll, i, i, i, xt, p, i, p, i, p]
+            f.restype = i
+            f = getattr(lib, f"ksel_tau_counts{bits}")
+            f.argtypes = [p, ll, ll, i, xt, p, i, p, i, p]
             f.restype = i
         lib.ksel_error_string.argtypes = [i]
         lib.ksel_error_string.restype = ctypes.c_char_p
@@ -224,4 +271,92 @@ def match_counts(words, *, resolved_bits, prefixes, key_op="none", key_xor=0):
         )
     _raise_on(lib, rc, f"match_counts{bits}")
     LAUNCHES[f"match_counts{bits}"] += 1
+    return out
+
+
+def _multi_smem_bytes(bits: int, radix_bits: int, nq: int) -> int:
+    """Shared memory of one radix_histogram_multi block: the prefixes, then
+    the (nq, 2^radix_bits) uint32 counters."""
+    return nq * (bits // 8 + (4 << radix_bits))
+
+
+def radix_histogram_multi(words, *, shift, radix_bits, prefixes, key_op="none", key_xor=0):
+    """``(K, 2^radix_bits)`` int64 counts: row q is :func:`radix_histogram`
+    under ``prefixes[q]``, all K from one read of ``words``. Repeated
+    prefixes each get the whole histogram. Keys as in
+    :func:`radix_histogram`; ``prefixes`` is a contiguous non-empty (K,)
+    tensor of the words' int32/int64 view dtype on the same device, and
+    every query has prefix bits above the digit."""
+    w = _signed_words(words)
+    bits = w.element_size() * 8
+    _check_key_op(key_op)
+    if not 1 <= radix_bits <= 8 or shift < 0 or shift + radix_bits >= bits:
+        raise ValueError(
+            f"digit at shift={shift}, radix_bits={radix_bits} leaves no prefix bits in a {bits}-bit key"
+        )
+    _check_keys_like(prefixes, w, "prefixes")
+    if prefixes.dim() != 1 or prefixes.numel() == 0:
+        raise ValueError(f"prefixes must be a non-empty (K,) tensor, got {tuple(prefixes.shape)}")
+    if resolve_hist_method(w.device) == "plain":
+        PLAIN_CALLS["radix_histogram_multi"] += 1
+        return radix_histogram_multi_plain(
+            w, shift=shift, radix_bits=radix_bits, prefixes=prefixes, key_op=key_op, key_xor=key_xor
+        )
+    lib, cap, stream, is_float, xor = _launch_args(w, key_op, key_xor)
+    n = w.numel()
+    nq = prefixes.numel()
+    out = torch.zeros((nq, 1 << radix_bits), dtype=torch.int64, device=w.device)
+    if n == 0:
+        return out
+    # queries per launch: as many as one block's shared memory holds
+    per_launch = _SMEM_PER_BLOCK // _multi_smem_bytes(bits, radix_bits, 1)
+    smem = _multi_smem_bytes(bits, radix_bits, min(nq, per_launch))
+    per_sm = max(1, min(_BLOCKS_PER_SM, _SMEM_PER_SM // (smem + 1024)))  # 1 KB reserved per block
+    blocks = max(1, min(cap // _BLOCKS_PER_SM * per_sm, -(-n // (_THREADS * 16))))
+    # one uint32 histogram per block: a block counts at most its threads'
+    # ceil(n / threads) keys each, plus part of one 16-byte load
+    if (-(-n // (blocks * _THREADS)) + 4) * _THREADS >= 1 << 32:
+        raise ValueError(f"n={n} overflows the per-block counters")
+    with torch.cuda.device(w.device):
+        for q0 in range(0, nq, per_launch):
+            q1 = min(nq, q0 + per_launch)
+            rc = getattr(lib, f"ksel_radix_histogram_multi{bits}")(
+                w.data_ptr(), n, shift, radix_bits, is_float, xor,
+                prefixes[q0:q1].data_ptr(), q1 - q0, out[q0:q1].data_ptr(), blocks, stream,
+            )
+            _raise_on(lib, rc, f"radix_histogram_multi{bits}")
+            LAUNCHES[f"radix_histogram_multi{bits}"] += 1
+    return out
+
+
+def tau_counts(words, *, tau, largest=True, key_op="none", key_xor=0):
+    """``(2, R)`` int32 counts, ``R = ceil(n / 128)``: ``out[0, r]`` is the
+    number of elements ``r*128 .. r*128+127`` of ``words`` whose key is
+    strictly greater than ``tau`` (``largest``) or strictly less (else), in
+    unsigned key order, and ``out[1, r]`` the number equal to it. Keys as
+    in :func:`radix_histogram`; ``tau`` is a one-element key-space tensor of
+    the words' int32/int64 view dtype on the same device."""
+    w = _signed_words(words)
+    bits = w.element_size() * 8
+    _check_key_op(key_op)
+    _check_keys_like(tau, w, "tau")
+    if tau.numel() != 1:
+        raise ValueError(f"tau must hold one key, got shape {tuple(tau.shape)}")
+    if resolve_hist_method(w.device) == "plain":
+        PLAIN_CALLS["tau_counts"] += 1
+        return tau_counts_plain(w, tau=tau, largest=largest, key_op=key_op, key_xor=key_xor)
+    lib, cap, stream, is_float, xor = _launch_args(w, key_op, key_xor)
+    n = w.numel()
+    rows = -(-n // ROW)
+    out = torch.empty((2, rows), dtype=torch.int32, device=w.device)
+    if n == 0:
+        return out
+    blocks = max(1, min(cap, -(-rows // (_THREADS // 32))))
+    with torch.cuda.device(w.device):
+        rc = getattr(lib, f"ksel_tau_counts{bits}")(
+            w.data_ptr(), n, rows, is_float, xor, tau.data_ptr(), int(largest),
+            out.data_ptr(), blocks, stream,
+        )
+    _raise_on(lib, rc, f"tau_counts{bits}")
+    LAUNCHES[f"tau_counts{bits}"] += 1
     return out

@@ -13,7 +13,11 @@ or from a kernel to its plain version.
 
 from __future__ import annotations
 
-from mpi_k_selection_tpu_torch.ops.cuda.histogram import radix_histogram, resolve_hist_method
+from mpi_k_selection_tpu_torch.ops.cuda.histogram import (
+    radix_histogram,
+    radix_histogram_multi,
+    resolve_hist_method,
+)
 from mpi_k_selection_tpu_torch.utils import dtypes as _dt
 
 # the reference's name for the per-pass histogram: ``(2**radix_bits,)``
@@ -21,7 +25,13 @@ from mpi_k_selection_tpu_torch.utils import dtypes as _dt
 # (see ops/cuda/histogram.py:radix_histogram for the word and prefix contract)
 masked_radix_histogram = radix_histogram
 
-__all__ = ["masked_radix_histogram", "prepare_raw", "resolve_hist_method"]
+# the shared-sweep primitive of multi-rank selection: ``(K, 2**radix_bits)``
+# int64 histograms, one per prefix, from ONE read of the words for every
+# device (the JAX package's K-reads fallback for non-Pallas methods has no
+# counterpart: the plain version is the CPU route)
+multi_masked_radix_histogram = radix_histogram_multi
+
+__all__ = ["masked_radix_histogram", "multi_masked_radix_histogram", "prepare_raw", "resolve_hist_method"]
 
 
 def prepare_raw(x):

@@ -14,8 +14,9 @@ from mpi_k_selection_tpu_torch.utils import dtypes as _dt
 
 
 def sort_select(x: torch.Tensor, k) -> torch.Tensor:
-    """Exact k-th smallest (1-indexed) of ``x`` by a full sort; a 0-d
-    tensor on ``x``'s device. ``k`` is clamped to [1, n]."""
+    """Exact k-th smallest (1-indexed) of ``x`` by a full sort, on ``x``'s
+    device. ``k`` is clamped to [1, n]; it may also be a list or tensor of
+    ranks (one sort, then one gather), and the answer takes its shape."""
     x = x.reshape(-1)
     bits = _dt.key_bits(x.dtype)
     keys = _dt.order_bias(_dt.to_sortable_bits(x), bits)

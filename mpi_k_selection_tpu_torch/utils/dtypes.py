@@ -136,7 +136,9 @@ def keys_from_raw(w: torch.Tensor, key_op: str, key_xor: int = 0) -> torch.Tenso
     return w
 
 
-def _bit_view(x: torch.Tensor) -> torch.Tensor:
+def bit_view(x: torch.Tensor) -> torch.Tensor:
+    """``x`` viewed as the signed integer dtype of its width (no copy):
+    the form in which every dtype can be indexed and compared on CUDA."""
     return x.view(_SIGNED[_KEY_BITS[x.dtype]])
 
 
@@ -145,7 +147,7 @@ def to_sortable_bits(x: torch.Tensor) -> torch.Tensor:
     and device."""
     dt = torch_dtype(x.dtype)
     bits = _KEY_BITS[dt]
-    u = _bit_view(x)
+    u = bit_view(x)
     if dt in _SIGNED_INT:
         u = u ^ signed_const(1 << (bits - 1), bits)
     elif dt not in _UNSIGNED:

@@ -14,6 +14,10 @@ from mpi_k_selection_tpu_torch.utils import datagen
 from mpi_k_selection_tpu_torch.utils import dtypes as dt
 from mpi_k_selection_tpu_torch.utils.interop import numpy_dtype, tensor_from_numpy, tensor_to_numpy
 
+# one intra-op thread: in a parallel test run each worker's torch thread pool
+# oversubscribes the cores, and small CPU ops stall on its barriers
+torch.set_num_threads(1)
+
 DTYPES = (
     "int8", "uint8", "int16", "uint16", "int32", "uint32",
     "int64", "uint64", "float16", "bfloat16", "float32", "float64",

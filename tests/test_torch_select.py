@@ -30,6 +30,10 @@ from mpi_k_selection_tpu_torch.utils import dtypes as dt
 from mpi_k_selection_tpu_torch.utils.debug import rank_certificate
 from mpi_k_selection_tpu_torch.utils.interop import numpy_dtype, tensor_from_numpy, tensor_to_numpy
 
+# one intra-op thread: in a parallel test run each worker's torch thread pool
+# oversubscribes the cores, and small CPU ops stall on its barriers
+torch.set_num_threads(1)
+
 DTYPES = (
     "int8", "uint8", "int16", "uint16", "int32", "uint32",
     "int64", "uint64", "float16", "bfloat16", "float32", "float64",
@@ -144,11 +148,12 @@ def test_cutover_ladder_rungs_match_reference(name, cutover, budget2, ks2):
         (uniform, budget2, ks2, {"radix_histogram": cutover + 1, "match_counts": 1}),
         (equal, 1024, (1, N // 2, N), {"radix_histogram": npasses, "match_counts": 0}),
     )
+    unused = {"radix_histogram_multi": 0, "tau_counts": 0}
     with enable_x64():
         for x, budget, ks, calls in cases:
             for k in ks:
                 got, ran = _counted_select(x, k, cutover=cutover, cutover_budget=budget)
-                assert ran == calls, (budget, k, ran)
+                assert ran == {**calls, **unused}, (budget, k, ran)
                 ref = np.asarray(ref_select(
                     jnp.asarray(x), k, hist_method=method, block_rows=128,
                     cutover=cutover, cutover_budget=budget,
@@ -251,7 +256,7 @@ def test_kselect_on_card_matches_numpy(cuda_device, name):
         for k in (1, 250, 1 << 19, 1 << 20):
             got = kt.kselect(xd, k, cutover=cutover, cutover_budget=8192)
             assert bits_of(got) == key_oracle(x, k).tobytes(), (pattern, k)
-    assert H.PLAIN_CALLS == {"radix_histogram": 0, "match_counts": 0}
+    assert not any(H.PLAIN_CALLS.values())
     assert H.LAUNCHES[f"radix_histogram{max(bits, 32)}"] > 0
     if bits >= 32:
         assert H.LAUNCHES[f"match_counts{bits}"] > 0
