@@ -5,13 +5,19 @@ CUDA card: ``python3 chip_smoke.py`` from the root of the repository.
 Phases, each of which must pass (any failure exits non-zero):
 
 1. Build the kernels of ``mpi_k_selection_tpu_torch/csrc`` with ``nvcc``
-   and print ``ptxas`` registers, shared memory and spills.
+   (one process per source, all at once) and print ``ptxas`` registers,
+   shared memory and spills.
 2. Hold each kernel against its plain PyTorch version, exactly (integer
-   counts, no tolerance), on 2^27 seeded random words, 32- and 64-bit and
-   every ``key_op``: the histogram with and without a prefix,
-   ``match_counts``, the multi-prefix histogram at K in {1, 3, 64} with a
-   repeated prefix and radix widths 4 and 8, and ``tau_counts`` in both
-   directions against a key of the data and one absent from it.
+   counts, no tolerance; top-k values as bit patterns), on 2^27 seeded
+   random words, 32- and 64-bit and every ``key_op``: the histogram with
+   and without a prefix, ``match_counts``, the multi-prefix histogram at K
+   in {1, 3, 64} with a repeated prefix and radix widths 4 and 8, and
+   ``tau_counts`` in both directions against a key of the data and one
+   absent from it; and the batched top-k kernel at (4096, 32768) float32
+   for k in {1, 8, 9, 16} and bfloat16 for k in {8, 16}, on normal rows and
+   on adversarial rows (a top-16 inside one lane, ascending and descending
+   rows, -inf rows, heavy ties, +-0.0 at the k boundary, NaNs of both
+   signs).
 3. Drive the main paths, each with the launch counts set to 0 just before
    it and read just after (each of its kernels must have launched and no
    plain version may have run), each answer equal
@@ -22,8 +28,16 @@ Phases, each of which must pass (any failure exits non-zero):
    int32 and the 2^27 float64 array; ``kselect_many`` with 64 evenly
    spaced ranks of 2^27 int32 (its peak memory printed); ``topk`` (k=128,
    largest and smallest, indices and value bits) of 2^26 float32
-   ``normal`` and of the 2^27 float64 array. Every kernel must have
-   launched over the paths.
+   ``normal`` and of the 2^27 float64 array; ``batched_topk`` through
+   ``auto`` (the block kernel, then the index recovery) of (4096, 32768)
+   float32 ``normal`` (BASELINE.md's batched top-k) for k in {1, 8, 9, 16},
+   of its bfloat16 cast for k in {8, 16}, and of the adversarial rows of
+   phase 2, against a per-row oracle (indices and value bits; the index
+   recovery's own indices, before its rescue, on every row it resolved;
+   the rows it rescued, at most its budget, and its peak memory printed);
+   ``batched_median`` of
+   the float32 array against ``np.sort``. Every kernel must have launched
+   over the paths.
 4. Time on the card with CUDA events (warm), each time beside its bound
    (the larger of the bytes the work must move at 3.35 TB/s and its
    operations at the 67 TFLOP/s scalar rate): the selects with
@@ -31,12 +45,16 @@ Phases, each of which must pass (any failure exits non-zero):
    against four single selects; the shared radix walk against the sort
    leg at K = 4, 64 and 128 (the crossover of the many-ranks dispatch);
    ``topk`` against ``torch.topk`` and a full ``torch.sort`` (yardsticks
-   only: the port calls neither for top-k); each kernel at its main-path
-   shape beside its plain version, held exactly against it on the same
-   tensor first (the kernels line reports that comparison's error).
-5. Profile two medians, one K=4 ``quantiles`` of 2^30 int32 and one
-   ``topk`` of 2^26 float32 with ``torch.profiler``: device time by kernel
-   and the device's idle share.
+   only: the port calls neither for top-k); the batched top-k kernel, the
+   index recovery alone, ``batched_topk`` end to end and
+   ``batched_median``, with ``torch.topk`` / ``torch.kthvalue`` along the
+   rows as yardsticks; each kernel at its main-path shape beside its plain
+   version, held exactly against it on the same tensor first (the kernels
+   line reports that comparison's error).
+5. Profile two medians, one K=4 ``quantiles`` of 2^30 int32, one
+   ``topk`` of 2^26 float32 and one ``batched_topk`` k=8 of (4096, 32768)
+   float32 with ``torch.profiler``: device time by kernel and the device's
+   idle share.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one JSON
 object describing every kernel, and
@@ -56,19 +74,24 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 SCALAR_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 OPS_PER_KEY = 5  # xor mask, xor, shift, mask or compare, count
 HIST_SRC = "mpi_k_selection_tpu/ops/pallas/histogram.py"
-KERNELS = {
-    "radix_histogram32": HIST_SRC + ":369",  # pallas_radix_histogram
-    "radix_histogram64": HIST_SRC + ":534",  # pallas_radix_histogram64
-    "match_counts32": HIST_SRC + ":1023",  # pallas_match_counts
-    "match_counts64": HIST_SRC + ":1023",  # pallas_match_counts (64-bit keys)
-    "radix_histogram_multi32": HIST_SRC + ":765",  # pallas_radix_histogram_multi
-    "radix_histogram_multi64": HIST_SRC + ":861",  # pallas_radix_histogram64_multi
-    "tau_counts32": HIST_SRC + ":1142",  # pallas_tau_counts
-    "tau_counts64": HIST_SRC + ":1142",  # pallas_tau_counts (64-bit keys)
+HIST_CU = "mpi_k_selection_tpu_torch/csrc/histogram.cu"
+TOPK_CU = "mpi_k_selection_tpu_torch/csrc/topk.cu"
+KERNELS = {  # name: (source, the TPU kernel it replaces)
+    "radix_histogram32": (HIST_CU, HIST_SRC + ":369"),  # pallas_radix_histogram
+    "radix_histogram64": (HIST_CU, HIST_SRC + ":534"),  # pallas_radix_histogram64
+    "match_counts32": (HIST_CU, HIST_SRC + ":1023"),  # pallas_match_counts
+    "match_counts64": (HIST_CU, HIST_SRC + ":1023"),  # pallas_match_counts (64-bit keys)
+    "radix_histogram_multi32": (HIST_CU, HIST_SRC + ":765"),  # pallas_radix_histogram_multi
+    "radix_histogram_multi64": (HIST_CU, HIST_SRC + ":861"),  # pallas_radix_histogram64_multi
+    "tau_counts32": (HIST_CU, HIST_SRC + ":1142"),  # pallas_tau_counts
+    "tau_counts64": (HIST_CU, HIST_SRC + ":1142"),  # pallas_tau_counts (64-bit keys)
+    "batched_topk_values32": (TOPK_CU, "mpi_k_selection_tpu/ops/pallas/topk.py:183"),  # float32
+    "batched_topk_values16": (TOPK_CU, "mpi_k_selection_tpu/ops/pallas/topk.py:183"),  # bfloat16
 }
-SOURCE = "mpi_k_selection_tpu_torch/csrc/histogram.cu"
 QS = (0.5, 0.9, 0.99, 0.999)
 TOPK = 128
+BATCH, WIDTH = 4096, 32768  # BASELINE.md's batched top-k: (B, D) float32, k=8
+BATCH_KS = {torch.float32: (1, 8, 9, 16), torch.bfloat16: (8, 16)}
 
 
 def fail(msg: str):
@@ -116,8 +139,74 @@ def phase_build():
             if "registers" in line or "spill" in line or "smem" in line or "entry function" in line:
                 print(f"[build]   {line.strip()}")
     from mpi_k_selection_tpu_torch.ops.cuda import histogram as H
+    from mpi_k_selection_tpu_torch.ops.cuda import topk as T
 
     H._lib()  # load and bind once
+    T._lib()
+
+
+def adversarial_rows(x: torch.Tensor, gen) -> torch.Tensor:
+    """A copy of the (B, D) float32 ``x`` in which every 64th row, from row
+    f, carries fixture f: a top-16 at a stride of 128 elements (one lane of
+    32 x 4 float32, from the lane's first loads or later), at a stride of
+    256 (one lane of 32 x 8 bfloat16), ascending and descending rows, -inf
+    rows, heavy ties, +-0.0 at the boundary of k in {1, 8, 9, 16} in either
+    position order and in one lane, and NaNs of both signs. The fixtures
+    that put a NaN among a row's top k take every 512th row only: their 32
+    rows stay inside the index recovery's rescue budget, so its rescue runs
+    and not its full fallback."""
+    a = x.clone()
+    b, d = a.shape
+    dev = a.device
+    big = 100.0 + torch.arange(16, dtype=a.dtype, device=dev)
+    nan, neg_nan = float("nan"), -float("nan")
+    inf = float("inf")
+
+    def rows(f, every=64):
+        return slice(f, b, every)
+
+    def at(*pos):
+        return torch.tensor(pos, device=dev).reshape(-1)
+
+    a[rows(0), 5 + 128 * torch.arange(16, device=dev)] = big
+    a[rows(1), (128 * torch.arange(4, device=dev)[:, None] + torch.arange(4, device=dev)).reshape(-1)] = big
+    a[rows(2), 2 + 128 * torch.arange(40, 56, device=dev)] = big
+    a[rows(3), (256 * torch.arange(2, device=dev)[:, None] + torch.arange(8, device=dev)).reshape(-1)] = big
+    a[rows(4), 7 + 256 * torch.arange(100, 116, device=dev)] = big.flip(0)
+    a[rows(5)] = torch.arange(d, dtype=a.dtype, device=dev)
+    a[rows(6)] = torch.arange(d, dtype=a.dtype, device=dev).flip(0)
+    a[rows(7)] = -inf
+    a[rows(8), : d - 4] = -inf
+    a[rows(9)] = torch.randint(0, 11, a[rows(9)].shape, device=dev, generator=gen).to(a.dtype)
+    f = 10
+    for k in (1, 8, 9, 16):  # k-1 winners, then +0.0 (the k-th) and -0.0
+        for pneg, ppos in ((1000, 2000), (2000, 1000), (1000 + 128, 1000)):
+            a[rows(f)] = -1.0
+            a[rows(f), 64 * torch.arange(k - 1, device=dev)] = 5.0
+            a[rows(f), at(pneg)] = -0.0
+            a[rows(f), at(ppos)] = 0.0
+            f += 1
+    a[rows(f)] = torch.where(torch.rand(a[rows(f)].shape, device=dev, generator=gen) < 0.5, -0.0, 0.0)
+    a[rows(f + 1, 512), at(3, 999, 20000)] = nan
+    a[rows(f + 1, 512), at(4, 1000, 30000)] = neg_nan
+    a[rows(f + 2, 512)] = neg_nan
+    a[rows(f + 3)] = torch.where(torch.rand(a[rows(f + 3)].shape, device=dev, generator=gen) < 0.5, neg_nan, -inf)
+    a[rows(f + 4, 512), 37 * torch.arange(40, device=dev)] = nan
+    pool = torch.tensor([0.0, -0.0, 1.0, -1.0, inf, -inf, nan, 2.5, neg_nan], dtype=a.dtype, device=dev)
+    pick = torch.randint(0, len(pool), a[rows(f + 5, 512)].shape, device=dev, generator=gen)
+    a[rows(f + 5, 512)] = pool[pick]
+    w = a.view(torch.int32)
+    for nan_bits in (0x7FC00000, 0xFFC00000 - (1 << 32)):
+        if not bool((w == nan_bits).any()):
+            fail(f"adversarial rows hold no NaN of pattern {nan_bits & 0xFFFFFFFF:#x}")
+    return a
+
+
+def bf16_truncated(a: torch.Tensor) -> torch.Tensor:
+    """float32 ``a`` cut to bfloat16 by dropping the low 16 bits of each
+    word: exact for the adversarial fixtures (both NaN signs kept, which a
+    rounding cast may not keep)."""
+    return (a.view(torch.int32) >> 16).to(torch.int16).view(torch.bfloat16)
 
 
 def phase_kernels_vs_plain(gen):
@@ -170,9 +259,30 @@ def phase_kernels_vs_plain(gen):
         if not torch.equal(H.radix_histogram_multi(w[1:], **kw), H.radix_histogram_multi_plain(w[1:], **kw)):
             fail(f"radix_histogram_multi{bits} != plain on a misaligned view")
         del w
+    from mpi_k_selection_tpu_torch.ops.cuda import topk as T
+
+    x = torch.randn((BATCH, WIDTH), device="cuda", generator=gen)
+    for label, data in (("normal", x), ("adversarial", adversarial_rows(x, gen))):
+        for dtype, ks in BATCH_KS.items():
+            xd = data if dtype == torch.float32 else data.to(dtype) if label == "normal" else bf16_truncated(data)
+            for k in ks:
+                err[f"batched_topk_values{8 * xd.element_size()}"] = batched_err(
+                    T.batched_topk_values(xd, k), T.batched_topk_values_plain(xd, k),
+                    f"batched_topk_values {dtype} k={k} on {label} rows")
+    del x, data, xd
     torch.cuda.synchronize()
     for name, e in err.items():
-        print(f"[check] {name} vs plain at n=2^27: max_abs_err={e}")
+        print(f"[check] {name} vs plain at n=2^27 / ({BATCH}, {WIDTH}): max_abs_err={e}")
+
+
+def batched_err(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """Fails unless the top-k values ``got`` equal ``want`` bit for bit;
+    returns their max |difference| (0.0)."""
+    iv = torch.int16 if got.element_size() == 2 else torch.int32
+    if got.shape != want.shape or not torch.equal(got.view(iv), want.view(iv)):
+        fail(f"{what}: kernel != plain")
+    finite = torch.isfinite(want)
+    return (got[finite].double() - want[finite].double()).abs().max().item() if finite.any() else 0.0
 
 
 def oracle(x: np.ndarray, ks):
@@ -183,11 +293,13 @@ def oracle(x: np.ndarray, ks):
     return dict(zip(ks, (v.tobytes() for v in oracle_many(x, ks))))
 
 
-def phase_main_path():
+def phase_main_path(gen):
     import mpi_k_selection_tpu_torch as kt
     from mpi_k_selection_tpu_torch import api
-    from mpi_k_selection_tpu_torch.cli import topk_oracle
+    from mpi_k_selection_tpu_torch.cli import batched_topk_oracle, topk_oracle
+    from mpi_k_selection_tpu_torch.ops import topk as topk_ops
     from mpi_k_selection_tpu_torch.ops.cuda import histogram as H
+    from mpi_k_selection_tpu_torch.ops.cuda import topk as T
     from mpi_k_selection_tpu_torch.utils import datagen
     from mpi_k_selection_tpu_torch.utils.debug import rank_certificate
     from mpi_k_selection_tpu_torch.utils.interop import tensor_from_numpy, tensor_to_numpy
@@ -211,9 +323,20 @@ def phase_main_path():
             wants["int32 uniform 2^27"] = oracle(x[:n27], many_ks)
         data[label] = tensor_from_numpy(x, "cuda")
         del x
+    xb = datagen.generate(WIDTH, pattern="normal", seed=0, dtype=np.float32, batch=(BATCH,))
+    median_want = np.sort(xb, axis=1)[:, WIDTH // 2 - 1]
+    data["batched float32 normal"] = tensor_from_numpy(xb, "cuda")
+    del xb
+    data["batched float32 adversarial"] = adversarial_rows(data["batched float32 normal"], gen)
+    batched = ("batched float32 normal", "batched float32 adversarial",
+               "batched bfloat16 normal", "batched bfloat16 adversarial")
+    data["batched bfloat16 normal"] = data["batched float32 normal"].to(torch.bfloat16)
+    data["batched bfloat16 adversarial"] = bf16_truncated(data["batched float32 adversarial"])
+    # the top-16 with ties by position: the top-k of every smaller k is its prefix
+    batch_tops = {label: batched_topk_oracle(tensor_to_numpy(data[label]), 16) for label in batched}
     torch.cuda.synchronize()
 
-    launches = {kn: 0 for kn in H.LAUNCHES}  # summed over every path below
+    launches = {kn: 0 for kn in {**H.LAUNCHES, **T.LAUNCHES}}  # summed over every path below
     answers, many, per_call = {}, {}, {}
 
     def counted(what, fn, bits, kinds):
@@ -221,9 +344,10 @@ def phase_main_path():
         just after; fails unless each of its kernels ``kinds`` (at the key
         width ``bits``) launched and no plain version ran."""
         H.reset_counts()
+        T.reset_counts()
         out = fn()
         torch.cuda.synchronize()
-        got, plain = dict(H.LAUNCHES), dict(H.PLAIN_CALLS)
+        got, plain = {**H.LAUNCHES, **T.LAUNCHES}, {**H.PLAIN_CALLS, **T.PLAIN_CALLS}
         per_call[what] = {kn: v for kn, v in got.items() if v}
         missing = [f"{kind}{bits}" for kind in kinds if not got[f"{kind}{bits}"]]
         if missing or any(plain.values()):
@@ -261,6 +385,25 @@ def phase_main_path():
                 f"topk k={TOPK} largest={largest}, {label}", lambda: kt.topk(data[label], TOPK, largest=largest),
                 8 * data[label].element_size(), select + ("tau_counts",),
             )
+    batched_out = {}
+    for label in batched:
+        x = data[label]
+        for k in BATCH_KS[x.dtype]:
+            batched_out[(label, k)] = counted(f"batched_topk k={k}, {label}", lambda: kt.batched_topk(x, k),
+                                              8 * x.element_size(), ("batched_topk_values",))
+    x = data["batched float32 normal"]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    counted("batched_topk k=8, batched float32 normal", lambda: kt.batched_topk(x, 8), 32, ("batched_topk_values",))
+    batched_peak = torch.cuda.max_memory_allocated() - base
+    bmedian = counted("batched_median, batched float32 normal", lambda: kt.batched_median(x), 32, ())
+    recovered, rescued = {}, {}  # the recovery's own (idx, ok), before its rescue
+    for label in batched:
+        for k in BATCH_KS[data[label].dtype]:
+            idx, ok = topk_ops._block_topk_indices_from_values(data[label], batched_out[(label, k)][0], k)
+            recovered[(label, k)] = (idx.cpu().numpy(), ok.cpu().numpy())
+            rescued[f"{label} k={k}"] = int((~ok).sum())
 
     for (label, k), ans in answers.items():
         got = tensor_to_numpy(ans.reshape(1))
@@ -278,6 +421,22 @@ def phase_main_path():
         if not np.array_equal(i.cpu().numpy(), wi) or tensor_to_numpy(v).tobytes() != wv.tobytes():
             fail(f"topk {label} largest={largest} != oracle")
         print(f"[main] topk k={TOPK} largest={largest} {label}: indices and value bits == oracle")
+    for (label, k), (v, i) in batched_out.items():
+        wv, wi = batch_tops[label]
+        if not np.array_equal(i.cpu().numpy(), wi[:, :k]) or tensor_to_numpy(v).tobytes() != wv[:, :k].tobytes():
+            fail(f"batched_topk k={k} {label} != per-row oracle")
+        ridx, rok = recovered[(label, k)]
+        nbad = rescued[f"{label} k={k}"]
+        if not np.array_equal(ridx[rok], wi[rok, :k]):
+            fail(f"batched_topk k={k} {label}: the index recovery != per-row oracle on the rows it resolved")
+        if nbad > topk_ops.RESCUE_ROWS:
+            fail(f"batched_topk k={k} {label}: {nbad} rows over the rescue budget; the full fallback answered")
+        print(f"[main] batched_topk k={k} {label} ({BATCH}, {WIDTH}): indices and value bits == per-row oracle; "
+              f"the index recovery's own indices == oracle on the {BATCH - nbad} rows it resolved; "
+              f"rows it rescued: {nbad}")
+    if tensor_to_numpy(bmedian).tobytes() != median_want.tobytes():
+        fail("batched_median != np.sort per row")
+    print(f"[main] batched_median ({BATCH}, {WIDTH}) float32 normal == np.sort per row")
     for label in ("int32 uniform 2^30", "float64 normal 2^27", "int32 equal 2^27"):
         n = data[label].numel()
         less, leq = rank_certificate(data[label], answers[(label, n // 2)])
@@ -287,10 +446,14 @@ def phase_main_path():
         print(f"[main] launches of one {what}: {counts}")
     print(f"[main] kselect_many K=64 of 2^27 int32: peak device memory above the resident data "
           f"{extra_peak / 2**20:.1f} MiB")
+    print(f"[main] batched_topk k=8 of ({BATCH}, {WIDTH}) float32: peak device memory above the resident "
+          f"data {batched_peak / 2**20:.1f} MiB")
     print(f"[main] launches over every path {launches}; plain calls 0 on each path")
     if any(v == 0 for v in launches.values()):
         fail(f"a kernel of the main paths never launched: {launches}")
-    return data, launches, per_call, extra_peak
+    notes = {"kselect_many_k64_extra_peak_bytes": extra_peak, "batched_topk_k8_extra_peak_bytes": batched_peak,
+             "batched_rows_rescued": rescued}
+    return data, launches, per_call, notes
 
 
 def phase_timing(data):
@@ -441,7 +604,44 @@ def phase_timing(data):
         print(f"[check] tau_counts{name} == plain: max_abs_err {err}")
         kern[f"tau_counts{bits}"] = (ms, pms, b, by, err)
         torch.cuda.empty_cache()
-    return rows, kern
+
+    # the batched top-k at (4096, 32768): the block kernel (values) beside
+    # its plain version and torch.topk along the rows (a yardstick: it
+    # orders NaNs otherwise), the index recovery alone, batched_topk end to
+    # end, and batched_median beside torch.kthvalue along the rows
+    from mpi_k_selection_tpu_torch.ops import topk as topk_ops
+    from mpi_k_selection_tpu_torch.ops.cuda import topk as T
+
+    library = {}
+    xbf = data["batched float32 normal"]
+    n = xbf.numel()
+    for label, x, k in (("float32 k=8", xbf, 8), ("float32 k=16", xbf, 16),
+                        ("bfloat16 k=8", data["batched bfloat16 normal"], 8)):
+        esz = x.element_size()
+        out_bytes = BATCH * k * esz
+        vals = T.batched_topk_values(x, k)
+        err = batched_err(vals, T.batched_topk_values_plain(x, k), f"batched_topk_values {label}")
+        ms = cuda_ms(lambda: T.batched_topk_values(x, k))
+        pms = cuda_ms(lambda: T.batched_topk_values_plain(x, k), iters=3, warmup=1)
+        b, by = row(f"batched_topk_values {label}", n, esz, ms, f"   plain {pms:.4f} ms",
+                    nbytes=n * esz + out_bytes)
+        tms = cuda_ms(lambda: torch.topk(x, k, dim=-1))
+        row(f"torch.topk(dim=-1) {label}", n, esz, tms, nbytes=n * esz + out_bytes + BATCH * k * 8)
+        print(f"[check] batched_topk_values {label} == plain: max_abs_err {err}")
+        if k == 8:
+            kern[f"batched_topk_values{8 * esz}"] = (ms, pms, b, by, err)
+            library[f"batched_topk_values{8 * esz}"] = tms
+        rms = cuda_ms(lambda: topk_ops._block_topk_indices(x, vals, k), iters=5)
+        row(f"index recovery {label}", n, esz, rms, nbytes=n * esz + out_bytes + BATCH * k * 8)
+        ems = cuda_ms(lambda: kt.batched_topk(x, k), iters=5)
+        row(f"batched_topk {label} (values and indices)", n, esz, ems, nbytes=n * esz + out_bytes + BATCH * k * 8)
+        torch.cuda.empty_cache()
+    mms = cuda_ms(lambda: kt.batched_median(xbf), iters=3)
+    row("batched_median float32", n, 4, mms, nbytes=n * 4 + BATCH * 4)
+    kms = cuda_ms(lambda: torch.kthvalue(xbf, WIDTH // 2, dim=-1), iters=3)
+    row("torch.kthvalue(dim=-1) float32", n, 4, kms, nbytes=n * 4 + BATCH * 12)
+    torch.cuda.empty_cache()
+    return rows, kern, library
 
 
 def phase_profile(fn, label: str, call_ms: float):
@@ -493,8 +693,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     phase_build()
     phase_kernels_vs_plain(gen)
-    data, launches, per_call, extra_peak = phase_main_path()
-    rows, kern = phase_timing(data)
+    data, launches, per_call, notes = phase_main_path(gen)
+    rows, kern, library = phase_timing(data)
 
     def ms_of(what):
         return next(r["ms"] for r in rows if r["what"] == what)
@@ -508,18 +708,20 @@ def main() -> int:
                       ms_of("quantiles K=4 int32 uniform 2^30")),
         phase_profile(lambda: kt.topk(data["float32 normal 2^26"], TOPK), f"topk k={TOPK} float32 normal 2^26",
                       ms_of(f"topk k={TOPK} float32 normal 2^26")),
+        phase_profile(lambda: kt.batched_topk(data["batched float32 normal"], 8),
+                      f"batched_topk k=8 float32 ({BATCH}, {WIDTH})",
+                      ms_of("batched_topk float32 k=8 (values and indices)")),
     ]
 
     kernels = []
-    for kname, replaces in KERNELS.items():
+    for kname, (source, replaces) in KERNELS.items():
         ms, pms, b, by, err = kern[kname]
         kernels.append({
-            "name": kname, "route": "cuda", "source": SOURCE, "replaces": replaces,
+            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[kname], "max_abs_err": err, "ms": ms,
-            "plain_ms": pms, "bound_ms": b, "bound_by": by, "library_ms": None,
+            "plain_ms": pms, "bound_ms": b, "bound_by": by, "library_ms": library.get(kname),
         })
-    print(json.dumps({"timings": rows, "profiles": profiles, "launches_per_call": per_call,
-                      "kselect_many_k64_extra_peak_bytes": extra_peak}))
+    print(json.dumps({"timings": rows, "profiles": profiles, "launches_per_call": per_call, **notes}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -1,8 +1,8 @@
 """Exact k-selection in PyTorch with hand-written CUDA kernels for Hopper.
 
 The PyTorch / CUDA port of ``mpi_k_selection_tpu`` (which stays the JAX
-reference). Ported so far: exact selection of one rank, of many ranks and
-1-D top-k::
+reference). Ported so far: exact selection of one rank, of many ranks,
+per-row selection of a batch, 1-D top-k and batched top-k::
 
     import mpi_k_selection_tpu_torch as kt
     kt.kselect(x, k)             # exact k-th smallest (1-indexed), 0-d tensor
@@ -10,15 +10,21 @@ reference). Ported so far: exact selection of one rank, of many ranks and
     kt.kselect_many(x, ks)       # every k in ks, one shared walk
     kt.quantiles(x, [0.5, 0.99]) # nearest-rank quantiles
     kt.topk(x, k)                # (values, int64 indices), ties by position
+    kt.batched_topk(x2d, k)      # per row of (B, D); the block kernel for k <= 16
+    kt.batched_kselect(x2d, k)   # per-row k-th smallest (k scalar or per row)
+    kt.batched_median(x2d)       # per-row lower median
 
 ``x`` is a torch tensor (selection runs on its device) or anything NumPy
 takes (moved to ``device``, default ``"cuda"``). The radix passes and the
-top-k collect run the kernels of ``csrc/histogram.cu``, built with
-``nvcc`` at first use; a CPU tensor runs their plain PyTorch versions.
+top-k collect run the kernels of ``csrc/histogram.cu``, the batched top-k
+the kernel of ``csrc/topk.cu``, built with ``nvcc`` at first use; a CPU
+tensor runs their plain PyTorch versions.
 """
 
 from mpi_k_selection_tpu_torch.api import (
     as_selection_array,
+    batched_kselect,
+    batched_median,
     kselect,
     kselect_many,
     median,
@@ -29,6 +35,6 @@ from mpi_k_selection_tpu_torch.ops.sort import sort_select
 from mpi_k_selection_tpu_torch.ops.topk import batched_topk, topk
 
 __all__ = [
-    "as_selection_array", "batched_topk", "kselect", "kselect_many", "median", "quantiles",
-    "radix_select", "radix_select_many", "sort_select", "topk",
+    "as_selection_array", "batched_kselect", "batched_median", "batched_topk", "kselect",
+    "kselect_many", "median", "quantiles", "radix_select", "radix_select_many", "sort_select", "topk",
 ]

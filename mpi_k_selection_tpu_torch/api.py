@@ -14,6 +14,7 @@ import torch
 
 from mpi_k_selection_tpu_torch.ops.radix import radix_select, radix_select_many
 from mpi_k_selection_tpu_torch.ops.sort import sort_select
+from mpi_k_selection_tpu_torch.utils import dtypes as _dt
 from mpi_k_selection_tpu_torch.utils.debug import check_concrete_k, check_concrete_ks
 from mpi_k_selection_tpu_torch.utils.interop import tensor_from_numpy
 
@@ -136,3 +137,45 @@ def median(x, *, device=None, **kwargs) -> torch.Tensor:
     point."""
     x = as_selection_array(x, device)
     return kselect(x, max(1, x.numel() // 2), **kwargs)
+
+
+def _sort_order_keys(x: torch.Tensor) -> torch.Tensor:
+    """Signed keys whose ascending order is ``jnp.sort``'s order of ``x``:
+    for floats the IEEE order, with ``-0.0`` and ``+0.0`` equal and every
+    NaN equal and above ``+inf`` (a stable sort then keeps such ties in
+    position order). This is not the sortable keys' total order of
+    :func:`kselect` and ``topk``."""
+    bits = _dt.key_bits(x.dtype)
+    u = _dt.to_sortable_bits(x)
+    if x.dtype.is_floating_point:
+        plus_zero = _dt.to_sortable_bits(torch.zeros((), dtype=x.dtype)).item()
+        u = torch.where(x == 0, plus_zero, u)
+        u = torch.where(torch.isnan(x), _dt.max_key(bits), u)
+    return _dt.order_bias(u, bits)
+
+
+def batched_kselect(x, k, *, device=None) -> torch.Tensor:
+    """Per-row exact k-th smallest along the last axis (1-indexed k), in
+    ``jnp.sort``'s order as the JAX package's ``batched_kselect``: a stable
+    sort of each row, then a gather of the original element, bit for bit.
+
+    ``k`` is a scalar or broadcastable to the batch shape ``x.shape[:-1]``
+    (one rank per row). A host scalar k outside [1, d] raises; an array k
+    is clamped to [1, d]."""
+    x = as_selection_array(x, device)
+    if x.dim() < 2:
+        raise ValueError("batched_kselect wants a (..., d) batch; use kselect for 1-D")
+    d = x.shape[-1]
+    check_concrete_k(k, d)
+    order = torch.sort(_sort_order_keys(x), dim=-1, stable=True).indices
+    kk = torch.as_tensor(k, device=x.device).to(torch.int64)
+    pos = order.gather(-1, torch.broadcast_to((kk - 1).clamp(0, d - 1), x.shape[:-1])[..., None])
+    # through the signed view: CUDA has no index kernel for uint16/32/64
+    return _dt.bit_view(x).gather(-1, pos)[..., 0].view(x.dtype)
+
+
+def batched_median(x, *, device=None) -> torch.Tensor:
+    """Per-row lower median along the last axis: k = max(1, d // 2)."""
+    x = as_selection_array(x, device)
+    d = x.shape[-1] if x.dim() else 0
+    return batched_kselect(x, max(1, d // 2))

@@ -8,6 +8,7 @@ distributed half (a process group over several cards) is not ported yet.
 from __future__ import annotations
 
 from mpi_k_selection_tpu_torch import api
+from mpi_k_selection_tpu_torch.ops import topk as _topk
 
 NAME = "cuda"
 
@@ -34,3 +35,17 @@ def kselect_many(x, ks, *, device=None, **kwargs):
 def quantiles(x, qs, *, device=None, **kwargs):
     """Exact nearest-rank quantiles on one device."""
     return api.quantiles(x, qs, device=device, **kwargs)
+
+
+def batched_kselect(x, k, *, device=None):
+    """Per-row exact k-th smallest along the last axis on one device."""
+    return api.batched_kselect(x, k, device=device)
+
+
+def batched_median(x, *, device=None):
+    return api.batched_median(x, device=device)
+
+
+def topk(x, k: int, *, device=None, **kwargs):
+    """Top-k along the last axis (values, int64 indices) on one device."""
+    return _topk.topk(x, k, device=device, **kwargs)

@@ -1,8 +1,8 @@
 """Command-line driver: ``python -m mpi_k_selection_tpu_torch``.
 
-The k-th, quantiles and top-k modes of the JAX package's CLI
-(``cli.py:_run_kth``, ``_run_quantiles``, ``_run_topk``) on the CUDA
-backend::
+The k-th, quantiles and top-k (1-D or ``--batch``) modes of the JAX
+package's CLI (``cli.py:_run_kth``, ``_run_quantiles``, ``_run_topk``) on
+the CUDA backend::
 
     # median of 2^30 int32, checked against a NumPy oracle
     python -m mpi_k_selection_tpu_torch --n 1073741824 --verify --json
@@ -16,6 +16,9 @@ backend::
 
     # the 128 largest of 2^26 float32 (values and indices)
     python -m mpi_k_selection_tpu_torch --n 67108864 --dtype float32 --gen normal --topk 128 --verify
+
+    # the 8 largest of each of 4096 rows of 32768 float32 (the block kernel)
+    python -m mpi_k_selection_tpu_torch --n 32768 --batch 4096 --dtype float32 --gen normal --topk 8 --verify
 """
 
 from __future__ import annotations
@@ -66,8 +69,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--topk", type=int, default=None, help="return the top-k instead of the k-th")
     p.add_argument("--smallest", action="store_true", help="top-k smallest instead of largest")
     p.add_argument(
+        "--batch", type=int, default=None,
+        help="batch rows for top-k: the input becomes shape (batch, n), batch independent rows "
+        "of n elements each (total batch*n)",
+    )
+    p.add_argument(
         "--topk-method", choices=METHODS, default="auto",
-        help="top-k algorithm (ops/topk.py; block is not ported yet)",
+        help="top-k algorithm (ops/topk.py); block is the batched kernel: --batch, largest only, "
+        "float32 or bfloat16, k <= 16",
     )
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     p.add_argument("--repeats", type=int, default=1)
@@ -101,6 +110,13 @@ def topk_oracle(x: np.ndarray, k: int, largest: bool = True):
     cand = np.flatnonzero(keys >= tau)
     idx = cand[np.lexsort((cand, ~keys[cand]))[:k]]
     return x[idx], idx
+
+
+def batched_topk_oracle(x: np.ndarray, k: int, largest: bool = True):
+    """:func:`topk_oracle` of every row of 2-D ``x``: ``(values, indices)``
+    of shape ``(B, k)``."""
+    rows = [topk_oracle(r, k, largest) for r in x]
+    return np.stack([v for v, _ in rows]), np.stack([i for _, i in rows])
 
 
 def _run_kth(args, x: np.ndarray):
@@ -165,20 +181,23 @@ def _run_quantiles(args, x: np.ndarray):
 
 
 def _run_topk(args, x: np.ndarray):
-    from mpi_k_selection_tpu_torch.ops.topk import topk
+    from mpi_k_selection_tpu_torch.backends import cuda as backend
     from mpi_k_selection_tpu_torch.utils.interop import tensor_from_numpy, tensor_to_numpy
 
     k = args.topk
     xd = tensor_from_numpy(x, args.device)
     seconds, (values, idx) = time_fn(
-        lambda: topk(xd, k, largest=not args.smallest, method=args.topk_method),
+        lambda: backend.topk(xd, k, largest=not args.smallest, method=args.topk_method),
         repeats=args.repeats, warmup=1, device=args.device,
     )
     values = tensor_to_numpy(values)
-    record = _record(args, x.size, k, values[:8].tolist(), "topk", seconds)
+    record = _record(args, x.size, k, values.reshape(-1)[:8].tolist(), "topk", seconds)
+    if args.batch:
+        record.extra["batch"] = args.batch
     ok = True
     if args.verify:
-        want_v, want_i = topk_oracle(x, k, largest=not args.smallest)
+        oracle_fn = batched_topk_oracle if x.ndim == 2 else topk_oracle
+        want_v, want_i = oracle_fn(x, k, largest=not args.smallest)
         ok = values.tobytes() == want_v.tobytes() and np.array_equal(idx.cpu().numpy(), want_i)
         record.extra["exact_match"] = ok
     return record, ok
@@ -190,8 +209,11 @@ def main(argv=None) -> int:
 
     if args.quantiles is not None and args.topk is not None:
         raise SystemExit("error: --quantiles and --topk are exclusive")
+    if args.batch and args.topk is None:
+        raise SystemExit("error: --batch only applies to --topk mode")
     run = _run_quantiles if args.quantiles is not None else _run_topk if args.topk is not None else _run_kth
-    x = datagen.generate(args.n, pattern=args.gen, seed=args.seed, dtype=numpy_dtype(args.dtype))
+    batch = (args.batch,) if args.batch else ()
+    x = datagen.generate(args.n, pattern=args.gen, seed=args.seed, dtype=numpy_dtype(args.dtype), batch=batch)
     try:
         record, ok = run(args, x)
     except (ValueError, RuntimeError) as e:

@@ -241,7 +241,7 @@ def test_topk_rejects():
         kt.topk(x, 101, device="cpu")
     with pytest.raises(ValueError, match="1-D"):
         kt.topk(x.reshape(10, 10), 3, method="threshold", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 2 item 7"):
+    with pytest.raises(ValueError, match="unsupported batched-topk shape"):
         kt.topk(x.reshape(10, 10), 3, method="block", device="cpu")
 
 
