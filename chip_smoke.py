@@ -17,7 +17,12 @@ Phases, each of which must pass (any failure exits non-zero):
    for k in {1, 8, 9, 16} and bfloat16 for k in {8, 16}, on normal rows and
    on adversarial rows (a top-16 inside one lane, ascending and descending
    rows, -inf rows, heavy ties, +-0.0 at the k boundary, NaNs of both
-   signs).
+   signs); and the sweep kernel (``sweep_ingest``) on a 2^26-word bucket
+   of random words, 32- and 64-bit, ``n_valid`` below the bucket, two key
+   transforms, exactly: each part alone and all five together, K in {1, 4}
+   histogram prefixes at radix widths 4 and 8, a sparse collect spec, one
+   every key matches and a two-spec tee union, a certificate key present
+   and absent, sketches of 8 and 20 bits.
 3. Drive the main paths, each with the launch counts set to 0 just before
    it and read just after (each of its kernels must have launched and no
    plain version may have run), each answer equal
@@ -36,8 +41,18 @@ Phases, each of which must pass (any failure exits non-zero):
    recovery's own indices, before its rescue, on every row it resolved;
    the rows it rescued, at most its budget, and its peak memory printed);
    ``batched_median`` of
-   the float32 array against ``np.sort``. Every kernel must have launched
-   over the paths.
+   the float32 array against ``np.sort``. Then the streamed paths (the
+   launch counts, per call, of the sweep kernel only: once per chunk per
+   pass, counted at the source): ``kselect_streaming`` of 2^32 int32
+   ``uniform`` held on the host as 64 chunks of 2^26 (chunk i of seed i;
+   halved when the host has less than 48 GiB free) at k in {1, 250, N/2,
+   N}, at depth 2 and 0; ``kselect_streaming_many`` at the p50/p90/p99/
+   p99.9 ranks; the median of 2^30 float64 ``normal`` (32 chunks of 2^25);
+   ``streaming_rank_certificate`` of each answer. Each answer passes
+   NumPy's certificate over the host chunks (sum of #(key < v) < k <= sum
+   of #(key <= v), in key space) and each streamed certificate equals it;
+   the device's peak stays within depth + 1 staged chunks plus the collect
+   buffers. Every kernel must have launched over the paths.
 4. Time on the card with CUDA events (warm), each time beside its bound
    (the larger of the bytes the work must move at 3.35 TB/s and its
    operations at the 67 TFLOP/s scalar rate): the selects with
@@ -50,10 +65,18 @@ Phases, each of which must pass (any failure exits non-zero):
    ``batched_median``, with ``torch.topk`` / ``torch.kthvalue`` along the
    rows as yardsticks; each kernel at its main-path shape beside its plain
    version, held exactly against it on the same tensor first (the kernels
-   line reports that comparison's error).
+   line reports that comparison's error); the streaming median and
+   quantiles of the 2^32 int32 stream at depth 2 and 0 (best of two
+   calls each) beside their bound
+   (passes x bytes over the host-to-card rate of a pinned 2^26-word copy
+   timed in the same run) and beside the resident median of the same data
+   whole on the card (a fault there is printed and the resident median
+   timed at 2^31); the sweep kernel alone at a 2^26-word bucket beside
+   ``torch.bincount`` + ``torch.masked_select`` on the same tensor.
 5. Profile two medians, one K=4 ``quantiles`` of 2^30 int32, one
-   ``topk`` of 2^26 float32 and one ``batched_topk`` k=8 of (4096, 32768)
-   float32 with ``torch.profiler``: device time by kernel and the device's
+   ``topk`` of 2^26 float32, one ``batched_topk`` k=8 of (4096, 32768)
+   float32 and one streaming median of the 2^32 int32 stream with
+   ``torch.profiler``: device time by kernel and copy, and the device's
    idle share.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one JSON
@@ -76,6 +99,8 @@ OPS_PER_KEY = 5  # xor mask, xor, shift, mask or compare, count
 HIST_SRC = "mpi_k_selection_tpu/ops/pallas/histogram.py"
 HIST_CU = "mpi_k_selection_tpu_torch/csrc/histogram.cu"
 TOPK_CU = "mpi_k_selection_tpu_torch/csrc/topk.cu"
+SWEEP_CU = "mpi_k_selection_tpu_torch/csrc/sweep_ingest.cu"
+SWEEP_SRC = "mpi_k_selection_tpu/ops/pallas/sweep_ingest.py:283"
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "radix_histogram32": (HIST_CU, HIST_SRC + ":369"),  # pallas_radix_histogram
     "radix_histogram64": (HIST_CU, HIST_SRC + ":534"),  # pallas_radix_histogram64
@@ -87,11 +112,17 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "tau_counts64": (HIST_CU, HIST_SRC + ":1142"),  # pallas_tau_counts (64-bit keys)
     "batched_topk_values32": (TOPK_CU, "mpi_k_selection_tpu/ops/pallas/topk.py:183"),  # float32
     "batched_topk_values16": (TOPK_CU, "mpi_k_selection_tpu/ops/pallas/topk.py:183"),  # bfloat16
+    "sweep_ingest32": (SWEEP_CU, SWEEP_SRC),  # sweep_ingest_core, 32-bit key words
+    "sweep_ingest64": (SWEEP_CU, SWEEP_SRC),  # 64-bit key words (the JAX package's XLA tier there)
 }
 QS = (0.5, 0.9, 0.99, 0.999)
 TOPK = 128
 BATCH, WIDTH = 4096, 32768  # BASELINE.md's batched top-k: (B, D) float32, k=8
 BATCH_KS = {torch.float32: (1, 8, 9, 16), torch.bfloat16: (8, 16)}
+SWEEP_BUCKET = 1 << 26  # the sweep kernel's checks and timings: one streamed chunk
+STREAM_CHUNK, STREAM_CHUNKS = 1 << 26, 64  # 2^32 int32 uniform, chunk i of seed i (16 GiB on the host)
+F64_CHUNK, F64_CHUNKS = 1 << 25, 32  # 2^30 float64 normal (8 GiB)
+HOST_GIB_NEEDED = 48  # below this much free host memory the streams are halved
 
 
 def fail(msg: str):
@@ -139,10 +170,12 @@ def phase_build():
             if "registers" in line or "spill" in line or "smem" in line or "entry function" in line:
                 print(f"[build]   {line.strip()}")
     from mpi_k_selection_tpu_torch.ops.cuda import histogram as H
+    from mpi_k_selection_tpu_torch.ops.cuda import sweep_ingest as S
     from mpi_k_selection_tpu_torch.ops.cuda import topk as T
 
     H._lib()  # load and bind once
     T._lib()
+    S._lib()
 
 
 def adversarial_rows(x: torch.Tensor, gen) -> torch.Tensor:
@@ -271,8 +304,93 @@ def phase_kernels_vs_plain(gen):
                     f"batched_topk_values {dtype} k={k} on {label} rows")
     del x, data, xd
     torch.cuda.synchronize()
+    sweep_vs_plain(gen, err)
     for name, e in err.items():
-        print(f"[check] {name} vs plain at n=2^27 / ({BATCH}, {WIDTH}): max_abs_err={e}")
+        print(f"[check] {name} vs plain at n=2^27 / ({BATCH}, {WIDTH}) / a {SWEEP_BUCKET}-word bucket: max_abs_err={e}")
+
+
+def sweep_cases(bits: int, keys: torch.Tensor):
+    """(label, parts) of the sweep kernel's checks: each part alone and all
+    five together; K in {1, 4} histogram prefixes (one repeated) at radix
+    widths 4 and 8; a sparse collect spec (the top 8 bits of a key: about
+    1/256 of random words survive), a spec every key matches (0 resolved
+    bits, a shift of the word width) and a two-spec tee union; a
+    certificate key present in and absent from the data; sketches of 8 and
+    20 bits."""
+    u = [v & ((1 << bits) - 1) for v in keys[:64].tolist()]
+
+    def top(i, r):
+        return u[i] >> (bits - r)
+
+    absent = int(absent_key(keys, keys[7:8])) & ((1 << bits) - 1)
+    hist1 = dict(hist_prefixes=[0], shift=bits - 4, radix_bits=4)  # a first pass: no prefix
+    hist4 = dict(hist_prefixes=[top(0, 8), top(1, 8), top(2, 8), top(0, 8)], shift=bits - 16, radix_bits=8)
+    sparse, every = (bits - 8, top(3, 8)), (bits, 0)
+    tee = dict(tee=[(bits - 8, top(4, 8)), (bits - 8, top(5, 8))])
+    return [
+        ("hist K=1 rb=4", hist1), ("hist K=4 rb=8", hist4),
+        ("hist K=1 rb=8 under a 16-bit prefix", dict(hist_prefixes=[top(6, 16)], shift=bits - 24, radix_bits=8)),
+        ("hist K=4 rb=4", dict(hist4, shift=bits - 12, radix_bits=4)),
+        ("collect sparse", dict(collect=[sparse])), ("collect every key", dict(collect=[every])),
+        ("tee union of two specs", tee),
+        ("cert, key present", dict(vkey=u[7])), ("cert, key absent", dict(vkey=absent)),
+        ("sketch 8", dict(sketch_bits=8)), ("sketch 20", dict(sketch_bits=20)),
+        ("all five, K=4 rb=8, sketch 20", dict(hist4, collect=[sparse, every], **tee, vkey=u[7], sketch_bits=20)),
+        ("all five, K=1 rb=4, sketch 8", dict(hist1, collect=[sparse], **tee, vkey=absent, sketch_bits=8)),
+    ]
+
+
+def sweep_outputs(out):
+    """The tensors of a sweep_ingest result, in order."""
+    flat = []
+    for part in out:
+        if part is None:
+            continue
+        for t in part if isinstance(part, tuple) else (part,):
+            flat.extend(t if isinstance(t, tuple) else (t,))
+    return flat
+
+
+def sweep_err(got, want, what: str) -> int:
+    """Fails unless every output of the kernel equals the plain version's,
+    buffers to the last word; returns their max |difference| (0)."""
+    g, w = sweep_outputs(got), sweep_outputs(want)
+    if len(g) != len(w) or not all(a.shape == b.shape and torch.equal(a, b) for a, b in zip(g, w)):
+        fail(f"{what}: kernel != plain")
+    return max((int((a.long() - b.long()).abs().max()) for a, b in zip(g, w) if a.numel()), default=0)
+
+
+def sweep_vs_plain(gen, err):
+    """Phase 2 for the sweep kernel: every case of :func:`sweep_cases` on a
+    2^26-word bucket of random words, 32- and 64-bit, with ``n_valid``
+    below the bucket (the rest are pads), exactly against the plain
+    version."""
+    from mpi_k_selection_tpu_torch.ops.cuda import sweep_ingest as S
+    from mpi_k_selection_tpu_torch.utils import dtypes as dt
+
+    n_valid = SWEEP_BUCKET - 12345
+    two_byte = torch.zeros(256, dtype=torch.int16, device="cuda")
+    for bad in (two_byte, torch.zeros(512, dtype=torch.int32, device="cuda")[::2]):
+        S.reset_counts()
+        try:
+            S.sweep_ingest(bad, 100)
+            fail(f"sweep_ingest took a {bad.dtype} tensor of strides {bad.stride()}")
+        except ValueError as e:  # raised on the card, with no fallback to the plain version
+            if any(S.PLAIN_CALLS.values()) or any(S.LAUNCHES.values()):
+                fail("sweep_ingest fell back or launched on a tensor it does not take")
+            print(f"[check] sweep_ingest raises on a CUDA tensor it does not take: {e}")
+    for bits in (32, 64):
+        w = rand_words(SWEEP_BUCKET, bits, gen)
+        for key_op, key_xor in (("float", 0), ("xor", 1 << (bits - 1))):
+            keys = dt.keys_from_raw(w, key_op, key_xor)
+            for label, parts in sweep_cases(bits, keys):
+                kw = dict(key_op=key_op, key_xor=key_xor, **parts)
+                e = sweep_err(S.sweep_ingest(w, n_valid, **kw), S.sweep_ingest_plain(w, n_valid, **kw),
+                              f"sweep_ingest{bits} {key_op} {label}")
+                err[f"sweep_ingest{bits}"] = max(err[f"sweep_ingest{bits}"], e)
+            del keys
+        del w
+        torch.cuda.empty_cache()
 
 
 def batched_err(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
@@ -644,13 +762,13 @@ def phase_timing(data):
     return rows, kern, library
 
 
-def phase_profile(fn, label: str, call_ms: float):
-    """Device time by kernel over three calls of ``fn`` (torch.profiler),
-    and the device's busy share of the call's event-timed latency."""
+def phase_profile(fn, label: str, call_ms: float, reps: int = 3):
+    """Device time by kernel (and copy) over ``reps`` calls of ``fn``
+    (torch.profiler), and the device's busy share of the call's
+    event-timed latency."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    reps = 3
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -677,6 +795,264 @@ def phase_profile(fn, label: str, call_ms: float):
             "top": [{"name": n[:120], "calls": c, "ms": m} for n, c, m in dev[:12]]}
 
 
+class Replay:
+    """A replayable chunk source that counts the passes read from it."""
+
+    def __init__(self, chunks):
+        self.chunks = chunks
+        self.passes = 0
+
+    def __call__(self):
+        self.passes += 1
+        return iter(self.chunks)
+
+
+def free_host_gib() -> int:
+    """The host's available memory, GiB (``free -g``)."""
+    out = subprocess.run(["free", "-g"], capture_output=True, text=True, timeout=60, check=True).stdout
+    return int(next(line for line in out.splitlines() if line.startswith("Mem:")).split()[6])
+
+
+def make_chunks(count: int, size: int, pattern: str, dtype) -> list:
+    """``datagen`` chunks, chunk i of seed i, made on 8 threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mpi_k_selection_tpu_torch.utils import datagen
+
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(lambda i: datagen.generate(size, pattern=pattern, seed=i, dtype=dtype), range(count)))
+
+
+def host_keys(x: np.ndarray) -> np.ndarray:
+    """The sortable keys of a host array, with NumPy alone: an integer's
+    bits with the sign bit flipped; a float's bits all flipped when
+    negative, else with the sign bit set."""
+    u = x.view(np.uint32 if x.itemsize == 4 else np.uint64)
+    msb = u.dtype.type(1 << (8 * x.itemsize - 1))
+    return np.where(u >= msb, ~u, u | msb) if x.dtype.kind == "f" else u ^ msb
+
+
+def np_certificates(chunks, values) -> list:
+    """[(less, leq)] for each value: the sums over the host chunks of
+    #(key < v) and #(key <= v), in key space, on 8 threads: NumPy's
+    certificate, independent of the port."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    vkeys = host_keys(np.array(values, chunks[0].dtype))
+
+    def one(c):
+        k = host_keys(c)
+        return np.array([[np.count_nonzero(k < v), np.count_nonzero(k <= v)] for v in vkeys], np.int64)
+
+    with ThreadPoolExecutor(8) as pool:
+        return [tuple(int(c) for c in row) for row in sum(pool.map(one, chunks))]
+
+
+def phase_streaming():
+    """Phase 3 for the streamed paths: ``kselect_streaming`` of 2^32 int32
+    ``uniform`` (64 host chunks of 2^26, chunk i of seed i) at k in {1,
+    250, N/2, N} at depth 2 and 0, ``kselect_streaming_many`` at the
+    p50/p90/p99/p99.9 ranks, the median of 2^30 float64 ``normal`` (32
+    chunks of 2^25), and ``streaming_rank_certificate`` of each answer.
+    Every answer passes NumPy's certificate over the host chunks, each
+    streamed certificate equals it, the sweep kernel launched once per
+    chunk per pass and no plain version ran, and the device's peak stays
+    in the staging window."""
+    import mpi_k_selection_tpu_torch as kt
+    from mpi_k_selection_tpu_torch import api
+    from mpi_k_selection_tpu_torch.ops.cuda import histogram as H
+    from mpi_k_selection_tpu_torch.ops.cuda import sweep_ingest as S
+    from mpi_k_selection_tpu_torch.ops.cuda import topk as T
+
+    free = free_host_gib()
+    scale = 1 if free >= HOST_GIB_NEEDED else 2
+    print(f"[stream] host memory available: {free} GiB"
+          + ("" if scale == 1 else f" < {HOST_GIB_NEEDED} GiB: the streams are halved"))
+    ints = Replay(make_chunks(STREAM_CHUNKS // scale, STREAM_CHUNK, "uniform", np.int32))
+    f64 = Replay(make_chunks(F64_CHUNKS // scale, F64_CHUNK, "normal", np.float64))
+    n32, n64 = len(ints.chunks) * STREAM_CHUNK, len(f64.chunks) * F64_CHUNK
+    print(f"[stream] int32 uniform: {n32} elements in {len(ints.chunks)} chunks "
+          f"({n32 * 4 / 2**30:.0f} GiB; n > 2^31 - 1: {n32 > 2**31 - 1}); float64 normal: {n64} elements in "
+          f"{len(f64.chunks)} chunks ({n64 * 8 / 2**30:.0f} GiB)")
+    launches = {"sweep_ingest32": 0, "sweep_ingest64": 0}
+    per_call, peaks = {}, {}
+
+    def counted(what, fn, src, bits, depth, buffers):
+        """Drives one streamed call with every count at 0 just before it;
+        fails unless the sweep kernel launched once per chunk per pass (the
+        passes counted at the source), nothing else launched, no plain
+        version ran, and the device's peak above the resident data stays
+        within depth + 1 staged chunks plus ``buffers`` chunk-sized collect
+        buffers and 64 MiB."""
+        for m in (H, T, S):
+            m.reset_counts()
+        src.passes = 0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        want = src.passes * len(src.chunks)
+        got = dict(S.LAUNCHES)
+        others = {k: v for k, v in {**H.LAUNCHES, **T.LAUNCHES}.items() if v}
+        plain = {k: v for k, v in {**H.PLAIN_CALLS, **T.PLAIN_CALLS, **S.PLAIN_CALLS}.items() if v}
+        if got[f"sweep_ingest{bits}"] != want or sum(got.values()) != want or others or plain:
+            fail(f"{what}: launches {got} for {src.passes} passes of {len(src.chunks)} chunks; "
+                 f"other kernels {others}; plain calls {plain}")
+        chunk_bytes = src.chunks[0].nbytes
+        limit = (depth + 1 + buffers) * chunk_bytes + (64 << 20)
+        if peak > limit:
+            fail(f"{what}: peak device memory {peak} bytes over the staging window {limit}")
+        print(f"[stream] {what}: {src.passes} passes x {len(src.chunks)} chunks = {want} launches of "
+              f"sweep_ingest{bits}, no plain call; peak device memory {peak / 2**20:.1f} MiB "
+              f"(limit {limit / 2**20:.1f} MiB: {depth} + 1 staged chunks and {buffers} collect buffers "
+              f"of {chunk_bytes / 2**20:.0f} MiB, and 64 MiB)")
+        for kn in launches:
+            launches[kn] += got[kn]
+        per_call[what] = {kn: v for kn, v in got.items() if v}
+        peaks[what] = (peak, limit)
+        return out
+
+    ranks = [1, 250, n32 // 2, n32]
+    answers = {}
+    for depth in (2, 0):
+        for k in ranks:
+            answers[(k, depth)] = counted(f"kselect_streaming k={k} depth={depth}, int32 uniform 2^32",
+                                          lambda: kt.kselect_streaming(ints, k, pipeline_depth=depth),
+                                          ints, 32, depth, 1)
+    for k in ranks:
+        if answers[(k, 2)].tobytes() != answers[(k, 0)].tobytes():
+            fail(f"kselect_streaming k={k}: depth 2 {answers[(k, 2)]!r} != depth 0 {answers[(k, 0)]!r}")
+    qranks = api.quantile_ranks(QS, n32)
+    qans = counted("kselect_streaming_many p50/p90/p99/p99.9 depth=2, int32 uniform 2^32",
+                   lambda: kt.kselect_streaming_many(ints, qranks, pipeline_depth=2), ints, 32, 2, len(QS))
+    fmed = counted("kselect_streaming median depth=2, float64 normal 2^30",
+                   lambda: kt.kselect_streaming(f64, n64 // 2, pipeline_depth=2), f64, 64, 2, 1)
+    checks = [(ints, 32, k, answers[(k, 2)]) for k in ranks] + [(ints, 32, k, v) for k, v in zip(qranks, qans)]
+    checks.append((f64, 64, n64 // 2, fmed))
+    for src, bits, label in ((ints, 32, "int32 uniform 2^32"), (f64, 64, "float64 normal 2^30")):
+        mine = [(k, v) for s, _, k, v in checks if s is src]
+        want = np_certificates(src.chunks, [v for _, v in mine])
+        for (k, v), (less, leq) in zip(mine, want):
+            if not less < k <= leq:
+                fail(f"k={k}: answer {v!r} fails NumPy's certificate ({less}, {leq}]")
+            got = counted(f"streaming_rank_certificate k={k}, {label}",
+                          lambda: kt.streaming_rank_certificate(src, v), src, bits, 2, 0)
+            if tuple(got) != (less, leq):
+                fail(f"streaming_rank_certificate of {v!r}: {got} != NumPy's ({less}, {leq})")
+            print(f"[stream] k={k}: {v!r}, NumPy certificate {less} < k <= {leq}; streamed certificate equal")
+    if launches["sweep_ingest32"] == 0 or launches["sweep_ingest64"] == 0:
+        fail(f"a sweep kernel never launched on the streamed paths: {launches}")
+    notes = {"stream_peaks": {k: {"peak_bytes": p, "limit_bytes": lim} for k, (p, lim) in peaks.items()},
+             "stream_answers": {str(k): repr(v) for k, v in answers.items()}}
+    return ints, f64, launches, per_call, notes
+
+
+def phase_streaming_timing(ints, f64):
+    """Phase 4 for the streamed paths: the streaming median and quantiles
+    of the 2^32 int32 stream at depth 2 and 0, each beside its bound (the
+    passes it read times the stream's bytes over the host-to-card rate of
+    a pinned 2^26-word copy timed here) and beside the resident ``median``
+    of the same data placed whole on the card; then the sweep kernel alone
+    at a 2^26-word bucket, 32- and 64-bit, beside its bound, its plain
+    version and ``torch.bincount`` + ``torch.masked_select`` on the same
+    tensor (a yardstick the port never calls)."""
+    import mpi_k_selection_tpu_torch as kt
+    from mpi_k_selection_tpu_torch import api
+    from mpi_k_selection_tpu_torch.ops.cuda import sweep_ingest as S
+    from mpi_k_selection_tpu_torch.utils.timing import cuda_ms, time_fn
+
+    rows, kern, library = [], {}, {}
+
+    def row(what, ms, b, by, extra=""):
+        rows.append({"what": what, "ms": ms, "bound_ms": b, "bound_by": by})
+        print(f"[time] {what:<60} {ms:11.4f} ms   bound {b:9.4f} ms ({by}){extra}")
+
+    pinned = torch.empty(STREAM_CHUNK, dtype=torch.int32, pin_memory=True)
+    pinned.copy_(torch.from_numpy(ints.chunks[0]))
+    dev = torch.empty(STREAM_CHUNK, dtype=torch.int32, device="cuda")
+    link_ms = cuda_ms(lambda: dev.copy_(pinned, non_blocking=True), iters=10)
+    link_rate = STREAM_CHUNK * 4 / (link_ms / 1e3)
+    print(f"[time] host-to-card rate, a pinned 2^26-word copy: {link_ms:.4f} ms, {link_rate / 1e9:.2f} GB/s")
+    # the producer's side of each staging: a host chunk into a pinned buffer
+    host_s, _ = time_fn(lambda: pinned.copy_(torch.from_numpy(ints.chunks[1])), repeats=5, device="cpu")
+    print(f"[time] host copy of a 2^26-word chunk into a pinned buffer: {host_s * 1e3:.4f} ms, "
+          f"{STREAM_CHUNK * 4 / host_s / 1e9:.2f} GB/s")
+    rows.append({"what": "host copy of a 2^26-word chunk into a pinned buffer", "ms": host_s * 1e3})
+    del pinned, dev
+    n32 = len(ints.chunks) * STREAM_CHUNK
+    stream_ms = {}
+    for label, fn in (("median", lambda d: kt.kselect_streaming(ints, n32 // 2, pipeline_depth=d)),
+                      ("quantiles K=4", lambda d: kt.kselect_streaming_many(ints, api.quantile_ranks(QS, n32),
+                                                                           pipeline_depth=d))):
+        for depth in (2, 0):
+            ints.passes = 0
+            secs, _ = time_fn(lambda: fn(depth), repeats=2, device="cuda")  # best of two: the host is noisy
+            b = ints.passes // 2 * n32 * 4 / link_rate * 1e3
+            what = f"streaming {label} depth={depth}, int32 uniform 2^32"
+            stream_ms[what] = secs * 1e3
+            row(what, secs * 1e3, b, "bytes", f"   ({ints.passes // 2} passes over the host-to-card link)")
+    # the resident yardstick: the same data whole on the card
+    x = torch.empty(n32, dtype=torch.int32, device="cuda")
+    for i, c in enumerate(ints.chunks):
+        x[i * STREAM_CHUNK:(i + 1) * STREAM_CHUNK].copy_(torch.from_numpy(c))
+    resident_fault = None
+    want = kt.kselect_streaming(ints, n32 // 2)
+    for n in (n32, n32 // 2):
+        try:
+            got = kt.median(x[:n])
+            if n == n32 and got.item() != want:
+                raise RuntimeError(f"resident median {got.item()} != streamed median {want}")
+            ms = cuda_ms(lambda: kt.median(x[:n]), iters=2, warmup=1)
+            row(f"resident median, int32 uniform {n} elements on the card", ms, *bound(n * 4, n))
+            break
+        except (RuntimeError, ValueError) as e:  # recorded, then timed at half the size
+            resident_fault = f"resident median at n={n}: {type(e).__name__}: {e}"
+            print(f"[time] FAULT {resident_fault}")
+    del x
+    torch.cuda.empty_cache()
+
+    # the kernel alone at a 2^26-word bucket: a pass's histogram of the top
+    # digit with one collect spec (the main path's shape), and all parts
+    w32 = torch.from_numpy(ints.chunks[0]).cuda()
+    w64 = torch.from_numpy(np.concatenate(f64.chunks[:2])).cuda()
+    for bits, w, key_op, key_xor in ((32, w32, "xor", 1 << 31), (64, w64.view(torch.int64), "float", 0)):
+        n = w.numel()
+        keys = host_keys((ints.chunks[0] if bits == 32 else f64.chunks[0])[:8])
+        p8 = int(keys[0]) >> (bits - 8)
+        main = dict(key_op=key_op, key_xor=key_xor, hist_prefixes=[0], shift=bits - 8, radix_bits=8,
+                    collect=[(bits - 24, int(keys[0]) >> (bits - 24))])
+        full = dict(key_op=key_op, key_xor=key_xor, hist_prefixes=[p8, int(keys[1]) >> (bits - 8)],
+                    shift=bits - 16, radix_bits=8, collect=[(bits - 16, int(keys[2]) >> (bits - 16))],
+                    tee=[(bits - 8, p8), (bits - 16, int(keys[3]) >> (bits - 16))], vkey=int(keys[4]), sketch_bits=20)
+        for label, kw in (("hist K=1 + one collect spec", main), ("all five parts", full)):
+            out = S.sweep_ingest(w, n, **kw)
+            err = sweep_err(out, S.sweep_ingest_plain(w, n, **kw), f"sweep_ingest{bits} {label}")
+            ms = cuda_ms(lambda: S.sweep_ingest(w, n, **kw))
+            pms = cuda_ms(lambda: S.sweep_ingest_plain(w, n, **kw), iters=3, warmup=1)
+            written = sum(int(c) for _, c in out[1]) + (int(out[2][1]) if out[2] is not None else 0)
+            compares = len(kw.get("hist_prefixes", ())) + len(kw.get("collect", ())) + len(kw.get("tee", ()))
+            b, by = bound(n * bits // 8 + written * bits // 8, n, OPS_PER_KEY + compares)
+            row(f"sweep_ingest{bits} {label}, 2^26 words", ms, b, by, f"   plain {pms:.4f} ms")
+            print(f"[check] sweep_ingest{bits} {label} == plain at the timed bucket: max_abs_err {err}")
+            if label == "hist K=1 + one collect spec":
+                kern[f"sweep_ingest{bits}"] = (ms, pms, b, by, err)
+        # yardstick: the digit histogram and the compaction as two library
+        # calls on the same tensor (the digit and the mask made untimed)
+        keys_t = w.view(torch.int32) ^ -(1 << 31) if bits == 32 else torch.where(w < 0, ~w, w | -(1 << 63))
+        digit = ((keys_t >> (bits - 8)) & 255).long()
+        mask = ((keys_t >> (bits - 8)) & 255) == p8
+        lms = cuda_ms(lambda: (torch.bincount(digit, minlength=256), torch.masked_select(w, mask)))
+        library[f"sweep_ingest{bits}"] = lms
+        row(f"torch.bincount + torch.masked_select, {bits}-bit 2^26 words", lms, *bound(n * bits // 8, n))
+        del keys_t, digit, mask
+        torch.cuda.empty_cache()
+    del w32, w64
+    torch.cuda.empty_cache()
+    return rows, kern, library, stream_ms, resident_fault
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the card")
@@ -700,6 +1076,15 @@ def main() -> int:
         return next(r["ms"] for r in rows if r["what"] == what)
 
     x30 = data["int32 uniform 2^30"]
+    del data["batched float32 adversarial"], data["batched bfloat16 adversarial"]
+    ints, f64, stream_launches, stream_per_call, stream_notes = phase_streaming()
+    launches.update(stream_launches)
+    per_call.update(stream_per_call)
+    notes.update(stream_notes)
+    srows, skern, slibrary, stream_ms, resident_fault = phase_streaming_timing(ints, f64)
+    rows += srows
+    kern.update(skern)
+    library.update(slibrary)
     profiles = [
         phase_profile(lambda: kt.median(x30), "median int32 uniform 2^30", ms_of("median int32 uniform 2^30")),
         phase_profile(lambda: kt.median(data["float64 normal 2^27"]), "median float64 normal 2^27",
@@ -711,7 +1096,11 @@ def main() -> int:
         phase_profile(lambda: kt.batched_topk(data["batched float32 normal"], 8),
                       f"batched_topk k=8 float32 ({BATCH}, {WIDTH})",
                       ms_of("batched_topk float32 k=8 (values and indices)")),
+        phase_profile(lambda: kt.kselect_streaming(ints, len(ints.chunks) * STREAM_CHUNK // 2),
+                      "streaming median depth=2, int32 uniform 2^32",
+                      stream_ms["streaming median depth=2, int32 uniform 2^32"], reps=1),
     ]
+    notes["resident_fault"] = resident_fault
 
     kernels = []
     for kname, (source, replaces) in KERNELS.items():

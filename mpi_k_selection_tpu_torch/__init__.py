@@ -2,7 +2,8 @@
 
 The PyTorch / CUDA port of ``mpi_k_selection_tpu`` (which stays the JAX
 reference). Ported so far: exact selection of one rank, of many ranks,
-per-row selection of a batch, 1-D top-k and batched top-k::
+per-row selection of a batch, 1-D top-k, batched top-k, and exact
+selection over a stream of chunks::
 
     import mpi_k_selection_tpu_torch as kt
     kt.kselect(x, k)             # exact k-th smallest (1-indexed), 0-d tensor
@@ -13,12 +14,16 @@ per-row selection of a batch, 1-D top-k and batched top-k::
     kt.batched_topk(x2d, k)      # per row of (B, D); the block kernel for k <= 16
     kt.batched_kselect(x2d, k)   # per-row k-th smallest (k scalar or per row)
     kt.batched_median(x2d)       # per-row lower median
+    kt.kselect_streaming(chunks, k)       # over a replayable chunk source
+    kt.kselect_streaming_many(chunks, ks) # every k, the passes shared
+    kt.streaming_rank_certificate(chunks, v)  # (#< v, #<= v), streamed
 
 ``x`` is a torch tensor (selection runs on its device) or anything NumPy
 takes (moved to ``device``, default ``"cuda"``). The radix passes and the
 top-k collect run the kernels of ``csrc/histogram.cu``, the batched top-k
-the kernel of ``csrc/topk.cu``, built with ``nvcc`` at first use; a CPU
-tensor runs their plain PyTorch versions.
+the kernel of ``csrc/topk.cu``, the streamed passes the kernel of
+``csrc/sweep_ingest.cu``, built with ``nvcc`` at first use; a CPU tensor
+(or ``device="cpu"``) runs their plain PyTorch versions.
 """
 
 from mpi_k_selection_tpu_torch.api import (
@@ -27,8 +32,11 @@ from mpi_k_selection_tpu_torch.api import (
     batched_median,
     kselect,
     kselect_many,
+    kselect_streaming,
+    kselect_streaming_many,
     median,
     quantiles,
+    streaming_rank_certificate,
 )
 from mpi_k_selection_tpu_torch.ops.radix import radix_select, radix_select_many
 from mpi_k_selection_tpu_torch.ops.sort import sort_select
@@ -36,5 +44,6 @@ from mpi_k_selection_tpu_torch.ops.topk import batched_topk, topk
 
 __all__ = [
     "as_selection_array", "batched_kselect", "batched_median", "batched_topk", "kselect",
-    "kselect_many", "median", "quantiles", "radix_select", "radix_select_many", "sort_select", "topk",
+    "kselect_many", "kselect_streaming", "kselect_streaming_many", "median", "quantiles", "radix_select",
+    "radix_select_many", "sort_select", "streaming_rank_certificate", "topk",
 ]

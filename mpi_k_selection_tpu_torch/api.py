@@ -13,7 +13,8 @@ import numpy as np
 import torch
 
 from mpi_k_selection_tpu_torch.ops.radix import radix_select, radix_select_many
-from mpi_k_selection_tpu_torch.ops.sort import sort_select
+from mpi_k_selection_tpu_torch.ops.sort import sort_order_keys, sort_select
+from mpi_k_selection_tpu_torch.streaming import chunked as _chunked
 from mpi_k_selection_tpu_torch.utils import dtypes as _dt
 from mpi_k_selection_tpu_torch.utils.debug import check_concrete_k, check_concrete_ks
 from mpi_k_selection_tpu_torch.utils.interop import tensor_from_numpy
@@ -53,10 +54,20 @@ def many_sort_dispatch_queries(n: int) -> int:
     return int(min(192, max(64, round(13 * math.log2(max(n, 2)) - 230))))
 
 
+def many_takes_sort(n: int, n_queries: int) -> bool:
+    """Whether :func:`kselect_many` of ``n_queries`` ranks over ``n``
+    elements sorts once and gathers (and so answers in ``lax.sort``'s
+    order, ops/sort.py) rather than walking the radix digits."""
+    return n <= 1 << 14 or n_queries >= many_sort_dispatch_queries(n)
+
+
 def kselect(x, k, *, algorithm: str = "auto", device=None, **kwargs) -> torch.Tensor:
     """Exact k-th smallest element (1-indexed k, reference semantics:
     ``kth-problem-seq.c:32-33``), a 0-d tensor on the input's device.
-    ``kwargs`` go to :func:`~mpi_k_selection_tpu_torch.ops.radix.radix_select`."""
+    Like the JAX package's, the sort path (small inputs) answers in
+    ``lax.sort``'s order and the radix path in the sortable keys' order
+    (ops/sort.py). ``kwargs`` go to
+    :func:`~mpi_k_selection_tpu_torch.ops.radix.radix_select`."""
     x = as_selection_array(x, device)
     if x.numel() == 0:
         raise ValueError("kselect requires a non-empty input")
@@ -81,13 +92,13 @@ def kselect_many(x, ks, *, device=None, **kwargs) -> torch.Tensor:
     if n == 0:
         raise ValueError("kselect_many requires a non-empty input")
     check_concrete_ks(ks, n)
-    sort_at = many_sort_dispatch_queries(n)
     n_queries = ks.numel() if isinstance(ks, torch.Tensor) else int(np.size(ks))
-    if n <= 1 << 14 or n_queries >= sort_at:
+    if many_takes_sort(n, n_queries):
         if kwargs:
             warnings.warn(
                 f"kselect_many: this shape takes the sort path (small input or "
-                f">= {sort_at} queries at this n); radix options {sorted(kwargs)} are ignored",
+                f">= {many_sort_dispatch_queries(n)} queries at this n); radix options "
+                f"{sorted(kwargs)} are ignored",
                 stacklevel=2,
             )
         out = sort_select(x, ks)
@@ -139,25 +150,11 @@ def median(x, *, device=None, **kwargs) -> torch.Tensor:
     return kselect(x, max(1, x.numel() // 2), **kwargs)
 
 
-def _sort_order_keys(x: torch.Tensor) -> torch.Tensor:
-    """Signed keys whose ascending order is ``jnp.sort``'s order of ``x``:
-    for floats the IEEE order, with ``-0.0`` and ``+0.0`` equal and every
-    NaN equal and above ``+inf`` (a stable sort then keeps such ties in
-    position order). This is not the sortable keys' total order of
-    :func:`kselect` and ``topk``."""
-    bits = _dt.key_bits(x.dtype)
-    u = _dt.to_sortable_bits(x)
-    if x.dtype.is_floating_point:
-        plus_zero = _dt.to_sortable_bits(torch.zeros((), dtype=x.dtype)).item()
-        u = torch.where(x == 0, plus_zero, u)
-        u = torch.where(torch.isnan(x), _dt.max_key(bits), u)
-    return _dt.order_bias(u, bits)
-
-
 def batched_kselect(x, k, *, device=None) -> torch.Tensor:
     """Per-row exact k-th smallest along the last axis (1-indexed k), in
     ``jnp.sort``'s order as the JAX package's ``batched_kselect``: a stable
-    sort of each row, then a gather of the original element, bit for bit.
+    sort of each row (ops/sort.py:sort_order_keys), then a gather of the
+    original element, bit for bit.
 
     ``k`` is a scalar or broadcastable to the batch shape ``x.shape[:-1]``
     (one rank per row). A host scalar k outside [1, d] raises; an array k
@@ -167,7 +164,7 @@ def batched_kselect(x, k, *, device=None) -> torch.Tensor:
         raise ValueError("batched_kselect wants a (..., d) batch; use kselect for 1-D")
     d = x.shape[-1]
     check_concrete_k(k, d)
-    order = torch.sort(_sort_order_keys(x), dim=-1, stable=True).indices
+    order = torch.sort(sort_order_keys(x), dim=-1, stable=True).indices
     kk = torch.as_tensor(k, device=x.device).to(torch.int64)
     pos = order.gather(-1, torch.broadcast_to((kk - 1).clamp(0, d - 1), x.shape[:-1])[..., None])
     # through the signed view: CUDA has no index kernel for uint16/32/64
@@ -179,3 +176,10 @@ def batched_median(x, *, device=None) -> torch.Tensor:
     x = as_selection_array(x, device)
     d = x.shape[-1] if x.dim() else 0
     return batched_kselect(x, max(1, d // 2))
+
+
+# selection over chunk sources that never lie whole on one device
+# (streaming/chunked.py; the JAX package's ``kselect_streaming``)
+kselect_streaming = _chunked.streaming_kselect
+kselect_streaming_many = _chunked.streaming_kselect_many
+streaming_rank_certificate = _chunked.streaming_rank_certificate

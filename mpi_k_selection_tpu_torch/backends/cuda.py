@@ -46,6 +46,12 @@ def batched_median(x, *, device=None):
     return api.batched_median(x, device=device)
 
 
+def kselect_streaming(source, k: int, **kwargs):
+    """Exact k-th smallest over a replayable chunk source, each chunk
+    staged on one device in turn."""
+    return api.kselect_streaming(source, k, **kwargs)
+
+
 def topk(x, k: int, *, device=None, **kwargs):
     """Top-k along the last axis (values, int64 indices) on one device."""
     return _topk.topk(x, k, device=device, **kwargs)

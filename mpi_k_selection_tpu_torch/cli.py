@@ -19,6 +19,10 @@ the CUDA backend::
 
     # the 8 largest of each of 4096 rows of 32768 float32 (the block kernel)
     python -m mpi_k_selection_tpu_torch --n 32768 --batch 4096 --dtype float32 --gen normal --topk 8 --verify
+
+    # median of 2^30 int32 streamed in chunks of 2^26 (chunk i: seed + i),
+    # checked by the streamed rank certificate and a NumPy oracle
+    python -m mpi_k_selection_tpu_torch --streaming --n 1073741824 --chunk-elems 67108864 --verify
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 
 from mpi_k_selection_tpu_torch import config
 from mpi_k_selection_tpu_torch.ops.topk import METHODS
+from mpi_k_selection_tpu_torch.streaming.pipeline import DEFAULT_PIPELINE_DEPTH
 from mpi_k_selection_tpu_torch.utils import datagen
 from mpi_k_selection_tpu_torch.utils import dtypes as _dt
 from mpi_k_selection_tpu_torch.utils.timing import ResultRecord, time_fn
@@ -78,6 +83,17 @@ def build_parser() -> argparse.ArgumentParser:
         help="top-k algorithm (ops/topk.py); block is the batched kernel: --batch, largest only, "
         "float32 or bfloat16, k <= 16",
     )
+    p.add_argument(
+        "--streaming", action="store_true",
+        help="k-th mode over a stream of chunks of --chunk-elems (chunk i generated with seed "
+        "SEED + i), staged to the device one at a time and never materialized whole; per-chunk "
+        "patterns (sequential/descending/seqlike) become per-chunk ramps",
+    )
+    p.add_argument("--chunk-elems", type=int, default=1 << 22, help="chunk size (elements) for --streaming")
+    p.add_argument(
+        "--pipeline-depth", type=int, default=DEFAULT_PIPELINE_DEPTH,
+        help="--streaming: chunks staged ahead of the descent on a producer thread (0 = synchronous)",
+    )
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     p.add_argument("--repeats", type=int, default=1)
     p.add_argument("--verify", action="store_true", help="check against a NumPy oracle")
@@ -85,17 +101,26 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def oracle_many(x: np.ndarray, ks) -> np.ndarray:
-    """The k-th smallest of ``x`` in key order (utils/dtypes.py) for each
-    k in ``ks``, by one ``np.partition`` over the keys."""
-    keys = _dt.np_to_sortable_bits(x.reshape(-1))
+def oracle_many(x: np.ndarray, ks, *, sort_order: bool = False) -> np.ndarray:
+    """The k-th smallest of ``x`` for each k in ``ks``: in the sortable
+    keys' order (utils/dtypes.py; the radix paths) by one ``np.partition``
+    over the keys, or with ``sort_order`` in ``lax.sort``'s order (the sort
+    paths, ops/sort.py: ``-0.0 == +0.0``, NaNs equal and last, ties by
+    position) by a stable argsort, returning each element's own bits."""
+    x = x.reshape(-1)
     idx = np.asarray(ks, dtype=np.int64) - 1
+    keys = _dt.np_to_sortable_bits(x)
+    if sort_order:
+        if _dt.torch_dtype(x.dtype).is_floating_point:
+            keys = np.where(x == 0, _dt.np_to_sortable_bits(np.zeros(1, x.dtype))[0], keys)
+            keys = np.where(np.isnan(x), np.iinfo(keys.dtype).max, keys)
+        return x[np.argsort(keys, kind="stable")[idx]]
     return _dt.np_from_sortable_bits(np.partition(keys, np.unique(idx))[idx], x.dtype)
 
 
-def oracle(x: np.ndarray, k: int):
+def oracle(x: np.ndarray, k: int, *, sort_order: bool = False):
     """:func:`oracle_many` for one k."""
-    return oracle_many(x, [k])[0]
+    return oracle_many(x, [k], sort_order=sort_order)[0]
 
 
 def topk_oracle(x: np.ndarray, k: int, largest: bool = True):
@@ -137,7 +162,7 @@ def _run_kth(args, x: np.ndarray):
     record = _record(args, n, k, answer.item(), algorithm, seconds)
     ok = True
     if args.verify:
-        want = oracle(x, k)
+        want = oracle(x, k, sort_order=algorithm == "sort")
         ok = answer.tobytes() == want.tobytes()  # bit for bit
         record.extra["oracle"] = want.item()
         record.extra["exact_match"] = ok
@@ -173,10 +198,60 @@ def _run_quantiles(args, x: np.ndarray):
     record.extra["quantiles"] = qs
     ok = True
     if args.verify:
-        want = oracle_many(x, api.quantile_ranks(qs, x.size))
+        want = oracle_many(x, api.quantile_ranks(qs, x.size), sort_order=api.many_takes_sort(x.size, len(qs)))
         ok = values.tobytes() == want.tobytes()
         record.extra["oracle"] = want.tolist()
         record.extra["exact_match"] = ok
+    return record, ok
+
+
+def chunk_source(args):
+    """The replayable chunk source of ``--streaming``, as the JAX CLI's:
+    chunk i is ``datagen.generate(m, seed=SEED + i)``, so every pass reads
+    the same stream while no more than ``--chunk-elems`` elements exist at
+    once."""
+    from mpi_k_selection_tpu_torch.utils.interop import numpy_dtype
+
+    n, chunk, dtype = args.n, args.chunk_elems, numpy_dtype(args.dtype)
+
+    def source():
+        off = i = 0
+        while off < n:
+            m = min(chunk, n - off)
+            yield datagen.generate(m, pattern=args.gen, seed=args.seed + i, dtype=dtype)
+            off += m
+            i += 1
+
+    return source
+
+
+def _run_streaming(args):
+    from mpi_k_selection_tpu_torch import api
+    from mpi_k_selection_tpu_torch.backends import cuda as backend
+
+    n = args.n
+    if args.chunk_elems < 1:
+        raise SystemExit("error: --chunk-elems must be >= 1")
+    k = args.k if args.k is not None else max(1, n // 2)
+    if not 1 <= k <= n:
+        raise SystemExit(f"error: k={k} out of range [1, {n}]")
+    source = chunk_source(args)
+    depth = args.pipeline_depth
+    seconds, answer = time_fn(
+        lambda: backend.kselect_streaming(source, k, pipeline_depth=depth, device=args.device),
+        repeats=args.repeats, device=args.device,
+    )
+    record = _record(args, n, k, answer.item(), "streaming-chunked", seconds)
+    record.extra.update(chunks=-(-n // args.chunk_elems), chunk_elems=args.chunk_elems, pipeline_depth=depth)
+    ok = True
+    if args.verify:
+        less, leq = api.streaming_rank_certificate(source, answer, pipeline_depth=depth, device=args.device)
+        want = oracle(np.concatenate(list(source())), k)  # the streamed descent answers in key order
+        exact = np.asarray(answer).tobytes() == want.tobytes()
+        ok = less < k <= leq and exact
+        record.extra.update(
+            rank_certificate=[less, leq], certificate_ok=less < k <= leq, oracle=want.item(), exact_match=exact
+        )
     return record, ok
 
 
@@ -211,11 +286,16 @@ def main(argv=None) -> int:
         raise SystemExit("error: --quantiles and --topk are exclusive")
     if args.batch and args.topk is None:
         raise SystemExit("error: --batch only applies to --topk mode")
-    run = _run_quantiles if args.quantiles is not None else _run_topk if args.topk is not None else _run_kth
-    batch = (args.batch,) if args.batch else ()
-    x = datagen.generate(args.n, pattern=args.gen, seed=args.seed, dtype=numpy_dtype(args.dtype), batch=batch)
+    if args.streaming and (args.quantiles is not None or args.topk is not None):
+        raise SystemExit("error: --streaming is k-th mode only")
     try:
-        record, ok = run(args, x)
+        if args.streaming:
+            record, ok = _run_streaming(args)
+        else:
+            run = _run_quantiles if args.quantiles is not None else _run_topk if args.topk is not None else _run_kth
+            batch = (args.batch,) if args.batch else ()
+            x = datagen.generate(args.n, pattern=args.gen, seed=args.seed, dtype=numpy_dtype(args.dtype), batch=batch)
+            record, ok = run(args, x)
     except (ValueError, RuntimeError) as e:
         raise SystemExit(f"error: {e}") from e
     if args.json:

@@ -1,0 +1,170 @@
+"""The per-chunk consumers of a streamed pass and their scheduler
+(counterpart of ``mpi_k_selection_tpu/streaming/executor.py``).
+
+Every staged chunk goes through ONE launch of the sweep kernel
+(ops/cuda/sweep_ingest.py) per consumer: its CUDA kernel for a chunk on
+the card, its plain version for a chunk on the CPU. There are two
+consumers, one per part set the descent uses:
+
+- :class:`FusedIngestConsumer`: the descent's histograms (one per
+  distinct surviving prefix) and the survivor collect, from one read;
+- :class:`CountLessLeqConsumer`: the rank certificate's pair.
+
+:class:`StreamExecutor` dispatches each chunk's work when it arrives and
+finishes it (the host-side folds) in chunk order through an
+:class:`~mpi_k_selection_tpu_torch.streaming.pipeline.InflightWindow`,
+then releases the chunk's staging slot: exactly when the last result
+depending on it is on the host. Histograms fold into int64 host counters,
+so counts are exact for any stream length.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mpi_k_selection_tpu_torch.ops.cuda.sweep_ingest import sweep_ingest
+from mpi_k_selection_tpu_torch.streaming.pipeline import InflightWindow, StagedKeys
+
+_NP_UNSIGNED = {4: np.uint32, 8: np.uint64}
+
+
+def materialize_compacted(part) -> np.ndarray:
+    """One ``(buffer, count)`` collect pair on the host: the count first,
+    then a device-to-host copy of the survivors ``buffer[:count]`` only, as
+    unsigned keys of the buffer's width."""
+    buf, count = part
+    cnt = int(count)
+    return buf[:cnt].to("cpu", copy=True).numpy().view(_NP_UNSIGNED[buf.element_size()])
+
+
+def finish_chunk_histograms(hist, prefixes, pad: int) -> dict:
+    """``{prefix: int64 histogram}`` from one chunk's ``(K, 2^rb)`` counts,
+    with the exact pad correction: pads are key 0, so they land in digit 0
+    and only under the prefix 0 (or no prefix, ``None``)."""
+    hk = hist.cpu().numpy().astype(np.int64)
+    out = {p: hk[i] for i, p in enumerate(prefixes)}
+    if pad:
+        for p, h in out.items():
+            if p is None or int(p) == 0:
+                h[0] -= pad
+    return out
+
+
+class FusedIngestConsumer:
+    """One pass's histograms and survivor collect, from one kernel launch
+    per chunk. ``hist`` is ``(shift, radix_bits, prefixes)`` (``[None]``:
+    the first pass, no prefix filter) or None; ``collect_specs`` is a list
+    of ``(resolved_bits, prefix)`` specs, whose keys (the top
+    ``resolved_bits`` bits equal ``prefix``) are gathered per spec in
+    chunk order."""
+
+    def __init__(self, *, total_bits: int, hist=None, collect_specs=()):
+        if hist is None and not collect_specs:
+            raise ValueError("FusedIngestConsumer needs at least one part")
+        self._bits = total_bits
+        self._hist = hist
+        self.hists = {} if hist is None else {p: np.zeros(1 << hist[1], np.int64) for p in hist[2]}
+        self.specs = list(collect_specs)
+        self.out = {s: [] for s in self.specs}
+
+    def dispatch(self, keys: StagedKeys):
+        kw = {}
+        if self._hist is not None:
+            shift, radix_bits, prefixes = self._hist
+            kw = dict(shift=shift, radix_bits=radix_bits, hist_prefixes=[p or 0 for p in prefixes])
+        hist, collect, _, _, _ = sweep_ingest(
+            keys.data, keys.n_valid, key_op=keys.key_op, key_xor=keys.key_xor,
+            collect=[(self._bits - r, p) for r, p in self.specs], **kw,
+        )
+        return keys.pad, hist, collect
+
+    def finish(self, handle) -> None:
+        pad, hist, collect = handle
+        if hist is not None:
+            for p, h in finish_chunk_histograms(hist, self._hist[2], pad).items():
+                self.hists[p] += h
+        for spec, part in zip(self.specs, collect):
+            surv = materialize_compacted(part)
+            if surv.size:
+                self.out[spec].append(surv)
+
+    def collected(self, kdt) -> dict:
+        """``{spec: host key array}`` after the drain."""
+        return {
+            s: np.concatenate(parts) if parts else np.empty((0,), kdt) for s, parts in self.out.items()
+        }
+
+
+class CountLessLeqConsumer:
+    """The rank certificate's ``(#keys < v, #keys <= v)`` folds for the key
+    ``vkey``: the kernel masks pads, so no correction."""
+
+    def __init__(self, vkey: int):
+        self.less = 0
+        self.leq = 0
+        self._vkey = int(vkey)
+
+    def dispatch(self, keys: StagedKeys):
+        _, _, _, cert, _ = sweep_ingest(
+            keys.data, keys.n_valid, key_op=keys.key_op, key_xor=keys.key_xor, vkey=self._vkey
+        )
+        return cert
+
+    def finish(self, handle) -> None:
+        lt, le = handle
+        self.less += int(lt)
+        self.leq += int(le)
+
+
+#: Bundles in flight: one card, so one (the JAX package's window is one
+#: slot per ingest device; multi-device staging, ROADMAP Queue 4, widens it).
+WINDOW = 1
+
+
+class StreamExecutor:
+    """Dispatches every consumer's work for a chunk at :meth:`push`, and
+    finishes the bundles in chunk order through a FIFO window of
+    :data:`WINDOW` in flight: a bundle on the card first waits for the
+    CUDA event recorded after its launches, then its consumers fold on the
+    host, then its staging slot is released."""
+
+    def __init__(self, consumers):
+        self.consumers = list(consumers)
+        self._win = InflightWindow(WINDOW, self._finish_bundle)
+
+    def push(self, keys: StagedKeys) -> None:
+        handles = [c.dispatch(keys) for c in self.consumers]
+        done = None
+        if keys.data.is_cuda:
+            done = torch.cuda.Event(blocking=True)  # a host wait sleeps, not spins
+            done.record(torch.cuda.current_stream(keys.data.device))
+        self._win.push((keys, handles, done))
+
+    def _finish_bundle(self, bundle) -> None:
+        keys, handles, done = bundle
+        if done is not None:
+            done.synchronize()
+        for c, h in zip(self.consumers, handles):
+            c.finish(h)
+        keys.release()
+
+    def drain(self) -> None:
+        """Finish every pending bundle, oldest first (end of stream)."""
+        self._win.drain()
+
+    def abort(self) -> None:
+        """Drop every pending bundle unfinished, releasing its chunk (a
+        raise mid-pass must not hold staging slots) once the device has
+        finished reading it."""
+        for keys, _, done in self._win.clear_pending():
+            if done is not None:
+                done.synchronize()
+            keys.release()
+
+
+def release_staged(keys) -> None:
+    """Idempotently release the chunk in hand when a pass unwinds: it sits
+    in neither the pipeline queue nor the window at that instant."""
+    if isinstance(keys, StagedKeys):
+        keys.release()

@@ -1,0 +1,303 @@
+"""Staging chunks onto the card, and the pipelined producer
+(counterpart of ``mpi_k_selection_tpu/streaming/pipeline.py``).
+
+A streamed pass reads every chunk once. :func:`stage_chunk` puts one
+chunk's own bytes on the device as a :class:`StagedKeys` bucket: a host
+chunk is copied into a reusable pinned buffer and crosses to the card with
+a non-blocking copy on a side stream, and the compute stream waits on that
+copy; a chunk already on the device is used in place. The sweep kernel
+keys the raw words as it reads them (sub-32-bit dtypes are widened to
+32-bit keys on the device first, as the resident path widens them). Each
+chunk is staged at its own length (no padding: PyTorch compiles nothing
+per shape), so ``pad`` is 0 here; the kernel and the consumers still
+honour ``n_valid`` and pads.
+
+:class:`ChunkPipeline` runs the source, the chunk checks and the staging of
+chunk *i+1* on one producer thread while the descent consumes chunk *i*.
+At most ``pipeline_depth + 1`` staged chunks exist at once (those queued,
+plus the one the consumer holds): the producer waits for a release before
+it stages another. Depth 0 is the
+synchronous path, with no thread. A producer error is re-raised in the
+consumer, and closing the pipeline (on every exit of a pass) stops and
+joins the thread.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import itertools
+import queue
+import threading
+
+import numpy as np
+import torch
+
+from mpi_k_selection_tpu_torch.utils import dtypes as _dt
+
+#: Classic double buffering: chunk i+1 staged while chunk i computes.
+DEFAULT_PIPELINE_DEPTH = 2
+
+#: Queue-depth ceiling: deeper rings only add memory, never overlap.
+MAX_PIPELINE_DEPTH = 64
+
+#: Producer threads carry this prefix (the JAX package's
+#: ``resource_protocols.PIPELINE_THREAD_PREFIX``), so the test suite's
+#: leaked-thread check covers them.
+THREAD_NAME_PREFIX = "ksel-pipeline"
+
+_NP_SIGNED = {1: np.int8, 2: np.int16, 4: np.int32, 8: np.int64}
+
+
+def validate_pipeline_depth(depth) -> int:
+    """``pipeline_depth`` as an int in [0, MAX_PIPELINE_DEPTH]
+    (0 = synchronous)."""
+    if isinstance(depth, bool) or not isinstance(depth, (int, np.integer)):
+        raise ValueError(f"pipeline_depth must be an integer >= 0 (0 = synchronous), got {depth!r}")
+    d = int(depth)
+    if not 0 <= d <= MAX_PIPELINE_DEPTH:
+        raise ValueError(f"pipeline_depth={d} out of range [0, {MAX_PIPELINE_DEPTH}]")
+    return d
+
+
+def resolve_device(device) -> torch.device:
+    """The device a stream is staged to: ``"cuda"`` by default, a CUDA
+    device with its index made explicit, or the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"streams are staged to a CUDA device or the CPU, got {dev}")
+    return dev
+
+
+@dataclasses.dataclass
+class StagedKeys:
+    """One chunk on the device: ``data`` holds ``n_valid`` raw words (keyed
+    under ``key_op``/``key_xor``, utils/dtypes.py:key_fold) followed by
+    ``pad`` pad words that count as key 0. :meth:`release` frees the
+    staging slot once every result depending on it is on the host; it is
+    idempotent."""
+
+    data: torch.Tensor
+    n_valid: int
+    key_op: str = "none"
+    key_xor: int = 0
+    on_release: object = None  # returns the producer's staging slot
+    _lock: threading.Lock = dataclasses.field(default_factory=threading.Lock, repr=False)
+
+    @property
+    def size(self) -> int:
+        return self.n_valid
+
+    @property
+    def pad(self) -> int:
+        return self.data.numel() - self.n_valid
+
+    def release(self) -> None:
+        with self._lock:
+            hook, self.on_release = self.on_release, None
+            self.data = self.data[:0]
+        if hook is not None:
+            hook()
+
+
+class HostStager:
+    """Copies host chunks to one CUDA device through ``slots`` reusable
+    pinned buffers on a side stream. A buffer is refilled only after its
+    previous copy has finished (its event), and the compute stream waits
+    for the copy before any kernel reads it. The device buffer belongs to
+    the side stream: the consumer frees it (:meth:`StagedKeys.release`)
+    only once the work that read it has finished (the executor waits on
+    that work's event; its unwind path synchronizes the device first), so
+    the side stream may reuse the memory at once."""
+
+    def __init__(self, device: torch.device, slots: int, compute_stream):
+        self._device = device
+        self._compute = compute_stream
+        self._copy = torch.cuda.Stream(device=device)
+        self._bufs = [None] * slots
+        self._done = [None] * slots
+        self._next = 0
+
+    def to_device(self, host: torch.Tensor) -> torch.Tensor:
+        i = self._next
+        self._next = (i + 1) % len(self._bufs)
+        if self._done[i] is not None:
+            self._done[i].synchronize()  # the slot's last copy has landed
+        nbytes = host.numel() * host.element_size()
+        if self._bufs[i] is None or self._bufs[i].numel() < nbytes:
+            self._bufs[i] = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        pinned = self._bufs[i][:nbytes].view(host.dtype)
+        pinned.copy_(host)
+        with torch.cuda.stream(self._copy):
+            out = torch.empty(host.numel(), dtype=host.dtype, device=self._device)
+            out.copy_(pinned, non_blocking=True)
+            done = torch.cuda.Event(blocking=True)  # a host wait sleeps, not spins
+            done.record(self._copy)
+        self._done[i] = done
+        self._compute.wait_event(done)
+        return out
+
+
+def _raw_words(c) -> torch.Tensor:
+    """A normalized chunk (1-D numpy array or tensor) as a tensor of its
+    own bits in the signed integer dtype of its width (no copy)."""
+    if isinstance(c, torch.Tensor):
+        return _dt.bit_view(c.contiguous())
+    c = np.ascontiguousarray(c)
+    return torch.from_numpy(c.view(_NP_SIGNED[c.dtype.itemsize]))
+
+
+def stage_chunk(c, dtype: torch.dtype, device: torch.device, stager=None, on_release=None) -> StagedKeys:
+    """Stage one normalized chunk ``c`` of ``dtype`` on ``device`` (see the
+    module docstring); ``stager`` (a :class:`HostStager`) carries host
+    chunks to a CUDA device."""
+    raw = _raw_words(c)
+    if raw.device != device:
+        raw = stager.to_device(raw) if raw.device.type == "cpu" else raw.to(device)
+    if _dt.key_bits(dtype) < 32:  # widened to 32-bit keys on the device
+        return StagedKeys(_dt.to_sortable_bits(raw.view(dtype)), raw.numel(), on_release=on_release)
+    fold = _dt.key_fold(dtype)
+    return StagedKeys(raw, raw.numel(), fold[0], fold[1] if fold[0] == "xor" else 0, on_release)
+
+
+class InflightWindow:
+    """FIFO window of in-flight per-chunk work: at most ``window`` handles
+    pending, finished strictly in push order, so the host folds follow
+    chunk order."""
+
+    def __init__(self, window: int, finish):
+        self._window = max(1, int(window))
+        self._finish = finish
+        self._q: collections.deque = collections.deque()
+
+    def push(self, handle) -> None:
+        self._q.append(handle)
+        if len(self._q) >= self._window:
+            self._finish(self._q.popleft())
+
+    def drain(self) -> None:
+        while self._q:
+            self._finish(self._q.popleft())
+
+    def clear_pending(self) -> list:
+        """Drop every pending handle unfinished, oldest first (the unwind
+        path releases their staged chunks)."""
+        items = list(self._q)
+        self._q.clear()
+        return items
+
+
+@dataclasses.dataclass
+class _Raised:
+    exc: BaseException
+
+
+_DONE = object()
+
+
+class ChunkPipeline:
+    """Background producer of ``(StagedKeys, dtype)`` pairs: the pipelined
+    twin of the synchronous chunk iterator (streaming/chunked.py:
+    ``_iter_staged``), with the same pairs, order, checks and errors.
+    ``dtype`` is the stream dtype to hold chunks to (None: the first
+    chunk's)."""
+
+    _ids = itertools.count()
+
+    def __init__(self, src, dtype=None, *, depth: int, device: torch.device):
+        self._src = src
+        self._dtype = dtype
+        self._depth = validate_pipeline_depth(depth)
+        if self._depth == 0:
+            raise ValueError("ChunkPipeline requires pipeline_depth >= 1; depth 0 is the synchronous path")
+        self._device = device
+        # the staged chunks in the queue and in the consumer's hand: depth + 1
+        self._q: queue.Queue = queue.Queue()
+        self._slots = threading.Semaphore(self._depth + 1)
+        self._stop = threading.Event()
+        # the stream the consumer's kernels run on, captured on its thread
+        self._compute = torch.cuda.current_stream(device) if device.type == "cuda" else None
+        self._thread = threading.Thread(
+            target=self._produce, name=f"{THREAD_NAME_PREFIX}-{next(self._ids)}", daemon=True
+        )
+        self._thread.start()
+
+    def _acquire_slot(self) -> bool:
+        """Wait for a staging slot, yielding every 50 ms to honour a
+        consumer-side close."""
+        while not self._stop.is_set():
+            if self._slots.acquire(timeout=0.05):
+                return True
+        return False
+
+    def _produce(self) -> None:
+        from mpi_k_selection_tpu_torch.streaming.chunked import _normalize_chunk
+
+        keys = None  # the staged chunk in hand; None once the consumer owns it
+        try:
+            stager = None
+            if self._device.type == "cuda":
+                torch.cuda.set_device(self._device)  # this thread stages to the stream's card
+                stager = HostStager(self._device, self._depth + 1, self._compute)
+            dtype = self._dtype
+            for chunk in self._src():
+                if self._stop.is_set():
+                    return
+                c = _normalize_chunk(chunk, dtype)
+                if c is None:
+                    continue
+                if dtype is None:
+                    dtype = _dt.torch_dtype(c.dtype)
+                if not self._acquire_slot():
+                    return
+                keys = stage_chunk(c, dtype, self._device, stager, on_release=self._slots.release)
+                self._q.put((keys, dtype))
+                keys = None
+            self._q.put(_DONE)
+        except BaseException as e:  # re-raised by the consumer
+            if keys is not None:
+                keys.release()
+            self._q.put(_Raised(e))
+
+    def __iter__(self):
+        while True:
+            try:
+                item = self._q.get(timeout=0.1)
+            except queue.Empty:
+                if not self._thread.is_alive() and self._q.empty():
+                    raise RuntimeError("streaming pipeline producer died without a result") from None
+                continue
+            if item is _DONE:
+                return
+            if isinstance(item, _Raised):
+                raise item.exc
+            yield item
+
+    def close(self) -> None:
+        """Stop the producer, release the chunks it staged that the
+        consumer never took, and join the thread. Idempotent."""
+        self._stop.set()
+
+        def drain():
+            while True:
+                try:
+                    item = self._q.get_nowait()
+                except queue.Empty:
+                    return
+                if isinstance(item, tuple):
+                    item[0].release()
+
+        drain()
+        self._thread.join(timeout=10.0)
+        drain()  # a put that landed while the producer saw the stop flag
+        if self._thread.is_alive():
+            import warnings
+
+            warnings.warn(
+                f"streaming pipeline producer {self._thread.name} did not stop within 10 s of close(); "
+                "its chunk source is blocked mid-read and the thread has been abandoned (daemon)",
+                RuntimeWarning,
+                stacklevel=2,
+            )

@@ -391,9 +391,8 @@ def test_reference_kselect_order_depends_on_its_path():
     """Found while porting (ROADMAP Queue 3): the JAX package's ``kselect``
     answers in ``lax.sort``'s order at n <= 2^14 (its sort path: +-0.0
     equal, every NaN last) and in the sortable keys' order above it (its
-    radix path). The port's ``kselect`` keeps the keys' order at every
-    size; ``batched_kselect`` follows ``jnp.sort`` as the reference's
-    does."""
+    radix path). The port's ``kselect`` follows it path for path;
+    ``batched_kselect`` follows ``jnp.sort`` as the reference's does."""
     import jax.numpy as jnp
 
     from mpi_k_selection_tpu import api as ref_api
@@ -406,7 +405,7 @@ def test_reference_kselect_order_depends_on_its_path():
         return int(bits(np.asarray(v).reshape(1))[0])
 
     assert first(ref_api.kselect(jnp.asarray(x), 1)) == ninf  # sort path
-    assert first(tensor_to_numpy(kt.kselect(x, 1, device="cpu"))) == nnan
+    assert first(tensor_to_numpy(kt.kselect(x, 1, device="cpu"))) == ninf
     assert first(tensor_to_numpy(kt.batched_kselect(x[None], 1, device="cpu"))) == ninf
     big = np.concatenate([x, np.random.default_rng(0).standard_normal((1 << 14) + 8).astype(np.float32)])
     assert first(ref_api.kselect(jnp.asarray(big), 1)) == nnan  # radix path

@@ -71,6 +71,14 @@ def key_oracle(x, k):
     return dt.np_from_sortable_bits(keys[k - 1 : k], x.dtype)
 
 
+def sort_oracle(x, k):
+    """The k-th smallest of ``x`` in ``lax.sort``'s order, the sort path's
+    (NumPy's stable sort: -0.0 == +0.0, every NaN last, ties by position),
+    as a 1-element array of the element's own bits."""
+    v = x.astype(np.float32) if x.dtype.itemsize == 2 and x.dtype.kind not in "iu" else x
+    return x[np.argsort(v, kind="stable")[k - 1 : k]]
+
+
 def bits_of(t):
     return tensor_to_numpy(t.reshape(1)).tobytes()
 
@@ -95,7 +103,7 @@ def test_kselect_matches_numpy(name):
             ):
                 got = kt.kselect(xd, k, algorithm="radix", **kw)
                 assert bits_of(got) == want, (pattern, k, kw)
-            assert bits_of(kt.kselect(xd, k, algorithm="sort")) == want, (pattern, k)
+            assert bits_of(kt.kselect(xd, k, algorithm="sort")) == sort_oracle(x, k).tobytes(), (pattern, k)
         assert bits_of(kt.median(x, device="cpu")) == key_oracle(x, N // 2).tobytes()
 
 
@@ -160,6 +168,43 @@ def test_cutover_ladder_rungs_match_reference(name, cutover, budget2, ks2):
                 ))
                 assert bits_of(got) == ref.reshape(1).tobytes() == key_oracle(x, k).tobytes()
     assert all(v == 0 for v in H.LAUNCHES.values())  # no kernel on the CPU
+
+
+def test_small_n_order_follows_the_reference_path():
+    """ROADMAP Queue 3, fixed: ``kselect`` and ``kselect_many`` answer as
+    the JAX package's do, path for path and bit for bit: in ``lax.sort``'s
+    order at n <= 2^14 and on the many-ranks sort leg, in the keys' order
+    on the radix paths just above 2^14."""
+    import jax.numpy as jnp
+
+    from mpi_k_selection_tpu import api as ref_api
+    from mpi_k_selection_tpu.utils.x64 import enable_x64
+
+    nan8 = np.array([1, np.nan, -0.0, 0.0, np.nan, -np.inf, 0.0, 2], np.float32)
+    nan8.view(np.uint32)[1] |= 0x80000000  # -nan
+    ks8 = list(range(1, 9))
+    ref = np.asarray(ref_api.kselect_many(jnp.asarray(nan8), ks8))
+    assert tensor_to_numpy(kt.kselect_many(nan8, ks8, device="cpu")).tobytes() == ref.tobytes()
+    for k in ks8:
+        want = np.asarray(ref_api.kselect(jnp.asarray(nan8), k)).reshape(1)
+        assert bits_of(kt.kselect(nan8, k, device="cpu")) == want.tobytes() == sort_oracle(nan8, k).tobytes()
+    with enable_x64():
+        for name in ("float32", "float16", "float64", "int32"):
+            for n in (1 << 14, (1 << 14) + 8):
+                ks = [1, 250, n // 2, n]
+                many = np.linspace(1, n, 64).astype(np.int64)  # the sort leg at both sizes
+                for pattern, x in fixtures(name, n):
+                    if name == "float32":
+                        x = np.concatenate([nan8, x[8:]])
+                    ref = np.asarray(ref_api.kselect_many(jnp.asarray(x), ks))
+                    got = kt.kselect_many(x, ks, device="cpu")
+                    assert tensor_to_numpy(got).tobytes() == ref.tobytes(), (name, n, pattern)
+                    for k, want in zip(ks, ref):
+                        got = kt.kselect(x, k, device="cpu")
+                        assert bits_of(got) == want.tobytes(), (name, n, pattern, k)
+                    ref = np.asarray(ref_api.kselect_many(jnp.asarray(x), many))
+                    got = kt.kselect_many(x, many, device="cpu")
+                    assert tensor_to_numpy(got).tobytes() == ref.tobytes(), (name, n, pattern)
 
 
 def test_out_of_range_k_raises_in_both_packages():

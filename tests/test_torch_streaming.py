@@ -1,0 +1,468 @@
+"""The port's streamed selection (``kselect_streaming``,
+``kselect_streaming_many``, ``streaming_rank_certificate``) and its sweep
+kernel against the JAX package and NumPy, bit for bit.
+
+The same seeded numpy chunks go to both packages. The JAX sweep kernel
+runs in interpret mode on 2^12 and 2^14 buckets with a small tile height
+(a multi-step grid); its 64-bit counterpart is the XLA fusion tier
+(``fused_ingest_core``). Counts are integers, buffers are compared byte for
+byte and answers as bit patterns: no tolerance anywhere. The JAX package
+is imported inside the tests that use it, so the ``gpu`` tests also
+collect where only PyTorch is installed:
+
+    python -m pytest --noconftest tests/test_torch_*.py -m gpu
+"""
+
+import json
+import subprocess
+import sys
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+import mpi_k_selection_tpu_torch as kt
+from mpi_k_selection_tpu_torch.ops.cuda import sweep_ingest as S
+from mpi_k_selection_tpu_torch.streaming import executor as ex
+from mpi_k_selection_tpu_torch.streaming import pipeline as pl
+from mpi_k_selection_tpu_torch.utils import datagen
+from mpi_k_selection_tpu_torch.utils import dtypes as dt
+from mpi_k_selection_tpu_torch.utils.interop import numpy_dtype, tensor_from_numpy
+
+# one intra-op thread: in a parallel test run each worker's torch thread pool
+# oversubscribes the cores, and small CPU ops stall on its barriers
+torch.set_num_threads(1)
+
+DTYPES = (
+    "int8", "uint8", "int16", "uint16", "int32", "uint32",
+    "int64", "uint64", "float16", "bfloat16", "float32", "float64",
+)
+SIZES = (700, 1, 0, 333)  # a ragged last chunk and an empty one
+_NAN = {  # (+nan, -nan) bit patterns
+    "float16": (0x7E00, 0xFE00), "bfloat16": (0x7FC0, 0xFFC0),
+    "float32": (0x7FC00000, 0xFFC00000), "float64": (0x7FF8000000000000, 0xFFF8000000000000),
+}
+_UNSIGNED = {2: np.uint16, 4: np.uint32, 8: np.uint64}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip(
+            "needs a CUDA device; on the card: "
+            "python -m pytest --noconftest tests/test_torch_*.py -m gpu"
+        )
+    return torch.device("cuda")
+
+
+def stream(name, seed=0, sizes=SIZES):
+    """Seeded chunks of ``name`` with ties; floats also hold +-0.0, +-inf
+    and NaNs of both signs, integers their extremes."""
+    rng = np.random.default_rng(seed)
+    n = sum(sizes)
+    dtype = numpy_dtype(name)
+    if name in _NAN:
+        f = (np.round(rng.standard_normal(n) * 4) / 4).astype(np.float32)
+        if name == "bfloat16":
+            x = (f.view(np.uint32) >> 16).astype(np.uint16).view(dtype)
+        else:
+            x = f.astype(dtype)
+        u = x.view(_UNSIGNED[x.dtype.itemsize])
+        pos = rng.choice(n, size=12, replace=False)
+        x[pos[:2]] = 0.0
+        x[pos[2:4]] = -0.0
+        x[pos[4]], x[pos[5]] = np.inf, -np.inf
+        u[pos[6:9]] = _NAN[name][0]
+        u[pos[9:12]] = _NAN[name][1]
+    else:
+        info = np.iinfo(dtype)
+        pool = rng.integers(info.min, info.max, size=40, dtype=dtype, endpoint=True)
+        x = rng.choice(np.concatenate([pool, np.array([info.min, info.max], dtype)]), size=n)
+    return np.split(x, np.cumsum(sizes)[:-1])
+
+
+def key_oracle(x, ks):
+    """The k-th smallest of ``x`` in key order for each k, as raw bytes."""
+    keys = np.sort(dt.np_to_sortable_bits(x))
+    return dt.np_from_sortable_bits(keys[np.asarray(ks) - 1], x.dtype).tobytes()
+
+
+def bits(vals, dtype):
+    return np.array(vals, dtype=dtype).tobytes()
+
+
+def _spec_arrays(specs, kdt):
+    return np.array([s for s, _ in specs], kdt), np.array([p for _, p in specs], kdt)
+
+
+def _assert_parts_equal(got, want_hist, want_collect, want_tee, want_cert, want_sketch):
+    hist, collect, tee, cert, sketch = got
+    np.testing.assert_array_equal(hist.numpy(), np.asarray(want_hist))
+    for (buf, cnt), (wbuf, wcnt) in zip(collect + (tee,), tuple(want_collect) + (want_tee,)):
+        assert buf.numpy().tobytes() == np.asarray(wbuf).tobytes()  # the whole buffer, zeros after
+        assert int(cnt) == int(wcnt)
+    assert (int(cert[0]), int(cert[1])) == tuple(int(c) for c in want_cert)
+    np.testing.assert_array_equal(sketch[0].numpy(), np.asarray(want_sketch[0]))
+    width = sketch[1].element_size() * 8
+    for got_k, want_k in zip(sketch[1:], want_sketch[1:]):
+        assert int(got_k) & ((1 << width) - 1) == int(want_k)
+
+
+def _flat(out):
+    """The tensors of a sweep_ingest result, in order (parts that are off
+    leave a None marker)."""
+    flat = []
+    for part in out:
+        for t in part if isinstance(part, tuple) else (part,):
+            flat.extend(t if isinstance(t, tuple) else (t,))
+    return flat
+
+
+def _raw_words(keys, key_op):
+    """Raw words whose keys under ``key_op`` are ``keys`` (unsigned)."""
+    if key_op == "none":
+        return keys
+    if key_op == "xor":
+        return keys ^ keys.dtype.type(1 << (keys.dtype.itemsize * 8 - 1))
+    fdt = np.float32 if keys.dtype.itemsize == 4 else np.float64
+    return dt.np_from_sortable_bits(keys, fdt).view(keys.dtype)
+
+
+def _port_sweep(keys, n_valid, key_op, rng, **parts):
+    """The plain version on the raw words of ``keys``, its pads filled with
+    garbage (pads count as key 0 whatever their bits)."""
+    raw = _raw_words(keys, key_op).copy()
+    raw[n_valid:] = rng.integers(0, 1 << 32, size=raw.size - n_valid).astype(raw.dtype)
+    words = torch.from_numpy(raw.view(np.int32 if raw.itemsize == 4 else np.int64))
+    key_xor = 1 << (raw.itemsize * 8 - 1) if key_op == "xor" else 0
+    S.reset_counts()
+    got = S.sweep_ingest(words, n_valid, key_op=key_op, key_xor=key_xor, **parts)
+    assert S.PLAIN_CALLS["sweep_ingest"] == 1 and not any(S.LAUNCHES.values())
+    return got
+
+
+@pytest.mark.parametrize("bucket", [1 << 12, 1 << 14])
+def test_plain_matches_jax_sweep_kernel(bucket):
+    """Every part at once against ``sweep_ingest_core`` in interpret mode,
+    8-row tiles (a 4- and a 16-step grid), pads present: a sparse spec
+    (~1/256 survive), a spec matching every key (0 resolved bits, shift
+    32), a 16-bit spec, a two-spec tee union, a repeated histogram prefix."""
+    import jax.numpy as jnp
+
+    from mpi_k_selection_tpu.ops.pallas import sweep_ingest as si
+
+    rng = np.random.default_rng(bucket)
+    n_valid = bucket - 37
+    keys = rng.integers(0, 1 << 32, size=bucket, dtype=np.uint32)
+    keys[n_valid:] = 0  # the JAX staging contract: pads are key 0
+    u = [int(v) for v in keys]
+    prefixes = [u[0] >> 24, u[3] >> 24, u[0] >> 24]
+    collect = [(24, u[0] >> 24), (32, 0), (16, u[5] >> 16)]
+    tee = [(16, u[5] >> 16), (24, u[9] >> 24)]
+    vkey = u[100]
+    cs, cp = _spec_arrays(collect, np.uint32)
+    ts, tp = _spec_arrays(tee, np.uint32)
+    ref = si.sweep_ingest_core(
+        jnp.asarray(keys), np.int32(n_valid), jnp.asarray(np.array(prefixes, np.uint32)),
+        jnp.asarray(cs), jnp.asarray(cp), jnp.asarray(ts), jnp.asarray(tp), np.uint32(vkey),
+        shift=16, radix_bits=8, hist_mode="multi", n_collect=3, n_tee=2, cert=True,
+        sketch_bits=12, block_rows=8, interpret=True,
+    )
+    valid = keys[:n_valid]
+    assert int(ref[3][0]) == np.count_nonzero(valid < vkey)  # the reference against numpy first
+    assert ref[2][0][: int(ref[2][1])].tolist() == valid[
+        ((valid >> 16) == tee[0][1]) | ((valid >> 8) >> 16 == tee[1][1])
+    ].tolist()
+    for key_op in ("none", "xor", "float"):
+        got = _port_sweep(
+            keys, n_valid, key_op, rng, shift=16, radix_bits=8, hist_prefixes=prefixes,
+            collect=collect, tee=tee, vkey=vkey, sketch_bits=12,
+        )
+        _assert_parts_equal(got, *ref)
+
+
+def test_plain64_matches_jax_fused_ingest_and_numpy():
+    """64-bit words: hist, collect and tee against the JAX package's XLA
+    fusion tier (its path for 64-bit key spaces), the certificate and the
+    sketch against numpy."""
+    import jax.numpy as jnp
+
+    from mpi_k_selection_tpu.ops.pallas import fused_ingest as fi
+    from mpi_k_selection_tpu.utils.x64 import enable_x64
+
+    rng = np.random.default_rng(64)
+    bucket, n_valid = 3000, 2990
+    keys = rng.integers(0, 1 << 64, size=bucket, dtype=np.uint64, endpoint=False)
+    keys[n_valid:] = 0
+    u = [int(v) for v in keys]
+    prefixes = [u[0] >> 48, u[1] >> 48]
+    collect = [(56, u[0] >> 56), (64, 0)]
+    tee = [(40, u[7] >> 40), (56, u[2] >> 56)]
+    vkey = u[50]
+    with enable_x64():
+        cs, cp = _spec_arrays(collect, np.uint64)
+        ts, tp = _spec_arrays(tee, np.uint64)
+        hist, ref_collect, ref_tee = fi.fused_ingest_core(
+            jnp.asarray(keys), np.int32(n_valid), jnp.asarray(np.array(prefixes, np.uint64)),
+            jnp.asarray(cs), jnp.asarray(cp), jnp.asarray(ts), jnp.asarray(tp),
+            shift=40, radix_bits=8, method="scatter", hist_mode="multi", n_collect=2, n_tee=2,
+        )
+        hist = np.asarray(hist)
+        ref_collect = [(np.asarray(b), int(c)) for b, c in ref_collect]
+        ref_tee = (np.asarray(ref_tee[0]), int(ref_tee[1]))
+    valid = keys[:n_valid]
+    padded = np.where(np.arange(bucket) < n_valid, keys, 0).astype(np.uint64)
+    deep = np.bincount((padded >> np.uint64(44)).astype(np.int64), minlength=1 << 20)
+    want_cert = (np.count_nonzero(valid < vkey), np.count_nonzero(valid <= vkey))
+    want_sketch = (deep, int(valid.min()), int(valid.max()))
+    for key_op in ("none", "xor", "float"):
+        got = _port_sweep(
+            keys, n_valid, key_op, rng, shift=40, radix_bits=8, hist_prefixes=prefixes,
+            collect=collect, tee=tee, vkey=vkey, sketch_bits=20,
+        )
+        _assert_parts_equal(got, hist, ref_collect, ref_tee, want_cert, want_sketch)
+
+
+def test_plain_edge_parts():
+    """No valid key (the extremes keep their identities), a bucket of one
+    word, parts off (None), and the argument checks."""
+    w = torch.tensor([5, 7, 9], dtype=torch.int32)
+    hist, collect, tee, cert, sketch = S.sweep_ingest(w, 0, vkey=3, sketch_bits=4, collect=[(28, 0)])
+    assert hist is None and tee is None
+    assert (int(cert[0]), int(cert[1])) == (0, 0)
+    assert sketch[0].tolist() == [3] + [0] * 15  # pads: three keys 0
+    assert int(sketch[1]) == -1 and int(sketch[2]) == 0  # unsigned max and min identities
+    assert collect[0][0].tolist() == [0, 0, 0] and int(collect[0][1]) == 0
+    one = S.sweep_ingest(torch.tensor([6], dtype=torch.int32), 1, collect=[(0, 6)], tee=[(1, 3)])
+    assert one[1][0][0].tolist() == [6] and one[2][0].tolist() == [6]
+    for data, n_valid, kw in (
+        (w.to(torch.int16), 3, {}), (w[::2], 2, {}), (w, 4, {}),
+        (w, 3, dict(hist_prefixes=[0], shift=28, radix_bits=8)), (w, 3, dict(collect=[(33, 0)])),
+        (w, 3, dict(sketch_bits=21)), (w, 3, dict(key_op="bogus")),
+    ):
+        with pytest.raises(ValueError):
+            S.sweep_ingest(data, n_valid, **kw)
+
+
+def test_padded_bucket_through_the_consumers():
+    """A bucket longer than its chunk (pads of garbage bits) gives the same
+    histograms (the consumer subtracts the pads) and survivors as the chunk
+    staged at its own length."""
+    rng = np.random.default_rng(7)
+    x = rng.integers(-50, 50, size=1000).astype(np.int32)
+    staged = pl.stage_chunk(x, torch.int32, torch.device("cpu"))
+    raw = np.concatenate([x, rng.integers(-(1 << 31), 1 << 31, size=24).astype(np.int32)])
+    padded = pl.StagedKeys(torch.from_numpy(raw), 1000, staged.key_op, staged.key_xor)
+    assert staged.pad == 0 and padded.pad == 24
+    out = []
+    for keys in (staged, padded):
+        for hist in ((24, 8, [None]), (16, 8, [0x80, 0x7F]), (24, 8, [0])):
+            c = ex.FusedIngestConsumer(total_bits=32, hist=hist, collect_specs=[(24, 0x7FFFFF), (0, 0)])
+            c.finish(c.dispatch(keys))
+            out.append(({p: h.tolist() for p, h in c.hists.items()}, c.collected(np.uint32)))
+    for a, b in zip(out[:3], out[3:]):
+        assert a[0] == b[0]
+        assert all(np.array_equal(a[1][s], b[1][s]) for s in a[1])
+    assert out[0][1][(0, 0)].size == 1000 and sum(out[0][0][None]) == 1000
+
+
+@pytest.mark.parametrize("name", DTYPES)
+def test_kselect_streaming_matches_jax_and_numpy(name):
+    """k in {1, n/2, n}, at depth 0 and 2, with the default knobs and with
+    4-bit digits and a 64-survivor budget (several passes), numpy and torch
+    chunks mixed: the port equals numpy and the JAX package (its default
+    path, and its sweep-kernel tier over staged chunks), bit for bit."""
+    from mpi_k_selection_tpu.streaming import streaming_kselect_many as ref_many
+    from mpi_k_selection_tpu.utils.x64 import enable_x64
+
+    chunks = stream(name)
+    x = np.concatenate(chunks)
+    n = x.size
+    ks = [1, n // 2, n]
+    want = key_oracle(x, ks)
+    narrow = dict(radix_bits=4, collect_budget=64)
+    with enable_x64():
+        assert bits(ref_many(chunks, ks, spill="off"), x.dtype) == want
+        assert bits(ref_many(chunks, ks, spill="off", fused="kernel", devices=1, **narrow), x.dtype) == want
+    mixed = [tensor_from_numpy(c, "cpu") if i % 2 else c for i, c in enumerate(chunks)]
+    for depth in (0, 2):
+        for kw in ({}, narrow):
+            got = kt.kselect_streaming_many(mixed, ks, pipeline_depth=depth, device="cpu", **kw)
+            assert bits(got, x.dtype) == want, (depth, kw)
+        got = kt.kselect_streaming(chunks, ks[1], pipeline_depth=depth, device="cpu", **narrow)
+        assert bits([got], x.dtype) == key_oracle(x, ks[1:2])
+
+
+@pytest.mark.parametrize("name", ["int8", "uint32", "int64", "bfloat16", "float32", "float64"])
+def test_streaming_rank_certificate_matches_jax_and_numpy(name):
+    from mpi_k_selection_tpu.streaming import streaming_rank_certificate as ref_cert
+    from mpi_k_selection_tpu.utils.x64 import enable_x64
+
+    chunks = stream(name, seed=3)
+    x = np.concatenate(chunks)
+    keys = dt.np_to_sortable_bits(x)
+    probes = [x[0], x[-1], kt.kselect_streaming(chunks, x.size // 2, device="cpu")]
+    if name in _NAN:
+        probes += [x.dtype.type(-0.0), x[np.isnan(x)][0]]
+    for v in probes:
+        vk = dt.np_to_sortable_bits(np.array([v], x.dtype))[0]
+        want = (int(np.count_nonzero(keys < vk)), int(np.count_nonzero(keys <= vk)))
+        with enable_x64():
+            assert tuple(int(c) for c in ref_cert(chunks, v)) == want
+        for depth in (0, 2):
+            assert kt.streaming_rank_certificate(chunks, v, pipeline_depth=depth, device="cpu") == want
+
+
+def test_rejections_match_jax():
+    """A one-shot iterator, dtype drift, an empty stream and an out-of-range
+    k raise in both packages, with the JAX package's messages."""
+    from mpi_k_selection_tpu.streaming import streaming_kselect as ref_select
+    from mpi_k_selection_tpu.streaming import streaming_rank_certificate as ref_cert
+
+    a = np.arange(10, dtype=np.int32)
+    cases = (
+        (lambda: iter([a]), {}, TypeError, "one-shot iterator/generator cannot be replayed"),
+        (lambda: [a, a.astype(np.int64)], {}, TypeError, "requires one dtype per stream"),
+        (lambda: [a[:0], a[:0]], {}, ValueError, "requires a non-empty stream"),
+        (lambda: [a, a], {"k": 21}, ValueError, "out of range"),
+        (lambda: [a, a], {"k": 0}, ValueError, "out of range"),
+    )
+    for make, kw, err, msg in cases:
+        k = kw.get("k", 1)
+        for depth in (0, 2):
+            with pytest.raises(err, match=msg):
+                kt.kselect_streaming(make(), k, pipeline_depth=depth, device="cpu")
+        with pytest.raises(err, match=msg):
+            ref_select(make(), k, spill="off")
+    with pytest.raises(ValueError, match="requires a non-empty stream"):
+        kt.streaming_rank_certificate([a[:0]], 1, device="cpu")
+    with pytest.raises(ValueError, match="requires a non-empty stream"):
+        ref_cert([a[:0]], 1)
+    with pytest.raises(ValueError, match="must divide key bits"):
+        kt.kselect_streaming([a], 1, radix_bits=5, device="cpu")
+    with pytest.raises(ValueError, match="pipeline_depth"):
+        kt.kselect_streaming([a], 1, pipeline_depth=-1, device="cpu")
+
+
+def test_producer_thread_runs_the_source_and_is_joined():
+    """At depth >= 1 the source runs on a ``ksel-pipeline-*`` thread; a
+    source that raises mid-stream re-raises in the caller, and a source
+    that changes between passes fails the replay check. The autouse
+    leak fixture then finds no such thread left."""
+    seen = []
+    chunk = np.arange(100, dtype=np.int32)
+
+    def source():
+        seen.append(threading.current_thread().name)
+        for _ in range(4):
+            yield chunk
+
+    assert kt.kselect_streaming(source, 5, device="cpu", collect_budget=8, radix_bits=4) == 1
+    assert seen and all(s.startswith(pl.THREAD_NAME_PREFIX) for s in seen)
+    seen.clear()
+    kt.kselect_streaming(source, 5, device="cpu", pipeline_depth=0)
+    assert seen == [threading.current_thread().name] * 2  # pass 0, then the collect
+
+    def failing():
+        yield chunk
+        raise OSError("disk gone")
+
+    with pytest.raises(OSError, match="disk gone"):
+        kt.kselect_streaming(failing, 5, device="cpu")
+    calls = []
+
+    def drifting():
+        calls.append(1)
+        yield chunk[len(calls):]  # another stream at every pass
+
+    with pytest.raises(RuntimeError, match="not replay-stable"):
+        kt.kselect_streaming(drifting, 50, device="cpu", radix_bits=4, collect_budget=2)
+    assert not [t for t in threading.enumerate() if t.name.startswith(pl.THREAD_NAME_PREFIX)]
+
+
+def test_cli_streaming_mode_on_cpu():
+    out = subprocess.run(
+        [sys.executable, "-m", "mpi_k_selection_tpu_torch", "--streaming", "--n", "50000", "--chunk-elems",
+         "12000", "--pipeline-depth", "2", "--dtype", "float32", "--gen", "normal", "--seed", "4",
+         "--device", "cpu", "--verify", "--json"],
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    assert rec["extra"]["exact_match"] is True and rec["extra"]["certificate_ok"] is True
+    assert rec["extra"]["chunks"] == 5 and rec["algorithm"] == "streaming-chunked"
+    x = np.concatenate([
+        datagen.generate(min(12000, 50000 - off), pattern="normal", seed=4 + i, dtype=np.float32)
+        for i, off in enumerate(range(0, 50000, 12000))
+    ])
+    assert np.float32(rec["answer"]).tobytes() == key_oracle(x, [25000])
+    bad = subprocess.run(
+        [sys.executable, "-m", "mpi_k_selection_tpu_torch", "--streaming", "--quantiles", "0.5", "--device", "cpu"],
+        capture_output=True, text=True, timeout=120,
+    )
+    assert bad.returncode != 0 and "k-th mode only" in bad.stderr
+
+
+# --- on the card --------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [32, 64])
+def test_sweep_kernel_matches_plain_on_card(cuda_device, bits):
+    """Every part, pads of garbage, each key op, the shared-memory
+    counters (below and above the 48 KB default) and the global ones (128
+    prefixes, a 12-bit digit, a 20-bit sketch), a misaligned view (the
+    scalar loads) and a multi-tile bucket, exactly."""
+    gen = torch.Generator(device=cuda_device).manual_seed(bits)
+    wdt = torch.int32 if bits == 32 else torch.int64
+    n = 3 * (1 << 20) + 77
+    w = torch.randint(-(1 << 62), 1 << 62, (n + 1,), generator=gen, device=cuda_device).to(wdt)
+    keys = dt.keys_from_raw(w, "float")
+    top = [int(v) & ((1 << bits) - 1) for v in keys[:64].tolist()]
+    parts = [
+        dict(hist_prefixes=[top[0] >> (bits - 8)], shift=bits - 16, radix_bits=8, collect=[(bits - 8, top[1] >> (bits - 8))]),
+        dict(hist_prefixes=[t >> (bits - 8) for t in top[:40]], shift=bits - 16, radix_bits=8),
+        dict(hist_prefixes=[t >> (bits - 8) for t in top[:60]], shift=bits - 16, radix_bits=8),  # 60 KB
+        dict(hist_prefixes=[t >> (bits - 8) for t in top[:64]] * 2, shift=bits - 16, radix_bits=8),  # global
+        dict(hist_prefixes=[0], shift=bits - 12, radix_bits=12, sketch_bits=20),
+        dict(collect=[(bits, 0), (bits - 16, top[2] >> (bits - 16))], tee=[(bits - 8, top[3] >> (bits - 8)), (bits - 4, 5)],
+             vkey=top[4], sketch_bits=8),
+    ]
+    S.reset_counts()
+    for view in (w[:n], w[1:]):
+        for key_op, key_xor in (("none", 0), ("xor", 1 << (bits - 1)), ("float", 0)):
+            for kw in parts:
+                for n_valid in (view.numel(), view.numel() - 1000):
+                    got = _flat(S.sweep_ingest(view, n_valid, key_op=key_op, key_xor=key_xor, **kw))
+                    want = _flat(S.sweep_ingest_plain(view, n_valid, key_op=key_op, key_xor=key_xor, **kw))
+                    assert len(got) == len(want)
+                    same = [a is b is None or torch.equal(a, b) for a, b in zip(got, want)]
+                    assert all(same), (key_op, kw, n_valid)
+    torch.cuda.synchronize()
+    assert S.LAUNCHES[f"sweep_ingest{bits}"] > 0
+    with pytest.raises(ValueError):
+        S.sweep_ingest(w.view(torch.int16), 10)  # no 2-byte words: raises, no fallback
+    with pytest.raises(ValueError):
+        S.sweep_ingest(w[::2], 10)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["int16", "uint32", "int64", "bfloat16", "float32", "float64"])
+def test_streaming_entry_points_on_card(cuda_device, name):
+    """Each entry point on the card at depth 0 and 2, numpy chunks and CUDA
+    tensor chunks: equal to numpy, through the kernel only."""
+    chunks = stream(name, seed=5, sizes=(300_000, 1, 0, 123_457))
+    x = np.concatenate(chunks)
+    ks = [1, 777, x.size // 2, x.size]
+    on_card = [tensor_from_numpy(c, cuda_device) for c in chunks]
+    for depth in (0, 2):
+        for src in (chunks, on_card):
+            S.reset_counts()
+            got = kt.kselect_streaming_many(src, ks, pipeline_depth=depth, collect_budget=1024)
+            assert bits(got, x.dtype) == key_oracle(x, ks)
+            less, leq = kt.streaming_rank_certificate(src, got[2], pipeline_depth=depth)
+            assert less < ks[2] <= leq
+            one = kt.kselect_streaming(src, ks[1], pipeline_depth=depth, radix_bits=4)
+            assert bits([one], x.dtype) == key_oracle(x, ks[1:2])
+            assert not S.PLAIN_CALLS["sweep_ingest"] and sum(S.LAUNCHES.values()) > 0
