@@ -11,7 +11,10 @@ Phases, each of which must pass (any failure exits non-zero):
    counts, no tolerance; top-k values as bit patterns), on 2^27 seeded
    random words, 32- and 64-bit and every ``key_op``: the histogram with
    and without a prefix, ``match_counts``, the multi-prefix histogram at K
-   in {1, 3, 64} with a repeated prefix and radix widths 4 and 8, and
+   in {1, 3, 64} with a repeated prefix and radix widths 4 and 8 and on
+   its hardest prefix sets (reversed, shuffled, 16 prefixes 4 times each,
+   absent from the data, all equal on all-equal words, K=300 at radix
+   width 8, a misaligned view), and
    ``tau_counts`` in both directions against a key of the data and one
    absent from it; and the batched top-k kernel at (4096, 32768) float32
    for k in {1, 8, 9, 16} and bfloat16 for k in {8, 16}, on normal rows and
@@ -59,6 +62,10 @@ Phases, each of which must pass (any failure exits non-zero):
    ``torch.kthvalue`` as a one-call yardstick; ``quantiles`` at K=4
    against four single selects; the shared radix walk against the sort
    leg at K = 4, 64 and 128 (the crossover of the many-ranks dispatch);
+   the multi-prefix histogram at the answers' prefixes: K=4 at pass 1 of
+   2^30 int32, 2^27 float64 and 2^27 int32 ``equal``, K=64 and 128 at pass
+   1 and K=64 at a deep pass of 2^27 int32, K=64 at pass 1 of 2^27 float64,
+   each with its share of the bound;
    ``topk`` against ``torch.topk`` and a full ``torch.sort`` (yardsticks
    only: the port calls neither for top-k); the batched top-k kernel, the
    index recovery alone, ``batched_topk`` end to end and
@@ -96,6 +103,9 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 SCALAR_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 OPS_PER_KEY = 5  # xor mask, xor, shift, mask or compare, count
+# the multi-prefix histogram: those, and one prefix lookup whatever K (a
+# range test and one probe of its prefix table, csrc/histogram.cu)
+MULTI_OPS_PER_KEY = OPS_PER_KEY + 2
 HIST_SRC = "mpi_k_selection_tpu/ops/pallas/histogram.py"
 HIST_CU = "mpi_k_selection_tpu_torch/csrc/histogram.cu"
 TOPK_CU = "mpi_k_selection_tpu_torch/csrc/topk.cu"
@@ -135,12 +145,6 @@ def bound(nbytes: float, nkeys: float, ops_per_key: float = OPS_PER_KEY):
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
     o_ms = nkeys * ops_per_key / SCALAR_OPS_PER_S * 1e3
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
-
-
-def multi_ops_per_key(nq: int) -> int:
-    """The multi-prefix histogram's operations per key: the key transform,
-    shifts and count, and one compare with each of the nq prefixes."""
-    return OPS_PER_KEY + nq
 
 
 def rand_words(n: int, bits: int, gen) -> torch.Tensor:
@@ -288,9 +292,10 @@ def phase_kernels_vs_plain(gen):
         kw = dict(shift=bits - 4, radix_bits=4)
         if not torch.equal(H.radix_histogram(w[1:], **kw), H.radix_histogram_plain(w[1:], **kw)):
             fail(f"radix_histogram{bits} != plain on a misaligned view")
-        kw = dict(kw, shift=bits - 8, prefixes=w[:3].clone() & 15)
-        if not torch.equal(H.radix_histogram_multi(w[1:], **kw), H.radix_histogram_multi_plain(w[1:], **kw)):
-            fail(f"radix_histogram_multi{bits} != plain on a misaligned view")
+        for label, words, kw in multi_prefix_sets(w, bits, gen):
+            if not torch.equal(H.radix_histogram_multi(words, **kw), H.radix_histogram_multi_plain(words, **kw)):
+                fail(f"radix_histogram_multi{bits} != plain on {label}")
+            print(f"[check] radix_histogram_multi{bits} == plain on {label}")
         del w
     from mpi_k_selection_tpu_torch.ops.cuda import topk as T
 
@@ -307,6 +312,54 @@ def phase_kernels_vs_plain(gen):
     sweep_vs_plain(gen, err)
     for name, e in err.items():
         print(f"[check] {name} vs plain at n=2^27 / ({BATCH}, {WIDTH}) / a {SWEEP_BUCKET}-word bucket: max_abs_err={e}")
+
+
+def multi_prefix_sets(w: torch.Tensor, bits: int, gen):
+    """(label, words, kwargs) of the multi-prefix histogram's hardest
+    prefix sets on the random words ``w`` (keys: the sign bit flipped):
+    64 data prefixes in reverse and in shuffled order, 16 of them 4 times
+    each (shuffled) and 64 prefixes that no key holds, each at a pass-1
+    digit (4 prefix bits: the prefix is the table index) and at the last
+    digit (bits - 4 prefix bits: a hashed table); K=64 equal prefixes on
+    all-equal words (one hot bin) at both; K=300 at radix width 8 (more
+    than one launch); and a misaligned view."""
+    from mpi_k_selection_tpu_torch.utils import dtypes as dt
+
+    sign = -(1 << (bits - 1))
+    kw = dict(radix_bits=4, key_op="xor", key_xor=1 << (bits - 1))
+    keys = w ^ sign
+
+    def top(t, shift):
+        return dt.shift_right_logical(t, shift + kw["radix_bits"], bits)
+
+    def shuffled(p):
+        return p[torch.randperm(p.numel(), device="cuda", generator=gen)].contiguous()
+
+    picks = keys[torch.randint(0, w.numel(), (64,), device="cuda", generator=gen)]
+    equal = torch.full_like(w, 42)
+    out = []
+    for shift in (bits - 8, 0):
+        p = top(picks, shift)
+        if shift:  # 4 prefix bits: prefixes past the width, which no key holds
+            absent = 16 + 7 * torch.arange(64, device="cuda", dtype=w.dtype)
+        else:  # data prefixes with the low bit flipped, where no key holds one
+            cand = torch.unique(p ^ 1)
+            absent = cand[~torch.isin(cand, top(keys, shift))]
+            if absent.numel() == 0:
+                fail(f"no absent {bits}-bit prefix found")
+        for label, ps, words in (
+            ("reversed", p.sort().values.flip(0), w), ("shuffled", shuffled(p), w),
+            ("16 prefixes 4 times each", shuffled(p[:16].repeat(4)), w), ("absent prefixes", absent, w),
+            ("one hot bin (all-equal words), equal prefixes", top(equal[:1] ^ sign, shift).repeat(64), equal),
+        ):
+            out.append((f"{label}, K={ps.numel()} shift={shift}", words,
+                        dict(kw, shift=shift, prefixes=ps.contiguous())))
+    p300 = dt.shift_right_logical(keys[torch.randint(0, w.numel(), (300,), device="cuda", generator=gen)],
+                                  bits - 8, bits)
+    out.append(("K=300 rb=8 (more than one launch)", w, dict(kw, shift=bits - 16, radix_bits=8, prefixes=p300)))
+    out.append(("a misaligned view, K=64 shuffled with repeats", w[1:],
+                dict(kw, shift=bits - 12, prefixes=shuffled(top(picks[:16], bits - 12).repeat(4)))))
+    return out
 
 
 def sweep_cases(bits: int, keys: torch.Tensor):
@@ -616,7 +669,7 @@ def phase_timing(data):
     for nq in (4, 64, 128):
         ks = torch.tensor([round((1 << 27) * (i + 1) / nq) for i in range(nq)], device="cuda")
         ms = cuda_ms(lambda: radix_select_many(x27, ks), iters=3)
-        row(f"radix walk K={nq} int32 uniform 2^27", 1 << 27, 4, ms, ops_per_key=multi_ops_per_key(nq))
+        row(f"radix walk K={nq} int32 uniform 2^27", 1 << 27, 4, ms, ops_per_key=MULTI_OPS_PER_KEY)
         sms = cuda_ms(lambda: sort_select(x27, ks), iters=3)
         row(f"sort leg K={nq} int32 uniform 2^27", 1 << 27, 4, sms)
     print(f"[time] many_sort_dispatch_queries(2^27) = {api.many_sort_dispatch_queries(1 << 27)}")
@@ -683,26 +736,34 @@ def phase_timing(data):
             kern[f"match_counts{bits}"] = (mms, mpms, b, by, merr)
         torch.cuda.empty_cache()
 
-    # the multi-prefix histogram at the many-ranks passes: K=4 quantile
-    # prefixes at pass 1 (2^30 int32, 2^27 float64), and K=64 and 128 at
-    # 2^27 int32; tau_counts at the top-k collect (tau = the 128th largest)
-    for name, words, key_op, key_xor, bits, nq, main in (
-        ("32 int32 2^30 K=4", x30, "xor", 1 << 31, 32, 4, True),
-        ("64 float64 2^27 K=4", f64, "float", 0, 64, 4, True),
-        ("32 int32 2^27 K=64", x27, "xor", 1 << 31, 32, 64, False),
-        ("32 int32 2^27 K=128", x27, "xor", 1 << 31, 32, 128, False),
+    # the multi-prefix histogram at the many-ranks passes: the answers' K=4
+    # quantile prefixes at pass 1 (2^30 int32, 2^27 float64, 2^27 int32
+    # equal: one prefix, one hot bin); K=64 and 128 evenly spaced ranks at
+    # pass 1 of 2^27 int32 and K=64 of 2^27 float64; K=64 at a deep pass of
+    # 2^27 int32 (12-bit prefixes: most keys match none); tau_counts at the
+    # top-k collect (tau = the 128th largest)
+    for name, words, key_op, key_xor, bits, nq, shift, main in (
+        ("32 int32 2^30 K=4", x30, "xor", 1 << 31, 32, 4, 24, True),
+        ("64 float64 2^27 K=4", f64, "float", 0, 64, 4, 56, True),
+        ("32 int32 2^27 K=64", x27, "xor", 1 << 31, 32, 64, 24, False),
+        ("32 int32 2^27 K=128", x27, "xor", 1 << 31, 32, 128, 24, False),
+        ("32 int32 2^27 K=64 shift=16", x27, "xor", 1 << 31, 32, 64, 16, False),
+        ("32 int32 equal 2^27 K=4", eq, "xor", 1 << 31, 32, 4, 24, False),
+        ("64 float64 2^27 K=64", f64, "float", 0, 64, 64, 56, False),
     ):
         w = words.view(torch.int32 if bits == 32 else torch.int64)
         n = w.numel()
         ranks = api.quantile_ranks(QS, n) if nq == 4 else [round(n * (i + 1) / nq) for i in range(nq)]
         qkeys = dt.to_sortable_bits(kt.kselect_many(words, ranks))  # the answers' keys
-        kw = dict(words=w, shift=bits - 8, radix_bits=4, key_op=key_op, key_xor=key_xor,
-                  prefixes=dt.shift_right_logical(qkeys, bits - 4, bits).contiguous())
+        kw = dict(words=w, shift=shift, radix_bits=4, key_op=key_op, key_xor=key_xor,
+                  prefixes=dt.shift_right_logical(qkeys, shift + 4, bits).contiguous())
         err = exact(H.radix_histogram_multi, H.radix_histogram_multi_plain, f"radix_histogram_multi{name}", **kw)
         ms = cuda_ms(lambda: H.radix_histogram_multi(**kw))
         pms = cuda_ms(lambda: H.radix_histogram_multi_plain(**kw), iters=3, warmup=1)
-        b, by = row(f"radix_histogram_multi{name}", n, bits // 8, ms, f"   plain {pms:.4f} ms",
-                    ops_per_key=multi_ops_per_key(nq))
+        distinct = torch.unique(kw["prefixes"]).numel()
+        b, by = bound(n * bits // 8, n, MULTI_OPS_PER_KEY)
+        row(f"radix_histogram_multi{name}", n, bits // 8, ms, f"   {b / ms:.0%} of bound; plain {pms:.4f} ms; "
+            f"{distinct} distinct prefixes", ops_per_key=MULTI_OPS_PER_KEY)
         print(f"[check] radix_histogram_multi{name} == plain: max_abs_err {err}")
         if main:
             kern[f"radix_histogram_multi{bits}"] = (ms, pms, b, by, err)

@@ -46,11 +46,12 @@ def many_sort_dispatch_queries(n: int) -> int:
     """Query count at and above which :func:`kselect_many` sorts once and
     gathers instead of running the shared radix walk: ``13*log2(n) - 230``,
     clamped to [64, 192]. The walk costs about one read per pass whatever
-    K, plus K compares per key; the sort about ``n log n``, so the
+    K (the multi-prefix kernel does one prefix lookup per key), then a
+    collect whose work grows with K; the sort about ``n log n``, so the
     crossover grows with ``log2(n)``. The rule is the JAX package's, fitted
-    on its own device; it is not yet measured on a CUDA card
-    (``chip_smoke.py`` times both legs at K = 4, 64 and 128). The answers
-    do not depend on it."""
+    on its own device, and kept here: which leg runs decides the answers'
+    order for +-0.0 and NaN (:func:`many_takes_sort`). ``chip_smoke.py``
+    times both legs on the card at K = 4, 64 and 128."""
     return int(min(192, max(64, round(13 * math.log2(max(n, 2)) - 230))))
 
 

@@ -36,14 +36,30 @@
 //   hold the same prefix (close or repeated ranks); each gets the whole
 //   histogram. 64-bit keys are read as whole words: the Pallas kernel's
 //   shift >= 32 reroute to the hi plane has no counterpart.
-//   Bound: bytes for small nq, operations for large nq. One read of the n
-//   words; each key is compared with all nq prefixes (staged in shared
-//   memory, read as warp broadcasts). The block counts into one shared
-//   (nq, 2^radix_bits) uint32 histogram (above 48 KB the launch first
-//   raises the kernel's dynamic shared memory limit; the caller splits the
-//   queries so that one launch fits 227 KB), and adds its non-zero bins
-//   into the int64 output with one global atomic each. A sorted-prefix
-//   search would cut the compares to log2(nq); not done yet.
+//   Bound: bytes. One read of the n words, and one prefix lookup per key
+//   whatever nq: at the card's memory rate its SMs issue about 30
+//   instructions a key, a budget that a compare with every prefix overran
+//   from nq = 4 on. Each block first hashes the nq prefixes into a shared
+//   table of 2^tbits 16-bit entries (tbits = min(prefix bits, 12)): a
+//   query claims an empty entry with atomicCAS and becomes the owner of
+//   its prefix, and a query whose prefix an earlier claim already holds
+//   takes that owner's row instead, so the table holds the distinct
+//   prefixes only and a repeated prefix is counted once. With 12 prefix
+//   bits or fewer the entry index is the prefix itself (no collision, no
+//   compare); with more, a multiplicative hash of it and linear probing,
+//   the table at most half full (nq <= 2048 per launch). A key whose top
+//   bits fall outside [smallest, largest] valid prefix (two compares on
+//   registers) touches no shared memory; any other key reads one entry,
+//   and an empty entry ends the lookup. A hit counts one shared atomic in
+//   its owner's row of one of `copies` (8, 4, 2 or 1) sub-histograms, warp
+//   w counting into copy w % copies, so that a hot bin serialises a few
+//   warps and not the block; the wrapper picks the most copies within an
+//   eighth of the SM's shared memory (the rest is L1 cache, which holds
+//   the loads in flight), and splits the queries over launches so that a
+//   block leaves two on an SM. The flush gives each query the sum of its
+//   owner's row over the copies, one int64 global atomic per non-zero bin.
+//   The launch raises the kernel's dynamic shared memory limit above 48 KB
+//   and clamps the grid to the blocks that fit on the card at once.
 //
 // tau_counts<W>       replaces mpi_k_selection_tpu/ops/pallas/histogram.py:
 //                     pallas_tau_counts.
@@ -188,38 +204,95 @@ match_counts_kernel(const W* __restrict__ data, long long n, long long rows,
   }
 }
 
+// The prefix table of radix_histogram_multi (ops/cuda/histogram.py mirrors
+// both numbers): at most 2^kTableBits entries, at most half of them used.
+constexpr int kTableBits = 12;
+constexpr int kMaxMultiQueries = 1 << (kTableBits - 1);
+
+// The table entry a prefix starts from: the prefix itself when the table
+// has an entry for every prefix (exact), else a multiplicative hash.
+template <typename W>
+__device__ __forceinline__ unsigned table_home(W top, bool exact, int tbits) {
+  const unsigned folded = (unsigned)top ^ (unsigned)((unsigned long long)top >> 32);
+  return exact ? (unsigned)top : (folded * 0x9E3779B1u) >> (32 - tbits);
+}
+
+// Shared memory of one block, in order: the smallest and largest valid
+// prefix (two 64-bit words), the nq prefixes, copies x nq x 2^radix_bits
+// uint32 counters, the nq owners and the 2^tbits table entries
+// (ops/cuda/histogram.py:_multi_smem_bytes).
+template <typename W>
+size_t multi_smem_bytes(int nq, int copies, int radix_bits, int tbits) {
+  return 2 * sizeof(unsigned long long) + (size_t)nq * sizeof(W) +
+         (size_t)copies * nq * (1u << radix_bits) * sizeof(unsigned int) +
+         (size_t)nq * sizeof(unsigned short) + ((size_t)1 << tbits) * sizeof(unsigned short);
+}
+
 template <typename W>
 __global__ void __launch_bounds__(kThreads)
 radix_histogram_multi_kernel(const W* __restrict__ data, long long n,
                              int shift, int radix_bits, int is_float,
                              W key_xor, const W* __restrict__ prefixes,
-                             int nq, unsigned long long* __restrict__ out,
-                             int vec) {
-  // shared: nq prefixes, then the nq x 2^radix_bits counters
+                             int nq, int copies, int tbits,
+                             unsigned long long* __restrict__ out, int vec) {
   extern __shared__ unsigned long long smem_multi[];
-  W* pref = reinterpret_cast<W*>(smem_multi);
+  unsigned long long* range = smem_multi;  // smallest, largest valid prefix
+  W* pref = reinterpret_cast<W*>(range + 2);
   unsigned int* hist = reinterpret_cast<unsigned int*>(pref + nq);
   const int nb = 1 << radix_bits;
-  const int nbins = nq * nb;
+  const int rowbins = nq * nb;
+  unsigned short* owner = reinterpret_cast<unsigned short*>(hist + copies * rowbins);
+  unsigned short* table = owner + nq;
+  const int pbits = sizeof(W) * 8 - shift - radix_bits;  // >= 1: every query has a prefix
+  const bool exact = pbits <= kTableBits;                // then tbits == pbits
+  const unsigned tmask = (1u << tbits) - 1;
+
+  if (threadIdx.x == 0) {
+    range[0] = ~0ull;
+    range[1] = 0;
+  }
   for (int i = threadIdx.x; i < nq; i += blockDim.x) pref[i] = prefixes[i];
-  for (int i = threadIdx.x; i < nbins; i += blockDim.x) hist[i] = 0u;
+  for (int i = threadIdx.x; i <= (int)tmask; i += blockDim.x) table[i] = 0;
+  for (int i = threadIdx.x; i < copies * rowbins; i += blockDim.x) hist[i] = 0u;
+  __syncthreads();
+  for (int q = threadIdx.x; q < nq; q += blockDim.x) {
+    const W p = pref[q];
+    owner[q] = q;  // a prefix no key can hold keeps its own row, all zero
+    if (p >> pbits) continue;
+    atomicMin(range, (unsigned long long)p);
+    atomicMax(range + 1, (unsigned long long)p);
+    for (unsigned h = table_home(p, exact, tbits);; h = (h + 1) & tmask) {
+      const unsigned short e = atomicCAS(table + h, (unsigned short)0, (unsigned short)(q + 1));
+      if (e == 0) break;                                      // q owns p
+      if (pref[e - 1] == p) { owner[q] = e - 1; break; }      // p is already owned
+    }
+  }
   __syncthreads();
 
-  const int pshift = shift + radix_bits;  // < word bits: every query has a prefix
+  const W lo = (W)range[0], hi = (W)range[1];  // no valid prefix: lo > hi
+  const int pshift = shift + radix_bits;
   const W dmask = (W)(nb - 1);
   const bool fl = is_float != 0;
+  unsigned int* mine = hist + ((threadIdx.x >> 5) % copies) * rowbins;
   stream_words(data, n, vec, [&](W raw) {
     const W key = to_key(raw, fl, key_xor);
     const W top = key >> pshift;
-    unsigned int* bin = hist + (unsigned)((key >> shift) & dmask);
-    for (int q = 0; q < nq; ++q)  // no early exit: repeated prefixes all count
-      if (pref[q] == top) atomicAdd(bin + q * nb, 1u);
+    if (top < lo || top > hi) return;
+    unsigned e;
+    for (unsigned h = table_home(top, exact, tbits); (e = table[h]) != 0; h = (h + 1) & tmask) {
+      if (exact || pref[e - 1] == top) {
+        atomicAdd(mine + (e - 1) * nb + (unsigned)((key >> shift) & dmask), 1u);
+        break;
+      }
+    }
   });
   __syncthreads();
 
-  for (int i = threadIdx.x; i < nbins; i += blockDim.x) {
-    const unsigned int c = hist[i];
-    if (c) atomicAdd(out + i, (unsigned long long)c);
+  for (int i = threadIdx.x; i < rowbins; i += blockDim.x) {
+    const unsigned int* bin = hist + owner[i >> radix_bits] * nb + (i & (nb - 1));
+    unsigned long long s = 0;
+    for (int c = 0; c < copies; ++c) s += bin[c * rowbins];
+    if (s) atomicAdd(out + i, s);
   }
 }
 
@@ -282,21 +355,30 @@ int launch_match_counts(const void* data, long long n, long long rows,
 template <typename W>
 int launch_histogram_multi(const void* data, long long n, int shift,
                            int radix_bits, int is_float, W key_xor,
-                           const void* prefixes, int nq, void* out, int grid,
-                           void* stream) {
-  // the prefixes, then the counters (ops/cuda/histogram.py:_multi_smem_bytes)
-  const size_t smem =
-      (size_t)nq * (sizeof(W) + (1u << radix_bits) * sizeof(unsigned int));
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        radix_histogram_multi_kernel<W>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+                           const void* prefixes, int nq, int copies, void* out,
+                           int grid, void* stream) {
+  if (nq > kMaxMultiQueries || copies < 1) return (int)cudaErrorInvalidValue;
+  const int pbits = (int)sizeof(W) * 8 - shift - radix_bits;
+  const int tbits = pbits < kTableBits ? pbits : kTableBits;
+  const size_t smem = multi_smem_bytes<W>(nq, copies, radix_bits, tbits);
+  const auto kernel = radix_histogram_multi_kernel<W>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  // every block resident at once: a second, partial wave of equal blocks
+  // would leave most of the card idle while it runs
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kThreads, smem)) != cudaSuccess)
+    return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  if (grid > per_sm * sms) grid = per_sm * sms;
   const int vec = (reinterpret_cast<uintptr_t>(data) % 16) == 0;
-  radix_histogram_multi_kernel<W><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const W*>(data), n, shift, radix_bits, is_float, key_xor,
-      static_cast<const W*>(prefixes), nq,
+      static_cast<const W*>(prefixes), nq, copies, tbits,
       static_cast<unsigned long long*>(out), vec);
   return (int)cudaGetLastError();
 }
@@ -352,20 +434,21 @@ int ksel_match_counts64(const void* data, long long n, long long rows,
 int ksel_radix_histogram_multi32(const void* data, long long n, int shift,
                                  int radix_bits, int is_float,
                                  unsigned int key_xor, const void* prefixes,
-                                 int nq, void* out, int grid, void* stream) {
+                                 int nq, int copies, void* out, int grid,
+                                 void* stream) {
   return launch_histogram_multi<uint32_t>(data, n, shift, radix_bits, is_float,
-                                          key_xor, prefixes, nq, out, grid,
-                                          stream);
+                                          key_xor, prefixes, nq, copies, out,
+                                          grid, stream);
 }
 
 int ksel_radix_histogram_multi64(const void* data, long long n, int shift,
                                  int radix_bits, int is_float,
                                  unsigned long long key_xor,
-                                 const void* prefixes, int nq, void* out,
-                                 int grid, void* stream) {
+                                 const void* prefixes, int nq, int copies,
+                                 void* out, int grid, void* stream) {
   return launch_histogram_multi<uint64_t>(data, n, shift, radix_bits, is_float,
-                                          key_xor, prefixes, nq, out, grid,
-                                          stream);
+                                          key_xor, prefixes, nq, copies, out,
+                                          grid, stream);
 }
 
 int ksel_tau_counts32(const void* data, long long n, long long rows,

@@ -56,8 +56,16 @@ PLAIN_CALLS = {"radix_histogram": 0, "match_counts": 0, "radix_histogram_multi":
 
 _THREADS = 256  # kThreads in csrc/histogram.cu
 _BLOCKS_PER_SM = 8  # 2048 resident threads per SM
-_SMEM_PER_BLOCK = 227 * 1024  # the opt-in limit of one block's shared memory
-_SMEM_PER_SM = 228 * 1024
+# radix_histogram_multi: the prefix table's bits and queries per launch
+# (kTableBits, kMaxMultiQueries in csrc/histogram.cu); the shared memory of
+# a block that leaves two on an SM (228 KB, 1 KB reserved each); and the
+# most that sub-histogram copies may take. The shared memory of the blocks
+# an SM holds comes out of its L1 cache, which holds their 16-byte loads
+# in flight, so copies stop at an eighth of the SM's.
+MULTI_TABLE_BITS = 12
+MULTI_MAX_QUERIES = 1 << (MULTI_TABLE_BITS - 1)
+MULTI_SMEM_PER_BLOCK = 228 * 1024 // 2 - 1024
+MULTI_COPIES_SMEM = 228 * 1024 // 8
 
 
 def reset_counts() -> None:
@@ -169,7 +177,7 @@ def _lib():
             f.argtypes = [p, ll, ll, i, i, xt, p, i, p, i, p]
             f.restype = i
             f = getattr(lib, f"ksel_radix_histogram_multi{bits}")
-            f.argtypes = [p, ll, i, i, i, xt, p, i, p, i, p]
+            f.argtypes = [p, ll, i, i, i, xt, p, i, i, p, i, p]
             f.restype = i
             f = getattr(lib, f"ksel_tau_counts{bits}")
             f.argtypes = [p, ll, ll, i, xt, p, i, p, i, p]
@@ -274,10 +282,28 @@ def match_counts(words, *, resolved_bits, prefixes, key_op="none", key_xor=0):
     return out
 
 
-def _multi_smem_bytes(bits: int, radix_bits: int, nq: int) -> int:
-    """Shared memory of one radix_histogram_multi block: the prefixes, then
-    the (nq, 2^radix_bits) uint32 counters."""
-    return nq * (bits // 8 + (4 << radix_bits))
+def _multi_smem_bytes(bits: int, radix_bits: int, table_bits: int, nq: int, copies: int) -> int:
+    """Shared memory of one radix_histogram_multi block
+    (``csrc/histogram.cu:multi_smem_bytes``): the smallest and largest
+    prefix, the nq prefixes, ``copies`` sub-histograms of (nq, 2^radix_bits)
+    uint32 counters, the nq owners and the 2^table_bits entries of the
+    prefix table (16 bits each)."""
+    return 16 + nq * (bits // 8) + copies * nq * (4 << radix_bits) + 2 * nq + (2 << table_bits)
+
+
+def multi_plan(bits: int, shift: int, radix_bits: int, nq: int) -> tuple[int, int]:
+    """(queries per launch, sub-histogram copies) of radix_histogram_multi.
+    Copies: the most of 8, 4, 2, 1 with which the block's shared memory
+    stays within ``MULTI_COPIES_SMEM``, else 1. Queries per launch: all nq
+    (at most ``MULTI_MAX_QUERIES``) if that block leaves two on an SM, else
+    as many as fit such a block with one copy."""
+    table_bits = min(bits - shift - radix_bits, MULTI_TABLE_BITS)
+    q = min(nq, MULTI_MAX_QUERIES)
+    fixed = _multi_smem_bytes(bits, radix_bits, table_bits, 0, 1)
+    per_query = _multi_smem_bytes(bits, radix_bits, table_bits, 1, 1) - fixed
+    q = min(q, (MULTI_SMEM_PER_BLOCK - fixed) // per_query)
+    fits = [c for c in (8, 4, 2) if _multi_smem_bytes(bits, radix_bits, table_bits, q, c) <= MULTI_COPIES_SMEM]
+    return q, (fits + [1])[0]
 
 
 def radix_histogram_multi(words, *, shift, radix_bits, prefixes, key_op="none", key_xor=0):
@@ -308,21 +334,21 @@ def radix_histogram_multi(words, *, shift, radix_bits, prefixes, key_op="none", 
     out = torch.zeros((nq, 1 << radix_bits), dtype=torch.int64, device=w.device)
     if n == 0:
         return out
-    # queries per launch: as many as one block's shared memory holds
-    per_launch = _SMEM_PER_BLOCK // _multi_smem_bytes(bits, radix_bits, 1)
-    smem = _multi_smem_bytes(bits, radix_bits, min(nq, per_launch))
-    per_sm = max(1, min(_BLOCKS_PER_SM, _SMEM_PER_SM // (smem + 1024)))  # 1 KB reserved per block
-    blocks = max(1, min(cap // _BLOCKS_PER_SM * per_sm, -(-n // (_THREADS * 16))))
-    # one uint32 histogram per block: a block counts at most its threads'
-    # ceil(n / threads) keys each, plus part of one 16-byte load
-    if (-(-n // (blocks * _THREADS)) + 4) * _THREADS >= 1 << 32:
+    per_launch, copies = multi_plan(bits, shift, radix_bits, nq)
+    # the kernel clamps the grid to the blocks resident at once, at least
+    # one per SM; a sub-histogram is shared by at most all of a block's
+    # threads, each of which counts ceil(n / threads) keys plus part of
+    # one 16-byte load
+    blocks = max(1, min(cap, -(-n // (_THREADS * 16))))
+    fewest = min(blocks, cap // _BLOCKS_PER_SM)
+    if (-(-n // (fewest * _THREADS)) + 4) * _THREADS >= 1 << 32:
         raise ValueError(f"n={n} overflows the per-block counters")
     with torch.cuda.device(w.device):
         for q0 in range(0, nq, per_launch):
             q1 = min(nq, q0 + per_launch)
             rc = getattr(lib, f"ksel_radix_histogram_multi{bits}")(
                 w.data_ptr(), n, shift, radix_bits, is_float, xor,
-                prefixes[q0:q1].data_ptr(), q1 - q0, out[q0:q1].data_ptr(), blocks, stream,
+                prefixes[q0:q1].data_ptr(), q1 - q0, copies, out[q0:q1].data_ptr(), blocks, stream,
             )
             _raise_on(lib, rc, f"radix_histogram_multi{bits}")
             LAUNCHES[f"radix_histogram_multi{bits}"] += 1

@@ -197,6 +197,120 @@ def test_multi_histogram_wrapper_checks():
         H.radix_histogram_multi(w, shift=0, radix_bits=4, prefixes=p, key_op="abs")
 
 
+def _prefix_sets(x, shift, rb, seed=11):
+    """Prefixes the kernel must answer in any form, by kind: ``shuffled``
+    (live prefixes in no order), ``reversed``, ``repeats`` (a few live
+    prefixes, each many times, interleaved), ``all_equal`` (one prefix K
+    times), ``absent`` (prefixes that no key holds, one of them past the
+    prefix width) and ``k64`` (64 queries: live, repeated and absent ones
+    shuffled). Linear in len(x): no sort of the keys."""
+    rng = np.random.default_rng(seed)
+    bits = x.dtype.itemsize * 8
+    width = bits - shift - rb
+    tops = dt.np_to_sortable_bits(x).astype(np.uint64) >> np.uint64(shift + rb)
+    held = np.zeros(min(1 << width, 4096), bool)
+    held[tops[tops < len(held)].astype(np.int64)] = True
+    absent = [int(v) for v in np.flatnonzero(~held)[:3]] + [(1 << width) + 1]
+    sample = np.unique(tops[rng.integers(0, len(tops), 64)])
+    picks = [int(v) for v in rng.permutation(sample)[:8]]
+    return {
+        "shuffled": picks,
+        "reversed": sorted(picks, reverse=True),
+        "repeats": [picks[i % 3] for i in (0, 1, 2, 0, 2, 1, 1, 0)],
+        "all_equal": [picks[0]] * 6,
+        "absent": absent,
+        "k64": [int(v) for v in rng.permutation(picks * 7 + absent[:3] + [picks[0]] * 5)],
+    }
+
+
+PREFIX_SETS = ("shuffled", "reversed", "repeats", "all_equal", "absent")
+
+
+def _set_cases(k64_dtype, other_dtype):
+    """Every prefix set on both dtypes, and K=64 (about 25 s in interpret
+    mode) on the first."""
+    return [(d, kind) for kind in PREFIX_SETS for d in (k64_dtype, other_dtype)] + [(k64_dtype, "k64")]
+
+
+@pytest.mark.parametrize(("dtype", "kind"), _set_cases(np.int32, np.float32))
+def test_multi_histogram32_prefix_sets_match_pallas(dtype, kind):
+    """The contract the kernel keeps whatever the prefixes' order, repeats
+    or presence: row q is the histogram under prefixes[q], against the
+    Pallas kernel (interpret mode) and NumPy. Shift 12 leaves 16 prefix
+    bits, so that valid prefixes can be absent from the data."""
+    import jax.numpy as jnp
+
+    from mpi_k_selection_tpu.ops.pallas.histogram import pallas_radix_histogram_multi, prepare_raw_tiles32
+
+    shift, rb = 12, 4
+    x = _raw_case(dtype, 256 * 128 + 55)
+    prefixes = _prefix_sets(x, shift, rb)[kind]
+    key_op, key_xor = _fold(dtype)
+    tiles, n = prepare_raw_tiles32(jnp.asarray(x), 256)
+    want = np.asarray(pallas_radix_histogram_multi(
+        shift=shift, radix_bits=rb, prefixes=jnp.asarray(np.array(prefixes, np.uint32)),
+        tiles=tiles, orig_n=n, block_rows=256, key_op=key_op, key_xor=key_xor,
+    ))
+    got = _port_multi(x, shift, rb, prefixes)
+    np.testing.assert_array_equal(got, want)
+    for q, p in enumerate(prefixes):
+        np.testing.assert_array_equal(got[q], _numpy_hist(x, shift, rb, p), err_msg=str(q))
+
+
+@pytest.mark.parametrize(("dtype", "kind"), _set_cases(np.float64, np.int64))
+def test_multi_histogram64_prefix_sets_match_pallas(dtype, kind):
+    """As the 32-bit test, against ``pallas_radix_histogram64_multi``
+    under x64 (shift 20: its lo-plane kernel)."""
+    import jax.numpy as jnp
+
+    from mpi_k_selection_tpu.ops.pallas.histogram import pallas_radix_histogram64_multi, prepare_raw_tiles64
+    from mpi_k_selection_tpu.utils.x64 import enable_x64
+
+    shift, rb = 20, 4
+    x = _raw_case(dtype, 256 * 128 + 55)
+    prefixes = _prefix_sets(x, shift, rb)[kind]
+    key_op, key_xor = _fold(dtype)
+    with enable_x64():
+        hi, lo, n = prepare_raw_tiles64(jnp.asarray(x), 256)
+        want = np.asarray(pallas_radix_histogram64_multi(
+            shift=shift, radix_bits=rb, prefixes=jnp.asarray(np.array(prefixes, np.uint64)),
+            tiles=(hi, lo), orig_n=n, block_rows=256, key_op=key_op, key_xor=key_xor,
+        ))
+    got = _port_multi(x, shift, rb, prefixes)
+    np.testing.assert_array_equal(got, want)
+    for q, p in enumerate(prefixes):
+        np.testing.assert_array_equal(got[q], _numpy_hist(x, shift, rb, p), err_msg=str(q))
+
+
+@pytest.mark.parametrize("bits", [32, 64])
+@pytest.mark.parametrize("rb", [4, 8])
+@pytest.mark.parametrize("nq", [1, 4, 64, 128, 300])
+def test_multi_plan_fits_two_blocks_per_sm(bits, rb, nq):
+    """The kernel's launch plan: every launch's block within the 227 KB a
+    block may hold and leaving two blocks on an SM (228 KB, 1 KB reserved
+    each); the most sub-histogram copies within ``MULTI_COPIES_SMEM``; the
+    queries split over as few launches as fit, for an exact prefix table
+    (pass 1) and a hashed one (a deep pass)."""
+    for shift in (bits - rb - 4, 0):
+        per_launch, copies = H.multi_plan(bits, shift, rb, nq)
+        table_bits = min(bits - shift - rb, H.MULTI_TABLE_BITS)
+        q = min(nq, per_launch)
+
+        def smem(queries, c):
+            return H._multi_smem_bytes(bits, rb, table_bits, queries, c)
+
+        assert smem(q, copies) <= 227 * 1024 and 2 * (smem(q, copies) + 1024) <= 228 * 1024, shift
+        assert copies in (8, 4, 2, 1) and 1 <= per_launch <= H.MULTI_MAX_QUERIES
+        assert copies == 1 or smem(q, copies) <= H.MULTI_COPIES_SMEM
+        if copies < 8:  # twice the copies would take too much
+            assert smem(q, 2 * copies) > H.MULTI_COPIES_SMEM
+        if per_launch < nq:  # one more query would not fit
+            assert smem(per_launch + 1, 1) > H.MULTI_SMEM_PER_BLOCK
+    # the many-ranks walk's own shapes take one launch
+    if rb == 4 and nq <= 128:
+        assert H.multi_plan(bits, bits - 8, rb, nq)[0] == nq
+
+
 @pytest.mark.parametrize("shape", [(1, 300), (4, 1000), (64, 3)])
 def test_row_cumsum_matches_cumsum_along_rows(shape):
     cnt = torch.randint(0, 129, shape, dtype=torch.int32, generator=torch.Generator().manual_seed(1))
@@ -365,6 +479,7 @@ def test_multi_histogram_kernel_matches_plain_on_card(cuda_device, dtype):
     bits = x.dtype.itemsize * 8
     key_op, key_xor = _fold(dtype)
     wdt = torch.int32 if bits == 32 else torch.int64
+    equal = tensor_from_numpy(np.full(len(x), 42, x.dtype), cuda_device)
     for rb in (4, 8):
         for shift in (bits - 2 * rb, bits - 3 * rb, 0):
             ps = _quartile_prefixes(x, shift, rb)
@@ -373,6 +488,15 @@ def test_multi_histogram_kernel_matches_plain_on_card(cuda_device, dtype):
                 kw = dict(shift=shift, radix_bits=rb, prefixes=p, key_op=key_op, key_xor=key_xor)
                 got = H.radix_histogram_multi(words, **kw)
                 assert torch.equal(got, H.radix_histogram_multi_plain(words, **kw)), (rb, shift, nq)
+            # reversed, shuffled, repeated, all equal and absent prefixes, and
+            # one prefix 64 times on all-equal data (one hot bin)
+            sets = [(words, kind, ps) for kind, ps in _prefix_sets(x, shift, rb).items()]
+            sets.append((equal, "one hot bin", _quartile_prefixes(np.full(4, 42, x.dtype), shift, rb)[:1] * 64))
+            for data, kind, ps in sets:
+                p = torch.tensor([dt.signed_const(v, bits) for v in ps], dtype=wdt, device=cuda_device)
+                kw = dict(shift=shift, radix_bits=rb, prefixes=p, key_op=key_op, key_xor=key_xor)
+                got = H.radix_histogram_multi(data, **kw)
+                assert torch.equal(got, H.radix_histogram_multi_plain(data, **kw)), (rb, shift, kind)
     # a storage offset breaks 16-byte alignment: the scalar loop
     p = torch.tensor([dt.signed_const(v, bits) for v in _quartile_prefixes(x[1:], bits - 8, 4)], dtype=wdt, device=cuda_device)
     kw = dict(shift=bits - 8, radix_bits=4, prefixes=p, key_op=key_op, key_xor=key_xor)
