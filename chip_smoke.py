@@ -23,9 +23,10 @@ Phases, each of which must pass (any failure exits non-zero):
    signs); and the sweep kernel (``sweep_ingest``) on a 2^26-word bucket
    of random words, 32- and 64-bit, ``n_valid`` below the bucket, two key
    transforms, exactly: each part alone and all five together, K in {1, 4}
-   histogram prefixes at radix widths 4 and 8, a sparse collect spec, one
-   every key matches and a two-spec tee union, a certificate key present
-   and absent, sketches of 8 and 20 bits.
+   histogram prefixes at radix widths 4 and 8 and K=70 (35 prefixes twice,
+   more than go by value), a sparse collect spec, one every key matches,
+   four specs and a two-spec tee union, a certificate key present and
+   absent, sketches of 8 and 20 bits.
 3. Drive the main paths, each with the launch counts set to 0 just before
    it and read just after (each of its kernels must have launched and no
    plain version may have run), each answer equal
@@ -78,7 +79,14 @@ Phases, each of which must pass (any failure exits non-zero):
    (passes x bytes over the host-to-card rate of a pinned 2^26-word copy
    timed in the same run) and beside the resident median of the same data
    whole on the card (a fault there is printed and the resident median
-   timed at 2^31); the sweep kernel alone at a 2^26-word bucket beside
+   timed at 2^31); the sweep kernel at each launch kind the streamed paths
+   issue, on the int32 stream's chunk 0 and the float64 stream's chunk 0
+   (a first pass, one and 4 prefixes, the collect of one and of 4 specs, a
+   certificate), held exactly against its plain version first, the kernel
+   alone (torch.profiler) and the whole call beside a bound that counts
+   the returned survivor buffers (L words each) and beside the old bound
+   that counted the survivors only; and the sweep kernel at a 2^26-word
+   bucket (a histogram with one collect spec, and all five parts) beside
    ``torch.bincount`` + ``torch.masked_select`` on the same tensor.
 5. Profile two medians, one K=4 ``quantiles`` of 2^30 int32, one
    ``topk`` of 2^26 float32, one ``batched_topk`` k=8 of (4096, 32768)
@@ -365,9 +373,10 @@ def multi_prefix_sets(w: torch.Tensor, bits: int, gen):
 def sweep_cases(bits: int, keys: torch.Tensor):
     """(label, parts) of the sweep kernel's checks: each part alone and all
     five together; K in {1, 4} histogram prefixes (one repeated) at radix
-    widths 4 and 8; a sparse collect spec (the top 8 bits of a key: about
-    1/256 of random words survive), a spec every key matches (0 resolved
-    bits, a shift of the word width) and a two-spec tee union; a
+    widths 4 and 8, and K=70 (35 prefixes twice: more than go by value); a
+    sparse collect spec (the top 8 bits of a key: about 1/256 of random
+    words survive), a spec every key matches (0 resolved bits, a shift of
+    the word width), four specs in one scan and a two-spec tee union; a
     certificate key present in and absent from the data; sketches of 8 and
     20 bits."""
     u = [v & ((1 << bits) - 1) for v in keys[:64].tolist()]
@@ -384,7 +393,10 @@ def sweep_cases(bits: int, keys: torch.Tensor):
         ("hist K=1 rb=4", hist1), ("hist K=4 rb=8", hist4),
         ("hist K=1 rb=8 under a 16-bit prefix", dict(hist_prefixes=[top(6, 16)], shift=bits - 24, radix_bits=8)),
         ("hist K=4 rb=4", dict(hist4, shift=bits - 12, radix_bits=4)),
+        ("hist K=70, 35 prefixes twice (a device array)",
+         dict(hist_prefixes=[top(i, 12) for i in range(35)] * 2, shift=bits - 20, radix_bits=8)),
         ("collect sparse", dict(collect=[sparse])), ("collect every key", dict(collect=[every])),
+        ("collect four specs", dict(collect=[sparse, (bits - 8, top(8, 8)), (bits - 16, top(9, 16)), every])),
         ("tee union of two specs", tee),
         ("cert, key present", dict(vkey=u[7])), ("cert, key absent", dict(vkey=absent)),
         ("sketch 8", dict(sketch_bits=8)), ("sketch 20", dict(sketch_bits=20)),
@@ -1011,14 +1023,16 @@ def phase_streaming():
 
 
 def phase_streaming_timing(ints, f64):
-    """Phase 4 for the streamed paths: the streaming median and quantiles
-    of the 2^32 int32 stream at depth 2 and 0, each beside its bound (the
-    passes it read times the stream's bytes over the host-to-card rate of
-    a pinned 2^26-word copy timed here) and beside the resident ``median``
-    of the same data placed whole on the card; then the sweep kernel alone
-    at a 2^26-word bucket, 32- and 64-bit, beside its bound, its plain
-    version and ``torch.bincount`` + ``torch.masked_select`` on the same
-    tensor (a yardstick the port never calls)."""
+    """Phase 4 for the streamed paths: the sweep kernel at each launch kind
+    of the streamed paths (:func:`sweep_kind_rows`); the streaming median
+    and quantiles of the 2^32 int32 stream at depth 2 and 0, each beside
+    its bound (the passes it read times the stream's bytes over the
+    host-to-card rate of a pinned 2^26-word copy timed here) and beside
+    the resident ``median`` of the same data placed whole on the card; then
+    the sweep kernel at a 2^26-word bucket, 32- and 64-bit, beside its
+    bound, its plain version and ``torch.bincount`` +
+    ``torch.masked_select`` on the same tensor (a yardstick the port never
+    calls)."""
     import mpi_k_selection_tpu_torch as kt
     from mpi_k_selection_tpu_torch import api
     from mpi_k_selection_tpu_torch.ops.cuda import sweep_ingest as S
@@ -1029,6 +1043,16 @@ def phase_streaming_timing(ints, f64):
     def row(what, ms, b, by, extra=""):
         rows.append({"what": what, "ms": ms, "bound_ms": b, "bound_by": by})
         print(f"[time] {what:<60} {ms:11.4f} ms   bound {b:9.4f} ms ({by}){extra}")
+
+    # the sweep kernel at the launch kinds of the streamed paths, on the
+    # int32 stream's chunk 0 and the float64 stream's chunk 0
+    kinds = {}
+    for bits, src, key_op, key_xor in ((32, ints, "xor", 1 << 31), (64, f64, "float", 0)):
+        c = src.chunks[0]
+        w = torch.from_numpy(c.view(np.int32 if bits == 32 else np.int64)).cuda()
+        kinds[f"sweep_ingest{bits}"] = sweep_kind_rows(row, bits, w, c, key_op, key_xor)
+        del w
+        torch.cuda.empty_cache()
 
     pinned = torch.empty(STREAM_CHUNK, dtype=torch.int32, pin_memory=True)
     pinned.copy_(torch.from_numpy(ints.chunks[0]))
@@ -1092,10 +1116,19 @@ def phase_streaming_timing(ints, f64):
             err = sweep_err(out, S.sweep_ingest_plain(w, n, **kw), f"sweep_ingest{bits} {label}")
             ms = cuda_ms(lambda: S.sweep_ingest(w, n, **kw))
             pms = cuda_ms(lambda: S.sweep_ingest_plain(w, n, **kw), iters=3, warmup=1)
+            # the bound: the read, the survivor buffers (L words each) and the
+            # sketch's counters written once; the old bound counted only the
+            # survivors among the buffers' words
+            buffers = len(out[1]) + (out[2] is not None)
             written = sum(int(c) for _, c in out[1]) + (int(out[2][1]) if out[2] is not None else 0)
-            compares = len(kw.get("hist_prefixes", ())) + len(kw.get("collect", ())) + len(kw.get("tee", ()))
-            b, by = bound(n * bits // 8 + written * bits // 8, n, OPS_PER_KEY + compares)
-            row(f"sweep_ingest{bits} {label}, 2^26 words", ms, b, by, f"   plain {pms:.4f} ms")
+            deep = 4 << kw.get("sketch_bits", 0) if kw.get("sketch_bits") else 0
+            compares = 1 + len(kw.get("collect", ())) + len(kw.get("tee", ()))  # one prefix lookup, the specs
+            b, by = bound(n * bits // 8 + buffers * n * bits // 8 + deep, n, OPS_PER_KEY + compares)
+            old_b, _ = bound(n * bits // 8 + written * bits // 8, n, OPS_PER_KEY + compares)
+            kms = kernel_device_ms(lambda: S.sweep_ingest(w, n, **kw), "sweep_ingest_kernel")
+            row(f"sweep_ingest{bits} {label}, 2^26 words", ms, b, by,
+                f"   plain {pms:.4f} ms; old bound {old_b:.4f} ms; kernel alone "
+                + ("not measured" if kms is None else f"{kms:.4f} ms"))
             print(f"[check] sweep_ingest{bits} {label} == plain at the timed bucket: max_abs_err {err}")
             if label == "hist K=1 + one collect spec":
                 kern[f"sweep_ingest{bits}"] = (ms, pms, b, by, err)
@@ -1111,7 +1144,84 @@ def phase_streaming_timing(ints, f64):
         torch.cuda.empty_cache()
     del w32, w64
     torch.cuda.empty_cache()
-    return rows, kern, library, stream_ms, resident_fault
+    return rows, kern, library, stream_ms, resident_fault, kinds
+
+
+def kernel_device_ms(fn, name: str, reps: int = 10):
+    """Device milliseconds per launch of the kernels whose name holds
+    ``name`` over ``reps`` calls of ``fn`` (torch.profiler), or None when
+    the profiler saw none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and name in e.key]
+    count = sum(e.count for e in evs)
+    return sum(e.self_device_time_total for e in evs) / 1e3 / count if count else None
+
+
+def sweep_kinds(bits: int, chunk: np.ndarray):
+    """(label, sweep_ingest parts) of each launch kind the streamed paths
+    issue, on one chunk of the stream, with the prefixes its own quantiles
+    give: a first pass (the top digit, no prefix); a pass under one prefix
+    (the median's top 8 bits) and under the 4 distinct 16-bit prefixes of
+    the p50/p90/p99/p99.9 keys (the quantiles); the collect of one sparse
+    spec (the median's top 24 bits) and of the 4 quantile keys' specs; and
+    a certificate (the median's key)."""
+    keys = host_keys(chunk)
+    n = keys.size
+    ranks = [n // 2] + [max(0, int(np.ceil(q * n)) - 1) for q in QS]
+    part = np.partition(keys, ranks)
+    med = int(part[ranks[0]])
+    qk = [int(part[r]) for r in ranks[1:]]
+    q16 = sorted({k >> (bits - 16) for k in qk})
+    return [
+        ("hist, no prefix (pass 0)", dict(hist_prefixes=[0], shift=bits - 8, radix_bits=8)),
+        ("hist, 1 prefix", dict(hist_prefixes=[med >> (bits - 8)], shift=bits - 16, radix_bits=8)),
+        (f"hist, {len(q16)} distinct prefixes", dict(hist_prefixes=q16, shift=bits - 24, radix_bits=8)),
+        ("collect, 1 sparse spec", dict(collect=[(bits - 24, med >> (bits - 24))])),
+        ("collect, 4 specs", dict(collect=[(bits - 24, k >> (bits - 24)) for k in qk])),
+        ("certificate", dict(vkey=med)),
+    ]
+
+
+def sweep_kind_rows(row, bits: int, w: torch.Tensor, chunk: np.ndarray, key_op: str, key_xor: int) -> dict:
+    """Phase 4 for the sweep kernel at each launch kind of :func:`sweep_kinds`
+    on the chunk's words ``w`` on the card: held exactly against the plain
+    version first, then the kernel's own device time (torch.profiler) and
+    the whole ``sweep_ingest`` call (CUDA events), each beside its share of
+    the bound. The bound counts the read and every returned survivor
+    buffer as written bytes (L words each: the survivors, then zeros); the
+    old bound, beside it, counted the survivors only."""
+    from mpi_k_selection_tpu_torch.ops.cuda import sweep_ingest as S
+    from mpi_k_selection_tpu_torch.utils.timing import cuda_ms
+
+    n, wb = w.numel(), bits // 8
+    out = {}
+    for label, parts in sweep_kinds(bits, chunk):
+        kw = dict(key_op=key_op, key_xor=key_xor, **parts)
+        got = S.sweep_ingest(w, n, **kw)
+        err = sweep_err(got, S.sweep_ingest_plain(w, n, **kw), f"sweep_ingest{bits} {label}")
+        survivors = sum(int(c) for _, c in got[1])
+        n_surv = len(got[1])
+        b, by = bound(n * wb + n_surv * n * wb, n)
+        old_b, _ = bound(n * wb + survivors * wb, n)
+        kms = kernel_device_ms(lambda: S.sweep_ingest(w, n, **kw), "sweep_ingest_kernel")
+        ms = cuda_ms(lambda: S.sweep_ingest(w, n, **kw))
+        alone = "not measured" if kms is None else f"{kms:.4f} ms ({b / kms:.0%}; {old_b / kms:.0%} of the old)"
+        row(f"sweep_ingest{bits} {label}, a {n}-word chunk", ms, b, by,
+            f"   call {b / ms:.0%} of bound; old bound {old_b:.4f} ms; kernel alone {alone}; "
+            f"{survivors} survivors; max_abs_err {err}")
+        out[label] = {"kernel_ms": kms, "call_ms": ms, "bound_ms": b, "old_bound_ms": old_b,
+                      "survivors": survivors, "max_abs_err": err}
+        del got
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -1142,7 +1252,8 @@ def main() -> int:
     launches.update(stream_launches)
     per_call.update(stream_per_call)
     notes.update(stream_notes)
-    srows, skern, slibrary, stream_ms, resident_fault = phase_streaming_timing(ints, f64)
+    srows, skern, slibrary, stream_ms, resident_fault, sweep_kinds_ms = phase_streaming_timing(ints, f64)
+    notes["sweep_kinds"] = sweep_kinds_ms
     rows += srows
     kern.update(skern)
     library.update(slibrary)

@@ -32,12 +32,19 @@ whatever their bits. Keys, prefixes and ``vkey`` are unsigned key values
 
 A CUDA tensor launches ``csrc/sweep_ingest.cu`` or raises; a CPU tensor
 takes :func:`sweep_ingest_plain`. ``LAUNCHES`` counts kernel launches and
-``PLAIN_CALLS`` the plain version's calls.
+``PLAIN_CALLS`` the plain version's calls. :func:`sweep_plan` lays out a
+launch: its route (order-free without survivor buffers, ordered with
+them), tiles, grid and shared memory. One launch serves a bucket, unless
+it holds more than ``MAX_TABLE_PREFIXES`` distinct histogram prefixes.
+The outputs are views of one zeroed arena of counters, and each survivor
+buffer is written whole by the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -49,8 +56,32 @@ MAX_BITS = 20  # the widest histogram, a digit or the sketch: 2^20 int32 counter
 LAUNCHES = {"sweep_ingest32": 0, "sweep_ingest64": 0}
 PLAIN_CALLS = {"sweep_ingest": 0}
 
-_THREADS = 256  # kThreads in csrc/sweep_ingest.cu
-_BLOCKS_PER_SM = 8
+# The kernel's geometry (csrc/sweep_ingest.cu mirrors each number). The
+# order-free route (no survivor buffer) streams with THREADS-thread blocks
+# and UNROLL 16-byte loads in flight per thread; the ordered route takes
+# TILE_BYTES tiles by ticket into STAGES shared-memory stages, with
+# ORD_THREADS-thread blocks and a ROW_BYTES staging row per warp.
+ORDER_FREE, ORDERED = "order-free", "ordered"
+THREADS, UNROLL = 256, 4
+ORD_THREADS, TILE_BYTES, STAGES, ROW_BYTES = 512, 64 * 1024, 3, 512
+# Parameters travel by value up to PARAM_PREFIXES distinct prefixes and
+# PARAM_SPECS specs, in device arrays above. The prefix table holds up to
+# 2^TABLE_BITS entries, at most half used: more distinct prefixes than
+# MAX_TABLE_PREFIXES take more launches (histograms only).
+PARAM_PREFIXES, PARAM_SPECS = 64, 16
+TABLE_BITS = 12
+MAX_TABLE_PREFIXES = 1 << (TABLE_BITS - 1)
+# Shared memory: an H100 SM's 228 KB (1 KB reserved per block) and a
+# block's 227 KB, less 1 KB for the kernel's static variables; one
+# histogram copy or the sketch counters in shared memory up to HIST_SMEM;
+# sub-histogram copies up to COPIES_SMEM, an eighth of the SM's (the rest
+# is L1, which holds the loads in flight).
+SMEM_PER_SM, SMEM_RESERVED, SMEM_PER_BLOCK = 228 * 1024, 1024, 226 * 1024
+MAX_THREADS_PER_SM = 2048
+HIST_SMEM = 64 * 1024
+COPIES_SMEM = SMEM_PER_SM // 8
+
+_SMS: dict[int, int] = {}  # SM count per CUDA device index
 
 
 def reset_counts() -> None:
@@ -90,7 +121,8 @@ def _on_device(values, w):
     """Unsigned key values as a tensor of the words' signed view on the
     words' CUDA device, copied from pinned memory without a host wait (a
     pageable copy would wait for the stream, which waits for the chunk's
-    own copy to the card)."""
+    own copy to the card): the prefixes or specs past what a launch takes
+    by value."""
     bits = w.element_size() * 8
     host = torch.tensor([_dt.signed_const(int(v), bits) for v in values], dtype=w.dtype).pin_memory()
     return host.to(w.device, non_blocking=True)
@@ -151,6 +183,130 @@ def sweep_ingest_plain(data, n_valid, *, key_op="none", key_xor=0, shift=0, radi
     return hist, collect_out, tee_out, cert, sketch
 
 
+class SweepPlan(NamedTuple):
+    """One launch of the sweep kernel, as :func:`sweep_plan` lays it out
+    (``csrc/sweep_ingest.cu``, ``launch`` and ``layout``)."""
+
+    route: str  # ORDER_FREE or ORDERED
+    threads: int
+    tile_words: int  # words per ticket (ordered route), else 0
+    n_tiles: int
+    tbits: int  # prefix table bits (more than one prefix), else 0
+    copies: int  # sub-histogram copies
+    hist_smem: bool  # histogram counters in shared memory (else global)
+    deep_smem: bool  # sketch counters in shared memory (else global)
+    smem: int  # dynamic shared memory of one block, bytes
+    per_sm: int  # blocks an SM holds, by threads and shared memory
+    blocks: int  # the grid asked for: at most per_sm per SM, at most the work
+    prefixes_by_value: bool  # else the prefixes travel in a device array
+    specs_by_value: bool  # else the specs travel in a device array
+
+
+def _smem_bytes(route, bits, nd, tbits, copies, radix_bits, hist_smem, n_specs, sketch_bits, deep_smem) -> int:
+    """Dynamic shared memory of one block (``csrc/sweep_ingest.cu:layout``):
+    the tile stages, the warps' row staging and the specs (ordered route),
+    the prefix table and the prefixes (more than one prefix), the
+    sub-histogram copies and the sketch counters, each 16-byte aligned."""
+    def a16(b):
+        return -(-b // 16) * 16
+
+    wb = bits // 8
+    total = 0
+    if route == ORDERED:
+        total += STAGES * TILE_BYTES + (ORD_THREADS // 32) * ROW_BYTES + a16(2 * n_specs * wb)
+    if nd > 1:
+        total += a16(2 << tbits) + a16(nd * wb)
+    if hist_smem:
+        total += copies * nd * (4 << radix_bits)
+    if deep_smem:
+        total += 4 << sketch_bits
+    return total
+
+
+def sweep_plan(bits: int, n: int, *, nd: int, shift: int = 0, radix_bits: int = 1, n_collect: int = 0,
+               n_tee: int = 0, sketch_bits: int = 0, sms: int) -> SweepPlan:
+    """The launch of the sweep kernel over an ``n``-word bucket of
+    ``bits``-wide words with ``nd`` distinct histogram prefixes (at most
+    ``MAX_TABLE_PREFIXES``), ``n_collect`` collect and ``n_tee`` tee specs
+    and a sketch of ``sketch_bits``, on a card of ``sms`` SMs.
+
+    The route: ordered when any survivor buffer is asked for, else
+    order-free. Shared memory, in order of need within the block's 227 KB:
+    the fixed parts of the route; the histogram's counters when one copy
+    fits ``HIST_SMEM`` (else global atomics), in the most of 8, 4, 2
+    copies within ``COPIES_SMEM`` (the rest of an SM's shared memory is
+    L1, which holds the loads in flight), else one; the sketch's counters
+    when they fit ``HIST_SMEM`` and the block. The grid: every block
+    resident at once (the kernel clamps it further by the occupancy of
+    its registers), and no more blocks than work."""
+    if not 0 <= nd <= MAX_TABLE_PREFIXES:
+        raise ValueError(f"{nd} distinct prefixes in one launch; at most {MAX_TABLE_PREFIXES}")
+    n_specs = n_collect + n_tee
+    route = ORDERED if n_specs else ORDER_FREE
+    threads = ORD_THREADS if route == ORDERED else THREADS
+    tile_words = TILE_BYTES // (bits // 8) if route == ORDERED else 0
+    n_tiles = -(-n // tile_words) if tile_words else 0
+    pbits = bits - shift - radix_bits
+    tbits = min(pbits, TABLE_BITS) if nd > 1 else 0
+
+    def smem(copies, hist_smem, deep_smem):
+        return _smem_bytes(route, bits, nd, tbits, copies, radix_bits, hist_smem, n_specs, sketch_bits, deep_smem)
+
+    copy = nd * (4 << radix_bits)
+    hist_smem = 0 < copy <= HIST_SMEM and smem(1, True, False) <= SMEM_PER_BLOCK
+    copies = 1
+    if hist_smem:
+        fits = [c for c in (8, 4, 2) if c * copy <= COPIES_SMEM and smem(c, True, False) <= SMEM_PER_BLOCK]
+        copies = (fits + [1])[0]
+    deep_smem = bool(sketch_bits) and 4 << sketch_bits <= HIST_SMEM and smem(copies, hist_smem, True) <= SMEM_PER_BLOCK
+    nbytes = smem(copies, hist_smem, deep_smem)
+    per_sm = max(1, min(MAX_THREADS_PER_SM // threads, SMEM_PER_SM // (nbytes + SMEM_RESERVED)))
+    work = n_tiles if route == ORDERED else -(-n // (THREADS * UNROLL * 16 // (bits // 8)))
+    return SweepPlan(
+        route=route, threads=threads, tile_words=tile_words, n_tiles=n_tiles, tbits=tbits, copies=copies,
+        hist_smem=hist_smem, deep_smem=deep_smem, smem=nbytes, per_sm=per_sm,
+        blocks=max(1, min(per_sm * sms, work)), prefixes_by_value=nd <= PARAM_PREFIXES,
+        specs_by_value=n_specs <= PARAM_SPECS,
+    )
+
+
+def distinct_prefixes(bits: int, shift: int, radix_bits: int, prefixes) -> tuple[list[int], list[int]]:
+    """(the distinct prefixes a key can hold, in first-seen order; the row
+    of each query). A query's prefix is ``p mod 2^(bits - radix_bits)``
+    (the plain version's ``(p << radix_bits)`` in a ``bits``-wide word);
+    one no key can hold (at least ``2^(bits - shift - radix_bits)``) takes
+    row ``len(distinct)``, which stays zero."""
+    pbits = bits - shift - radix_bits
+    rows, distinct, out = {}, [], []
+    for p in prefixes:
+        pe = int(p) & ((1 << (bits - radix_bits)) - 1)
+        if pe >> pbits:
+            out.append(-1)
+            continue
+        if pe not in rows:
+            rows[pe] = len(distinct)
+            distinct.append(pe)
+        out.append(rows[pe])
+    return distinct, [len(distinct) if r < 0 else r for r in out]
+
+
+def spec_masks(bits: int, specs) -> tuple[list[int], list[int]]:
+    """(masks, wants) with ``key & mask == want`` exactly when ``key >>
+    shift == prefix`` for each ``(shift, prefix)`` spec: a shift of the word
+    width keeps no bits (JAX's logical shift gives 0 there), and a prefix
+    wider than the bits left never matches (mask 0, want 1)."""
+    full = (1 << bits) - 1
+    masks, wants = [], []
+    for s, p in specs:
+        if p >> (bits - s):
+            masks.append(0)
+            wants.append(1)
+        else:
+            masks.append((full << s) & full)
+            wants.append((p << s) & full)
+    return masks, wants
+
+
 def _lib():
     from mpi_k_selection_tpu_torch.ops.cuda import build
 
@@ -159,12 +315,89 @@ def _lib():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         for bits, xt in ((32, ctypes.c_uint32), (64, ctypes.c_uint64)):
             f = getattr(lib, f"ksel_sweep_ingest{bits}")
-            f.argtypes = [p, ll, ll, i, xt, p, i, i, i, i, i, i, xt, i, p, p, p, p, p, p, p, i, p]
+            f.argtypes = [
+                p, ll, ll, i, xt,  # data, L, n_valid, is_float, key_xor
+                i, p, p, i, i, i, i, i, i,  # nd, prefixes (host, device), shift, rb, pbits, tbits, copies, hist_smem
+                i, i, p, p,  # nc, nt, specs (host, device)
+                i, xt, i, i,  # cert, vkey, sketch_bits, deep_smem
+                p, p, p, p, p, p, p, p, p,  # hist, counts, cert, deep, ext, done, ticket, status, surv
+                p, ll, i, i, p,  # arena, its bytes (cleared by the launch), blocks, sms, stream
+            ]
             f.restype = i
         lib.ksel_sweep_error_string.argtypes = [i]
         lib.ksel_sweep_error_string.restype = ctypes.c_char_p
         lib._ksel_typed = True
     return lib
+
+
+def _sm_count(dev) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def _host_words(values, bits):
+    """``values`` as a ctypes array of unsigned words (read by the launch
+    on the host, then passed to the kernel by value)."""
+    ct = ctypes.c_uint32 if bits == 32 else ctypes.c_uint64
+    return (ct * max(1, len(values)))(*values)
+
+
+class _Layout(NamedTuple):
+    """Everything of a launch that depends on its arguments' values only:
+    the histogram's launch groups and rows, the specs, the plans and the
+    arena's offsets (int32 words)."""
+
+    groups: tuple  # (distinct prefixes, their host array, plan) per launch
+    rows: tuple  # each query's row (``nd``: the zero row)
+    identity: bool  # rows == 0 .. nq - 1
+    specs: object  # masks then wants, a host array
+    spec_words: tuple
+    n_surv: int
+    hist_words: int
+    off_counts: int
+    off_cert: int
+    off_done: int
+    off_deep: int
+    off_ext: int
+    off_status: int
+    total: int
+
+
+@functools.lru_cache(maxsize=256)
+def _layout(bits, n, shift, radix_bits, prefixes, collect, tee, sketch_bits, sms) -> _Layout:
+    distinct, rows = distinct_prefixes(bits, shift, radix_bits, prefixes or ())
+    nd = len(distinct)
+    nb = 1 << radix_bits
+    nc, nt = len(collect), len(tee)
+    n_surv = nc + (1 if tee else 0)
+    groups = []
+    for g0 in range(0, max(nd, 1), MAX_TABLE_PREFIXES):
+        group = distinct[g0:g0 + MAX_TABLE_PREFIXES]
+        first = g0 == 0
+        plan = sweep_plan(bits, n, nd=len(group), shift=shift, radix_bits=radix_bits, n_collect=nc if first else 0,
+                          n_tee=nt if first else 0, sketch_bits=sketch_bits if first else 0, sms=sms)
+        groups.append((tuple(group), _host_words(group, bits), plan))
+    masks, wants = spec_masks(bits, list(collect) + list(tee))
+    # the arena: the histogram rows (one more, kept zero, for prefixes no
+    # key holds), the collect counts, the certificate, the done and ticket
+    # counters, the sketch counters, the extremes, the look-back words
+    hist_words = (nd + 1) * nb if prefixes is not None and len(prefixes) else 0
+    off_counts = hist_words
+    off_cert = off_counts + n_surv
+    off_done = off_cert + 2
+    off_deep = off_done + 2
+    off_ext = off_deep + (1 << sketch_bits if sketch_bits else 0)
+    off_ext += off_ext & 1  # 8-byte aligned
+    off_status = off_ext + bits // 16
+    return _Layout(
+        groups=tuple(groups), rows=tuple(rows), identity=rows == list(range(len(rows))),
+        specs=_host_words(masks + wants, bits), spec_words=tuple(masks + wants), n_surv=n_surv,
+        hist_words=hist_words, off_counts=off_counts, off_cert=off_cert, off_done=off_done,
+        off_deep=off_deep, off_ext=off_ext, off_status=off_status,
+        total=off_status + 2 * n_surv * groups[0][2].n_tiles,
+    )
 
 
 def sweep_ingest(data, n_valid, *, key_op="none", key_xor=0, shift=0, radix_bits=1,
@@ -187,43 +420,67 @@ def sweep_ingest(data, n_valid, *, key_op="none", key_xor=0, shift=0, radix_bits
     bits = w.element_size() * 8
     dev = w.device
     n = w.numel()
-    nq = 0 if hist_prefixes is None else len(hist_prefixes)
     nb = 1 << radix_bits
-    n_surv = len(collect) + (1 if tee else 0)
-    params = _on_device(
-        [(int(p) << radix_bits) & ((1 << bits) - 1) for p in (hist_prefixes or ())]
-        + [s for s, _ in collect] + [p for _, p in collect] + [s for s, _ in tee] + [p for _, p in tee]
-        or [0],
-        w,
-    )
-    hist = torch.zeros((nq, nb), dtype=torch.int32, device=dev)
-    counts = torch.zeros(n_surv, dtype=torch.int32, device=dev)
-    surv = torch.zeros((n_surv, n), dtype=w.dtype, device=dev)  # zeros after the survivors
-    cert = torch.zeros(2, dtype=torch.int32, device=dev)
-    deep = torch.zeros(1 << sketch_bits if sketch_bits else 0, dtype=torch.int32, device=dev)
-    ext = _on_device([(1 << bits) - 1, 0], w)  # the unsigned min / max identities
-    tiles = -(-n // (_THREADS * 64 // w.element_size()))
-    scratch = torch.zeros(1 + n_surv * tiles, dtype=torch.int64, device=dev)  # ticket, tile status
+    nq = 0 if hist_prefixes is None else len(hist_prefixes)
+    sms = _sm_count(dev)
+    lay = _layout(bits, n, shift, radix_bits, None if hist_prefixes is None else tuple(int(p) for p in hist_prefixes),
+                  tuple((int(s), int(p)) for s, p in collect), tuple((int(s), int(p)) for s, p in tee),
+                  sketch_bits, sms)
+    # one arena of int32 words, cleared by the launch's one memset; every
+    # word of a survivor buffer is written by the kernel: the survivors,
+    # then zeros
+    arena = torch.empty(lay.total, dtype=torch.int32, device=dev)
+    surv = torch.empty((lay.n_surv, n), dtype=w.dtype, device=dev)
+    base = arena.data_ptr()
     if n:
         lib = _lib()
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        fn = getattr(lib, f"ksel_sweep_ingest{bits}")
         xor = (key_xor & ((1 << bits) - 1)) if key_op == "xor" else 0
+        first = lay.groups[0][2]
+        spec_dev = None if first.specs_by_value else _on_device(lay.spec_words, w)
+        stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
-            rc = getattr(lib, f"ksel_sweep_ingest{bits}")(
-                w.data_ptr(), n, n_valid, int(key_op == "float"), xor, params.data_ptr(),
-                nq, shift, radix_bits, len(collect), len(tee), int(vkey is not None),
-                0 if vkey is None else int(vkey), sketch_bits, hist.data_ptr(), counts.data_ptr(),
-                surv.data_ptr(), cert.data_ptr(), deep.data_ptr(), ext.data_ptr(), scratch.data_ptr(),
-                sms * _BLOCKS_PER_SM, torch.cuda.current_stream(dev).cuda_stream,
-            )
-        if rc != 0:
-            raise RuntimeError(f"sweep_ingest{bits} launch failed: {lib.ksel_sweep_error_string(rc).decode()}")
-        LAUNCHES[f"sweep_ingest{bits}"] += 1
-    pairs = [(surv[j], counts[j]) for j in range(n_surv)]
+            for g, (group, host, plan) in enumerate(lay.groups):
+                pref_dev = None if plan.prefixes_by_value else _on_device(group, w)
+                rc = fn(
+                    w.data_ptr(), n, n_valid, int(key_op == "float"), xor,
+                    len(group), ctypes.cast(host, ctypes.c_void_p), pref_dev.data_ptr() if pref_dev is not None else None,
+                    shift, radix_bits, bits - shift - radix_bits, plan.tbits, plan.copies, int(plan.hist_smem),
+                    len(collect) if g == 0 else 0, len(tee) if g == 0 else 0,
+                    ctypes.cast(lay.specs, ctypes.c_void_p), spec_dev.data_ptr() if spec_dev is not None else None,
+                    int(g == 0 and vkey is not None), 0 if vkey is None else int(vkey),
+                    sketch_bits if g == 0 else 0, int(plan.deep_smem),
+                    base + 4 * g * MAX_TABLE_PREFIXES * nb, base + 4 * lay.off_counts, base + 4 * lay.off_cert,
+                    base + 4 * lay.off_deep, base + 4 * lay.off_ext, base + 4 * lay.off_done,
+                    base + 4 * lay.off_done + 4, base + 4 * lay.off_status, surv.data_ptr(),
+                    base, 4 * lay.total if g == 0 else 0, plan.blocks, sms, stream,
+                )
+                if rc != 0:
+                    raise RuntimeError(
+                        f"sweep_ingest{bits} launch failed: {lib.ksel_sweep_error_string(rc).decode()}"
+                    )
+                LAUNCHES[f"sweep_ingest{bits}"] += 1
+    else:
+        arena.zero_()
+        if sketch_bits:
+            arena[lay.off_ext:lay.off_status].view(w.dtype)[0] = -1  # no launch: the minimum's identity
+    hist = None
+    if nq:
+        region = arena[:lay.hist_words].view(-1, nb)
+        hist = region[:nq] if lay.identity else torch.stack([region[r] for r in lay.rows])
+    elif hist_prefixes is not None:
+        hist = torch.zeros((0, nb), dtype=torch.int32, device=dev)
+    counts = arena[lay.off_counts:lay.off_cert]
+    pairs = [(surv[j], counts[j]) for j in range(lay.n_surv)]
+    cert = arena[lay.off_cert:lay.off_done] if vkey is not None else None
+    sketch = None
+    if sketch_bits:
+        ext = arena[lay.off_ext:lay.off_status].view(w.dtype)
+        sketch = (arena[lay.off_deep:lay.off_deep + (1 << sketch_bits)], ext[0], ext[1])
     return (
-        hist if hist_prefixes is not None else None,
+        hist,
         tuple(pairs[: len(collect)]),
         pairs[-1] if tee else None,
-        (cert[0], cert[1]) if vkey is not None else None,
-        (deep, ext[0], ext[1]) if sketch_bits else None,
+        (cert[0], cert[1]) if cert is not None else None,
+        sketch,
     )

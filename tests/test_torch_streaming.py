@@ -182,6 +182,143 @@ def test_plain_matches_jax_sweep_kernel(bucket):
         _assert_parts_equal(got, *ref)
 
 
+def test_plain_matches_jax_sweep_kernel_on_hot_bins():
+    """The stream's own data (values in [1, 10^8]: the top digit takes a few
+    values, each key repeats) in a 2^14 bucket, against
+    ``sweep_ingest_core`` in interpret mode: K=4 histogram prefixes with a
+    repeat, 4 collect specs (one that no key holds), a tee union and the
+    certificate."""
+    import jax.numpy as jnp
+
+    from mpi_k_selection_tpu.ops.pallas import sweep_ingest as si
+
+    rng = np.random.default_rng(7)
+    bucket, n_valid = 1 << 14, (1 << 14) - 300
+    vals = rng.integers(1, 10**8, size=bucket, endpoint=True).astype(np.int32)
+    keys = vals.view(np.uint32) ^ np.uint32(1 << 31)
+    keys[n_valid:] = 0  # the JAX staging contract: pads are key 0
+    u = [int(v) for v in keys[:64]]
+    prefixes = [u[0] >> 24, u[1] >> 24, u[2] >> 24, u[0] >> 24]
+    collect = [(8, u[3] >> 8), (8, u[4] >> 8), (16, u[5] >> 16), (8, (1 << 24) - 1)]
+    tee = [(16, u[6] >> 16), (8, u[7] >> 8)]
+    cs, cp = _spec_arrays(collect, np.uint32)
+    ts, tp = _spec_arrays(tee, np.uint32)
+    ref = si.sweep_ingest_core(
+        jnp.asarray(keys), np.int32(n_valid), jnp.asarray(np.array(prefixes, np.uint32)),
+        jnp.asarray(cs), jnp.asarray(cp), jnp.asarray(ts), jnp.asarray(tp), np.uint32(u[8]),
+        shift=16, radix_bits=8, hist_mode="multi", n_collect=4, n_tee=2, cert=True,
+        sketch_bits=0, block_rows=8, interpret=True,
+    )
+    assert int(ref[1][3][1]) == 0 and int(ref[1][0][1]) > 0  # the absent spec, a present one
+    assert np.count_nonzero(np.asarray(ref[0])) <= 4 * 256 and np.asarray(ref[0])[0].sum() > n_valid // 8
+    raw = keys.view(np.int32) ^ np.int32(-(1 << 31))
+    raw[n_valid:] = rng.integers(-(1 << 31), 1 << 31, size=bucket - n_valid).astype(np.int32)  # pads: any bits
+    S.reset_counts()
+    hist, got_collect, got_tee, cert, sketch = S.sweep_ingest(
+        torch.from_numpy(raw), n_valid, key_op="xor", key_xor=1 << 31, shift=16, radix_bits=8,
+        hist_prefixes=prefixes, collect=collect, tee=tee, vkey=u[8],
+    )
+    assert S.PLAIN_CALLS["sweep_ingest"] == 1 and sketch is None
+    np.testing.assert_array_equal(hist.numpy(), np.asarray(ref[0]))
+    for (buf, cnt), (wbuf, wcnt) in zip(got_collect + (got_tee,), tuple(ref[1]) + (ref[2],)):
+        assert buf.numpy().view(np.uint32).tobytes() == np.asarray(wbuf).tobytes()
+        assert int(cnt) == int(wcnt)
+    assert (int(cert[0]), int(cert[1])) == (int(ref[3][0]), int(ref[3][1]))
+
+
+_PLAN_CASES = {  # label: (sweep_plan keywords, route)
+    "first pass": (dict(nd=1, shift=-8, radix_bits=8), S.ORDER_FREE),
+    "4 prefixes, exact table": (dict(nd=4, shift=-16, radix_bits=8), S.ORDER_FREE),
+    "4 prefixes, hashed table": (dict(nd=4, shift=-24, radix_bits=8), S.ORDER_FREE),
+    "64 prefixes, by value": (dict(nd=64, shift=-24, radix_bits=8), S.ORDER_FREE),
+    "65 prefixes, a device array": (dict(nd=65, shift=-24, radix_bits=8), S.ORDER_FREE),
+    "2048 prefixes, 12-bit digit": (dict(nd=2048, shift=-36, radix_bits=12), S.ORDER_FREE),
+    "certificate": (dict(nd=0), S.ORDER_FREE),
+    "sketch of 20 bits": (dict(nd=0, sketch_bits=20), S.ORDER_FREE),
+    "collect, 1 spec": (dict(nd=0, n_collect=1), S.ORDERED),
+    "collect, 4 specs": (dict(nd=0, n_collect=4), S.ORDERED),
+    "collect, 17 specs, a device array": (dict(nd=0, n_collect=17), S.ORDERED),
+    "all five": (dict(nd=4, shift=-16, radix_bits=8, n_collect=2, n_tee=2, sketch_bits=20), S.ORDERED),
+}
+
+
+@pytest.mark.parametrize("bits", [32, 64])
+@pytest.mark.parametrize("case", list(_PLAN_CASES))
+def test_sweep_plan_routes_tiles_grid_and_budget(bits, case):
+    """The kernel's launch plan for each part set: the ordered route exactly
+    when a survivor buffer is asked for; 64 KB tiles, so a 2^26-word int32
+    chunk takes 4096 tickets; the grid within the blocks an SM holds (by
+    threads and shared memory) and within the work; shared memory within a
+    block's 227 KB; sub-histogram copies within ``COPIES_SMEM`` and no more
+    when twice as many would fit; parameters by value up to the capacity,
+    in a device array above it."""
+    kw, route = _PLAN_CASES[case]
+    kw = dict(kw)
+    if "shift" in kw:
+        kw["shift"] += bits
+    n, sms = (1 << 26) * 32 // bits, 132
+    plan = S.sweep_plan(bits, n, sms=sms, **kw)
+    assert plan.route == route
+    assert plan.threads == (S.ORD_THREADS if route == S.ORDERED else S.THREADS)
+    if route == S.ORDERED:
+        assert plan.tile_words * bits // 8 == S.TILE_BYTES and plan.n_tiles == 4096
+        work = plan.n_tiles
+    else:
+        assert plan.tile_words == plan.n_tiles == 0
+        work = -(-n // (S.THREADS * S.UNROLL * 16 // (bits // 8)))
+    assert plan.smem == S._smem_bytes(plan.route, bits, kw["nd"], plan.tbits, plan.copies, kw.get("radix_bits", 1),
+                                      plan.hist_smem, kw.get("n_collect", 0) + kw.get("n_tee", 0),
+                                      kw.get("sketch_bits", 0), plan.deep_smem)
+    assert plan.smem <= S.SMEM_PER_BLOCK
+    assert 1 <= plan.per_sm * plan.threads <= S.MAX_THREADS_PER_SM
+    assert plan.per_sm * (plan.smem + S.SMEM_RESERVED) <= S.SMEM_PER_SM
+    assert 1 <= plan.blocks <= min(plan.per_sm * sms, work)
+    copy = kw["nd"] * (4 << kw.get("radix_bits", 1))
+    assert plan.hist_smem == (0 < copy <= S.HIST_SMEM)
+    assert plan.copies in (8, 4, 2, 1) and (plan.copies == 1 or plan.copies * copy <= S.COPIES_SMEM)
+    if plan.hist_smem and plan.copies < 8:
+        assert 2 * plan.copies * copy > S.COPIES_SMEM
+    assert plan.tbits == (min(bits - kw["shift"] - kw["radix_bits"], S.TABLE_BITS) if kw["nd"] > 1 else 0)
+    assert plan.prefixes_by_value == (kw["nd"] <= S.PARAM_PREFIXES)
+    assert plan.specs_by_value == (kw.get("n_collect", 0) + kw.get("n_tee", 0) <= S.PARAM_SPECS)
+    assert plan.deep_smem == (0 < kw.get("sketch_bits", 0) and (4 << kw["sketch_bits"]) <= S.HIST_SMEM)
+
+
+def test_sweep_plan_refuses_a_table_past_half_full():
+    S.sweep_plan(32, 1 << 20, nd=S.MAX_TABLE_PREFIXES, shift=0, radix_bits=8, sms=132)
+    with pytest.raises(ValueError):
+        S.sweep_plan(32, 1 << 20, nd=S.MAX_TABLE_PREFIXES + 1, shift=0, radix_bits=8, sms=132)
+
+
+@pytest.mark.parametrize("bits", [32, 64])
+def test_launch_folds_prefixes_and_specs_as_the_plain_version_reads_them(bits):
+    """The wrapper's forms of the parts, against the plain version's
+    arithmetic on random keys: each query's prefix row (repeats share a row;
+    a prefix no key can hold, a too-wide or a negative one, takes the zero
+    row) and each spec's ``key & mask == want`` (shifts 0 .. the word width,
+    a prefix wider than the bits left)."""
+    rng = np.random.default_rng(bits)
+    keys = [int(k) & ((1 << bits) - 1) for k in rng.integers(0, 1 << 63, size=400, dtype=np.uint64)]
+    full = (1 << bits) - 1
+    shift, rb = bits - 16, 8
+    prefixes = [keys[0] >> (bits - 8), keys[1] >> (bits - 8), keys[0] >> (bits - 8), 1 << 20, -5, 300]
+    distinct, rows = S.distinct_prefixes(bits, shift, rb, prefixes)
+    assert len(set(distinct)) == len(distinct) and rows[0] == rows[2] != rows[1]
+    for p, r in zip(prefixes, rows):
+        c = (p << rb) & full  # the plain version's z = (key >> shift) ^ c, a hit when z < 2^rb
+        held = [k for k in keys if ((k >> shift) ^ c) < (1 << rb)]
+        if r == len(distinct):
+            assert not held and c >> rb >= 1 << (bits - shift - rb)
+        else:
+            assert distinct[r] == c >> rb
+    specs = [(0, keys[2]), (1, keys[3] >> 1), (8, keys[4] >> 8), (bits - 1, 1), (bits, 0), (bits, 3),
+             (8, 1 << (bits - 7)), (bits // 2, keys[5] >> (bits // 2))]
+    masks, wants = S.spec_masks(bits, specs)
+    for (s, p), m, w in zip(specs, masks, wants):
+        for k in keys[:64] + [keys[2], keys[5], 0, full]:
+            assert ((k & m) == w) == ((p == 0) if s >= bits else ((k >> s) == p)), (s, p, k)
+
+
 def test_plain64_matches_jax_fused_ingest_and_numpy():
     """64-bit words: hist, collect and tee against the JAX package's XLA
     fusion tier (its path for 64-bit key spaces), the certificate and the
@@ -445,6 +582,56 @@ def test_sweep_kernel_matches_plain_on_card(cuda_device, bits):
         S.sweep_ingest(w.view(torch.int16), 10)  # no 2-byte words: raises, no fallback
     with pytest.raises(ValueError):
         S.sweep_ingest(w[::2], 10)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [32, 64])
+def test_sweep_kernel_routes_match_plain_on_card(cuda_device, bits):
+    """Both routes of the kernel on the stream's hot bins (values in [1,
+    10^8], shifted to the top of 64-bit words: the top digit takes a few
+    values): K=128 prefixes with repeats
+    (past the by-value capacity), 4 collect specs, a spec with no survivor,
+    more specs than go by value, ``n_valid`` of 0 and 1, buckets that are
+    not a multiple of a tile and a misaligned view, exactly against the
+    plain version, buffers to the last word."""
+    rng = np.random.default_rng(bits)
+    wdt, ndt = (torch.int32, np.int32) if bits == 32 else (torch.int64, np.int64)
+    tile = S.TILE_BYTES // (bits // 8)
+    vals = rng.integers(1, 10**8, size=3 * tile + 4099, endpoint=True).astype(ndt) << (bits - 32)
+    w = torch.from_numpy(vals).to(cuda_device)
+    key_xor = 1 << (bits - 1)
+    u = [int(v) ^ key_xor for v in vals[:256].tolist()]
+    q8 = [v >> (bits - 8) for v in u[:4]]
+    q16 = [v >> (bits - 16) for v in u[:128]]
+    absent = (1 << 24) - 1  # a 24-bit prefix no key holds: keys lie below 0x86 << (bits - 8)
+    specs = [(bits - 24, u[0] >> (bits - 24)), (bits - 24, u[1] >> (bits - 24)), (bits - 16, u[2] >> (bits - 16)),
+             (bits - 24, absent)]
+    parts = [
+        dict(hist_prefixes=[0], shift=bits - 8, radix_bits=8),  # pass 0: the top digit's few hot bins
+        dict(hist_prefixes=q8[:1], shift=bits - 16, radix_bits=8),
+        dict(hist_prefixes=q8 + q8[:2], shift=bits - 16, radix_bits=8),  # K=6, repeats
+        dict(hist_prefixes=q16[:64] + q16[:64], shift=bits - 24, radix_bits=8),  # K=128, hashed table
+        dict(hist_prefixes=q16[:100] + [1 << 20, 5], shift=bits - 24, radix_bits=8),  # 100 by device array
+        dict(collect=specs),  # 4 specs, one with no survivor
+        dict(collect=specs[:1]),
+        dict(collect=[(bits - 24, u[j] >> (bits - 24)) for j in range(20)]),  # specs by device array
+        dict(collect=specs[3:] + specs[:1], tee=[(bits - 16, u[5] >> (bits - 16)), (bits - 24, absent)], vkey=u[9]),
+        dict(hist_prefixes=q8, shift=bits - 16, radix_bits=8, collect=specs, vkey=u[3], sketch_bits=12),
+        dict(vkey=u[7]),
+    ]
+    S.reset_counts()
+    for view in (w, w[1:], w[: tile - 1], w[:1]):
+        for kw in parts:
+            for n_valid in {view.numel(), view.numel() - 1, 1, 0}:
+                if n_valid < 0:
+                    continue
+                got = _flat(S.sweep_ingest(view, n_valid, key_op="xor", key_xor=key_xor, **kw))
+                want = _flat(S.sweep_ingest_plain(view, n_valid, key_op="xor", key_xor=key_xor, **kw))
+                assert len(got) == len(want)
+                same = [a is b is None or torch.equal(a, b) for a, b in zip(got, want)]
+                assert all(same), (view.numel(), kw, n_valid, same)
+    torch.cuda.synchronize()
+    assert S.LAUNCHES[f"sweep_ingest{bits}"] > 0 and not S.PLAIN_CALLS["sweep_ingest"]
 
 
 @pytest.mark.gpu
