@@ -93,6 +93,27 @@ Phases, each of which must pass (any failure exits non-zero):
    float32 and one streaming median of the 2^32 int32 stream with
    ``torch.profiler``: device time by kernel and copy, and the device's
    idle share.
+6. The distributed paths on 4 ranks spawned by
+   ``parallel/multihost.py:run_ranks``, every rank on ``cuda:0`` over gloo
+   (one card: NCCL takes one card a rank), the global arrays written once
+   to a temporary directory and memory-mapped by every rank, which places
+   only its own shard: the median and the 0.5/0.9/0.99/0.999 quantiles of
+   2^30 int64 ``uniform`` (seed 0; BASELINE.md's "N=1B int64"), CGM over
+   16M int32 at k = N/2 (BASELINE's CGM config) and over 10^8 int32 at
+   k = 150 (the reference's own), ``distributed_topk`` k=128 of 2^26
+   float32 ``normal``: each answer equal to its NumPy oracle (and to the
+   rank's second run); each path driven with the launch counts set to 0
+   on every rank just before it and read just after (its kernels launched
+   on every rank, no plain call); its wall time on rank 0 (CUDA events
+   after a barrier), each rank's launches, collectives and time in them,
+   the CGM rounds. Then the native ``mpi`` backend (4 forked host ranks)
+   on the 10^8 case, equal to NumPy and to the CGM on the card, and the
+   resident single-device median of the same 2^30 int64 as a yardstick.
+
+The timed kernel rows of phase 4 also time the nearest torch composition
+of each of rows 1-6 on the same tensor (a ``torch.bincount`` of the digits
+under the prefix mask; a row-wise compare-and-sum), held equal to the
+kernel's output first: the kernels line's ``library_ms``.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one JSON
 object describing every kernel, and
@@ -639,6 +660,71 @@ def phase_main_path(gen):
     return data, launches, per_call, notes
 
 
+def library_ms(fn, want: torch.Tensor, what: str) -> float:
+    """The time of a yardstick composition of torch calls, once held
+    equal to the kernel's output (it must compute the same function)."""
+    from mpi_k_selection_tpu_torch.utils.timing import cuda_ms
+
+    if not torch.equal(fn().to(want.dtype), want):
+        fail(f"the torch yardstick of {what} disagrees with the kernel")
+    ms = cuda_ms(fn, iters=3, warmup=1)
+    torch.cuda.empty_cache()
+    return ms
+
+
+def library_histogram(words, shift, radix_bits, key_op, key_xor, prefix=None):
+    """Rows 1-2's nearest torch composition: the keys, the digit under the
+    prefix mask, ``torch.bincount``."""
+    from mpi_k_selection_tpu_torch.utils import dtypes as dt
+
+    bits = words.element_size() * 8
+    keys = dt.keys_from_raw(words, key_op, key_xor)
+    d = dt.shift_right_logical(keys, shift, bits) & ((1 << radix_bits) - 1)
+    if prefix is not None:
+        d = d[dt.shift_right_logical(keys, shift + radix_bits, bits) == prefix]
+    return torch.bincount(d, minlength=1 << radix_bits)
+
+
+def library_histogram_multi(words, shift, radix_bits, prefixes, key_op, key_xor):
+    """Rows 3-4's nearest torch composition: each key's prefix looked up in
+    the sorted prefixes (``torch.searchsorted``), then one ``torch.bincount``
+    of (prefix slot, digit) over the keys that match, spread back to the K
+    queries."""
+    from mpi_k_selection_tpu_torch.utils import dtypes as dt
+
+    bits = words.element_size() * 8
+    r = 1 << radix_bits
+    keys = dt.keys_from_raw(words, key_op, key_xor)
+    top = dt.shift_right_logical(keys, shift + radix_bits, bits)
+    uniq, inv = torch.unique(prefixes, return_inverse=True)  # ascending, as the top bits compare
+    slot = torch.searchsorted(uniq, top).clamp_(max=uniq.numel() - 1)
+    hit = uniq[slot] == top
+    d = dt.shift_right_logical(keys, shift, bits) & (r - 1)
+    hist = torch.bincount((slot * r + d)[hit], minlength=uniq.numel() * r).view(-1, r)
+    return hist[inv]
+
+
+def library_match_counts(words, resolved_bits, prefixes, key_op, key_xor):
+    """Row 5's nearest torch composition: the row-wise compare-and-sum of
+    each 128-key row's prefix matches (one prefix, the main path's)."""
+    from mpi_k_selection_tpu_torch.utils import dtypes as dt
+
+    bits = words.element_size() * 8
+    top = dt.shift_right_logical(dt.keys_from_raw(words, key_op, key_xor), bits - resolved_bits, bits)
+    return (top.view(-1, 128) == prefixes.view(-1)[:1]).sum(1, dtype=torch.int32)[None]
+
+
+def library_tau_counts(words, tau, largest, key_op, key_xor):
+    """Row 6's nearest torch composition: the row-wise compare-and-sum of
+    each 128-key row's keys beyond and equal to tau (largest)."""
+    from mpi_k_selection_tpu_torch.utils import dtypes as dt
+
+    bits = words.element_size() * 8
+    kb = dt.order_bias(dt.keys_from_raw(words, key_op, key_xor), bits).view(-1, 128)
+    tb = dt.order_bias(tau, bits)
+    return torch.stack([(kb > tb).sum(1, dtype=torch.int32), (kb == tb).sum(1, dtype=torch.int32)])
+
+
 def phase_timing(data):
     import mpi_k_selection_tpu_torch as kt
     from mpi_k_selection_tpu_torch import api
@@ -655,6 +741,7 @@ def phase_timing(data):
     x27 = x30[: 1 << 27]
     i64 = x27.to(torch.int64)
     rows = []
+    library = {}
 
     def row(what, n, itemsize, ms, extra="", ops_per_key=OPS_PER_KEY, nbytes=None):
         b, by = bound(n * itemsize if nbytes is None else nbytes, n, ops_per_key)
@@ -738,14 +825,18 @@ def phase_timing(data):
               f"== plain: max_abs_err {herr}, {merr}")
         ms = cuda_ms(lambda: H.radix_histogram(**kw))
         pms = cuda_ms(lambda: H.radix_histogram_plain(**kw), iters=3, warmup=1)
-        row(f"radix_histogram{name}", n, bits // 8, ms, f"   plain {pms:.4f} ms")
+        lms = library_ms(lambda: library_histogram(**kw), H.radix_histogram(**kw), f"radix_histogram{name}")
+        row(f"radix_histogram{name}", n, bits // 8, ms, f"   plain {pms:.4f} ms; library {lms:.4f} ms")
         mms = cuda_ms(lambda: H.match_counts(**mkw))
         mpms = cuda_ms(lambda: H.match_counts_plain(**mkw), iters=3, warmup=1)
-        b, by = row(f"match_counts{name}", n, bits // 8, mms, f"   plain {mpms:.4f} ms",
+        mlms = library_ms(lambda: library_match_counts(**mkw), H.match_counts(**mkw), f"match_counts{name}")
+        b, by = row(f"match_counts{name}", n, bits // 8, mms, f"   plain {mpms:.4f} ms; library {mlms:.4f} ms",
                     nbytes=n * bits // 8 + -(-n // 128) * 4)
         if name in ("32 int32 2^30", "64 float64 2^27"):
             kern[f"radix_histogram{bits}"] = (ms, pms, *bound(n * bits // 8, n), herr)
             kern[f"match_counts{bits}"] = (mms, mpms, b, by, merr)
+            library[f"radix_histogram{bits}"] = lms
+            library[f"match_counts{bits}"] = mlms
         torch.cuda.empty_cache()
 
     # the multi-prefix histogram at the many-ranks passes: the answers' K=4
@@ -774,11 +865,17 @@ def phase_timing(data):
         pms = cuda_ms(lambda: H.radix_histogram_multi_plain(**kw), iters=3, warmup=1)
         distinct = torch.unique(kw["prefixes"]).numel()
         b, by = bound(n * bits // 8, n, MULTI_OPS_PER_KEY)
+        lms = None
+        if main:
+            lms = library_ms(lambda: library_histogram_multi(**kw), H.radix_histogram_multi(**kw),
+                             f"radix_histogram_multi{name}")
         row(f"radix_histogram_multi{name}", n, bits // 8, ms, f"   {b / ms:.0%} of bound; plain {pms:.4f} ms; "
-            f"{distinct} distinct prefixes", ops_per_key=MULTI_OPS_PER_KEY)
+            f"{distinct} distinct prefixes" + ("" if lms is None else f"; library {lms:.4f} ms"),
+            ops_per_key=MULTI_OPS_PER_KEY)
         print(f"[check] radix_histogram_multi{name} == plain: max_abs_err {err}")
         if main:
             kern[f"radix_histogram_multi{bits}"] = (ms, pms, b, by, err)
+            library[f"radix_histogram_multi{bits}"] = lms
         torch.cuda.empty_cache()
     for name, words, key_op, key_xor, bits in (
         ("32 float32 2^26", f32, "float", 0, 32), ("64 float64 2^27", f64, "float", 0, 64),
@@ -790,10 +887,12 @@ def phase_timing(data):
         err = exact(H.tau_counts, H.tau_counts_plain, f"tau_counts{name}", **kw)
         ms = cuda_ms(lambda: H.tau_counts(**kw))
         pms = cuda_ms(lambda: H.tau_counts_plain(**kw), iters=3, warmup=1)
-        b, by = row(f"tau_counts{name}", n, bits // 8, ms, f"   plain {pms:.4f} ms",
+        lms = library_ms(lambda: library_tau_counts(**kw), H.tau_counts(**kw), f"tau_counts{name}")
+        b, by = row(f"tau_counts{name}", n, bits // 8, ms, f"   plain {pms:.4f} ms; library {lms:.4f} ms",
                     nbytes=n * bits // 8 + -(-n // 128) * 8)
         print(f"[check] tau_counts{name} == plain: max_abs_err {err}")
         kern[f"tau_counts{bits}"] = (ms, pms, b, by, err)
+        library[f"tau_counts{bits}"] = lms
         torch.cuda.empty_cache()
 
     # the batched top-k at (4096, 32768): the block kernel (values) beside
@@ -803,7 +902,6 @@ def phase_timing(data):
     from mpi_k_selection_tpu_torch.ops import topk as topk_ops
     from mpi_k_selection_tpu_torch.ops.cuda import topk as T
 
-    library = {}
     xbf = data["batched float32 normal"]
     n = xbf.numel()
     for label, x, k in (("float32 k=8", xbf, 8), ("float32 k=16", xbf, 16),
@@ -1147,6 +1245,293 @@ def phase_streaming_timing(ints, f64):
     return rows, kern, library, stream_ms, resident_fault, kinds
 
 
+DIST_WORLD = 4  # ranks of the distributed phase, all on cuda:0 (one card: gloo)
+DIST_REPS = 3  # timed runs of each distributed path (the median run's counts reported)
+DIST_N64 = 1 << 30  # BASELINE.md's "Multi-chip distributed median: N=1B int64"
+DIST_CGM = ((16_000_000, 8_000_000), (100_000_000, 150))  # BASELINE's CGM config; the reference's own
+DIST_TOPK_N = 1 << 26
+# the kernels each distributed path must launch on every rank (CGM runs
+# torch.sort and torch.searchsorted: no kernel of the port)
+DIST_LAUNCH_KEYS = ("radix_histogram32", "radix_histogram64", "radix_histogram_multi32", "radix_histogram_multi64",
+                    "match_counts32", "match_counts64", "tau_counts32", "tau_counts64")
+DIST_PATHS = {  # label: kernels it must launch (the values lie below 2^27, so every 64-bit key shares its top
+    # 37 bits: both rungs of the ladder overflow and all 16 passes run, no collect; at 32 bits the median of
+    # 10^8 collects after 5 passes, about 4096 keys under the 20-bit prefix, gathered from every rank)
+    "median int64 uniform 2^30": ("radix_histogram64",),
+    "quantiles K=4 int64 uniform 2^30": ("radix_histogram64", "radix_histogram_multi64"),
+    "median int32 uniform 10^8": ("radix_histogram32", "match_counts32"),
+    "cgm int32 uniform 16M k=N/2": (),
+    "cgm int32 uniform 10^8 k=150": (),
+    f"topk k={TOPK} float32 normal 2^26": ("radix_histogram32", "tau_counts32"),
+}
+
+
+def dist_rank(mesh, files):
+    """One rank of phase 6 (spawned by ``run_ranks``): memory-map the global
+    arrays, place this rank's shards (timed), then drive each distributed
+    path twice, a barrier before each: the first run with the launch counts
+    set to 0 just before it and read just after, the second timed with CUDA
+    events on this rank. Rank 0 returns every rank's counts, gathered."""
+    import mpi_k_selection_tpu_torch as kt
+    from mpi_k_selection_tpu_torch import api
+    from mpi_k_selection_tpu_torch.ops.cuda import histogram as H
+    from mpi_k_selection_tpu_torch.parallel import shard_1d
+    from mpi_k_selection_tpu_torch.utils.interop import tensor_to_numpy
+
+    data = {name: np.load(path, mmap_mode="r") for name, path in files.items()}
+
+    def timed(fn):
+        mesh.barrier()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return out, a.elapsed_time(b)
+
+    placed = {}
+    for name in data:
+        sentinel = "min" if name.startswith("float32") else "max"  # the top-k's losers
+        placed[name], ms = timed(lambda: shard_1d(data[name], mesh, sentinel=sentinel))
+        placed[name + " ms"] = ms
+    x64, n64 = placed["int64 uniform 2^30"], DIST_N64
+    calls = {
+        "median int64 uniform 2^30": lambda: kt.distributed_radix_select(x64, n64 // 2, mesh=mesh),
+        "quantiles K=4 int64 uniform 2^30":
+            lambda: kt.distributed_radix_select_many(x64, api.quantile_ranks(QS, n64), mesh=mesh),
+        "median int32 uniform 10^8":
+            lambda: kt.distributed_radix_select(placed["int32 uniform 10^8"], DIST_CGM[1][0] // 2, mesh=mesh),
+        "cgm int32 uniform 16M k=N/2":
+            lambda: kt.distributed_cgm_select(placed["int32 uniform 16M"], DIST_CGM[0][1], mesh=mesh,
+                                              return_rounds=True),
+        "cgm int32 uniform 10^8 k=150":
+            lambda: kt.distributed_cgm_select(placed["int32 uniform 10^8"], DIST_CGM[1][1], mesh=mesh,
+                                              return_rounds=True),
+        f"topk k={TOPK} float32 normal 2^26":
+            lambda: kt.distributed_topk(placed["float32 normal 2^26"], TOPK, mesh=mesh),
+    }
+    out = {"device": str(mesh.device), "backend": mesh.backend, "world": mesh.size,
+           "place_ms": {k[:-3]: v for k, v in placed.items() if k.endswith(" ms")}, "paths": {}}
+    # one pass's collective with no kernel between: the all_reduce of a
+    # 16-bucket int64 histogram on the card, 50 in a row after a barrier
+    # (host clock around each call: the staging copies included; the
+    # mesh's own count: the gloo call alone)
+    from mpi_k_selection_tpu_torch.utils.timing import Stopwatch
+
+    probe = {}
+    for where in ("cuda", "cpu"):  # a host tensor: gloo alone, no copy and no wait on the card
+        hist = torch.ones(16, dtype=torch.int64, device=mesh.device if where == "cuda" else "cpu")
+        mesh.barrier()
+        mesh.reset_stats()
+        calls_clock = Stopwatch()
+        for _ in range(50):
+            with calls_clock.timing():
+                hist = mesh.all_reduce(hist) // mesh.size
+                if where == "cuda":
+                    torch.cuda.synchronize()
+        probe[where] = (calls_clock.seconds / 50 * 1e3, mesh.collective_seconds() / 50 * 1e3)
+    out["allreduce_probe_ms"] = probe
+    for label, fn in calls.items():
+        H.reset_counts()
+        first, _ = timed(fn)  # the counted run
+        counts = [H.LAUNCHES[k] for k in DIST_LAUNCH_KEYS] + [sum(H.PLAIN_CALLS.values())]
+        runs = []
+        for _ in range(DIST_REPS):
+            mesh.reset_stats()
+            second, ms = timed(fn)
+            runs.append([ms, float(mesh.collectives), mesh.collective_seconds() * 1e3])
+        runs.sort()
+        stats = runs[len(runs) // 2] + [runs[0][0], runs[-1][0]]  # the median run's; the fastest and slowest ms
+        per_rank = mesh.all_gather(torch.tensor(counts + stats, dtype=torch.float64))
+        rounds = None
+        if isinstance(first, tuple) and isinstance(first[1], int):  # cgm: (value, rounds)
+            (first, rounds), (second, _) = first, second
+        if isinstance(first, tuple):  # topk: (values, indices)
+            first = [tensor_to_numpy(t) for t in first]
+            second = [tensor_to_numpy(t) for t in second]
+        else:
+            first, second = tensor_to_numpy(first.reshape(-1)), tensor_to_numpy(second.reshape(-1))
+        out["paths"][label] = {"answer": first, "again": second, "rounds": rounds, "per_rank": per_rank.numpy()}
+    if mesh.rank == 0:
+        out["kernel_checks"] = dist_kernel_checks(placed)
+    mesh.barrier()
+    return out
+
+
+def dist_kernel_checks(placed) -> dict:
+    """Each kernel the distributed paths launch, on rank 0's shards (the
+    shapes those paths give it: 2^28 int64, 2.5e7 int32, 2^24 float32
+    words), held exactly against its plain version on the same tensor.
+    Returns ``{kernel: max_abs_err}``."""
+    from mpi_k_selection_tpu_torch.ops.cuda import histogram as H
+    from mpi_k_selection_tpu_torch.ops.radix import cutover_passes
+    from mpi_k_selection_tpu_torch.utils import dtypes as dt
+
+    err = {}
+
+    def exact(name, kernel, plain, **kw):
+        d = (kernel(**kw) - plain(**kw)).abs().max().item()
+        err[name] = max(err.get(name, 0), d)
+
+    for label, bits, key_op, key_xor in (("int64 uniform 2^30", 64, "xor", 1 << 63),
+                                         ("int32 uniform 10^8", 32, "xor", 1 << 31),
+                                         ("float32 normal 2^26", 32, "float", 0)):
+        shard = placed[label]
+        w = shard.block.view(torch.int32 if bits == 32 else torch.int64)
+        n = w.numel()
+        keys = dt.keys_from_raw(w[[n // 3, n // 2, n - 1]], key_op, key_xor)
+        kw = dict(words=w, radix_bits=4, key_op=key_op, key_xor=key_xor)
+        name = f"radix_histogram{bits}"
+        exact(name, H.radix_histogram, H.radix_histogram_plain, shift=bits - 4, **kw)
+        exact(name, H.radix_histogram, H.radix_histogram_plain, shift=bits - 12,
+              prefix=dt.shift_right_logical(keys[:1], bits - 8, bits).contiguous(), **kw)
+        if bits == 64:  # the quantiles' passes: K prefixes of keys in the data
+            exact("radix_histogram_multi64", H.radix_histogram_multi, H.radix_histogram_multi_plain, shift=bits - 12,
+                  prefixes=dt.shift_right_logical(keys, bits - 8, bits).contiguous(), **kw)
+        elif key_op == "xor":  # the median's collect at its cutover width
+            res = 4 * cutover_passes(shard.n, bits, 4, 8192)
+            exact("match_counts32", H.match_counts, H.match_counts_plain, words=w, resolved_bits=res,
+                  prefixes=dt.shift_right_logical(keys[1:2], bits - res, bits).contiguous(),
+                  key_op=key_op, key_xor=key_xor)
+        else:  # the top-k's threshold count
+            for largest in (True, False):
+                exact("tau_counts32", H.tau_counts, H.tau_counts_plain, words=w, tau=keys[1:2].clone(),
+                      largest=largest, key_op=key_op, key_xor=key_xor)
+    torch.cuda.synchronize()
+    return err
+
+
+def bincount_ranks(x: np.ndarray, ks) -> list:
+    """NumPy's k-th smallest of non-negative integers for each k: the
+    running count of each value (``np.bincount``) searched for k."""
+    cum = np.cumsum(np.bincount(x))
+    return [int(np.searchsorted(cum, k)) for k in ks]
+
+
+def phase_distributed():
+    """Phase 6: the distributed paths on ``DIST_WORLD`` ranks sharing one
+    card over gloo, each answer against a NumPy oracle; then the native
+    ``mpi`` backend and the resident single-device median as yardsticks."""
+    import math
+    import shutil
+    import tempfile
+
+    import mpi_k_selection_tpu_torch as kt
+    from mpi_k_selection_tpu_torch.cli import topk_oracle
+    from mpi_k_selection_tpu_torch.parallel.mesh import choose_backend
+    from mpi_k_selection_tpu_torch.parallel.multihost import run_ranks
+    from mpi_k_selection_tpu_torch.utils import datagen
+    from mpi_k_selection_tpu_torch.utils.timing import cuda_ms
+
+    backend = choose_backend(DIST_WORLD, "cuda")
+    where = (f"{DIST_WORLD} ranks sharing one {torch.cuda.get_device_name(0)} over {backend}"
+             if backend == "gloo" else f"{DIST_WORLD} ranks, one card each, over {backend}")
+    print(f"[dist] {where}")
+    tmp = tempfile.mkdtemp(prefix="kselect-dist-")
+    try:
+        arrays = {
+            "int64 uniform 2^30": datagen.generate(DIST_N64, pattern="uniform", seed=0, dtype=np.int64),
+            "int32 uniform 16M": datagen.generate(DIST_CGM[0][0], pattern="uniform", seed=0),
+            "int32 uniform 10^8": datagen.generate(DIST_CGM[1][0], pattern="uniform", seed=0),
+            "float32 normal 2^26": datagen.generate(DIST_TOPK_N, pattern="normal", seed=0, dtype=np.float32),
+        }
+        files = {}
+        for name, a in arrays.items():
+            files[name] = f"{tmp}/{name.replace(' ', '_').replace('^', '')}.npy"
+            np.save(files[name], a)
+        x64, i16, i8, f32 = arrays.values()
+        qranks = [max(1, min(DIST_N64, math.ceil(q * DIST_N64))) for q in QS]
+        want = {
+            "median int64 uniform 2^30": bincount_ranks(x64, [DIST_N64 // 2]),
+            "quantiles K=4 int64 uniform 2^30": bincount_ranks(x64, qranks),
+            "median int32 uniform 10^8": bincount_ranks(i8, [DIST_CGM[1][0] // 2]),
+            "cgm int32 uniform 16M k=N/2": [int(np.partition(i16, DIST_CGM[0][1] - 1)[DIST_CGM[0][1] - 1])],
+            "cgm int32 uniform 10^8 k=150": [int(np.partition(i8, DIST_CGM[1][1] - 1)[DIST_CGM[1][1] - 1])],
+            f"topk k={TOPK} float32 normal 2^26": topk_oracle(f32, TOPK),
+        }
+        out = run_ranks(dist_rank, DIST_WORLD, files, device="cuda", timeout=600)
+    finally:
+        shutil.rmtree(tmp)
+    if out["world"] != DIST_WORLD or out["backend"] != backend or out["device"] != "cuda:0":
+        fail(f"distributed phase ran {out['world']} ranks over {out['backend']} on {out['device']}")
+    rows, summary = [], {"where": where, "place_ms_rank0": out["place_ms"]}
+    for label, r in out["paths"].items():
+        ok = True
+        if label.startswith("topk"):
+            got = r["answer"]
+            ok = got[0].tobytes() == want[label][0].tobytes() and np.array_equal(got[1], want[label][1])
+            ok = ok and all(a.tobytes() == b.tobytes() for a, b in zip(got, r["again"]))
+        else:
+            ok = r["answer"].tolist() == want[label] and r["again"].tobytes() == r["answer"].tobytes()
+        if not ok:
+            fail(f"distributed {label}: {r['answer']!r} (again {r['again']!r}) != NumPy {want[label]!r}")
+        pr = r["per_rank"]
+        nk = len(DIST_LAUNCH_KEYS)
+        launches = [{k: int(v) for k, v in zip(DIST_LAUNCH_KEYS, row[:nk]) if v} for row in pr]
+        plain = [int(row[nk]) for row in pr]
+        missing = [(rank, k) for rank, row in enumerate(launches) for k in DIST_PATHS[label] if not row.get(k)]
+        if missing or any(plain):
+            fail(f"distributed {label}: kernels not launched {missing}, plain calls {plain}")
+        ms, coll, coll_ms, fastest, slowest = (float(pr[0][nk + 1 + i]) for i in range(5))
+        print(f"[dist] {label}: exact vs NumPy; {ms:.3f} ms on rank 0 (CUDA events, after a barrier; median of "
+              f"{DIST_REPS}, {fastest:.3f}-{slowest:.3f})"
+              + ("" if r["rounds"] is None else f"; {r['rounds']} CGM rounds")
+              + f"; {int(coll)} collectives, {coll_ms:.3f} ms in them on rank 0")
+        for rank, row in enumerate(launches):
+            print(f"[dist]   rank {rank}: launches {row}; {int(pr[rank][nk + 2])} collectives, "
+                  f"{pr[rank][nk + 3]:.3f} ms in them; {pr[rank][nk + 1]:.3f} ms")
+        rows.append({"what": f"distributed {label}", "ms": ms, "ms_range": [fastest, slowest],
+                     "rounds": r["rounds"], "collectives": int(coll),
+                     "collective_ms": coll_ms, "launches_per_rank": launches,
+                     "ms_per_rank": [float(row[nk + 1]) for row in pr]})
+    summary["paths"] = rows
+    checks = out["kernel_checks"]
+    print(f"[check] distributed shards (rank 0) through each kernel vs plain: max_abs_err {checks}")
+    if any(checks.values()):
+        fail(f"a kernel != plain at a distributed shard's shape: {checks}")
+    summary["kernel_checks"] = checks
+    print(f"[dist] shard placement on rank 0 (memory map to cuda:0): {out['place_ms']}")
+    probe = out["allreduce_probe_ms"]
+    print(f"[dist] one 16-bucket int64 all_reduce with no kernel between, rank 0: on cuda:0 "
+          f"{probe['cuda'][0]:.3f} ms a call ({probe['cuda'][1]:.3f} ms of it in gloo, the rest the staging "
+          f"copies); of a host tensor {probe['cpu'][0]:.3f} ms a call")
+    summary["allreduce_probe_ms"] = {w: {"call": c, "gloo": g} for w, (c, g) in probe.items()}
+
+    # the native mpi backend: the reference's CGM over 4 forked host ranks,
+    # in a process of its own (it forks; this one holds CUDA and threads)
+    n8, k8 = DIST_CGM[1]
+    res = subprocess.run(
+        [sys.executable, "-m", "mpi_k_selection_tpu_torch", "--backend", "mpi", "--num-procs", str(DIST_WORLD),
+         "--n", str(n8), "--k", str(k8), "--verify", "--json"],
+        capture_output=True, text=True, timeout=600,
+    )
+    if res.returncode != 0:
+        fail(f"the mpi backend: rc {res.returncode}: {res.stderr[-2000:]}")
+    rec = json.loads(res.stdout.strip().splitlines()[-1])
+    cuda_cgm = out["paths"]["cgm int32 uniform 10^8 k=150"]
+    if rec["answer"] != want["cgm int32 uniform 10^8 k=150"][0] or rec["answer"] != int(cuda_cgm["answer"][0]):
+        fail(f"the mpi backend answered {rec['answer']}, NumPy {want['cgm int32 uniform 10^8 k=150']}, "
+             f"the cuda backend's CGM {cuda_cgm['answer']}")
+    print(f"[dist] mpi backend (native, {DIST_WORLD} forked host ranks) 10^8 int32 k=150: {rec['answer']} "
+          f"== NumPy == cuda backend's CGM; {rec['rounds']} rounds ({cuda_cgm['rounds']} on the card's ranks: "
+          f"the native runtime keeps the reference's coarseness c); {rec['seconds'] * 1e3:.1f} ms (host clock)")
+    summary["mpi_backend"] = {"answer": rec["answer"], "rounds": rec["rounds"], "ms": rec["seconds"] * 1e3}
+
+    # the yardstick: the same 2^30 int64 whole on the card, one process
+    xd = torch.from_numpy(x64).cuda()
+    del arrays, x64
+    got = int(kt.median(xd))
+    if got != want["median int64 uniform 2^30"][0]:
+        fail(f"resident median of the 2^30 int64: {got} != NumPy {want['median int64 uniform 2^30']}")
+    ms = cuda_ms(lambda: kt.median(xd), iters=3)
+    print(f"[dist] yardstick: resident median of the same 2^30 int64 on one process: {ms:.3f} ms (exact)")
+    summary["resident_median_ms"] = ms
+    del xd
+    torch.cuda.empty_cache()
+    return summary
+
+
 def kernel_device_ms(fn, name: str, reps: int = 10):
     """Device milliseconds per launch of the kernels whose name holds
     ``name`` over ``reps`` calls of ``fn`` (torch.profiler), or None when
@@ -1273,6 +1658,13 @@ def main() -> int:
                       stream_ms["streaming median depth=2, int32 uniform 2^32"], reps=1),
     ]
     notes["resident_fault"] = resident_fault
+    # phase 6: the host chunks and the resident data go first (the ranks
+    # need the card's memory and the host's for the 8 GiB array)
+    del ints, f64, data, x30
+    torch.cuda.empty_cache()
+    notes["distributed"] = phase_distributed()
+    for kname, e in notes["distributed"]["kernel_checks"].items():  # the shards' checks join the kernels' errors
+        kern[kname] = (*kern[kname][:4], max(kern[kname][4], e))
 
     kernels = []
     for kname, (source, replaces) in KERNELS.items():

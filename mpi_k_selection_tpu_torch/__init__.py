@@ -18,6 +18,20 @@ selection over a stream of chunks::
     kt.kselect_streaming_many(chunks, ks) # every k, the passes shared
     kt.streaming_rank_certificate(chunks, v)  # (#< v, #<= v), streamed
 
+Distributed selection runs one process per rank over a
+``torch.distributed`` group (parallel/): every rank calls the entry point
+with the same global input and gets the answer::
+
+    kt.run_ranks(fn, 4, device="cuda")  # fn(mesh) on 4 spawned ranks
+    kt.distributed_radix_select(x, k, mesh=mesh)        # a histogram all_reduce a pass
+    kt.distributed_radix_select_many(x, ks, mesh=mesh)
+    kt.distributed_cgm_select(x, k, mesh=mesh, return_rounds=True)  # the reference's CGM
+    kt.distributed_topk(x, k, mesh=mesh)
+
+``kt.get_backend("seq" | "cuda" | "mpi")`` gives the backends (the NumPy
+oracle, this package, the native forked-rank CGM), and
+``kt.DeviceVector`` the reference's ``IntVector`` ADT on a device.
+
 ``x`` is a torch tensor (selection runs on its device) or anything NumPy
 takes (moved to ``device``, default ``"cuda"``). The radix passes and the
 top-k collect run the kernels of ``csrc/histogram.cu``, the batched top-k
@@ -38,12 +52,26 @@ from mpi_k_selection_tpu_torch.api import (
     quantiles,
     streaming_rank_certificate,
 )
+from mpi_k_selection_tpu_torch.backends import get_backend
+from mpi_k_selection_tpu_torch.buffer import DeviceVector
 from mpi_k_selection_tpu_torch.ops.radix import radix_select, radix_select_many
 from mpi_k_selection_tpu_torch.ops.sort import sort_select
 from mpi_k_selection_tpu_torch.ops.topk import batched_topk, topk
+from mpi_k_selection_tpu_torch.parallel import (
+    DISTRIBUTED_ALGORITHMS,
+    distributed_cgm_select,
+    distributed_kselect,
+    distributed_radix_select,
+    distributed_radix_select_many,
+    distributed_topk,
+    make_mesh,
+    run_ranks,
+)
 
 __all__ = [
-    "as_selection_array", "batched_kselect", "batched_median", "batched_topk", "kselect",
-    "kselect_many", "kselect_streaming", "kselect_streaming_many", "median", "quantiles", "radix_select",
-    "radix_select_many", "sort_select", "streaming_rank_certificate", "topk",
+    "DISTRIBUTED_ALGORITHMS", "DeviceVector", "as_selection_array", "batched_kselect", "batched_median",
+    "batched_topk", "distributed_cgm_select", "distributed_kselect", "distributed_radix_select",
+    "distributed_radix_select_many", "distributed_topk", "get_backend", "kselect", "kselect_many",
+    "kselect_streaming", "kselect_streaming_many", "make_mesh", "median", "quantiles", "radix_select",
+    "radix_select_many", "run_ranks", "sort_select", "streaming_rank_certificate", "topk",
 ]

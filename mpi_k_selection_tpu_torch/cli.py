@@ -2,7 +2,8 @@
 
 The k-th, quantiles and top-k (1-D or ``--batch``) modes of the JAX
 package's CLI (``cli.py:_run_kth``, ``_run_quantiles``, ``_run_topk``) on
-the CUDA backend::
+the ``cuda``, ``seq`` and ``mpi`` backends, one device or ``--devices``
+ranks::
 
     # median of 2^30 int32, checked against a NumPy oracle
     python -m mpi_k_selection_tpu_torch --n 1073741824 --verify --json
@@ -23,17 +24,31 @@ the CUDA backend::
     # median of 2^30 int32 streamed in chunks of 2^26 (chunk i: seed + i),
     # checked by the streamed rank certificate and a NumPy oracle
     python -m mpi_k_selection_tpu_torch --streaming --n 1073741824 --chunk-elems 67108864 --verify
+
+    # the reference's CGM over 4 ranks (4 spawned processes; gloo when they
+    # share a card or run on the CPU, nccl with a card each), with its rounds
+    python -m mpi_k_selection_tpu_torch --devices 4 --algorithm cgm --n 16000000 --verify --json
+
+    # the distributed radix select over 2 ranks on the CPU
+    python -m mpi_k_selection_tpu_torch --devices 2 --distribute always --device cpu --verify
+
+    # the oracle backends: NumPy / std::nth_element, and the native forked-rank CGM
+    python -m mpi_k_selection_tpu_torch --backend seq --n 100000000 --k 250
+    python -m mpi_k_selection_tpu_torch --backend mpi --num-procs 4 --n 100000000 --k 150 --verify
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
+import tempfile
 
 import numpy as np
 import torch
 
 from mpi_k_selection_tpu_torch import config
+from mpi_k_selection_tpu_torch.backends import BACKENDS
 from mpi_k_selection_tpu_torch.ops.topk import METHODS
 from mpi_k_selection_tpu_torch.streaming.pipeline import DEFAULT_PIPELINE_DEPTH
 from mpi_k_selection_tpu_torch.utils import datagen
@@ -57,6 +72,11 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m mpi_k_selection_tpu_torch",
         description="exact k-selection on a CUDA device (PyTorch port)",
     )
+    p.add_argument(
+        "--backend", choices=BACKENDS, default="cuda",
+        help="cuda: this package (on --device); seq: the host oracle (NumPy, std::nth_element); "
+        "mpi: the native forked-rank CGM (int32, k-th mode)",
+    )
     p.add_argument("--n", type=int, default=1 << 20, help="number of elements")
     p.add_argument(
         "--k", type=int, default=None,
@@ -65,7 +85,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--gen", choices=datagen.PATTERNS, default="uniform")
     p.add_argument("--dtype", choices=DTYPES, default="int32")
     p.add_argument("--seed", type=int, default=config.DEFAULT_SEED)
-    p.add_argument("--algorithm", choices=("auto", "radix", "sort"), default="auto")
+    p.add_argument(
+        "--algorithm", choices=("auto", "radix", "sort", "cgm"), default="auto",
+        help="selection algorithm (cuda backend); cgm is the reference-parity protocol (distributed only)",
+    )
+    p.add_argument(
+        "--distribute", choices=("auto", "never", "always"), default="auto",
+        help="shard over the --devices ranks (cuda backend; auto: from 2 ranks and 2^20 elements)",
+    )
+    p.add_argument(
+        "--devices", type=int, default=None,
+        help="ranks of a distributed run (cuda backend, k-th and --quantiles modes): DEVICES processes "
+        "started by the launcher, each with its shard on --device; gloo when ranks share a card or run "
+        "on the CPU, nccl with a card for each",
+    )
+    p.add_argument("--num-procs", type=int, default=4, help="process count for the mpi backend (mpirun -np P)")
+    p.add_argument(
+        "--c", type=int, default=config.REFERENCE_C,
+        help="CGM coarseness constant (mpi backend; TODO-kth-problem-cgm.c:44)",
+    )
     p.add_argument(
         "--quantiles", default=None,
         help="comma-separated quantiles in [0,1] (e.g. 0.5,0.9,0.99): exact nearest-rank "
@@ -144,6 +182,13 @@ def batched_topk_oracle(x: np.ndarray, k: int, largest: bool = True):
     return np.stack([v for v, _ in rows]), np.stack([i for _, i in rows])
 
 
+def _same_value(a, b) -> bool:
+    """Value equality of two scalars, NaN equal to NaN (the seq oracle's
+    order does not tell -0.0 from +0.0 or one NaN from another)."""
+    a, b = np.asarray(a), np.asarray(b)
+    return bool(a == b) or bool(np.isnan(a.astype(np.float64)) and np.isnan(b.astype(np.float64)))
+
+
 def _run_kth(args, x: np.ndarray):
     from mpi_k_selection_tpu_torch.backends import cuda as backend
     from mpi_k_selection_tpu_torch.utils.interop import tensor_from_numpy, tensor_to_numpy
@@ -152,10 +197,14 @@ def _run_kth(args, x: np.ndarray):
     k = args.k if args.k is not None else max(1, n // 2)
     if not 1 <= k <= n:
         raise SystemExit(f"error: k={k} out of range [1, {n}]")
+    if args.backend != "cuda":
+        return _run_kth_host(args, x, k)
+    if (args.devices or 1) > 1:
+        return _run_ranks(args, x, k)
+    algorithm, _ = backend.plan(n, args.algorithm, args.distribute)
     xd = tensor_from_numpy(x, args.device)
-    algorithm = backend.plan(n, args.algorithm)
     seconds, answer = time_fn(
-        lambda: backend.kselect(xd, k, algorithm=algorithm),
+        lambda: backend.kselect(xd, k, algorithm=algorithm, distribute=args.distribute, device=args.device),
         repeats=args.repeats, warmup=1, device=args.device,
     )
     answer = tensor_to_numpy(answer.reshape(1))[0]
@@ -165,6 +214,135 @@ def _run_kth(args, x: np.ndarray):
         want = oracle(x, k, sort_order=algorithm == "sort")
         ok = answer.tobytes() == want.tobytes()  # bit for bit
         record.extra["oracle"] = want.item()
+        record.extra["exact_match"] = ok
+    return record, ok
+
+
+def _run_kth_host(args, x: np.ndarray, k: int):
+    """The k-th on a host backend: ``seq`` (NumPy / ``std::nth_element``,
+    checked against the literal sort-then-index) or ``mpi`` (the native
+    CGM over ``--num-procs`` forked ranks, checked bit for bit)."""
+    from mpi_k_selection_tpu_torch.backends import get_backend
+
+    backend = get_backend(args.backend)
+    rounds = None
+    if args.backend == "seq":
+        seconds, answer = time_fn(lambda: backend.kselect(x, k), repeats=args.repeats, device="cpu")
+        algorithm = "partition"
+    else:
+        from mpi_k_selection_tpu_torch.native import cgm_driver
+
+        seconds, (answer, rounds) = time_fn(
+            lambda: cgm_driver.kselect_full(x, k, num_procs=args.num_procs, c=args.c)[:2],
+            repeats=args.repeats, device="cpu",
+        )
+        algorithm = "cgm"
+    record = ResultRecord(
+        answer=np.asarray(answer).item(), n=x.size, k=k, backend=args.backend, algorithm=algorithm,
+        dtype=args.dtype, seconds=seconds, device="host",
+        n_devices=args.num_procs if args.backend == "mpi" else 1, rounds=rounds,
+    )
+    ok = True
+    if args.verify:
+        if args.backend == "seq":
+            want = get_backend("seq").kselect_sort(x, k)
+            ok = _same_value(answer, want)
+        else:
+            want = oracle(x, k)
+            ok = np.asarray(answer).tobytes() == want.tobytes()
+        record.extra["oracle"] = np.asarray(want).item()
+        record.extra["exact_match"] = ok
+    return record, ok
+
+
+def _rank_run(mesh, args, path: str):
+    """One rank of ``--devices P``: the global array memory-mapped from
+    ``path`` (written once by the parent), this rank's shard placed once,
+    then the timed selection (a barrier first). Returns the answer's bits,
+    the rounds, the mesh's counts per call and the number of distinct
+    devices the ranks ran on."""
+    from mpi_k_selection_tpu_torch import api
+    from mpi_k_selection_tpu_torch.backends import cuda as backend
+    from mpi_k_selection_tpu_torch.parallel import cgm as pcgm, mesh as mesh_lib, radix as pradix
+    from mpi_k_selection_tpu_torch.utils.interop import tensor_from_numpy, tensor_to_numpy
+
+    x = np.load(path, mmap_mode="r")
+    n = x.size
+    if args.quantiles is not None:
+        ks = api.quantile_ranks(args.qs, n)
+        _, distributed = backend.plan(n, "radix", args.distribute, n_dev=mesh.size)
+        algorithm = "quantiles-distributed" if distributed else "quantiles"
+        if distributed:
+            xs = mesh_lib.shard_1d(x, mesh)
+            call = lambda: (pradix.distributed_radix_select_many(xs, ks, mesh=mesh), None)  # noqa: E731
+        else:
+            xd = tensor_from_numpy(np.array(x), mesh.device)
+            call = lambda: (api.kselect_many(xd, ks), None)  # noqa: E731
+    else:
+        k = args.k if args.k is not None else max(1, n // 2)
+        algorithm, distributed = backend.plan(n, args.algorithm, args.distribute, n_dev=mesh.size)
+        if distributed:
+            xs = mesh_lib.shard_1d(x, mesh)
+            if algorithm == "cgm":
+                call = lambda: pcgm.distributed_cgm_select(xs, k, mesh=mesh, return_rounds=True)  # noqa: E731
+            else:
+                call = lambda: (pradix.distributed_radix_select(xs, k, mesh=mesh), None)  # noqa: E731
+            algorithm += "-distributed"
+        else:
+            xd = tensor_from_numpy(np.array(x), mesh.device)
+            call = lambda: (api.kselect(xd, k, algorithm=algorithm), None)  # noqa: E731
+
+    def timed():
+        mesh.barrier()
+        return call()
+
+    # ranks that share a card count it once in the per-chip rate
+    where = torch.tensor([mesh.device.index if mesh.device.type == "cuda" else -1])
+    n_cards = len(set(mesh.all_gather(where).reshape(-1).tolist()))
+    timed()  # warm-up: builds nothing (the launcher built the kernels), fills caches
+    mesh.reset_stats()
+    seconds, (answer, rounds) = time_fn(timed, repeats=args.repeats, device=mesh.device)
+    reps = max(1, args.repeats)
+    return {
+        "answer": tensor_to_numpy(answer.reshape(-1)), "rounds": rounds, "seconds": seconds,
+        "algorithm": algorithm, "process_group": mesh.backend, "collectives": mesh.collectives // reps,
+        "collective_seconds": mesh.collective_seconds() / reps, "device": str(mesh.device),
+        "n_cards": n_cards,
+    }
+
+
+def _run_ranks(args, x: np.ndarray, k: int | None):
+    """``--devices P`` on the cuda backend: P ranks through the launcher
+    (parallel/multihost.py:run_ranks), each answering; rank 0's answer is
+    checked against the oracle."""
+    from mpi_k_selection_tpu_torch import api
+    from mpi_k_selection_tpu_torch.parallel.multihost import run_ranks
+
+    with tempfile.TemporaryDirectory(prefix="kselect-cli-") as tmp:
+        # one copy on disk that every rank maps, never one per rank
+        path = os.path.join(tmp, "x.npy")
+        np.save(path, x)
+        out = run_ranks(_rank_run, args.devices, args, path, device=args.device)
+    answer = out["answer"]
+    algorithm = out["algorithm"]
+    value = answer.tolist() if args.quantiles is not None else answer[0].item()
+    record = _record(args, x.size, k or 0, value, algorithm, out["seconds"])
+    record.n_devices = out["n_cards"]
+    record.rounds = out["rounds"]
+    record.extra.update(
+        ranks=args.devices, process_group=out["process_group"], collectives=out["collectives"],
+        collective_seconds=out["collective_seconds"],
+    )
+    ok = True
+    if args.verify:
+        if args.quantiles is not None:
+            ks = api.quantile_ranks(args.qs, x.size)
+            want = oracle_many(x, ks, sort_order=algorithm == "quantiles" and api.many_takes_sort(x.size, len(ks)))
+            record.extra["oracle"] = want.tolist()
+        else:
+            want = oracle(x, k, sort_order=algorithm == "sort")
+            record.extra["oracle"] = want.item()
+        ok = answer.tobytes() == want.tobytes()
         record.extra["exact_match"] = ok
     return record, ok
 
@@ -185,13 +363,13 @@ def _run_quantiles(args, x: np.ndarray):
     from mpi_k_selection_tpu_torch.backends import cuda as backend
     from mpi_k_selection_tpu_torch.utils.interop import tensor_from_numpy, tensor_to_numpy
 
-    try:
-        qs = [float(q) for q in args.quantiles.split(",") if q.strip()]
-    except ValueError as e:
-        raise SystemExit(f"error: bad --quantiles value: {e}") from e
+    qs = args.qs
+    if (args.devices or 1) > 1:
+        return _run_ranks(args, x, None)
     xd = tensor_from_numpy(x, args.device)
     seconds, values = time_fn(
-        lambda: backend.quantiles(xd, qs), repeats=args.repeats, warmup=1, device=args.device
+        lambda: backend.quantiles(xd, qs, distribute=args.distribute), repeats=args.repeats, warmup=1,
+        device=args.device,
     )
     values = tensor_to_numpy(values)
     record = _record(args, x.size, 0, values.tolist(), "quantiles", seconds)
@@ -255,10 +433,32 @@ def _run_streaming(args):
     return record, ok
 
 
+def _run_topk_seq(args, x: np.ndarray):
+    """Top-k on the seq backend (NumPy), values checked against the
+    key-order oracle by value."""
+    from mpi_k_selection_tpu_torch.backends import seq
+
+    k = args.topk
+    seconds, (values, _) = time_fn(lambda: seq.topk(x, k, largest=not args.smallest), repeats=args.repeats, device="cpu")
+    record = ResultRecord(
+        answer=values.reshape(-1)[:8].tolist(), n=x.size, k=k, backend="seq", algorithm="topk", dtype=args.dtype,
+        seconds=seconds, device="host",
+    )
+    ok = True
+    if args.verify:
+        oracle_fn = batched_topk_oracle if x.ndim == 2 else topk_oracle
+        want, _ = oracle_fn(x, k, largest=not args.smallest)
+        ok = bool(np.array_equal(values.astype(np.float64), want.astype(np.float64), equal_nan=True))
+        record.extra["exact_match"] = ok
+    return record, ok
+
+
 def _run_topk(args, x: np.ndarray):
     from mpi_k_selection_tpu_torch.backends import cuda as backend
     from mpi_k_selection_tpu_torch.utils.interop import tensor_from_numpy, tensor_to_numpy
 
+    if args.backend == "seq":
+        return _run_topk_seq(args, x)
     k = args.topk
     xd = tensor_from_numpy(x, args.device)
     seconds, (values, idx) = time_fn(
@@ -288,6 +488,19 @@ def main(argv=None) -> int:
         raise SystemExit("error: --batch only applies to --topk mode")
     if args.streaming and (args.quantiles is not None or args.topk is not None):
         raise SystemExit("error: --streaming is k-th mode only")
+    if args.backend == "mpi" and (args.topk is not None or args.quantiles is not None):
+        raise SystemExit("error: the mpi backend runs the k-th mode only")
+    if args.backend != "cuda" and (args.streaming or args.quantiles is not None):
+        raise SystemExit("error: --streaming and --quantiles run on the cuda backend")
+    if args.devices is not None and args.devices < 1:
+        raise SystemExit("error: --devices must be >= 1")
+    if (args.devices or 1) > 1 and (args.backend != "cuda" or args.streaming or args.topk is not None):
+        raise SystemExit("error: --devices runs the cuda backend's k-th and --quantiles modes")
+    if args.quantiles is not None:
+        try:
+            args.qs = [float(q) for q in args.quantiles.split(",") if q.strip()]
+        except ValueError as e:
+            raise SystemExit(f"error: bad --quantiles value: {e}") from e
     try:
         if args.streaming:
             record, ok = _run_streaming(args)
@@ -296,7 +509,7 @@ def main(argv=None) -> int:
             batch = (args.batch,) if args.batch else ()
             x = datagen.generate(args.n, pattern=args.gen, seed=args.seed, dtype=numpy_dtype(args.dtype), batch=batch)
             record, ok = run(args, x)
-    except (ValueError, RuntimeError) as e:
+    except (ValueError, RuntimeError, TimeoutError) as e:
         raise SystemExit(f"error: {e}") from e
     if args.json:
         print(record.to_json())

@@ -11,3 +11,8 @@ REFERENCE_K_SEQ = 250  # kth-problem-seq.c:24
 REFERENCE_K_CGM = 150  # TODO-kth-problem-cgm.c:48
 
 DEFAULT_SEED = 0
+REFERENCE_N = 100_000_000  # SIZE_OF_SAMPLES (kth-problem-seq.c:7) == MAX_NUMBERS (TODO-…:46)
+REFERENCE_C = 500  # CGM coarseness constant c (TODO-kth-problem-cgm.c:44)
+
+# The CGM program aborts unless world_size >= 2 (TODO-kth-problem-cgm.c:56-59).
+MIN_DEVICES_DISTRIBUTED = 2

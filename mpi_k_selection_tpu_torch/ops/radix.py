@@ -141,7 +141,7 @@ class _Descent:
     dtype folds into the kernels, else its widened keys), the key
     transform, and the one-pass bucket walk."""
 
-    def __init__(self, x: torch.Tensor, radix_bits=None):
+    def __init__(self, x: torch.Tensor, radix_bits=None, *, reduce=None, gather=None, n_total=None):
         if radix_bits is None:
             radix_bits = default_radix_bits()
         total_bits = _dt.key_bits(x.dtype)
@@ -152,6 +152,13 @@ class _Descent:
         self.npasses = total_bits // radix_bits
         self.kdt = _dt.key_dtype(x.dtype)
         self.n = x.numel()
+        # the distributed hooks (parallel/radix.py): ``reduce`` sums each
+        # pass's histogram over the ranks, ``gather`` concatenates the
+        # collect's (K, budget) candidates along axis 1, and ``n_total`` is
+        # the count the ranks range over; one device keeps the identity
+        self.reduce = _same if reduce is None else reduce
+        self.gather = _same if gather is None else gather
+        self.n_total = self.n if n_total is None else n_total
         raw = prepare_raw(x)
         if raw is not None:
             self.words, self.key_op, self.key_xor = raw
@@ -175,7 +182,7 @@ class _Descent:
             key_op=self.key_op,
             key_xor=self.key_xor,
         )
-        return bucket_walk_step(hist, kk, prefix if p else None, self.kdt, self.radix_bits)
+        return bucket_walk_step(self.reduce(hist), kk, prefix if p else None, self.kdt, self.radix_bits)
 
     def multi_pass(self, p, prefixes, kk):
         """Pass ``p >= 1`` for K queries: one read, K histograms."""
@@ -187,7 +194,20 @@ class _Descent:
             key_op=self.key_op,
             key_xor=self.key_xor,
         )
-        return bucket_walk_step_multi(hist, kk, prefixes, self.kdt, self.radix_bits)
+        return bucket_walk_step_multi(self.reduce(hist), kk, prefixes, self.kdt, self.radix_bits)
+
+    def first_multi_pass(self, kk):
+        """The prefix-free pass shared by K queries: one histogram serves
+        every query."""
+        hist = masked_radix_histogram(
+            self.words, shift=self.total_bits - self.radix_bits, radix_bits=self.radix_bits,
+            key_op=self.key_op, key_xor=self.key_xor,
+        )
+        return bucket_walk_step_multi(self.reduce(hist), kk, None, self.kdt, self.radix_bits)
+
+
+def _same(t):
+    return t
 
 
 def row_cumsum(cnt: torch.Tensor) -> torch.Tensor:
@@ -244,17 +264,24 @@ def _collect_via_counts(prep: _Descent, resolved_passes: int, prefixes, budget: 
     return _gather_candidates(prep, cnt, res, prefixes, budget)
 
 
-def _sorted_pick(prep: _Descent, cand, kk, budget: int):
+def _sorted_pick(prep: _Descent, cand, kk):
     """The ``kk``-th smallest (1-based, (K,)) of each row of ``cand`` (K,
-    budget), in key order."""
+    C), in key order."""
     s = _dt.order_bias(torch.sort(_dt.order_bias(cand, prep.total_bits), dim=1).values, prep.total_bits)
-    return s.gather(1, (kk - 1).clamp(0, budget - 1)[:, None])[:, 0]
+    return s.gather(1, (kk - 1).clamp(0, cand.shape[1] - 1)[:, None])[:, 0]
+
+
+def _collect_and_pick(prep: _Descent, resolved_passes: int, prefixes, kk, budget: int):
+    """The collect rung: up to ``budget`` candidates per prefix (from every
+    rank, through ``prep.gather``), then each query's pick."""
+    cand, _ = _collect_via_counts(prep, resolved_passes, prefixes, budget)
+    return _sorted_pick(prep, prep.gather(cand), kk)
 
 
 def _select_key_on_prep(prep: _Descent, k, *, cutover="auto", cutover_budget: int = 8192):
     """The radix descent on a prebuilt :class:`_Descent`, returning the
     answer in key space, shape (1,)."""
-    n, rb, npasses, kdt = prep.n, prep.radix_bits, prep.npasses, prep.kdt
+    n, rb, npasses, kdt = prep.n_total, prep.radix_bits, prep.npasses, prep.kdt
     dev = prep.words.device
     kk = torch.as_tensor(k, dtype=torch.int64, device=dev).reshape(1).clamp(1, n)
     prefix = torch.zeros(1, dtype=kdt, device=dev)
@@ -270,9 +297,7 @@ def _select_key_on_prep(prep: _Descent, k, *, cutover="auto", cutover_budget: in
 
     def finish_small(resolved_passes):
         def fn(state):
-            prefix, kk = state
-            cand, _ = _collect_via_counts(prep, resolved_passes, prefix, cutover_budget)
-            return _sorted_pick(prep, cand, kk, cutover_budget)
+            return _collect_and_pick(prep, resolved_passes, *state, cutover_budget)
 
         return fn
 
@@ -318,6 +343,45 @@ def radix_select(
     return _dt.from_sortable_bits(ans, x.dtype).reshape(())
 
 
+def _select_many_on_prep(prep: _Descent, kk, *, cutover="auto", cutover_budget: int = 8192):
+    """The shared multi-rank walk on a prebuilt :class:`_Descent` for the
+    (K,) int64 ranks ``kk`` (in [1, n]), returning the answers in key
+    space, shape (K,)."""
+    rb, npasses = prep.radix_bits, prep.npasses
+    prefixes, kk, pops = prep.first_multi_pass(kk)
+    ncut = resolve_cutover(cutover, prep.n_total, prep.total_bits, rb, cutover_budget)
+    if ncut is None:
+        for p in range(1, npasses):
+            prefixes, kk, _ = prep.multi_pass(p, prefixes, kk)
+        return prefixes
+    for p in range(1, ncut):
+        prefixes, kk, pops = prep.multi_pass(p, prefixes, kk)
+
+    def finish_small(resolved_passes):
+        def fn(state):
+            return _collect_and_pick(prep, resolved_passes, *state, cutover_budget)
+
+        return fn
+
+    def finish_full_from(p0):
+        def fn(state):
+            prefixes, kk = state
+            for p in range(p0, npasses):
+                prefixes, kk, _ = prep.multi_pass(p, prefixes, kk)
+            return prefixes
+
+        return fn
+
+    def step(p, state):
+        prefixes, kk, pops = prep.multi_pass(p, *state)
+        return (prefixes, kk), pops
+
+    return run_cutover_ladder(
+        ncut, npasses, pops, lambda q: int(q.max()) <= cutover_budget, step,
+        finish_small, finish_full_from, (prefixes, kk),
+    )
+
+
 def radix_select_many(
     x: torch.Tensor,
     ks,
@@ -337,48 +401,8 @@ def radix_select_many(
     ks_t = torch.as_tensor(ks, dtype=torch.int64, device=dev)
     shape = ks_t.shape if ks_t.dim() else (1,)
     prep = _Descent(x, radix_bits)  # ksel: noqa[KSL003] -- no f64 approximation exists in the port (native f64 bitcasts)
-    n, rb, npasses, kdt = prep.n, prep.radix_bits, prep.npasses, prep.kdt
-    kk = ks_t.reshape(-1).clamp(1, n)
+    kk = ks_t.reshape(-1).clamp(1, prep.n)
     if kk.numel() == 0:
         return torch.empty(shape, dtype=x.dtype, device=dev)
-
-    # the shared prefix-free pass: one histogram serves every query
-    hist0 = masked_radix_histogram(
-        prep.words, shift=prep.total_bits - rb, radix_bits=rb, key_op=prep.key_op, key_xor=prep.key_xor,
-    )
-    prefixes, kk, pops = bucket_walk_step_multi(hist0, kk, None, kdt, rb)
-    ncut = resolve_cutover(cutover, n, prep.total_bits, rb, cutover_budget)
-    if ncut is None:
-        for p in range(1, npasses):
-            prefixes, kk, _ = prep.multi_pass(p, prefixes, kk)
-        ans = prefixes
-    else:
-        for p in range(1, ncut):
-            prefixes, kk, pops = prep.multi_pass(p, prefixes, kk)
-
-        def finish_small(resolved_passes):
-            def fn(state):
-                prefixes, kk = state
-                cand, _ = _collect_via_counts(prep, resolved_passes, prefixes, cutover_budget)
-                return _sorted_pick(prep, cand, kk, cutover_budget)
-
-            return fn
-
-        def finish_full_from(p0):
-            def fn(state):
-                prefixes, kk = state
-                for p in range(p0, npasses):
-                    prefixes, kk, _ = prep.multi_pass(p, prefixes, kk)
-                return prefixes
-
-            return fn
-
-        def step(p, state):
-            prefixes, kk, pops = prep.multi_pass(p, *state)
-            return (prefixes, kk), pops
-
-        ans = run_cutover_ladder(
-            ncut, npasses, pops, lambda q: int(q.max()) <= cutover_budget, step,
-            finish_small, finish_full_from, (prefixes, kk),
-        )
+    ans = _select_many_on_prep(prep, kk, cutover=cutover, cutover_budget=cutover_budget)
     return _dt.from_sortable_bits(ans, x.dtype).reshape(shape)

@@ -9,6 +9,7 @@ CPU the host clock is the device clock.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import time
@@ -59,6 +60,35 @@ def cuda_ms(fn: Callable[[], Any], *, iters: int = 10, warmup: int = 2) -> float
     return t0.elapsed_time(t1) / iters
 
 
+class Stopwatch:
+    """Host seconds and count of the blocks timed with :meth:`timing`:
+    for work that has ended when the block ends (a blocking collective
+    on host tensors)."""
+
+    def __init__(self):
+        self.seconds = 0.0
+        self.count = 0
+
+    @contextlib.contextmanager
+    def timing(self):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.seconds += time.perf_counter() - t0
+            self.count += 1
+
+
+class Deadline:
+    """A host-clock deadline ``seconds`` from now."""
+
+    def __init__(self, seconds: float):
+        self._end = time.monotonic() + seconds
+
+    def remaining(self) -> float:
+        return self._end - time.monotonic()
+
+
 @dataclasses.dataclass
 class ResultRecord:
     """One run's record, as the JAX package's CLI writes it."""
@@ -71,13 +101,15 @@ class ResultRecord:
     dtype: str
     seconds: float
     device: str = ""
+    n_devices: int = 1  # devices the run used, ranks sharing a card counted once (the mpi backend: its processes)
+    rounds: int | None = None  # CGM rounds, where CGM ran
     extra: dict = dataclasses.field(default_factory=dict)
 
     @property
     def elems_per_sec_per_chip(self) -> float:
         if self.seconds <= 0:
             return float("inf")
-        return self.n / self.seconds  # one device
+        return self.n / self.seconds / max(1, self.n_devices)
 
     def to_json(self) -> str:
         d = dataclasses.asdict(self)
@@ -85,6 +117,10 @@ class ResultRecord:
         return json.dumps(d, default=str)
 
     def print_reference_style(self) -> None:
-        # the reference's output contract: "kth element=%d \ntime: %f\n"
-        # (TODO-kth-problem-cgm.c:280)
-        print(f"kth element={self.answer} \ntime: {self.seconds:f}")
+        # the reference's output contracts: the seq program's "Solution found
+        # solution=%d \ntime: %f\n" (kth-problem-seq.c:37), the others'
+        # "kth element=%d \ntime: %f\n" (TODO-kth-problem-cgm.c:280)
+        if self.backend == "seq":
+            print(f"Solution found solution={self.answer} \ntime: {self.seconds:f}")
+        else:
+            print(f"kth element={self.answer} \ntime: {self.seconds:f}")

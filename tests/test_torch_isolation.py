@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: no file of ``mpi_k_selection_tpu_torch``
 and no line of ``chip_smoke.py`` imports JAX or the JAX package, and
-importing the port loads neither, nor builds a kernel."""
+importing the port (its distributed, backend and native modules too)
+loads neither, builds no kernel or native library and starts no process
+group."""
 
 import ast
 import pathlib
@@ -61,10 +63,14 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         "import sys\n"
         "import mpi_k_selection_tpu_torch, mpi_k_selection_tpu_torch.cli\n"
         "import mpi_k_selection_tpu_torch.backends.cuda\n"
+        "import mpi_k_selection_tpu_torch.backends.seq, mpi_k_selection_tpu_torch.backends.mpi\n"
+        "import mpi_k_selection_tpu_torch.parallel.multihost, mpi_k_selection_tpu_torch.buffer\n"
+        "from mpi_k_selection_tpu_torch.native import loader\n"
         "from mpi_k_selection_tpu_torch.ops.cuda import build\n"
+        "import torch.distributed as dist\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'mpi_k_selection_tpu')]\n"
         "assert not bad, bad\n"
-        "assert not build._libs\n"
+        "assert not build._libs and loader._lib is None and not dist.is_initialized()\n"
         "print('ok')\n"
     )
     out = subprocess.run(

@@ -252,11 +252,16 @@ def test_rank_certificate_brackets_the_answer():
 
 
 def test_cuda_backend_plan():
-    assert cuda_backend.plan(1 << 14) == "sort"
-    assert cuda_backend.plan((1 << 14) + 1) == "radix"
-    assert cuda_backend.plan(10, "radix") == "radix"
+    assert cuda_backend.plan(1 << 14) == ("sort", False)
+    assert cuda_backend.plan((1 << 14) + 1) == ("radix", False)
+    assert cuda_backend.plan(10, "radix") == ("radix", False)
     with pytest.raises(ValueError, match="algorithm"):
-        cuda_backend.plan(1 << 20, "cgm")
+        cuda_backend.plan(1 << 20, "bogus")
+    # cgm is distributed only: with no process group it plans a mesh that
+    # the distributed entry refuses, as the JAX package's does on one device
+    assert cuda_backend.plan(1 << 20, "cgm") == ("cgm", True)
+    with pytest.raises(ValueError, match="needs >= 2 devices"):
+        cuda_backend.kselect(np.arange(1 << 10, dtype=np.int32), 5, algorithm="cgm", device="cpu")
     x = datagen.generate(20_000, pattern="descending", seed=0)
     assert bits_of(cuda_backend.median(x, device="cpu")) == key_oracle(x, 10_000).tobytes()
 
