@@ -26,7 +26,7 @@ Phases, each of which must pass (any failure exits non-zero):
    histogram prefixes at radix widths 4 and 8 and K=70 (35 prefixes twice,
    more than go by value), a sparse collect spec, one every key matches,
    four specs and a two-spec tee union, a certificate key present and
-   absent, sketches of 8 and 20 bits.
+   absent, sketches of 8, 16 and 20 bits.
 3. Drive the main paths, each with the launch counts set to 0 just before
    it and read just after (each of its kernels must have launched and no
    plain version may have run), each answer equal
@@ -82,7 +82,9 @@ Phases, each of which must pass (any failure exits non-zero):
    timed at 2^31); the sweep kernel at each launch kind the streamed paths
    issue, on the int32 stream's chunk 0 and the float64 stream's chunk 0
    (a first pass, one and 4 prefixes, the collect of one and of 4 specs, a
-   certificate), held exactly against its plain version first, the kernel
+   certificate, the sketch alone at 16 bits, the last also beside
+   ``torch.bincount`` of the top 16 key bits and ``torch.aminmax``), held
+   exactly against its plain version first, the kernel
    alone (torch.profiler) and the whole call beside a bound that counts
    the returned survivor buffers (L words each) and beside the old bound
    that counted the survivors only; and the sweep kernel at a 2^26-word
@@ -106,9 +108,25 @@ Phases, each of which must pass (any failure exits non-zero):
    on every rank just before it and read just after (its kernels launched
    on every rank, no plain call); its wall time on rank 0 (CUDA events
    after a barrier), each rank's launches, collectives and time in them,
-   the CGM rounds. Then the native ``mpi`` backend (4 forked host ranks)
-   on the 10^8 case, equal to NumPy and to the CGM on the card, and the
-   resident single-device median of the same 2^30 int64 as a yardstick.
+   the CGM rounds. ``distributed_sketch`` (16 bits) of the 10^8 int32 and
+   (one timed run: every key of a shard in one counter) of the 2^30 int64:
+   every rank's sketch equal, rank 0's equal to NumPy's sketch of the
+   whole array bit for bit. Then the native ``mpi`` backend (4 forked host
+   ranks) on the 10^8 case, equal to NumPy and to the CGM on the card, and
+   the resident single-device median of the same 2^30 int64 as a yardstick.
+7. This slice's paths on the streams of phase 3 (``phase_sketch_staging``):
+   the host-copy probe (host copies into pinned memory from 1, 2 and 4
+   threads, the link idle and busy: whether a pool of ingest workers could
+   copy faster); the streamed median of the int32 and of the float64
+   stream at depth 2, each under the profiler (answer against phase 3's,
+   wall ms, idle share, the host copy per chunk, pinned bytes in use and
+   peak device memory against the ``depth + 1`` staging bounds);
+   ``StreamingQuantiles.update_stream`` of the int32 stream against
+   NumPy's sketch bit for bit, the p50/p90/p99/p99.9 answers inside its bounds, and
+   ``refine_quantiles`` exact, its passes beside the unseeded descent's;
+   the float64 stream's sketch and refined median; the ``Monitor`` over a
+   one-shot generator of the int32 chunks (window 8, a sample every 8
+   chunks), exact and decayed, each window against NumPy's counts.
 
 The timed kernel rows of phase 4 also time the nearest torch composition
 of each of rows 1-6 on the same tensor (a ``torch.bincount`` of the digits
@@ -161,6 +179,7 @@ BATCH_KS = {torch.float32: (1, 8, 9, 16), torch.bfloat16: (8, 16)}
 SWEEP_BUCKET = 1 << 26  # the sweep kernel's checks and timings: one streamed chunk
 STREAM_CHUNK, STREAM_CHUNKS = 1 << 26, 64  # 2^32 int32 uniform, chunk i of seed i (16 GiB on the host)
 F64_CHUNK, F64_CHUNKS = 1 << 25, 32  # 2^30 float64 normal (8 GiB)
+SKETCH_BITS = 16  # the sketches' default resolution: 4-bit digits x 4 levels
 HOST_GIB_NEEDED = 48  # below this much free host memory the streams are halved
 
 
@@ -398,7 +417,8 @@ def sweep_cases(bits: int, keys: torch.Tensor):
     sparse collect spec (the top 8 bits of a key: about 1/256 of random
     words survive), a spec every key matches (0 resolved bits, a shift of
     the word width), four specs in one scan and a two-spec tee union; a
-    certificate key present in and absent from the data; sketches of 8 and
+    certificate key present in and absent from the data; sketches of 8, 16
+    (the default width, the first whose counters leave shared memory) and
     20 bits."""
     u = [v & ((1 << bits) - 1) for v in keys[:64].tolist()]
 
@@ -420,7 +440,7 @@ def sweep_cases(bits: int, keys: torch.Tensor):
         ("collect four specs", dict(collect=[sparse, (bits - 8, top(8, 8)), (bits - 16, top(9, 16)), every])),
         ("tee union of two specs", tee),
         ("cert, key present", dict(vkey=u[7])), ("cert, key absent", dict(vkey=absent)),
-        ("sketch 8", dict(sketch_bits=8)), ("sketch 20", dict(sketch_bits=20)),
+        ("sketch 8", dict(sketch_bits=8)), ("sketch 16", dict(sketch_bits=16)), ("sketch 20", dict(sketch_bits=20)),
         ("all five, K=4 rb=8, sketch 20", dict(hist4, collect=[sparse, every], **tee, vkey=u[7], sketch_bits=20)),
         ("all five, K=1 rb=4, sketch 8", dict(hist1, collect=[sparse], **tee, vkey=absent, sketch_bits=8)),
     ]
@@ -1117,7 +1137,10 @@ def phase_streaming():
         fail(f"a sweep kernel never launched on the streamed paths: {launches}")
     notes = {"stream_peaks": {k: {"peak_bytes": p, "limit_bytes": lim} for k, (p, lim) in peaks.items()},
              "stream_answers": {str(k): repr(v) for k, v in answers.items()}}
-    return ints, f64, launches, per_call, notes
+    certified = {"median32": answers[(n32 // 2, 2)], "qranks": qranks, "quantiles32": qans, "median64": fmed,
+                 "quantile_passes": per_call["kselect_streaming_many p50/p90/p99/p99.9 depth=2, int32 uniform 2^32"]
+                 ["sweep_ingest32"] // len(ints.chunks)}
+    return ints, f64, launches, per_call, notes, certified
 
 
 def phase_streaming_timing(ints, f64):
@@ -1245,6 +1268,306 @@ def phase_streaming_timing(ints, f64):
     return rows, kern, library, stream_ms, resident_fault, kinds
 
 
+PROBE_THREADS = (1, 2, 4)  # threads of the host-copy probe
+MONITOR_WINDOW, MONITOR_EVERY, MONITOR_DECAY = 8, 8, 0.5
+DECAY_SHIFT = 20  # the monitor's fixed-point scale (its weights are recomputed here with NumPy)
+
+
+PROBE_COPIES = 4  # host copies a thread makes in the host-copy probe
+
+
+def host_copy_probe(chunks) -> list:
+    """The host side of staging alone: W threads (W in
+    :data:`PROBE_THREADS`) each copy :data:`PROBE_COPIES` chunks of the int32
+    stream into a pinned buffer of their own, all at once, first with the
+    host-to-card link idle, then with it busy (a thread copying a pinned
+    chunk to the card back to back on a stream of its own, as the staging
+    does). Per-copy ms, the aggregate host-copy rate, and the link's rate
+    while the copies ran: what a pool of ingest workers (not ported) could
+    gain on this host."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mpi_k_selection_tpu_torch.utils.timing import Stopwatch, time_fn
+
+    nbytes = chunks[0].nbytes
+    link_src = torch.empty(STREAM_CHUNK, dtype=torch.int32, pin_memory=True)
+    link_dst = torch.empty(STREAM_CHUNK, dtype=torch.int32, device="cuda")
+    out = []
+    for with_link in (False, True):
+        for w in PROBE_THREADS:
+            bufs = [torch.empty(STREAM_CHUNK, dtype=torch.int32, pin_memory=True) for _ in range(w)]
+            copies = Stopwatch()
+            stop = threading.Event()
+            fed = [0]
+
+            def feed():  # the card's own copies from pinned memory, one after another
+                stream = torch.cuda.Stream()
+                with torch.cuda.stream(stream):
+                    while not stop.is_set():
+                        link_dst.copy_(link_src, non_blocking=True)
+                        stream.synchronize()
+                        fed[0] += 1
+
+            def work(j):
+                for i in range(PROBE_COPIES):
+                    src = torch.from_numpy(chunks[(j * PROBE_COPIES + i) % len(chunks)])
+                    with copies.timing():
+                        bufs[j].copy_(src)
+
+            feeder = threading.Thread(target=feed) if with_link else None
+            if feeder is not None:
+                feeder.start()
+            try:
+                with ThreadPoolExecutor(w) as pool:
+                    secs, _ = time_fn(lambda: list(pool.map(work, range(w))), device="cpu")
+            finally:
+                stop.set()
+                if feeder is not None:
+                    feeder.join()
+            rec = {"threads": w, "link_busy": with_link, "copy_ms": copies.seconds / copies.count * 1e3,
+                   "aggregate_gb_s": w * PROBE_COPIES * nbytes / secs / 1e9,
+                   "link_gb_s": fed[0] * nbytes / secs / 1e9 if with_link else None}
+            out.append(rec)
+            print(f"[phase7] host-copy probe: {w} thread(s), link {'busy' if with_link else 'idle'}: "
+                  f"{rec['copy_ms']:.2f} ms a 256 MiB copy, {rec['aggregate_gb_s']:.2f} GB/s in all"
+                  + (f"; the link meanwhile {rec['link_gb_s']:.2f} GB/s" if with_link else ""))
+            del bufs
+    return out
+
+
+def profiled_call(fn):
+    """One call of ``fn`` under torch.profiler, timed with CUDA events
+    inside it: ``(result, ms, busy_ms, idle_share, top)``. ``busy_ms`` is
+    the union of the device's kernel and copy intervals (copies on the
+    staging stream overlap the compute stream's kernels); None
+    when the profiler saw no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+    ms = a.elapsed_time(b)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return out, ms, None, None, []
+    busy, (lo, hi) = 0.0, spans[0]
+    for start, end in spans[1:]:
+        if start > hi:
+            busy, lo = busy + hi - lo, start
+        hi = max(hi, end)
+    busy = (busy + hi - lo) / 1e3
+    top = sorted(((e.key[:90], e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA), key=lambda t: -t[2])[:4]
+    return out, ms, busy, max(0.0, 1.0 - busy / ms), top
+
+
+def np_chunk_sketches(chunks, bits: int = SKETCH_BITS) -> list:
+    """Each chunk's deepest sketch level (the count of each value of its
+    keys' top ``bits`` bits), key min, key max and size, with NumPy alone
+    on 8 threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(c):
+        k = host_keys(c)
+        top = k >> k.dtype.type(8 * k.itemsize - bits)
+        return np.bincount(top.astype(np.int64), minlength=1 << bits), int(k.min()), int(k.max()), k.size
+
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(one, chunks))
+
+
+def np_sketch(parts, weights=None):
+    """The NumPy sketch ``(deep, n, key min, key max)`` of per-chunk
+    sketches, each count scaled by its chunk's integer weight."""
+    weights = [1] * len(parts) if weights is None else weights
+    deep = sum(p[0] * w for p, w in zip(parts, weights))
+    return deep, sum(p[3] * w for p, w in zip(parts, weights)), min(p[1] for p in parts), max(p[2] for p in parts)
+
+
+def check_sketch(sk, want, what: str) -> None:
+    """Fails unless the port's sketch equals NumPy's ``want`` bit for bit:
+    every level (the shallower ones are sums of the deepest), n and the
+    extremes."""
+    deep, n, kmin, kmax = want
+    levels_ok = all(
+        np.array_equal(h, deep.reshape(1 << (sk.radix_bits * (i + 1)), -1).sum(axis=1)) for i, h in enumerate(sk.hists)
+    )
+    if not (levels_ok and sk.n == n and int(sk._min_key) == kmin and int(sk._max_key) == kmax):
+        fail(f"{what}: the sketch != NumPy's (n {sk.n} vs {n}; min {sk._min_key} vs {kmin}; "
+             f"max {sk._max_key} vs {kmax}; levels equal {levels_ok})")
+
+
+def phase_sketch_staging(ints, f64, certified):
+    """Phase 7, this slice's paths on the card, each driven with the launch
+    counts set to 0 just before it and read just after (the sweep kernel
+    once per chunk per pass, no plain call):
+
+    - the staging: :func:`host_copy_probe` (the host copies alone, at
+      1, 2 and 4 threads, the link idle and busy); the streamed median of
+      the 2^32 int32 stream and of the 2^30 float64 stream at depth 2,
+      each one call under the profiler: its answer against phase 3's
+      certified answer, wall ms, the device's idle share, the host copy
+      into a pinned buffer per chunk, the most pinned bytes in use and
+      the peak device memory against the staging bounds (``depth + 1``
+      chunks);
+    - the sketch: ``StreamingQuantiles(int32).update_stream`` of the int32
+      stream, against NumPy's sketch of the host chunks
+      bit for bit; the true ranks and values of p50/p90/p99/p99.9 inside
+      its bounds; ``refine_quantiles`` exact against phase 3, its passes
+      beside the unseeded descent's; the float64 stream's sketch and its
+      refined median;
+    - the monitor over the int32 stream given as a one-shot generator
+      (window 8, a sample every 8 chunks), exact and with ``decay=0.5``:
+      each sample's window sketch against NumPy's counts of that window's
+      chunks, and ms a sample."""
+    import mpi_k_selection_tpu_torch as kt
+    from mpi_k_selection_tpu_torch.ops.cuda import histogram as H
+    from mpi_k_selection_tpu_torch.ops.cuda import sweep_ingest as S
+    from mpi_k_selection_tpu_torch.ops.cuda import topk as T
+    from mpi_k_selection_tpu_torch.streaming import pipeline as pl
+    from mpi_k_selection_tpu_torch.utils.timing import time_fn
+
+    launches = {"sweep_ingest32": 0, "sweep_ingest64": 0}
+    per_call, out = {}, {"staging": [], "sketch": {}, "monitor": {}}
+
+    def counted(what, fn, src, bits):
+        """Drives one call with every count at 0; fails unless the sweep
+        kernel launched once per chunk per pass read (counted at the
+        source) and nothing else ran. Returns the call's result."""
+        for m in (H, T, S):
+            m.reset_counts()
+        src.passes = 0
+        res = fn()
+        torch.cuda.synchronize()
+        want = src.passes * len(src.chunks)
+        others = {k: v for k, v in {**H.LAUNCHES, **T.LAUNCHES}.items() if v}
+        plain = {k: v for k, v in {**H.PLAIN_CALLS, **T.PLAIN_CALLS, **S.PLAIN_CALLS}.items() if v}
+        if S.LAUNCHES[f"sweep_ingest{bits}"] != want or sum(S.LAUNCHES.values()) != want or others or plain:
+            fail(f"{what}: launches {dict(S.LAUNCHES)} for {src.passes} passes of {len(src.chunks)} chunks; "
+                 f"other kernels {others}; plain calls {plain}")
+        for kn in launches:
+            launches[kn] += S.LAUNCHES[kn]
+        per_call[what] = {kn: v for kn, v in S.LAUNCHES.items() if v}
+        print(f"[phase7] {what}: {src.passes} passes x {len(src.chunks)} chunks = {want} launches of "
+              f"sweep_ingest{bits}, no plain call")
+        return res
+
+    # the staging: the host side alone, then the streamed median of each stream
+    out["host_copy_probe"] = host_copy_probe(ints.chunks)
+    n32, n64 = len(ints.chunks) * STREAM_CHUNK, len(f64.chunks) * F64_CHUNK
+    runs = [(ints, 32, n32 // 2, certified["median32"]), (f64, 64, n64 // 2, certified["median64"])]
+    for src, bits, k, want in runs:
+        what = f"streaming median depth=2, {'int32 uniform 2^32' if bits == 32 else 'float64 normal 2^30'}"
+        pl.STAGING_POOL.clear()
+        pl.STAGING_POOL.reset_peaks()
+        pl.HOST_COPY.reset()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got, ms, busy, idle, top = counted(
+            what, lambda: profiled_call(lambda: kt.kselect_streaming(src, k, pipeline_depth=2)),
+            src, bits)
+        if got.tobytes() != want.tobytes():
+            fail(f"{what}: {got!r} != phase 3's certified answer {want!r}")
+        peak_dev = torch.cuda.max_memory_allocated() - base
+        chunk_bytes = src.chunks[0].nbytes
+        pinned_bound = (2 + 1) * chunk_bytes
+        dev_bound = (2 + 1 + 1) * chunk_bytes + (64 << 20)  # the staged chunks, one collect buffer
+        if not 0 < pl.STAGING_POOL.peak_live_bytes <= pinned_bound or pl.STAGING_POOL.live_bytes:
+            fail(f"{what}: pinned bytes in use peaked at {pl.STAGING_POOL.peak_live_bytes} (bound {pinned_bound}), "
+                 f"{pl.STAGING_POOL.live_bytes} still out")
+        if peak_dev > dev_bound:
+            fail(f"{what}: peak device memory {peak_dev} over the staging bound {dev_bound}")
+        copy_ms = pl.HOST_COPY.seconds / max(1, pl.HOST_COPY.count) * 1e3
+        rec = {"what": what, "ms": ms, "busy_ms": busy, "idle_share": idle,
+               "host_copy_ms_per_chunk": copy_ms, "host_copies": pl.HOST_COPY.count,
+               "peak_pinned_in_use_bytes": pl.STAGING_POOL.peak_live_bytes,
+               "peak_pinned_held_bytes": pl.STAGING_POOL.peak_bytes, "pinned_bound_bytes": pinned_bound,
+               "peak_device_bytes": peak_dev, "device_bound_bytes": dev_bound, "answer": repr(got),
+               "top": [{"name": n, "calls": c, "ms": m} for n, c, m in top]}
+        out["staging"].append(rec)
+        print(f"[phase7] {what}: {got!r} == phase 3; {ms:.1f} ms; device busy "
+              + ("not measured" if busy is None else f"{busy:.1f} ms, idle share {idle:.3f}")
+              + f"; host copy {copy_ms:.2f} ms a chunk over {pl.HOST_COPY.count} copies; pinned in use peak "
+              f"{pl.STAGING_POOL.peak_live_bytes / 2**20:.0f} MiB (bound {pinned_bound / 2**20:.0f}); device peak "
+              f"{peak_dev / 2**20:.0f} MiB (bound {dev_bound / 2**20:.0f})")
+    pl.STAGING_POOL.clear()
+
+    # the sketch: update_stream, against NumPy
+    parts32 = np_chunk_sketches(ints.chunks)
+    what = "StreamingQuantiles(int32).update_stream, int32 uniform 2^32"
+    sq = kt.StreamingQuantiles(np.int32)
+    secs, _ = time_fn(lambda: counted(what, lambda: sq.update_stream(ints), ints, 32), device="cuda")
+    check_sketch(sq.sketch, np_sketch(parts32), what)
+    out["sketch"][what] = {"ms": secs * 1e3}
+    print(f"[phase7] {what}: {secs * 1e3:.1f} ms; the sketch == NumPy's bit for bit (n {sq.n})")
+    for k, v in zip(certified["qranks"], certified["quantiles32"]):
+        lo, hi = sq.sketch.rank_bounds(k)
+        vlo, vhi = sq.sketch.value_bounds(k)
+        if not (lo < k <= hi and host_keys(np.array([vlo, v, vhi], np.int32)).tolist()
+                == sorted(host_keys(np.array([vlo, v, vhi], np.int32)).tolist())):
+            fail(f"k={k}: rank bounds ({lo}, {hi}] or value bounds [{vlo!r}, {vhi!r}] miss the answer {v!r}")
+        print(f"[phase7] k={k}: rank bounds ({lo}, {hi}] (error bound {hi - lo}), values [{vlo!r}, {vhi!r}] "
+              f"hold the certified {v!r}")
+    what = "refine_quantiles p50/p90/p99/p99.9, int32 uniform 2^32"
+    secs, refined = time_fn(lambda: counted(what, lambda: sq.refine_quantiles(QS, ints), ints, 32), device="cuda")
+    if np.array(refined).tobytes() != np.array(certified["quantiles32"]).tobytes():
+        fail(f"{what}: {refined!r} != phase 3's {certified['quantiles32']!r}")
+    seeded = per_call[what]["sweep_ingest32"] // len(ints.chunks)
+    out["sketch"][what] = {"ms": secs * 1e3, "passes": seeded, "unseeded_passes": certified["quantile_passes"]}
+    print(f"[phase7] {what}: exact; {secs * 1e3:.1f} ms; {seeded} passes read against the unseeded descent's "
+          f"{certified['quantile_passes']}")
+    parts64 = np_chunk_sketches(f64.chunks)
+    what = "StreamingQuantiles(float64).update_stream, float64 normal 2^30"
+    t64 = kt.StreamingQuantiles(np.float64)
+    secs, _ = time_fn(lambda: counted(what, lambda: t64.update_stream(f64), f64, 64), device="cuda")
+    check_sketch(t64.sketch, np_sketch(parts64), what)
+    out["sketch"][what] = {"ms": secs * 1e3}
+    what = "RadixSketch.refine median, float64 normal 2^30"
+    secs, med = time_fn(lambda: counted(what, lambda: t64.sketch.refine(f64, n64 // 2), f64, 64), device="cuda")
+    if med.tobytes() != certified["median64"].tobytes():
+        fail(f"{what}: {med!r} != phase 3's {certified['median64']!r}")
+    out["sketch"][what] = {"ms": secs * 1e3, "passes": per_call[what]["sweep_ingest64"] // len(f64.chunks)}
+    print(f"[phase7] float64: the sketch == NumPy's; refined median {med!r} exact in "
+          f"{out['sketch'][what]['passes']} passes, {secs * 1e3:.1f} ms")
+
+    # the monitor over a one-shot generator, exact and decayed
+    for decay in (None, MONITOR_DECAY):
+        what = f"Monitor window={MONITOR_WINDOW} emit_every={MONITOR_EVERY} decay={decay}, int32 uniform 2^32"
+        mon = kt.Monitor(window=MONITOR_WINDOW, emit_every=MONITOR_EVERY, decay=decay)
+        windows = []
+
+        def drive():
+            for sample in mon.run((c for c in ints()), np.int32):  # a one-shot generator over one read
+                windows.append((sample, mon.ws.query()))
+
+        secs, _ = time_fn(lambda: counted(what, drive, ints, 32), device="cuda")
+        if len(windows) != len(ints.chunks) // MONITOR_EVERY:
+            fail(f"{what}: {len(windows)} samples")
+        for i, (sample, sk) in enumerate(windows):
+            buckets = list(range(max(0, i - MONITOR_WINDOW + 1), i + 1))
+            chunks_in, weights = [], []
+            for age, bucket in enumerate(reversed(buckets)):
+                w = 1 if decay is None else int(round(decay**age * (1 << DECAY_SHIFT)))
+                for j in range(bucket * MONITOR_EVERY, (bucket + 1) * MONITOR_EVERY):
+                    chunks_in.append(parts32[j])
+                    weights.append(w)
+            check_sketch(sk, np_sketch(chunks_in, weights), f"{what} sample {i}")
+            if sample.n != sk.n:
+                fail(f"{what} sample {i}: n {sample.n} != its window's {sk.n}")
+        out["monitor"][what] = {"ms": secs * 1e3, "samples": len(windows), "ms_per_sample": secs * 1e3 / len(windows),
+                                "last": windows[-1][0].as_dict()}
+        print(f"[phase7] {what}: {len(windows)} samples, each window == NumPy's counts; {secs * 1e3:.1f} ms, "
+              f"{secs * 1e3 / len(windows):.1f} ms a sample; last: {windows[-1][0].format_line()}")
+    return launches, per_call, out
+
+
 DIST_WORLD = 4  # ranks of the distributed phase, all on cuda:0 (one card: gloo)
 DIST_REPS = 3  # timed runs of each distributed path (the median run's counts reported)
 DIST_N64 = 1 << 30  # BASELINE.md's "Multi-chip distributed median: N=1B int64"
@@ -1264,6 +1587,11 @@ DIST_PATHS = {  # label: kernels it must launch (the values lie below 2^27, so e
     "cgm int32 uniform 10^8 k=150": (),
     f"topk k={TOPK} float32 normal 2^26": ("radix_histogram32", "tau_counts32"),
 }
+# distributed_sketch at the default 16 bits: the 10^8 int32 timed as the paths
+# above; the 2^30 int64 once (its values lie below 2^27, so every key of a
+# rank's 2^28-key shard falls in one of the 2^16 global counters)
+DIST_SKETCHES = {"sketch int32 uniform 10^8": ("int32 uniform 10^8", DIST_REPS),
+                 "sketch int64 uniform 2^30": ("int64 uniform 2^30", 0)}
 
 
 def dist_rank(mesh, files):
@@ -1353,9 +1681,51 @@ def dist_rank(mesh, files):
         else:
             first, second = tensor_to_numpy(first.reshape(-1)), tensor_to_numpy(second.reshape(-1))
         out["paths"][label] = {"answer": first, "again": second, "rounds": rounds, "per_rank": per_rank.numpy()}
+    out["sketches"] = dist_sketches(mesh, placed, timed)
     if mesh.rank == 0:
         out["kernel_checks"] = dist_kernel_checks(placed)
     mesh.barrier()
+    return out
+
+
+def dist_sketches(mesh, placed, timed) -> dict:
+    """``distributed_sketch`` of each of :data:`DIST_SKETCHES` on this rank:
+    a run with the launch counts at 0 just before it and read just after,
+    timed (CUDA events after a barrier), then ``reps`` more timed runs that
+    must give the same sketch. Returns rank 0's sketch and every rank's
+    launches, plain calls, sketch digest and times, gathered."""
+    import hashlib
+
+    import mpi_k_selection_tpu_torch as kt
+    from mpi_k_selection_tpu_torch.ops.cuda import histogram as H
+    from mpi_k_selection_tpu_torch.ops.cuda import sweep_ingest as S
+
+    def digest(sk):  # the keys as int64 bit patterns
+        h = hashlib.blake2b(sk.hists[-1].tobytes(), digest_size=7).digest()
+        keys = np.array([sk._min_key, sk._max_key], np.uint64).view(np.int64).tolist()
+        return [sk.n, *keys, int.from_bytes(h, "little")]
+
+    out = {}
+    for label, (name, reps) in DIST_SKETCHES.items():
+        H.reset_counts()
+        S.reset_counts()
+        mesh.reset_stats()
+        sk, ms = timed(lambda: kt.distributed_sketch(placed[name], mesh=mesh))
+        counts = [S.LAUNCHES["sweep_ingest32"], S.LAUNCHES["sweep_ingest64"], sum(H.LAUNCHES.values()),
+                  sum(H.PLAIN_CALLS.values()) + sum(S.PLAIN_CALLS.values())]
+        runs = [[ms, float(mesh.collectives), mesh.collective_seconds() * 1e3]]
+        for _ in range(reps):
+            mesh.reset_stats()
+            again, ms = timed(lambda: kt.distributed_sketch(placed[name], mesh=mesh))
+            if again != sk:
+                raise RuntimeError(f"{label}: a second run gave another sketch")
+            runs.append([ms, float(mesh.collectives), mesh.collective_seconds() * 1e3])
+        runs.sort()
+        stats = runs[len(runs) // 2] + [runs[0][0], runs[-1][0]]
+        ints = mesh.all_gather(torch.tensor(counts + digest(sk), dtype=torch.int64))
+        times = mesh.all_gather(torch.tensor(stats, dtype=torch.float64))
+        out[label] = {"deep": sk.hists[-1], "n": sk.n, "min": int(sk._min_key), "max": int(sk._max_key),
+                      "per_rank": ints.numpy(), "times": times.numpy()}
     return out
 
 
@@ -1365,6 +1735,7 @@ def dist_kernel_checks(placed) -> dict:
     words), held exactly against its plain version on the same tensor.
     Returns ``{kernel: max_abs_err}``."""
     from mpi_k_selection_tpu_torch.ops.cuda import histogram as H
+    from mpi_k_selection_tpu_torch.ops.cuda import sweep_ingest as S
     from mpi_k_selection_tpu_torch.ops.radix import cutover_passes
     from mpi_k_selection_tpu_torch.utils import dtypes as dt
 
@@ -1398,6 +1769,11 @@ def dist_kernel_checks(placed) -> dict:
             for largest in (True, False):
                 exact("tau_counts32", H.tau_counts, H.tau_counts_plain, words=w, tau=keys[1:2].clone(),
                       largest=largest, key_op=key_op, key_xor=key_xor)
+        if key_op == "xor":  # distributed_sketch: the sketch part on the shard's real keys
+            n_valid = min(n, shard.n - shard.rank * n)
+            kw = dict(key_op=key_op, key_xor=key_xor, sketch_bits=SKETCH_BITS)
+            got, want = S.sweep_ingest(w, n_valid, **kw)[4], S.sweep_ingest_plain(w, n_valid, **kw)[4]
+            err[f"sweep_ingest{bits}"] = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
     torch.cuda.synchronize()
     return err
 
@@ -1421,6 +1797,7 @@ def phase_distributed():
     from mpi_k_selection_tpu_torch.cli import topk_oracle
     from mpi_k_selection_tpu_torch.parallel.mesh import choose_backend
     from mpi_k_selection_tpu_torch.parallel.multihost import run_ranks
+    from mpi_k_selection_tpu_torch.parallel.sketch import SEGMENT as SKETCH_SEGMENT
     from mpi_k_selection_tpu_torch.utils import datagen
     from mpi_k_selection_tpu_torch.utils.timing import cuda_ms
 
@@ -1486,6 +1863,35 @@ def phase_distributed():
                      "collective_ms": coll_ms, "launches_per_rank": launches,
                      "ms_per_rank": [float(row[nk + 1]) for row in pr]})
     summary["paths"] = rows
+    # distributed_sketch: every rank's sketch the same, rank 0's equal to
+    # NumPy's sketch of the whole array bit for bit
+    summary["sketches"] = []
+    for label, arr in (("sketch int32 uniform 10^8", i8), ("sketch int64 uniform 2^30", x64)):
+        r = out["sketches"][label]
+        deep, n, kmin, kmax = np_sketch(np_chunk_sketches(np.array_split(arr, 16)))
+        if not (np.array_equal(r["deep"], deep) and (r["n"], r["min"], r["max"]) == (n, kmin, kmax)):
+            fail(f"distributed {label}: rank 0's sketch != NumPy's (n {r['n']} vs {n})")
+        pr, times = r["per_rank"], r["times"]
+        if any(row[4:].tolist() != pr[0][4:].tolist() for row in pr):
+            fail(f"distributed {label}: the ranks' sketches differ: {pr[:, 4:].tolist()}")
+        bits = 32 if "int32" in label else 64
+        # one launch a segment of a rank's real keys (its pads are never counted)
+        per = -(-arr.size // len(pr))
+        valid = [max(0, min(arr.size, (r + 1) * per) - r * per) for r in range(len(pr))]
+        expect = [-(-v // SKETCH_SEGMENT) for v in valid]
+        if [int(row[0 if bits == 32 else 1]) for row in pr] != expect or any(row[2] or row[3] for row in pr):
+            fail(f"distributed {label}: per-rank launches (sweep32, sweep64, other kernels, plain) "
+                 f"{pr[:, :4].tolist()}; sweep_ingest{bits} must launch {expect} times (once a segment of "
+                 f"{valid} real keys)")
+        ms, coll, coll_ms, fastest, slowest = (float(v) for v in times[0])
+        print(f"[dist] {label}: == NumPy's sketch bit for bit on every rank; {ms:.3f} ms on rank 0 (CUDA events, "
+              f"after a barrier; median of {DIST_SKETCHES[label][1] + 1} runs, "
+              f"{fastest:.3f}-{slowest:.3f}); {int(coll)} collectives, {coll_ms:.3f} ms in them; launches of "
+              f"sweep_ingest{bits} a rank {pr[:, 0 if bits == 32 else 1].tolist()}")
+        summary["sketches"].append({"what": f"distributed {label}", "ms": ms, "ms_range": [fastest, slowest],
+                                    "runs": DIST_SKETCHES[label][1] + 1, "collectives": int(coll),
+                                    "collective_ms": coll_ms, "ms_per_rank": times[:, 0].tolist(),
+                                    "sweep_launches_per_rank": pr[:, 0 if bits == 32 else 1].tolist()})
     checks = out["kernel_checks"]
     print(f"[check] distributed shards (rank 0) through each kernel vs plain: max_abs_err {checks}")
     if any(checks.values()):
@@ -1556,8 +1962,9 @@ def sweep_kinds(bits: int, chunk: np.ndarray):
     give: a first pass (the top digit, no prefix); a pass under one prefix
     (the median's top 8 bits) and under the 4 distinct 16-bit prefixes of
     the p50/p90/p99/p99.9 keys (the quantiles); the collect of one sparse
-    spec (the median's top 24 bits) and of the 4 quantile keys' specs; and
-    a certificate (the median's key)."""
+    spec (the median's top 24 bits) and of the 4 quantile keys' specs; a
+    certificate (the median's key); and the sketch alone at the sketches'
+    default 16 bits (its counters in global memory)."""
     keys = host_keys(chunk)
     n = keys.size
     ranks = [n // 2] + [max(0, int(np.ceil(q * n)) - 1) for q in QS]
@@ -1572,6 +1979,7 @@ def sweep_kinds(bits: int, chunk: np.ndarray):
         ("collect, 1 sparse spec", dict(collect=[(bits - 24, med >> (bits - 24))])),
         ("collect, 4 specs", dict(collect=[(bits - 24, k >> (bits - 24)) for k in qk])),
         ("certificate", dict(vkey=med)),
+        ("sketch, 16 bits", dict(sketch_bits=SKETCH_BITS)),
     ]
 
 
@@ -1581,8 +1989,10 @@ def sweep_kind_rows(row, bits: int, w: torch.Tensor, chunk: np.ndarray, key_op: 
     version first, then the kernel's own device time (torch.profiler) and
     the whole ``sweep_ingest`` call (CUDA events), each beside its share of
     the bound. The bound counts the read and every returned survivor
-    buffer as written bytes (L words each: the survivors, then zeros); the
-    old bound, beside it, counted the survivors only."""
+    buffer as written bytes (L words each: the survivors, then zeros) and
+    the sketch's counters; the old bound, beside it, counted the survivors
+    only. The sketch kind is also timed beside ``torch.bincount`` of the
+    top 16 key bits and ``torch.aminmax`` of the keys, held equal first."""
     from mpi_k_selection_tpu_torch.ops.cuda import sweep_ingest as S
     from mpi_k_selection_tpu_torch.utils.timing import cuda_ms
 
@@ -1594,7 +2004,8 @@ def sweep_kind_rows(row, bits: int, w: torch.Tensor, chunk: np.ndarray, key_op: 
         err = sweep_err(got, S.sweep_ingest_plain(w, n, **kw), f"sweep_ingest{bits} {label}")
         survivors = sum(int(c) for _, c in got[1])
         n_surv = len(got[1])
-        b, by = bound(n * wb + n_surv * n * wb, n)
+        deep = 4 << parts["sketch_bits"] if parts.get("sketch_bits") else 0
+        b, by = bound(n * wb + n_surv * n * wb + deep, n)
         old_b, _ = bound(n * wb + survivors * wb, n)
         kms = kernel_device_ms(lambda: S.sweep_ingest(w, n, **kw), "sweep_ingest_kernel")
         ms = cuda_ms(lambda: S.sweep_ingest(w, n, **kw))
@@ -1604,9 +2015,39 @@ def sweep_kind_rows(row, bits: int, w: torch.Tensor, chunk: np.ndarray, key_op: 
             f"{survivors} survivors; max_abs_err {err}")
         out[label] = {"kernel_ms": kms, "call_ms": ms, "bound_ms": b, "old_bound_ms": old_b,
                       "survivors": survivors, "max_abs_err": err}
+        if parts.get("sketch_bits"):
+            out[label]["library_ms"] = library_sketch_ms(w, got[4], bits, key_op, key_xor, parts["sketch_bits"])
+            row(f"torch.bincount of the top {parts['sketch_bits']} key bits + torch.aminmax, {n} words",
+                out[label]["library_ms"], b, by)
         del got
         torch.cuda.empty_cache()
     return out
+
+
+def library_sketch_ms(w: torch.Tensor, want, bits: int, key_op: str, key_xor: int, sketch_bits: int) -> float:
+    """The sweep kernel's sketch part as library calls on the same words:
+    ``torch.bincount`` of the top ``sketch_bits`` key bits and
+    ``torch.aminmax`` of the keys in unsigned order (biased signed), held
+    equal to the kernel's ``want`` (counts, key min, key max) first; the
+    keys are made untimed. CUDA-event milliseconds of the two calls."""
+    from mpi_k_selection_tpu_torch.utils import dtypes as dt
+    from mpi_k_selection_tpu_torch.utils.timing import cuda_ms
+
+    keys = dt.keys_from_raw(w, key_op, key_xor)
+    top = dt.shift_right_logical(keys, bits - sketch_bits, bits).long()
+    biased = dt.order_bias(keys, bits)
+
+    def fn():
+        return torch.bincount(top, minlength=1 << sketch_bits), torch.aminmax(biased)
+
+    counts, (lo, hi) = fn()
+    deep, kmin, kmax = want
+    if not (torch.equal(counts.to(torch.int32), deep) and int(dt.order_bias(lo, bits)) == int(kmin)
+            and int(dt.order_bias(hi, bits)) == int(kmax)):
+        fail(f"sweep_ingest{bits} sketch of {sketch_bits} bits: library calls != kernel")
+    ms = cuda_ms(fn)
+    del keys, top, biased
+    return ms
 
 
 def main() -> int:
@@ -1633,7 +2074,7 @@ def main() -> int:
 
     x30 = data["int32 uniform 2^30"]
     del data["batched float32 adversarial"], data["batched bfloat16 adversarial"]
-    ints, f64, stream_launches, stream_per_call, stream_notes = phase_streaming()
+    ints, f64, stream_launches, stream_per_call, stream_notes, certified = phase_streaming()
     launches.update(stream_launches)
     per_call.update(stream_per_call)
     notes.update(stream_notes)
@@ -1658,11 +2099,20 @@ def main() -> int:
                       stream_ms["streaming median depth=2, int32 uniform 2^32"], reps=1),
     ]
     notes["resident_fault"] = resident_fault
+    # phase 7: the ingest pool, the sketches and the monitor on the streams
+    p7_launches, p7_per_call, notes["phase7"] = phase_sketch_staging(ints, f64, certified)
+    for kname, v in p7_launches.items():
+        launches[kname] += v
+    per_call.update(p7_per_call)
     # phase 6: the host chunks and the resident data go first (the ranks
     # need the card's memory and the host's for the 8 GiB array)
     del ints, f64, data, x30
     torch.cuda.empty_cache()
     notes["distributed"] = phase_distributed()
+    for srow in notes["distributed"]["sketches"]:  # rank 0's launches of distributed_sketch
+        kname = "sweep_ingest32" if "int32" in srow["what"] else "sweep_ingest64"
+        launches[kname] += srow["sweep_launches_per_rank"][0]
+        per_call[srow["what"] + ", rank 0"] = {kname: srow["sweep_launches_per_rank"][0]}
     for kname, e in notes["distributed"]["kernel_checks"].items():  # the shards' checks join the kernels' errors
         kern[kname] = (*kern[kname][:4], max(kern[kname][4], e))
 

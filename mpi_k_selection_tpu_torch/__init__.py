@@ -17,6 +17,10 @@ selection over a stream of chunks::
     kt.kselect_streaming(chunks, k)       # over a replayable chunk source
     kt.kselect_streaming_many(chunks, ks) # every k, the passes shared
     kt.streaming_rank_certificate(chunks, v)  # (#< v, #<= v), streamed
+    kt.StreamingQuantiles(dtype).update_stream(chunks)  # mergeable online quantiles
+    kt.RadixSketch(dtype)        # the sketch under it: exact bounds, refine()
+    kt.WindowedSketch(dtype, window=8)  # a sliding window of sketches
+    kt.Monitor(window=8).run(chunk_iter, dtype)  # p50/p90/p99 samples, one pass
 
 Distributed selection runs one process per rank over a
 ``torch.distributed`` group (parallel/): every rank calls the entry point
@@ -27,6 +31,7 @@ with the same global input and gets the answer::
     kt.distributed_radix_select_many(x, ks, mesh=mesh)
     kt.distributed_cgm_select(x, k, mesh=mesh, return_rounds=True)  # the reference's CGM
     kt.distributed_topk(x, k, mesh=mesh)
+    kt.distributed_sketch(x, mesh=mesh)  # a RadixSketch, two all_reduces
 
 ``kt.get_backend("seq" | "cuda" | "mpi")`` gives the backends (the NumPy
 oracle, this package, the native forked-rank CGM), and
@@ -36,11 +41,13 @@ oracle, this package, the native forked-rank CGM), and
 takes (moved to ``device``, default ``"cuda"``). The radix passes and the
 top-k collect run the kernels of ``csrc/histogram.cu``, the batched top-k
 the kernel of ``csrc/topk.cu``, the streamed passes the kernel of
-``csrc/sweep_ingest.cu``, built with ``nvcc`` at first use; a CPU tensor
+``csrc/sweep_ingest.cu`` (its sketch part for the sketches and the
+monitor), built with ``nvcc`` at first use; a CPU tensor
 (or ``device="cpu"``) runs their plain PyTorch versions.
 """
 
 from mpi_k_selection_tpu_torch.api import (
+    StreamingQuantiles,
     as_selection_array,
     batched_kselect,
     batched_median,
@@ -54,24 +61,28 @@ from mpi_k_selection_tpu_torch.api import (
 )
 from mpi_k_selection_tpu_torch.backends import get_backend
 from mpi_k_selection_tpu_torch.buffer import DeviceVector
+from mpi_k_selection_tpu_torch.monitor import Monitor, WindowedSketch
 from mpi_k_selection_tpu_torch.ops.radix import radix_select, radix_select_many
 from mpi_k_selection_tpu_torch.ops.sort import sort_select
 from mpi_k_selection_tpu_torch.ops.topk import batched_topk, topk
+from mpi_k_selection_tpu_torch.streaming.sketch import RadixSketch
 from mpi_k_selection_tpu_torch.parallel import (
     DISTRIBUTED_ALGORITHMS,
     distributed_cgm_select,
     distributed_kselect,
     distributed_radix_select,
     distributed_radix_select_many,
+    distributed_sketch,
     distributed_topk,
     make_mesh,
     run_ranks,
 )
 
 __all__ = [
-    "DISTRIBUTED_ALGORITHMS", "DeviceVector", "as_selection_array", "batched_kselect", "batched_median",
-    "batched_topk", "distributed_cgm_select", "distributed_kselect", "distributed_radix_select",
-    "distributed_radix_select_many", "distributed_topk", "get_backend", "kselect", "kselect_many",
-    "kselect_streaming", "kselect_streaming_many", "make_mesh", "median", "quantiles", "radix_select",
-    "radix_select_many", "run_ranks", "sort_select", "streaming_rank_certificate", "topk",
+    "DISTRIBUTED_ALGORITHMS", "DeviceVector", "Monitor", "RadixSketch", "StreamingQuantiles", "WindowedSketch",
+    "as_selection_array", "batched_kselect", "batched_median", "batched_topk", "distributed_cgm_select",
+    "distributed_kselect", "distributed_radix_select", "distributed_radix_select_many", "distributed_sketch",
+    "distributed_topk", "get_backend", "kselect", "kselect_many", "kselect_streaming", "kselect_streaming_many",
+    "make_mesh", "median", "quantiles", "radix_select", "radix_select_many", "run_ranks", "sort_select",
+    "streaming_rank_certificate", "topk",
 ]

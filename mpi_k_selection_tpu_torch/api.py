@@ -184,3 +184,73 @@ def batched_median(x, *, device=None) -> torch.Tensor:
 kselect_streaming = _chunked.streaming_kselect
 kselect_streaming_many = _chunked.streaming_kselect_many
 streaming_rank_certificate = _chunked.streaming_rank_certificate
+
+
+class StreamingQuantiles:
+    """Online quantiles over a chunked stream: a mergeable
+    :class:`~mpi_k_selection_tpu_torch.streaming.sketch.RadixSketch` and
+    its exact refinement. Feed chunks as they arrive (``update``,
+    ``update_stream``), merge trackers of other shards or processes in any
+    order (``merge``: the same bits whatever the order), read approximate
+    quantiles at any time (``quantiles``: rank error within the sketch's
+    bounds), and spend passes over a replayable source only for exact
+    answers (``refine_quantiles``).
+
+    ``pipeline_depth`` governs the staging of ``update_stream`` and of
+    the refinement passes (streaming/pipeline.py; ``ingest_workers`` is
+    checked only), and ``device`` where they count (default
+    ``"cuda"``; ``"cpu"`` runs the kernel's plain version). The JAX
+    package's ``deferred`` and ``fused`` have no counterpart here;
+    ``width_schedule``, ``pack_spill``, ``devices`` and ``obs`` are
+    refused until their ROADMAP items bring them."""
+
+    def __init__(self, dtype, *, radix_bits: int = 4, levels: int = 4, pipeline_depth: int | None = None,
+                 ingest_workers=None, device=None, **kwargs):
+        from mpi_k_selection_tpu_torch.streaming import pipeline as _pl
+        from mpi_k_selection_tpu_torch.streaming.sketch import RadixSketch, reject_later_knobs
+
+        reject_later_knobs("StreamingQuantiles", kwargs)
+        self.pipeline_depth = _pl.validate_pipeline_depth(pipeline_depth)
+        _pl.resolve_ingest_workers(ingest_workers)  # checked now
+        self.ingest_workers = ingest_workers
+        self.device = device
+        self.sketch = RadixSketch(dtype, radix_bits=radix_bits, levels=levels, device=device)
+
+    @property
+    def n(self) -> int:
+        return self.sketch.n
+
+    def update(self, chunk) -> "StreamingQuantiles":
+        self.sketch.update(chunk)
+        return self
+
+    def update_stream(self, source, **kwargs) -> "StreamingQuantiles":
+        """Fold every chunk of ``source`` in, one launch of the sweep
+        kernel per chunk on the tracker's device: the same sketch as
+        ``update`` of each chunk in turn."""
+        self.sketch.update_stream(
+            source, pipeline_depth=self.pipeline_depth, ingest_workers=self.ingest_workers, **kwargs
+        )
+        return self
+
+    def merge(self, other) -> "StreamingQuantiles":
+        out = StreamingQuantiles(
+            self.sketch.dtype, radix_bits=self.sketch.radix_bits, levels=self.sketch.levels,
+            pipeline_depth=self.pipeline_depth, ingest_workers=self.ingest_workers, device=self.device,
+        )
+        out.sketch = self.sketch.merge(other.sketch if isinstance(other, StreamingQuantiles) else other)
+        return out
+
+    def quantiles(self, qs):
+        """Approximate nearest-rank quantile values (RadixSketch.query's
+        error contract)."""
+        return self.sketch.quantiles(qs)
+
+    def refine_quantiles(self, qs, source):
+        """Exact nearest-rank quantiles over ``source``, which must replay
+        the stream this tracker accumulated: one sketch-seeded descent
+        shares every pass across the ranks."""
+        return _chunked.streaming_kselect_many(
+            source, quantile_ranks(qs, self.sketch.n), radix_bits=self.sketch.radix_bits, sketch=self.sketch,
+            pipeline_depth=self.pipeline_depth, ingest_workers=self.ingest_workers, device=self.device,
+        )

@@ -132,6 +132,11 @@ def build_parser() -> argparse.ArgumentParser:
         "--pipeline-depth", type=int, default=DEFAULT_PIPELINE_DEPTH,
         help="--streaming: chunks staged ahead of the descent on a producer thread (0 = synchronous)",
     )
+    p.add_argument(
+        "--ingest-workers", default=None, metavar="auto|N",
+        help="--streaming: the JAX CLI's ingest-pool width (auto = min(4, cores)), checked as it "
+        "checks it; every width runs the one producer thread, as the pool is not ported",
+    )
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     p.add_argument("--repeats", type=int, default=1)
     p.add_argument("--verify", action="store_true", help="check against a NumPy oracle")
@@ -403,6 +408,18 @@ def chunk_source(args):
     return source
 
 
+def _parse_ingest_workers(raw):
+    """``--ingest-workers`` as given: ``auto`` and None stay symbolic,
+    digits become an int, and the pipeline's resolver rejects the rest
+    with its own message."""
+    if raw is None or raw == "auto":
+        return raw
+    try:
+        return int(raw)
+    except (TypeError, ValueError):
+        raise SystemExit(f"error: --ingest-workers must be auto or an int, got {raw!r}") from None
+
+
 def _run_streaming(args):
     from mpi_k_selection_tpu_torch import api
     from mpi_k_selection_tpu_torch.backends import cuda as backend
@@ -415,15 +432,17 @@ def _run_streaming(args):
         raise SystemExit(f"error: k={k} out of range [1, {n}]")
     source = chunk_source(args)
     depth = args.pipeline_depth
+    workers = _parse_ingest_workers(args.ingest_workers)
+    knobs = dict(pipeline_depth=depth, ingest_workers=workers, device=args.device)
     seconds, answer = time_fn(
-        lambda: backend.kselect_streaming(source, k, pipeline_depth=depth, device=args.device),
-        repeats=args.repeats, device=args.device,
+        lambda: backend.kselect_streaming(source, k, **knobs), repeats=args.repeats, device=args.device,
     )
     record = _record(args, n, k, answer.item(), "streaming-chunked", seconds)
-    record.extra.update(chunks=-(-n // args.chunk_elems), chunk_elems=args.chunk_elems, pipeline_depth=depth)
+    record.extra.update(chunks=-(-n // args.chunk_elems), chunk_elems=args.chunk_elems, pipeline_depth=depth,
+                        ingest_workers=workers)
     ok = True
     if args.verify:
-        less, leq = api.streaming_rank_certificate(source, answer, pipeline_depth=depth, device=args.device)
+        less, leq = api.streaming_rank_certificate(source, answer, **knobs)
         want = oracle(np.concatenate(list(source())), k)  # the streamed descent answers in key order
         exact = np.asarray(answer).tobytes() == want.tobytes()
         ok = less < k <= leq and exact

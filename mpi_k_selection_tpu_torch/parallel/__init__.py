@@ -5,6 +5,7 @@ from mpi_k_selection_tpu_torch.parallel.cgm import distributed_cgm_select
 from mpi_k_selection_tpu_torch.parallel.mesh import Mesh, Shard, make_mesh, require_distributed, shard_1d
 from mpi_k_selection_tpu_torch.parallel.multihost import run_ranks
 from mpi_k_selection_tpu_torch.parallel.radix import distributed_radix_select, distributed_radix_select_many
+from mpi_k_selection_tpu_torch.parallel.sketch import dcn_merge_sketch, distributed_sketch
 from mpi_k_selection_tpu_torch.parallel.topk import distributed_topk
 
 DISTRIBUTED_ALGORITHMS = ("radix", "cgm")
@@ -25,10 +26,12 @@ __all__ = [
     "DISTRIBUTED_ALGORITHMS",
     "Mesh",
     "Shard",
+    "dcn_merge_sketch",
     "distributed_cgm_select",
     "distributed_kselect",
     "distributed_radix_select",
     "distributed_radix_select_many",
+    "distributed_sketch",
     "distributed_topk",
     "make_mesh",
     "require_distributed",

@@ -127,18 +127,20 @@ class Mesh:
             out = op(host)
         return out.to(t.device)
 
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of ``t`` (int32/int64) over the ranks, on ``t``'s device
-        (the ``MPI_Allreduce``/``lax.psum`` analogue)."""
+    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """The sum (``op="sum"``) or the minimum (``"min"``) of ``t``
+        (int32/int64) over the ranks, on ``t``'s device (the
+        ``MPI_Allreduce``/``lax.psum``/``lax.pmin`` analogue)."""
         if self.group is None:
             return t
+        reduce_op = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN}[op]
 
-        def op(u):
+        def reduce(u):
             u = u.clone()
-            dist.all_reduce(u, group=self.group)
+            dist.all_reduce(u, op=reduce_op, group=self.group)
             return u
 
-        return self._run(op, t.contiguous())
+        return self._run(reduce, t.contiguous())
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's ``t`` stacked in rank order, shape ``(size, *t.shape)``,

@@ -5,8 +5,12 @@
   ranks (``streaming_kselect``, ``streaming_kselect_many``) and the
   streamed rank certificate (``streaming_rank_certificate``).
 - ``pipeline.py``: staging host chunks onto the card through pinned
-  buffers, and the producer thread that overlaps it with the descent.
+  buffers (a pool of them, reused), and the producer thread that
+  overlaps it with the descent.
 - ``executor.py``: the per-chunk consumers, each one launch of the sweep
   kernel (``ops/cuda/sweep_ingest.py``) per staged chunk, and the FIFO
   scheduler that folds their results on the host in chunk order.
+- ``sketch.py``: ``RadixSketch``, the mergeable online-quantile sketch
+  whose counts come from the sweep kernel's sketch part, and which seeds
+  the descent (``sketch=``, ``refine``).
 """

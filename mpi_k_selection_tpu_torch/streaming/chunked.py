@@ -22,7 +22,14 @@ last), as the JAX package's streamed answers are.
 Every chunk is staged on the device (``device``, default ``"cuda"``), at
 ``pipeline_depth`` 0 on the caller's thread, else on a producer thread
 that stages chunk *i+1* while chunk *i* is consumed; answers are the same
-at every depth. A CPU ``device`` runs the kernel's plain version.
+at every depth. ``ingest_workers`` is checked as the JAX package checks
+it, and every width runs that one producer (streaming/pipeline.py). A CPU
+``device`` runs the kernel's plain version.
+
+A :class:`~mpi_k_selection_tpu_torch.streaming.sketch.RadixSketch` built
+over the same stream (``sketch=``) seeds the descent: its deepest level
+resolves the first ``sketch.resolution_bits`` key bits, so those passes
+are skipped (``RadixSketch.refine``).
 """
 
 from __future__ import annotations
@@ -42,21 +49,44 @@ from mpi_k_selection_tpu_torch.utils.interop import numpy_dtype
 DEFAULT_COLLECT_BUDGET = 1 << 20
 
 
-def as_chunk_source(source):
+class _OneShotSource:
+    """A bare iterator as a chunk source that may be read once (a
+    monitor's stream); a second read is a bug and raises instead of
+    yielding an empty stream."""
+
+    def __init__(self, it):
+        self._it = iter(it)
+        self._used = False
+
+    def __call__(self):
+        if self._used:
+            raise RuntimeError("one-shot chunk source invoked a second time")
+        self._used = True
+        return self._it
+
+
+def as_chunk_source(source, *, one_shot_ok: bool = False):
     """``source`` as a zero-arg callable returning a fresh chunk iterator,
     the replayable form every pass needs: a list or tuple of chunks (numpy
-    arrays or torch tensors), or such a callable. A one-shot iterator is
-    rejected: exact selection re-reads the stream once per radix pass."""
+    arrays or torch tensors), one array (one chunk), or such a callable.
+    A one-shot iterator is accepted only under ``one_shot_ok`` (a reader of
+    one pass, such as the monitor); otherwise it is rejected: exact
+    selection re-reads the stream once per radix pass."""
     if callable(source):
         return source
     if isinstance(source, (list, tuple)):
         return lambda: iter(source)
-    if hasattr(source, "__next__"):
+    if isinstance(source, (np.ndarray, torch.Tensor)):
+        return lambda: iter((source,))
+    if hasattr(source, "__iter__") or hasattr(source, "__next__"):
+        if one_shot_ok:
+            return _OneShotSource(source)
         raise TypeError(
             "streaming selection re-reads the data once per radix pass; a "
             "one-shot iterator/generator cannot be replayed. Pass a "
             "list/tuple of chunks or a zero-arg callable returning a fresh "
-            "iterator (e.g. lambda: (load(i) for i in range(nchunks)))."
+            "iterator (e.g. lambda: (load(i) for i in range(nchunks))). For "
+            "single-pass approximate answers, RadixSketch alone suffices."
         )
     raise TypeError(f"unsupported chunk source type {type(source).__name__!r}")
 
@@ -93,7 +123,7 @@ def _iter_staged(src, dtype, device):
     """The synchronous ``(StagedKeys, dtype)`` iterator (depth 0): each
     chunk is staged on the caller's thread when the descent asks for it."""
     stager = (
-        _pl.HostStager(device, 1, torch.cuda.current_stream(device)) if device.type == "cuda" else None
+        _pl.HostStager(device, torch.cuda.current_stream(device)) if device.type == "cuda" else None
     )
     for chunk in src():
         c = _normalize_chunk(chunk, dtype)
@@ -107,7 +137,7 @@ def _iter_staged(src, dtype, device):
 @contextlib.contextmanager
 def _key_chunk_stream(src, dtype, *, pipeline_depth: int, device):
     """The pass's ``(StagedKeys, dtype)`` iterator; a pipelined one is
-    closed (its producer joined) on every exit."""
+    closed (its thread joined) on every exit."""
     if pipeline_depth == 0:
         yield _iter_staged(src, dtype, device)
         return
@@ -181,30 +211,36 @@ def _collect_survivors(src, dtype, specs, *, pipeline_depth, device):
 
 
 def streaming_kselect(source, k, *, radix_bits: int = 8, collect_budget: int = DEFAULT_COLLECT_BUDGET,
-                      pipeline_depth: int = DEFAULT_PIPELINE_DEPTH, device=None):
+                      sketch=None, pipeline_depth: int = DEFAULT_PIPELINE_DEPTH, ingest_workers=None,
+                      device=None):
     """Exact k-th smallest (1-indexed) over a chunked stream: a host
     scalar of the stream's dtype (numpy; ml_dtypes' bfloat16 for
     bfloat16), bit for bit the JAX package's ``streaming_kselect``.
 
     ``source`` per :func:`as_chunk_source`. ``radix_bits`` is the digit
-    width of a pass (it must divide the key bits); ``collect_budget``
-    bounds the survivors a rank collects to the host, and so the passes;
-    ``pipeline_depth`` (0 = synchronous) and ``device`` are described in
+    width of a pass (it must divide the key bits, or with a ``sketch`` the
+    bits below its resolved prefix); ``collect_budget`` bounds the
+    survivors a rank collects to the host, and so the passes; ``sketch``
+    (a RadixSketch of the same stream) seeds the descent;
+    ``pipeline_depth`` (0 = synchronous), ``ingest_workers`` (None,
+    ``"auto"`` or an int; checked only) and ``device`` are described in
     the module docstring."""
     return streaming_kselect_many(
-        source, [k], radix_bits=radix_bits, collect_budget=collect_budget,
-        pipeline_depth=pipeline_depth, device=device,
+        source, [k], radix_bits=radix_bits, collect_budget=collect_budget, sketch=sketch,
+        pipeline_depth=pipeline_depth, ingest_workers=ingest_workers, device=device,
     )[0]
 
 
 def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: int = DEFAULT_COLLECT_BUDGET,
-                           pipeline_depth: int = DEFAULT_PIPELINE_DEPTH, device=None):
+                           sketch=None, pipeline_depth: int = DEFAULT_PIPELINE_DEPTH, ingest_workers=None,
+                           device=None):
     """Exact k-th smallest for EVERY (1-indexed) rank in ``ks``, as a list
     in ``ks`` order, sharing each pass across ranks: the stream is read
     once per radix level plus one collect, not once per rank, with one
     histogram per DISTINCT surviving prefix at each level. Knobs as
     :func:`streaming_kselect`."""
     depth = _pl.validate_pipeline_depth(pipeline_depth)
+    _pl.resolve_ingest_workers(ingest_workers)
     if not 1 <= radix_bits <= MAX_BITS:  # the JAX package's MAX_PASS_BITS
         raise ValueError(f"radix_bits={radix_bits} outside [1, {MAX_BITS}]")
     ks = [int(k) for k in ks]
@@ -222,16 +258,25 @@ def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: i
             raise ValueError(f"radix_bits={radix_bits} must divide key bits {total_bits}")
         return _ex.FusedIngestConsumer(total_bits=total_bits, hist=(total_bits - radix_bits, radix_bits, [None]))
 
-    first, dtype, n = _stream_pass(src, None, first_pass, **run)
-    if first is None:
-        raise ValueError("streaming selection requires a non-empty stream")
-    _validate_ks(ks, n)
-    total_bits = _dt.key_bits(dtype)
     # per-rank descent state: [prefix, rebased k, resolved bits, population]
-    states = []
-    for k in ks:
-        prefix, kk, pop = _np_walk(first.hists[None], k, None, radix_bits)
-        states.append([prefix, kk, radix_bits, pop])
+    if sketch is not None:
+        # the sketch names the stream dtype (every chunk is held to it) and
+        # resolves its top bits: the passes walk the bits below them
+        dtype = _dt.torch_dtype(sketch.dtype)
+        sketch.check_stream(dtype, radix_bits)
+        n = sketch.n
+        _validate_ks(ks, n)
+        states = [list(sketch.walk(k)) for k in ks]
+    else:
+        first, dtype, n = _stream_pass(src, None, first_pass, **run)
+        if first is None:
+            raise ValueError("streaming selection requires a non-empty stream")
+        _validate_ks(ks, n)
+        states = []
+        for k in ks:
+            prefix, kk, pop = _np_walk(first.hists[None], k, None, radix_bits)
+            states.append([prefix, kk, radix_bits, pop])
+    total_bits = _dt.key_bits(dtype)
 
     def active(st):
         return st[2] < total_bits and st[3] > collect_budget
@@ -275,13 +320,15 @@ def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: i
     return answers
 
 
-def streaming_rank_certificate(source, value, *, pipeline_depth: int = DEFAULT_PIPELINE_DEPTH, device=None):
+def streaming_rank_certificate(source, value, *, pipeline_depth: int = DEFAULT_PIPELINE_DEPTH, ingest_workers=None,
+                               device=None):
     """``(#elements < value, #elements <= value)`` over a chunked stream,
     as Python ints: an answer for rank k is exact iff ``less < k <= leq``.
     Compared in key space (ties, ``-0.0``/``+0.0`` and NaNs behave exactly
     as in the selection itself), on the card by the sweep kernel's
     certificate part."""
     depth = _pl.validate_pipeline_depth(pipeline_depth)
+    _pl.resolve_ingest_workers(ingest_workers)
     src = as_chunk_source(source)
 
     def certificate(dtype):

@@ -3,12 +3,14 @@
 
 Every staged chunk goes through ONE launch of the sweep kernel
 (ops/cuda/sweep_ingest.py) per consumer: its CUDA kernel for a chunk on
-the card, its plain version for a chunk on the CPU. There are two
-consumers, one per part set the descent uses:
+the card, its plain version for a chunk on the CPU. There are three
+consumers, one per part set a streamed pass uses:
 
 - :class:`FusedIngestConsumer`: the descent's histograms (one per
   distinct surviving prefix) and the survivor collect, from one read;
-- :class:`CountLessLeqConsumer`: the rank certificate's pair.
+- :class:`CountLessLeqConsumer`: the rank certificate's pair;
+- :class:`SketchFoldConsumer`: a RadixSketch's deepest level and key
+  extremes (``RadixSketch.update_stream`` and the monitor).
 
 :class:`StreamExecutor` dispatches each chunk's work when it arrives and
 finishes it (the host-side folds) in chunk order through an
@@ -115,6 +117,46 @@ class CountLessLeqConsumer:
         lt, le = handle
         self.less += int(lt)
         self.leq += int(le)
+
+
+class SketchFoldConsumer:
+    """Folds each chunk into ``sketch`` (a
+    :class:`~mpi_k_selection_tpu_torch.streaming.sketch.RadixSketch`, read
+    at dispatch, so a chunk folds into the sketch that was current when it
+    was dispatched): one launch per chunk gives the deepest level's int32
+    counts and the extremes in key space; the finish folds the counts into
+    the host int64 pyramid in chunk order, less the pads (key 0, bucket 0).
+
+    The kernel's sketch part counts the top ``resolution_bits`` of the key
+    word. Sub-32-bit keys are widened into the low bits of 32-bit words,
+    so for them the deep level comes from the prefix-free histogram part
+    of the same launch (the digit of ``resolution_bits`` at ``total_bits -
+    resolution_bits``), and only the extremes from a one-bit sketch part."""
+
+    def __init__(self, sketch):
+        self.sketch = sketch
+
+    def dispatch(self, keys: StagedKeys):
+        sk = self.sketch
+        res, total = sk.resolution_bits, sk.total_bits
+        kw = dict(key_op=keys.key_op, key_xor=keys.key_xor)
+        if total < 32:
+            hist, _, _, _, (_, kmin, kmax) = sweep_ingest(
+                keys.data, keys.n_valid, shift=total - res, radix_bits=res, hist_prefixes=[0], sketch_bits=1, **kw
+            )
+            deep = hist[0]
+        else:
+            _, _, _, _, (deep, kmin, kmax) = sweep_ingest(keys.data, keys.n_valid, sketch_bits=res, **kw)
+        return sk, keys.pad, keys.n_valid, deep, torch.stack([kmin, kmax])
+
+    def finish(self, handle) -> None:
+        sk, pad, n_valid, deep, ext = handle
+        h = deep.cpu().numpy().astype(np.int64)
+        if pad:
+            h[0] -= pad
+        width = ext.element_size() * 8
+        kmin, kmax = (int(v) & ((1 << width) - 1) for v in ext.cpu().tolist())
+        sk._fold_counts(h, kmin, kmax, n_valid)
 
 
 #: Bundles in flight: one card, so one (the JAX package's window is one

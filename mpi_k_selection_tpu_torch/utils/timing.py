@@ -12,6 +12,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import threading
 import time
 from typing import Any, Callable
 
@@ -63,11 +64,17 @@ def cuda_ms(fn: Callable[[], Any], *, iters: int = 10, warmup: int = 2) -> float
 class Stopwatch:
     """Host seconds and count of the blocks timed with :meth:`timing`:
     for work that has ended when the block ends (a blocking collective
-    on host tensors)."""
+    on host tensors, a host copy). Blocks may run on several threads at
+    once: each adds its own time."""
 
     def __init__(self):
-        self.seconds = 0.0
-        self.count = 0
+        self._lock = threading.Lock()
+        self.reset()
+
+    def reset(self) -> None:
+        with self._lock:
+            self.seconds = 0.0
+            self.count = 0
 
     @contextlib.contextmanager
     def timing(self):
@@ -75,8 +82,10 @@ class Stopwatch:
         try:
             yield
         finally:
-            self.seconds += time.perf_counter() - t0
-            self.count += 1
+            dt = time.perf_counter() - t0
+            with self._lock:
+                self.seconds += dt
+                self.count += 1
 
 
 class Deadline:

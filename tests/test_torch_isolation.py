@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: no file of ``mpi_k_selection_tpu_torch``
 and no line of ``chip_smoke.py`` imports JAX or the JAX package, and
-importing the port (its distributed, backend and native modules too)
-loads neither, builds no kernel or native library and starts no process
-group."""
+importing the port (its distributed, backend, native, sketch and monitor
+modules too) loads neither, builds no kernel or native library and starts
+no process group."""
 
 import ast
 import pathlib
@@ -65,6 +65,8 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         "import mpi_k_selection_tpu_torch.backends.cuda\n"
         "import mpi_k_selection_tpu_torch.backends.seq, mpi_k_selection_tpu_torch.backends.mpi\n"
         "import mpi_k_selection_tpu_torch.parallel.multihost, mpi_k_selection_tpu_torch.buffer\n"
+        "import mpi_k_selection_tpu_torch.parallel.sketch, mpi_k_selection_tpu_torch.streaming.sketch\n"
+        "import mpi_k_selection_tpu_torch.monitor.monitor\n"
         "from mpi_k_selection_tpu_torch.native import loader\n"
         "from mpi_k_selection_tpu_torch.ops.cuda import build\n"
         "import torch.distributed as dist\n"

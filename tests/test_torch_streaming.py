@@ -541,6 +541,135 @@ def test_cli_streaming_mode_on_cpu():
     assert bad.returncode != 0 and "k-th mode only" in bad.stderr
 
 
+def test_resolve_ingest_workers_matches_jax():
+    """None -> 1, ``"auto"`` -> min(4, cores), ints in [1, 64]; bools, floats
+    and strings refused, with the JAX package's messages."""
+    from mpi_k_selection_tpu.streaming import pipeline as ref
+
+    assert (pl.DEFAULT_INGEST_WORKERS, pl.MAX_INGEST_WORKERS, pl.INGEST_WORKERS_AUTO_CAP) == (
+        ref.DEFAULT_INGEST_WORKERS, ref.MAX_INGEST_WORKERS, ref.INGEST_WORKERS_AUTO_CAP)
+    for good in (None, "auto", 1, np.int64(3), pl.MAX_INGEST_WORKERS):
+        assert pl.resolve_ingest_workers(good) == ref.resolve_ingest_workers(good)
+    for bad in (0, pl.MAX_INGEST_WORKERS + 1, True, False, 2.0, "three"):
+        with pytest.raises(ValueError) as mine:
+            pl.resolve_ingest_workers(bad)
+        with pytest.raises(ValueError) as theirs:
+            ref.resolve_ingest_workers(bad)
+        assert str(mine.value) == str(theirs.value)
+    assert pl.validate_pipeline_depth(None) == ref.validate_pipeline_depth(None) == 2
+
+
+@pytest.mark.parametrize("name", ["int8", "bfloat16", "int32", "uint64", "float64"])
+def test_ingest_pool_answers_bit_identical(name):
+    """``ingest_workers`` 1, 2, 4 and ``"auto"`` at depth 1 and 2, numpy
+    and torch chunks mixed: the same answers and certificates as NumPy,
+    and no ``ksel-`` thread left."""
+    chunks = stream(name, seed=9, sizes=(700, 1, 0, 333, 512, 90))
+    x = np.concatenate(chunks)
+    ks = [1, x.size // 3, x.size // 2, x.size]
+    want = key_oracle(x, ks)
+    mixed = [tensor_from_numpy(c, "cpu") if i % 2 else c for i, c in enumerate(chunks)]
+    keys = dt.np_to_sortable_bits(x)
+    for depth in (1, 2):
+        for workers in (1, 2, 4, "auto"):
+            got = kt.kselect_streaming_many(mixed, ks, radix_bits=4, collect_budget=32, pipeline_depth=depth,
+                                            ingest_workers=workers, device="cpu")
+            assert bits(got, x.dtype) == want, (depth, workers)
+            vk = dt.np_to_sortable_bits(np.array([got[1]], x.dtype))[0]
+            assert kt.streaming_rank_certificate(chunks, got[1], pipeline_depth=depth, ingest_workers=workers,
+                                                 device="cpu") == (
+                int(np.count_nonzero(keys < vk)), int(np.count_nonzero(keys <= vk)))
+    assert not [t.name for t in threading.enumerate() if t.name.startswith(("ksel-pipeline", "ksel-ingest"))]
+
+
+def test_ingest_workers_run_the_one_producer(monkeypatch):
+    """Every ``ingest_workers`` width stages each chunk of a pass once, in
+    source order, on the one ``ksel-pipeline-*`` producer thread (the JAX
+    package's pool of ingest workers is not ported)."""
+    chunks = [np.arange(n, dtype=np.int32) for n in (5000, 10, 20, 30, 40, 50)]
+    x = np.concatenate(chunks)
+    stage = pl.stage_chunk
+    staged = []
+
+    def recording_stage(c, *args, **kw):
+        staged.append((threading.current_thread().name, len(c)))
+        return stage(c, *args, **kw)
+
+    monkeypatch.setattr(pl, "stage_chunk", recording_stage)
+    for workers in (1, 2, 4, "auto"):
+        staged.clear()
+        got = kt.streaming_rank_certificate(chunks, 25, pipeline_depth=2, ingest_workers=workers, device="cpu")
+        assert got == (int(np.count_nonzero(x < 25)), int(np.count_nonzero(x <= 25)))
+        assert [n for _, n in staged] == [len(c) for c in chunks]
+        assert len({name for name, _ in staged}) == 1 and staged[0][0].startswith(pl.THREAD_NAME_PREFIX)
+
+
+def test_ingest_pool_errors_reach_the_caller_in_order():
+    """A dtype that drifts at chunk 3 with ``ingest_workers`` > 1 raises
+    the JAX package's TypeError; a source that raises mid-stream re-raises in
+    the caller; a one-shot iterator is still refused by the descent; no
+    thread outlives either."""
+    good = np.arange(4096, dtype=np.int32)
+    chunks = np.array_split(good, 6)
+    chunks[3] = chunks[3].astype(np.float32)
+    for workers in (2, 4):
+        with pytest.raises(TypeError, match="requires one dtype per stream"):
+            kt.kselect_streaming(chunks, 17, collect_budget=64, ingest_workers=workers, device="cpu")
+
+        def failing():
+            yield good
+            yield good
+            raise OSError("disk gone")
+
+        with pytest.raises(OSError, match="disk gone"):
+            kt.kselect_streaming(failing, 5, ingest_workers=workers, device="cpu")
+        with pytest.raises(TypeError, match="one-shot iterator/generator cannot be replayed"):
+            kt.kselect_streaming(iter([good]), 5, ingest_workers=workers, device="cpu")
+    with pytest.raises(ValueError, match="ingest_workers"):
+        kt.kselect_streaming([good], 5, ingest_workers=0, device="cpu")
+    assert not [t.name for t in threading.enumerate() if t.name.startswith(("ksel-pipeline", "ksel-ingest"))]
+
+
+def test_as_chunk_source_forms():
+    """Lists, one array, callables; a one-shot iterator only under
+    ``one_shot_ok``, and then read once."""
+    from mpi_k_selection_tpu_torch.streaming.chunked import as_chunk_source
+
+    a = np.arange(5, dtype=np.int32)
+    assert [list(c) for c in as_chunk_source([a, a])()] == [list(a)] * 2
+    assert [list(c) for c in as_chunk_source(a)()] == [list(a)]
+    once = as_chunk_source(iter([a]), one_shot_ok=True)
+    assert [list(c) for c in once()] == [list(a)]
+    with pytest.raises(RuntimeError, match="invoked a second time"):
+        once()
+    with pytest.raises(TypeError, match="one-shot"):
+        as_chunk_source(iter([a]))
+    with pytest.raises(TypeError, match="unsupported chunk source type"):
+        as_chunk_source(5)
+
+
+def test_staging_pool_reuse_limits_and_peaks():
+    """Buffers come back by (bytes, device), at most ``max_per_key`` a key
+    and ``max_bytes`` in all, the oldest dropped first; the peaks count
+    what is handed out and what is held. (Plain CPU tensors stand in for
+    pinned buffers: a released buffer is handed out again as it is.)"""
+    pool = pl.StagingPool(max_per_key=2, max_bytes=300)
+    bufs = [torch.empty(100, dtype=torch.uint8) for _ in range(3)]
+    for b in bufs:
+        pool._live += 100  # as if acquired
+    for b in bufs:
+        pool.release(b, "cuda:0")
+    assert pool.resident_bytes == 200 and pool.live_bytes == 0  # the third exceeded max_per_key
+    got = pool.acquire(100, "cuda:0")
+    assert got is bufs[1] and pool.hits == 1 and pool.live_bytes == 100
+    pool._live += 250  # as if acquired
+    pool.release(torch.empty(250, dtype=torch.uint8), "cuda:1")  # evicts the oldest: 100 + 250 > 300
+    assert pool.resident_bytes == 250 and pool.live_bytes == 100
+    pool.release(got, "cuda:0")
+    pool.clear()
+    assert pool.resident_bytes == 0 and pool.live_bytes == 0
+
+
 # --- on the card --------------------------------------------------------------
 
 
@@ -653,3 +782,34 @@ def test_streaming_entry_points_on_card(cuda_device, name):
             one = kt.kselect_streaming(src, ks[1], pipeline_depth=depth, radix_bits=4)
             assert bits([one], x.dtype) == key_oracle(x, ks[1:2])
             assert not S.PLAIN_CALLS["sweep_ingest"] and sum(S.LAUNCHES.values()) > 0
+
+
+@pytest.mark.gpu
+def test_ingest_pool_on_card(cuda_device):
+    """``ingest_workers`` 1, 2 and 4 on the card: the same answers, one
+    launch per chunk per pass and no plain call, every host chunk copied
+    once a pass into a pinned buffer of the pool, at most ``depth + 1`` of
+    them in use at once, all back after the pass."""
+    rng = np.random.default_rng(21)
+    chunks = [rng.integers(0, 10**8, size=1 << 20).astype(np.int32) for _ in range(12)]
+    x = np.concatenate(chunks)
+    ks = [1, x.size // 2, x.size]
+    passes = []
+
+    def source():
+        passes.append(1)
+        return iter(chunks)
+
+    for workers in (1, 2, 4):
+        pl.STAGING_POOL.clear()
+        pl.STAGING_POOL.reset_peaks()
+        pl.HOST_COPY.reset()
+        S.reset_counts()
+        passes.clear()
+        got = kt.kselect_streaming_many(source, ks, pipeline_depth=2, ingest_workers=workers)
+        torch.cuda.synchronize()
+        assert bits(got, x.dtype) == key_oracle(x, ks)
+        assert S.LAUNCHES["sweep_ingest32"] == len(passes) * len(chunks) and not S.PLAIN_CALLS["sweep_ingest"]
+        assert pl.HOST_COPY.count == len(passes) * len(chunks)
+        assert 0 < pl.STAGING_POOL.peak_live_bytes <= (2 + 1) * chunks[0].nbytes
+        assert pl.STAGING_POOL.live_bytes == 0
