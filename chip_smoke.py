@@ -26,7 +26,12 @@ Phases, each of which must pass (any failure exits non-zero):
    histogram prefixes at radix widths 4 and 8 and K=70 (35 prefixes twice,
    more than go by value), a sparse collect spec, one every key matches,
    four specs and a two-spec tee union, a certificate key present and
-   absent, sketches of 8, 16 and 20 bits.
+   absent, sketches of 8, 16 and 20 bits; the sketch part at 15, 16 and
+   20 bits on skewed buckets (one hot counter, the last counter, two hot
+   counters sharing a word in alternating keys, one block's counter
+   brought exactly to 2^16 and to 2^16 + 1, pads only), and 16-bit keys
+   of each 16-bit dtype (random, all one key) through the sketch
+   consumer's launch (the histogram part at a 16-bit digit).
 3. Drive the main paths, each with the launch counts set to 0 just before
    it and read just after (each of its kernels must have launched and no
    plain version may have run), each answer equal
@@ -82,8 +87,12 @@ Phases, each of which must pass (any failure exits non-zero):
    timed at 2^31); the sweep kernel at each launch kind the streamed paths
    issue, on the int32 stream's chunk 0 and the float64 stream's chunk 0
    (a first pass, one and 4 prefixes, the collect of one and of 4 specs, a
-   certificate, the sketch alone at 16 bits, the last also beside
-   ``torch.bincount`` of the top 16 key bits and ``torch.aminmax``), held
+   certificate, the sketch alone at 16 bits), on a one-hot 2^26-word int32
+   chunk (the sketch alone, every key in one counter) and on 2^26
+   bfloat16 keys through the sketch consumer's launch (the 16-bit
+   histogram part), each sketch launch also as its plain version and
+   beside ``torch.bincount`` of the top 16 key bits (of the 16-bit digit)
+   and ``torch.aminmax``, its counts summing to the chunk's length; held
    exactly against its plain version first, the kernel
    alone (torch.profiler) and the whole call beside a bound that counts
    the returned survivor buffers (L words each) and beside the old bound
@@ -109,7 +118,7 @@ Phases, each of which must pass (any failure exits non-zero):
    on every rank, no plain call); its wall time on rank 0 (CUDA events
    after a barrier), each rank's launches, collectives and time in them,
    the CGM rounds. ``distributed_sketch`` (16 bits) of the 10^8 int32 and
-   (one timed run: every key of a shard in one counter) of the 2^30 int64:
+   (every key of a shard in one counter) of the 2^30 int64, each timed:
    every rank's sketch equal, rank 0's equal to NumPy's sketch of the
    whole array bit for bit. Then the native ``mpi`` backend (4 forked host
    ranks) on the 10^8 case, equal to NumPy and to the CGM on the card, and
@@ -122,7 +131,8 @@ Phases, each of which must pass (any failure exits non-zero):
    wall ms, idle share, the host copy per chunk, pinned bytes in use and
    peak device memory against the ``depth + 1`` staging bounds);
    ``StreamingQuantiles.update_stream`` of the int32 stream against
-   NumPy's sketch bit for bit, the p50/p90/p99/p99.9 answers inside its bounds, and
+   NumPy's sketch bit for bit (and once under the profiler: the sweep
+   kernel's device time over the stream), the p50/p90/p99/p99.9 answers inside its bounds, and
    ``refine_quantiles`` exact, its passes beside the unseeded descent's;
    the float64 stream's sketch and refined median; the ``Monitor`` over a
    one-shot generator of the int32 chunks (window 8, a sample every 8
@@ -418,8 +428,9 @@ def sweep_cases(bits: int, keys: torch.Tensor):
     words survive), a spec every key matches (0 resolved bits, a shift of
     the word width), four specs in one scan and a two-spec tee union; a
     certificate key present in and absent from the data; sketches of 8, 16
-    (the default width, the first whose counters leave shared memory) and
-    20 bits."""
+    (the default width, in 16-bit counters) and 20 bits, and of 1 bit
+    alone (in registers) and beside a collect (the ordered route counts
+    it in shared memory)."""
     u = [v & ((1 << bits) - 1) for v in keys[:64].tolist()]
 
     def top(i, r):
@@ -441,6 +452,7 @@ def sweep_cases(bits: int, keys: torch.Tensor):
         ("tee union of two specs", tee),
         ("cert, key present", dict(vkey=u[7])), ("cert, key absent", dict(vkey=absent)),
         ("sketch 8", dict(sketch_bits=8)), ("sketch 16", dict(sketch_bits=16)), ("sketch 20", dict(sketch_bits=20)),
+        ("sketch 1", dict(sketch_bits=1)), ("collect sparse, sketch 1", dict(collect=[sparse], sketch_bits=1)),
         ("all five, K=4 rb=8, sketch 20", dict(hist4, collect=[sparse, every], **tee, vkey=u[7], sketch_bits=20)),
         ("all five, K=1 rb=4, sketch 8", dict(hist1, collect=[sparse], **tee, vkey=absent, sketch_bits=8)),
     ]
@@ -469,8 +481,11 @@ def sweep_err(got, want, what: str) -> int:
 def sweep_vs_plain(gen, err):
     """Phase 2 for the sweep kernel: every case of :func:`sweep_cases` on a
     2^26-word bucket of random words, 32- and 64-bit, with ``n_valid``
-    below the bucket (the rest are pads), exactly against the plain
-    version."""
+    below the bucket (the rest are pads); the sketch part at 15, 16 and 20
+    bits on the skewed buckets of :func:`skewed_sketch_buckets`; 16-bit
+    keys (each 16-bit dtype, random and all one key) through the sketch
+    consumer's launch, the 16-bit histogram part: all exactly against the
+    plain version."""
     from mpi_k_selection_tpu_torch.ops.cuda import sweep_ingest as S
     from mpi_k_selection_tpu_torch.utils import dtypes as dt
 
@@ -497,6 +512,71 @@ def sweep_vs_plain(gen, err):
             del keys
         del w
         torch.cuda.empty_cache()
+        for sketch_bits in SKEWED_SKETCH_BITS:
+            for label, w, n_valid in skewed_sketch_buckets(bits, sketch_bits, gen):
+                e = sweep_err(S.sweep_ingest(w, n_valid, sketch_bits=sketch_bits),
+                              S.sweep_ingest_plain(w, n_valid, sketch_bits=sketch_bits),
+                              f"sweep_ingest{bits} sketch {sketch_bits} on {label}")
+                err[f"sweep_ingest{bits}"] = max(err[f"sweep_ingest{bits}"], e)
+                del w
+            print(f"[check] sweep_ingest{bits} sketch of {sketch_bits} bits == plain on the skewed buckets")
+    # 16-bit keys widened into 32-bit words: the sketch consumer's launch,
+    # the prefix-free histogram part at a 16-bit digit and a 1-bit sketch
+    kw = dict(hist_prefixes=[0], shift=0, radix_bits=16, sketch_bits=1)
+    for name in ("int16", "uint16", "float16", "bfloat16"):
+        raw = torch.randint(-(1 << 15), 1 << 15, (SWEEP_BUCKET,), dtype=torch.int32, device="cuda", generator=gen)
+        raw = raw.to(torch.int16)
+        for label, r in (("random keys", raw), ("one key", raw[:1].expand(SWEEP_BUCKET).contiguous())):
+            keys = dt.to_sortable_bits(r.view(dt.torch_dtype(name)))
+            for n_valid in (SWEEP_BUCKET, SWEEP_BUCKET - 12345):
+                e = sweep_err(S.sweep_ingest(keys, n_valid, **kw), S.sweep_ingest_plain(keys, n_valid, **kw),
+                              f"sweep_ingest32 {name} keys ({label}, {n_valid} valid) through the 16-bit histogram")
+                err["sweep_ingest32"] = max(err["sweep_ingest32"], e)
+            del keys
+        print(f"[check] sweep_ingest32 {name} keys through the 16-bit histogram part == plain "
+              f"(random keys, one key; all and all but 12345 valid)")
+        del raw
+    torch.cuda.empty_cache()
+
+
+SKEWED_SKETCH_BITS = (15, 16, 20)  # 16-bit counters in shared memory at 15 and 16 bits; int32 in global memory at 20
+
+
+def skewed_sketch_buckets(bits: int, sketch_bits: int, gen):
+    """(label, raw words on the card, n_valid) of skewed buckets of
+    ``SWEEP_BUCKET`` words for the sketch part at ``sketch_bits`` (key_op
+    "none": the words are the keys), made one at a time: one hot counter
+    (every block's counter passes 2^16 many times); the last counter;
+    two hot counters that share a 32-bit word, in alternating keys;
+    counters that one block's keys bring exactly to 2^16 and to 2^16 + 1
+    (the block's words from the launch plan, the rest of the bucket
+    spread over other counters); pads only."""
+    from mpi_k_selection_tpu_torch.ops.cuda import sweep_ingest as S
+    from mpi_k_selection_tpu_torch.utils import dtypes as dt
+
+    n, low, last = SWEEP_BUCKET, bits - sketch_bits, (1 << sketch_bits) - 1
+    wdt = torch.int32 if bits == 32 else torch.int64
+
+    def key(bin_):  # a key of counter bin_, its low bits those of the bin
+        return dt.signed_const((bin_ << low) | (bin_ & ((1 << low) - 1)), bits)
+
+    yield "one hot counter", torch.full((n,), key(12345), dtype=wdt, device="cuda"), n
+    yield "the last counter", torch.full((n,), key(last), dtype=wdt, device="cuda"), n
+    w = torch.full((n,), key(last - 1), dtype=wdt, device="cuda")
+    w[1::2] = key(last)
+    yield "two hot counters alternating", w, n
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = S.sweep_plan(bits, n, nd=0, sketch_bits=sketch_bits, sms=sms)
+    v = 16 // (bits // 8)
+    vec = torch.arange(n // v, device="cuda")
+    for extra, block in ((0, 0), (1, 1)):
+        mine = vec[(vec % (plan.blocks * plan.threads)) // plan.threads == block]
+        pos = (mine[:, None] * v + torch.arange(v, device="cuda")).flatten()[: (1 << 16) + extra]
+        spread = torch.randint(0, last - 7, (n,), device="cuda", generator=gen, dtype=torch.int64) << low
+        spread[pos] = key(last - 1 - block)
+        yield f"a counter at 2^16 + {extra} in block {block}", spread.to(wdt), n
+        del spread
+    yield "pads only", torch.full((n,), key(7), dtype=wdt, device="cuda"), 0
 
 
 def batched_err(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
@@ -1157,6 +1237,7 @@ def phase_streaming_timing(ints, f64):
     import mpi_k_selection_tpu_torch as kt
     from mpi_k_selection_tpu_torch import api
     from mpi_k_selection_tpu_torch.ops.cuda import sweep_ingest as S
+    from mpi_k_selection_tpu_torch.utils import dtypes as dt
     from mpi_k_selection_tpu_torch.utils.timing import cuda_ms, time_fn
 
     rows, kern, library = [], {}, {}
@@ -1171,9 +1252,22 @@ def phase_streaming_timing(ints, f64):
     for bits, src, key_op, key_xor in ((32, ints, "xor", 1 << 31), (64, f64, "float", 0)):
         c = src.chunks[0]
         w = torch.from_numpy(c.view(np.int32 if bits == 32 else np.int64)).cuda()
-        kinds[f"sweep_ingest{bits}"] = sweep_kind_rows(row, bits, w, c, key_op, key_xor)
+        kinds[f"sweep_ingest{bits}"] = sweep_kind_rows(row, bits, w, sweep_kinds(bits, c), key_op, key_xor)
         del w
         torch.cuda.empty_cache()
+    # the sketch's skewed chunks: every key of a 2^26-word int32 chunk in
+    # one counter (distributed_sketch's skewed shards), and 2^26 bfloat16
+    # normal values widened into 32-bit key words, as the sketch consumer
+    # counts them (the prefix-free histogram part at a 16-bit digit)
+    w = torch.full((STREAM_CHUNK,), 12345, dtype=torch.int32, device="cuda")
+    kinds["one-hot int32"] = sweep_kind_rows(row, 32, w, [("sketch, 16 bits, one counter", dict(
+        sketch_bits=SKETCH_BITS))], "xor", 1 << 31)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    w = dt.to_sortable_bits(torch.randn(STREAM_CHUNK, device="cuda", generator=gen).to(torch.bfloat16))
+    kinds["bfloat16 keys"] = sweep_kind_rows(row, 32, w, [("bfloat16 keys, 16-bit histogram + 1-bit sketch", dict(
+        hist_prefixes=[0], shift=0, radix_bits=16, sketch_bits=1))], "none", 0)
+    del w, gen
+    torch.cuda.empty_cache()
 
     pinned = torch.empty(STREAM_CHUNK, dtype=torch.int32, pin_memory=True)
     pinned.copy_(torch.from_numpy(ints.chunks[0]))
@@ -1418,7 +1512,8 @@ def phase_sketch_staging(ints, f64, certified):
       chunks);
     - the sketch: ``StreamingQuantiles(int32).update_stream`` of the int32
       stream, against NumPy's sketch of the host chunks
-      bit for bit; the true ranks and values of p50/p90/p99/p99.9 inside
+      bit for bit, and one more such call under the profiler (the sweep
+      kernel's device time over the stream); the true ranks and values of p50/p90/p99/p99.9 inside
       its bounds; ``refine_quantiles`` exact against phase 3, its passes
       beside the unseeded descent's; the float64 stream's sketch and its
       refined median;
@@ -1507,6 +1602,16 @@ def phase_sketch_staging(ints, f64, certified):
     check_sketch(sq.sketch, np_sketch(parts32), what)
     out["sketch"][what] = {"ms": secs * 1e3}
     print(f"[phase7] {what}: {secs * 1e3:.1f} ms; the sketch == NumPy's bit for bit (n {sq.n})")
+    # one more call of a fresh sketch under the profiler (after one
+    # unprofiled): the sweep kernel's device time over the stream
+    prof = phase_profile(lambda: kt.StreamingQuantiles(np.int32).update_stream(ints), what, secs * 1e3, reps=1)
+    if prof is not None:
+        sweep = [t for t in prof["top"] if "sweep_ingest_kernel" in t["name"]]
+        out["sketch"][what]["sweep_device_ms"] = sum(t["ms"] for t in sweep)
+        out["sketch"][what]["sweep_launches"] = sum(t["calls"] for t in sweep)
+        out["sketch"][what]["profile"] = prof
+        print(f"[phase7] {what}: sweep_ingest_kernel device time {out['sketch'][what]['sweep_device_ms']:.4f} ms "
+              f"over {out['sketch'][what]['sweep_launches']} launches (torch.profiler)")
     for k, v in zip(certified["qranks"], certified["quantiles32"]):
         lo, hi = sq.sketch.rank_bounds(k)
         vlo, vhi = sq.sketch.value_bounds(k)
@@ -1587,11 +1692,11 @@ DIST_PATHS = {  # label: kernels it must launch (the values lie below 2^27, so e
     "cgm int32 uniform 10^8 k=150": (),
     f"topk k={TOPK} float32 normal 2^26": ("radix_histogram32", "tau_counts32"),
 }
-# distributed_sketch at the default 16 bits: the 10^8 int32 timed as the paths
-# above; the 2^30 int64 once (its values lie below 2^27, so every key of a
-# rank's 2^28-key shard falls in one of the 2^16 global counters)
+# distributed_sketch at the default 16 bits, each timed as the paths above:
+# the 10^8 int32, and the 2^30 int64 (its values lie below 2^27, so every
+# key of a rank's 2^28-key shard falls in one of the 2^16 counters)
 DIST_SKETCHES = {"sketch int32 uniform 10^8": ("int32 uniform 10^8", DIST_REPS),
-                 "sketch int64 uniform 2^30": ("int64 uniform 2^30", 0)}
+                 "sketch int64 uniform 2^30": ("int64 uniform 2^30", DIST_REPS)}
 
 
 def dist_rank(mesh, files):
@@ -1964,7 +2069,7 @@ def sweep_kinds(bits: int, chunk: np.ndarray):
     the p50/p90/p99/p99.9 keys (the quantiles); the collect of one sparse
     spec (the median's top 24 bits) and of the 4 quantile keys' specs; a
     certificate (the median's key); and the sketch alone at the sketches'
-    default 16 bits (its counters in global memory)."""
+    default 16 bits (16-bit counters in shared memory)."""
     keys = host_keys(chunk)
     n = keys.size
     ranks = [n // 2] + [max(0, int(np.ceil(q * n)) - 1) for q in QS]
@@ -1983,30 +2088,37 @@ def sweep_kinds(bits: int, chunk: np.ndarray):
     ]
 
 
-def sweep_kind_rows(row, bits: int, w: torch.Tensor, chunk: np.ndarray, key_op: str, key_xor: int) -> dict:
-    """Phase 4 for the sweep kernel at each launch kind of :func:`sweep_kinds`
-    on the chunk's words ``w`` on the card: held exactly against the plain
-    version first, then the kernel's own device time (torch.profiler) and
-    the whole ``sweep_ingest`` call (CUDA events), each beside its share of
-    the bound. The bound counts the read and every returned survivor
-    buffer as written bytes (L words each: the survivors, then zeros) and
-    the sketch's counters; the old bound, beside it, counted the survivors
-    only. The sketch kind is also timed beside ``torch.bincount`` of the
-    top 16 key bits and ``torch.aminmax`` of the keys, held equal first."""
+def sweep_kind_rows(row, bits: int, w: torch.Tensor, kinds, key_op: str, key_xor: int) -> dict:
+    """Phase 4 for the sweep kernel at each launch kind of ``kinds``
+    (:func:`sweep_kinds`: (label, parts)) on the words ``w`` on the card:
+    held exactly against the plain version first, then the kernel's own
+    device time (torch.profiler) and the whole ``sweep_ingest`` call (CUDA
+    events), each beside its share of the bound. The bound counts the read,
+    every returned survivor buffer as written bytes (L words each: the
+    survivors, then zeros) and the counters; the old bound, beside it,
+    counted the survivors only. A launch with a sketch part must count
+    every word of the bucket (its counts sum to L); it is also timed as
+    the plain version and beside ``torch.bincount`` of the top key bits (of
+    the 16-bit digit, for a histogram of 16-bit keys) and
+    ``torch.aminmax`` of the keys, held equal first."""
     from mpi_k_selection_tpu_torch.ops.cuda import sweep_ingest as S
     from mpi_k_selection_tpu_torch.utils.timing import cuda_ms
 
     n, wb = w.numel(), bits // 8
     out = {}
-    for label, parts in sweep_kinds(bits, chunk):
+    for label, parts in kinds:
         kw = dict(key_op=key_op, key_xor=key_xor, **parts)
         got = S.sweep_ingest(w, n, **kw)
         err = sweep_err(got, S.sweep_ingest_plain(w, n, **kw), f"sweep_ingest{bits} {label}")
         survivors = sum(int(c) for _, c in got[1])
         n_surv = len(got[1])
-        deep = 4 << parts["sketch_bits"] if parts.get("sketch_bits") else 0
-        b, by = bound(n * wb + n_surv * n * wb + deep, n)
+        sketch_bits = parts.get("sketch_bits", 0)
+        counters = 4 * ((1 << sketch_bits if sketch_bits else 0)
+                        + len(parts.get("hist_prefixes", ())) * (1 << parts.get("radix_bits", 1)))
+        b, by = bound(n * wb + n_surv * n * wb + counters, n)
         old_b, _ = bound(n * wb + survivors * wb, n)
+        if sketch_bits and int((got[0][0] if sketch_bits == 1 else got[4][0]).sum()) != n:
+            fail(f"sweep_ingest{bits} {label}: the counts do not sum to the bucket's {n} words")
         kms = kernel_device_ms(lambda: S.sweep_ingest(w, n, **kw), "sweep_ingest_kernel")
         ms = cuda_ms(lambda: S.sweep_ingest(w, n, **kw))
         alone = "not measured" if kms is None else f"{kms:.4f} ms ({b / kms:.0%}; {old_b / kms:.0%} of the old)"
@@ -2015,36 +2127,44 @@ def sweep_kind_rows(row, bits: int, w: torch.Tensor, chunk: np.ndarray, key_op: 
             f"{survivors} survivors; max_abs_err {err}")
         out[label] = {"kernel_ms": kms, "call_ms": ms, "bound_ms": b, "old_bound_ms": old_b,
                       "survivors": survivors, "max_abs_err": err}
-        if parts.get("sketch_bits"):
-            out[label]["library_ms"] = library_sketch_ms(w, got[4], bits, key_op, key_xor, parts["sketch_bits"])
-            row(f"torch.bincount of the top {parts['sketch_bits']} key bits + torch.aminmax, {n} words",
-                out[label]["library_ms"], b, by)
+        if sketch_bits:
+            out[label]["plain_ms"] = cuda_ms(lambda: S.sweep_ingest_plain(w, n, **kw), iters=3, warmup=1)
+            row(f"sweep_ingest_plain {label}, a {n}-word chunk", out[label]["plain_ms"], b, by)
+            out[label]["library_ms"] = library_sketch_ms(w, got, bits, key_op, key_xor, parts)
+            what = "the 16-bit digit" if sketch_bits == 1 else f"the top {sketch_bits} key bits"
+            row(f"torch.bincount of {what} + torch.aminmax, {n} words", out[label]["library_ms"], b, by)
         del got
         torch.cuda.empty_cache()
     return out
 
 
-def library_sketch_ms(w: torch.Tensor, want, bits: int, key_op: str, key_xor: int, sketch_bits: int) -> float:
-    """The sweep kernel's sketch part as library calls on the same words:
-    ``torch.bincount`` of the top ``sketch_bits`` key bits and
-    ``torch.aminmax`` of the keys in unsigned order (biased signed), held
-    equal to the kernel's ``want`` (counts, key min, key max) first; the
-    keys are made untimed. CUDA-event milliseconds of the two calls."""
+def library_sketch_ms(w: torch.Tensor, got, bits: int, key_op: str, key_xor: int, parts) -> float:
+    """The sweep kernel's sketch launch as library calls on the same words:
+    ``torch.bincount`` of the top ``sketch_bits`` key bits (of the 16-bit
+    digit, when the launch counts 16-bit keys in its histogram part and
+    takes a 1-bit sketch for the extremes) and ``torch.aminmax`` of the
+    keys in unsigned order (biased signed), held equal to the kernel's
+    output ``got`` (counts, key min, key max) first; the keys are made
+    untimed. CUDA-event milliseconds of the two calls."""
     from mpi_k_selection_tpu_torch.utils import dtypes as dt
     from mpi_k_selection_tpu_torch.utils.timing import cuda_ms
 
     keys = dt.keys_from_raw(w, key_op, key_xor)
-    top = dt.shift_right_logical(keys, bits - sketch_bits, bits).long()
+    width = parts["radix_bits"] if parts["sketch_bits"] == 1 else parts["sketch_bits"]
+    shift = parts["shift"] if parts["sketch_bits"] == 1 else bits - width
+    top = (dt.shift_right_logical(keys, shift, bits) & ((1 << width) - 1)).long()
     biased = dt.order_bias(keys, bits)
 
     def fn():
-        return torch.bincount(top, minlength=1 << sketch_bits), torch.aminmax(biased)
+        return torch.bincount(top, minlength=1 << width), torch.aminmax(biased)
 
     counts, (lo, hi) = fn()
-    deep, kmin, kmax = want
+    deep, kmin, kmax = got[4]
+    if parts["sketch_bits"] == 1:
+        deep = got[0][0]
     if not (torch.equal(counts.to(torch.int32), deep) and int(dt.order_bias(lo, bits)) == int(kmin)
             and int(dt.order_bias(hi, bits)) == int(kmax)):
-        fail(f"sweep_ingest{bits} sketch of {sketch_bits} bits: library calls != kernel")
+        fail(f"sweep_ingest{bits} {parts}: library calls != kernel")
     ms = cuda_ms(fn)
     del keys, top, biased
     return ms

@@ -62,7 +62,21 @@
 //   of `copies` per-warp sub-histograms (warp w into copy w % copies), so
 //   a hot bin serialises a few warps and not the block; the flush adds the
 //   copies into the global rows, one atomic per non-zero bin. Counters go
-//   straight to global memory when they do not fit. A kernel compiles only
+//   straight to global memory when they do not fit.
+//   The sketch, and a histogram of one prefix, at 15 and 16 bits: 2^16
+//   int32 counters (256 KB) fit no block, so each counter is 16 bits, two
+//   to a 32-bit word (128 KB at 16 bits), in an order-free block of
+//   kWideThreads threads, one an SM, with as many loads in flight per SM
+//   as six narrow blocks. An add that carries a half past 0xFFFF credits
+//   the 2^16 counts it dropped, and the one it carried into the high half,
+//   to the global int32 counters (add_packed): exact whatever the counts,
+//   the timing of the warps, or the data. Those counters, and the
+//   sketch's in any memory, go through warp_count: in a warp step whose
+//   first keys share a bin in a quarter of the lanes, the lanes of each
+//   bin add as one (__match_any_sync), so a bin that every key hits takes
+//   one atomic a warp and not 32; other steps add a key at a time, which
+//   distinct bins need. The ordered route counts a key at a time.
+//   A kernel compiles only
 //   the parts a launch asks for (kParts), which keeps the per-key code of
 //   the streamed passes short. Parameters travel by value (a
 //   __grid_constant__ struct); only more than kParamPrefixes prefixes or
@@ -80,8 +94,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;     // order-free route
-constexpr int kUnroll = 4;        // order-free: 16-byte loads in flight per thread
+constexpr int kThreads = 256;       // order-free route
+constexpr int kWideThreads = 1024;  // order-free route with 16-bit counters: one block an SM
+constexpr int kUnroll = 4;          // order-free: 16-byte loads in flight per thread
 constexpr int kOrdThreads = 512;  // ordered route
 constexpr int kOrdWarps = kOrdThreads / 32;
 constexpr int kTileBytes = 64 * 1024;
@@ -113,13 +128,22 @@ template <typename W> struct Atom;
 template <> struct Atom<uint32_t> { using type = unsigned int; };
 template <> struct Atom<uint64_t> { using type = unsigned long long; };
 
+// A warp step looks hot when kHotLanes of its lanes hold lane 0's bin
+// (warp_hot); its lanes of one bin then add as one (warp_count).
+// ../probes/sweep_probe.py times this against an atomic a key and against
+// __match_any_sync on every step (PERF.md §6).
+constexpr int kHotLanes = 8;
+
 template <typename W>
 struct Params {
   const W* data;
   long long L, n_valid, n_tiles;
   W key_xor;
   int is_float;
-  // histogram: nd distinct prefixes, counted into rows 0 .. nd-1 of hist
+  // histogram: nd distinct prefixes, counted into rows 0 .. nd-1 of hist;
+  // hist_smem and deep_smem: the bytes of a counter in shared memory, 4
+  // (int32) or 2 (16-bit halves, the wide order-free block only), or 0
+  // (global memory)
   int nd, shift, rb, pbits, tbits, copies, hist_smem;
   W lo, hi;           // the smallest and largest prefix
   const W* pref_dev;  // the nd prefixes, when nd > kParamPrefixes
@@ -195,9 +219,9 @@ __host__ __device__ Layout layout(int nd, int tbits, int copies, int rb, int his
   s.pref = o;
   o += nd > 1 ? align16((long long)nd * sizeof(W)) : 0;
   s.hist = o;
-  o += hist_smem ? (long long)copies * nd * (4ll << rb) : 0;
+  o += (long long)copies * nd * ((long long)hist_smem << rb);
   s.deep = o;
-  o += deep_smem ? 4ll << sketch_bits : 0;
+  o += (long long)deep_smem << sketch_bits;
   s.total = o;
   return s;
 }
@@ -247,6 +271,56 @@ __device__ long long warp_lookback(const unsigned long long* st, long long t, in
   }
 }
 
+// Adds c (at most 32) to the 16-bit counter `bin` of `cnt`, two to a word
+// (bin 2j in the low half of word j, 2j + 1 in the high half), exactly: the
+// atomic returns the word as it was, so the thread knows what its add did
+// to both halves. A half that passes 0xFFFF keeps its count mod 2^16, and
+// the thread credits the 2^16 to glob[bin], the global int32 counter; a
+// low half's carry raised the high half by one (or, from 0xFFFF, wrapped
+// it to 0), which glob[bin + 1] takes back. So a counter's half plus its
+// global credits is its count after every add, and the flush adds the half.
+// A half wraps once in 2^16 counts of its bin: the credits cost nothing on
+// most keys. (This is the flush threshold T = 2^16, the half's own range:
+// no half can ever hold more, so no scheduling of the warps can break it.)
+__device__ __forceinline__ void add_packed(unsigned* cnt, unsigned* glob, unsigned bin, unsigned c) {
+  const unsigned sh = (bin & 1u) << 4;
+  const unsigned old = atomicAdd(cnt + (bin >> 1), c << sh);
+  if (((old >> sh) & 0xffffu) + c > 0xffffu) {
+    atomicAdd(glob + bin, 0x10000u);
+    if (!sh) atomicAdd(glob + bin + 1, (old >> 16) == 0xffffu ? 0xffffu : 0xffffffffu);
+  }
+}
+
+// The end of a block's 16-bit counters: each non-zero half into glob.
+__device__ __forceinline__ void flush_packed(const unsigned* cnt, unsigned* glob, int words, int nthreads) {
+  for (int i = threadIdx.x; i < words; i += nthreads) {
+    const unsigned w = cnt[i];
+    if (w & 0xffffu) atomicAdd(glob + 2 * i, w & 0xffffu);
+    if (w >> 16) atomicAdd(glob + 2 * i + 1, w >> 16);
+  }
+}
+
+// Whether a warp step looks hot: kHotLanes of the warp's lanes hold lane
+// 0's bin (the same answer in every lane).
+__device__ __forceinline__ bool warp_hot(unsigned bin) {
+  return __popc(__ballot_sync(0xffffffffu, bin == __shfl_sync(0xffffffffu, bin, 0))) >= kHotLanes;
+}
+
+// Counts `bin` once for each lane of the warp with `on` through add(bin,
+// c). In a hot step (kHot) every lane of the warp calls it together (bins
+// lie below 2^20, so ~0u is no bin) and the lanes of each bin add as one;
+// else each lane adds its own key. kHot is a template argument so that a
+// cold step's adds carry no warp-wide instruction between them.
+template <bool kHot, typename F>
+__device__ __forceinline__ void warp_count(bool on, unsigned bin, int lane, F add) {
+  if constexpr (kHot) {
+    const unsigned peers = __match_any_sync(0xffffffffu, on ? bin : ~0u);
+    if (on && lane == __ffs(peers) - 1) add(bin, (unsigned)__popc(peers));
+  } else if (on) {
+    add(bin, 1u);
+  }
+}
+
 // Zeroes out[z0, z1) with the whole block: scalar stores up to a 16-byte
 // boundary, 16-byte stores, scalar stores after.
 template <typename W>
@@ -271,9 +345,11 @@ __device__ void zero_run(W* out, long long z0, long long z1, int nthreads) {
 constexpr int kPartHist = 1, kPartCert = 2, kPartSketch = 4, kPartsChecked = 8;
 
 // Launch bounds: the ordered route's one block an SM may use 128
-// registers a thread; an order-free block leaves room for 6 on an SM (42).
-template <typename W, bool kOrdered, int kParts>
-__global__ void __launch_bounds__(kOrdered ? kOrdThreads : kThreads, kOrdered ? 1 : 6)
+// registers a thread; an order-free block leaves room for 6 on an SM (42);
+// the wide order-free block (kWide: 16-bit counters), one an SM, 64.
+template <typename W, bool kOrdered, int kParts, bool kWide>
+__global__ void __launch_bounds__(kOrdered ? kOrdThreads : (kWide ? kWideThreads : kThreads),
+                                  kOrdered || kWide ? 1 : 6)
 sweep_ingest_kernel(const __grid_constant__ Params<W> p) {
   constexpr int B = sizeof(W) * 8;
   constexpr bool kChecked = (kParts & kPartsChecked) != 0;
@@ -281,7 +357,7 @@ sweep_ingest_kernel(const __grid_constant__ Params<W> p) {
   constexpr bool kCert = kChecked || (kParts & kPartCert);
   constexpr bool kSketch = kChecked || (kParts & kPartSketch);
   constexpr int V = 16 / sizeof(W);  // words per 16-byte load
-  constexpr int nthreads = kOrdered ? kOrdThreads : kThreads;
+  constexpr int nthreads = kOrdered ? kOrdThreads : (kWide ? kWideThreads : kThreads);
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -312,8 +388,10 @@ sweep_ingest_kernel(const __grid_constant__ Params<W> p) {
     for (int i = threadIdx.x; i <= (int)tmask; i += nthreads) table[i] = 0;
     for (int i = threadIdx.x; i < nd; i += nthreads) pref[i] = psrc[i];
   }
-  const int hist_words = p.hist_smem ? p.copies * nd * nb : 0;
-  const int deep_words = p.deep_smem ? 1 << p.sketch_bits : 0;
+  const int hist_words = p.hist_smem ? p.copies * nd * (nb * p.hist_smem / 4) : 0;  // 32-bit words in shared memory
+  const int deep_words = p.deep_smem ? (p.deep_smem << p.sketch_bits) / 4 : 0;
+  const bool hist_packed = kWide && p.hist_smem == 2;  // one row, one copy (the launch checks)
+  const bool deep_packed = kWide && p.deep_smem == 2;
   for (int i = threadIdx.x; i < hist_words; i += nthreads) shist[i] = 0u;
   for (int i = threadIdx.x; i < deep_words; i += nthreads) sdeep[i] = 0u;
   __syncthreads();
@@ -336,32 +414,52 @@ sweep_ingest_kernel(const __grid_constant__ Params<W> p) {
   unsigned* hacc = p.hist_smem ? shist + (warp % p.copies) * nd * nb : p.hist;
   unsigned* dacc = p.deep_smem ? sdeep : p.deep;
   unsigned lt = 0, le = 0;
+  unsigned d_all = 0, d_top = 0;  // an order-free 1-bit sketch, in registers: keys counted, keys with the top bit
   W kmin = ~(W)0, kmax = 0;
 
   // every part but the survivors, for one word of the bucket; pads
-  // (present, not valid) arrive as key 0
-  auto count = [&](W key, bool present, bool valid) {
-    if (kHist && (!kChecked || nd) && present) {
-      const W s = key >> shift;
-      const W top = s >> rb;  // two shifts: shift + rb may equal the word width
-      if (top >= lo && top <= hi) {
-        int row = 0;
-        bool hit = true;
-        if (nd > 1) {
-          hit = false;
-          unsigned e;
-          for (unsigned h = table_home(top, exact, tbits); (e = table[h]) != 0; h = (h + 1) & tmask) {
-            if (exact || pref[e - 1] == top) {
-              row = (int)e - 1;
-              hit = true;
-              break;
+  // (present, not valid) arrive as key 0. The whole warp calls it together
+  // (warp_count): lanes past the bucket come as not present. hot: an
+  // Int<1> when the step looks hot (hot_of), else an Int<0>.
+  auto count = [&](W key, bool present, bool valid, auto hot) {
+    constexpr bool kHot = decltype(hot)::value != 0;
+    if (kHist && (!kChecked || nd)) {
+      if (hist_packed) {  // one prefix: a range test
+        const W s = key >> shift;
+        const W top = s >> rb;  // two shifts: shift + rb may equal the word width
+        warp_count<kHot>(present && top >= lo && top <= hi, (unsigned)(s & dmask), lane,
+                         [&](unsigned b, unsigned c) { add_packed(shist, p.hist, b, c); });
+      } else if (present) {
+        const W s = key >> shift;
+        const W top = s >> rb;
+        if (top >= lo && top <= hi) {
+          int row = 0;
+          bool hit = true;
+          if (nd > 1) {
+            hit = false;
+            unsigned e;
+            for (unsigned h = table_home(top, exact, tbits); (e = table[h]) != 0; h = (h + 1) & tmask) {
+              if (exact || pref[e - 1] == top) {
+                row = (int)e - 1;
+                hit = true;
+                break;
+              }
             }
           }
+          if (hit) atomicAdd(hacc + row * nb + (int)(s & dmask), 1u);
         }
-        if (hit) atomicAdd(hacc + row * nb + (int)(s & dmask), 1u);
       }
     }
-    if (kSketch && (!kChecked || sketch_bits) && present) atomicAdd(dacc + (int)(key >> dshift), 1u);
+    if (!kOrdered && kSketch && sketch_bits == 1) {  // the extremes' launch of sub-32-bit keys: one hot counter
+      d_all += present;
+      d_top += present && (key >> (B - 1));
+    } else if (kSketch && (!kChecked || sketch_bits)) {
+      const unsigned bin = (unsigned)(key >> dshift);
+      if (deep_packed)
+        warp_count<kHot>(present, bin, lane, [&](unsigned b, unsigned c) { add_packed(sdeep, p.deep, b, c); });
+      else
+        warp_count<kHot>(present, bin, lane, [&](unsigned b, unsigned c) { atomicAdd(dacc + b, c); });
+    }
     if ((kCert || kSketch) && valid) {
       if (kCert && (!kChecked || cert)) {
         lt += key < vkey;
@@ -374,39 +472,71 @@ sweep_ingest_kernel(const __grid_constant__ Params<W> p) {
     }
   };
 
+  // whether an order-free step whose first key is k looks hot, in the
+  // histogram's 16-bit counters or the sketch's (a heuristic: any answer
+  // counts exactly); the whole warp calls it together
+  auto hot_of = [&](W k) -> bool {
+    const bool h = hist_packed && warp_hot((unsigned)((k >> shift) & dmask));
+    return h || (kSketch && sketch_bits > 1 && warp_hot((unsigned)(k >> dshift)));
+  };
+
   const long long L = p.L, n_valid = p.n_valid;
   const bool vec = (reinterpret_cast<uintptr_t>(p.data) & 15) == 0;
 
   if constexpr (!kOrdered) {
+    // A kernel that counts through warp_count runs each loop the same
+    // number of times in every lane of a warp (the warp's last lane, or
+    // its first, decides), so the warp counts together; the others keep
+    // each lane's own bounds.
+    constexpr bool kWarpCount = kSketch || kWide;
+    const int up = kWarpCount ? 31 - lane : 0, down = kWarpCount ? lane : 0;
     const long long stride = (long long)gridDim.x * nthreads;
     const long long tid = (long long)blockIdx.x * nthreads + threadIdx.x;
     const long long nvec = vec ? L / V : 0;
     const long long nfull = vec ? min(n_valid, L) / V : 0;  // vectors of valid keys only
     const uint4* vdata = reinterpret_cast<const uint4*>(p.data);
     long long i = tid;
-    for (; i + (kUnroll - 1) * stride < nfull; i += kUnroll * stride) {
+    for (; i + up + (kUnroll - 1) * stride < nfull; i += kUnroll * stride) {
       uint4 v[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) v[u] = __ldg(vdata + i + u * stride);
+      W w0[V];
+      unpack(v[0], w0);
+      auto step = [&](auto hot) {
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        W w[V];
-        unpack(v[u], w);
+        for (int u = 0; u < kUnroll; ++u) {
+          W w[V];
+          unpack(v[u], w);
 #pragma unroll
-        for (int j = 0; j < V; ++j) count(to_key(w[j], fl, key_xor), true, true);
-      }
+          for (int j = 0; j < V; ++j) count(to_key(w[j], fl, key_xor), true, true, hot);
+        }
+      };
+      if (hot_of(to_key(w0[0], fl, key_xor)))
+        step(Int<1>{});
+      else
+        step(Int<0>{});
     }
-    for (; i < nvec; i += stride) {  // the last valid vectors and the pads
+    for (; i - down < nvec; i += stride) {  // the last valid vectors and the pads
+      const bool in = i < nvec;
       W w[V];
-      unpack(__ldg(vdata + i), w);
+      unpack(in ? __ldg(vdata + i) : make_uint4(0u, 0u, 0u, 0u), w);
+      const bool hot = hot_of(in && i * V < n_valid ? to_key(w[0], fl, key_xor) : (W)0);
       for (int j = 0; j < V; ++j) {
-        const bool valid = i * V + j < n_valid;
-        count(valid ? to_key(w[j], fl, key_xor) : (W)0, true, valid);
+        const bool valid = in && i * V + j < n_valid;
+        const W key = valid ? to_key(w[j], fl, key_xor) : (W)0;
+        if (hot)
+          count(key, in, valid, Int<1>{});
+        else
+          count(key, in, valid, Int<0>{});
       }
     }
-    for (long long e = nvec * V + tid; e < L; e += stride) {  // a tail, or a base not 16-byte aligned
+    for (long long e = nvec * V + tid; e - down < L; e += stride) {  // a tail, or a base not 16-byte aligned
       const bool valid = e < n_valid;
-      count(valid ? to_key(p.data[e], fl, key_xor) : (W)0, true, valid);
+      const W key = valid ? to_key(p.data[e], fl, key_xor) : (W)0;
+      if (hot_of(key))
+        count(key, e < L, valid, Int<1>{});
+      else
+        count(key, e < L, valid, Int<0>{});
     }
   } else {
     constexpr long long kTile = kTileBytes / sizeof(W);  // words per tile
@@ -533,7 +663,7 @@ sweep_ingest_kernel(const __grid_constant__ Params<W> p) {
           if (cur.gb == 0) {
             const long long pos0 = cur.t * kTile + (long long)(row * 32 + lane) * V;
 #pragma unroll
-            for (int j = 0; j < V; ++j) count(k[j], pos0 + j < L, (vm >> j) & 1u);
+            for (int j = 0; j < V; ++j) count(k[j], pos0 + j < L, (vm >> j) & 1u, Int<0>{});
           }
           unsigned bits[kGroup];
           bits[0] = match(k, vm, cur.tee, cmask, cwant, Int<0>{});
@@ -642,18 +772,30 @@ sweep_ingest_kernel(const __grid_constant__ Params<W> p) {
   // flush: the sub-histograms, the sketch counters, the certificate and the
   // extremes, into global memory
   __syncthreads();
-  for (int i = threadIdx.x; i < nd * nb && p.hist_smem; i += nthreads) {
-    unsigned s = 0;
-    for (int c = 0; c < p.copies; ++c) s += shist[c * nd * nb + i];
-    if (s) atomicAdd(p.hist + i, s);
+  if (hist_packed) {
+    flush_packed(shist, p.hist, hist_words, nthreads);
+  } else {
+    for (int i = threadIdx.x; i < nd * nb && p.hist_smem; i += nthreads) {
+      unsigned s = 0;
+      for (int c = 0; c < p.copies; ++c) s += shist[c * nd * nb + i];
+      if (s) atomicAdd(p.hist + i, s);
+    }
   }
-  for (int i = threadIdx.x; i < deep_words; i += nthreads)
-    if (sdeep[i]) atomicAdd(p.deep + i, sdeep[i]);
+  if (deep_packed) {
+    flush_packed(sdeep, p.deep, deep_words, nthreads);
+  } else {
+    for (int i = threadIdx.x; i < deep_words; i += nthreads)
+      if (sdeep[i]) atomicAdd(p.deep + i, sdeep[i]);
+  }
   using A = typename Atom<W>::type;
 #pragma unroll
   for (int d = 16; d > 0; d >>= 1) {
     lt += __shfl_down_sync(0xffffffffu, lt, d);
     le += __shfl_down_sync(0xffffffffu, le, d);
+    if (!kOrdered) {
+      d_all += __shfl_down_sync(0xffffffffu, d_all, d);
+      d_top += __shfl_down_sync(0xffffffffu, d_top, d);
+    }
     const W a = __shfl_down_sync(0xffffffffu, kmin, d);
     const W b = __shfl_down_sync(0xffffffffu, kmax, d);
     kmin = a < kmin ? a : kmin;
@@ -663,6 +805,10 @@ sweep_ingest_kernel(const __grid_constant__ Params<W> p) {
     if (cert) {
       if (lt) atomicAdd(p.cert_out, lt);
       if (le) atomicAdd(p.cert_out + 1, le);
+    }
+    if (!kOrdered && sketch_bits == 1) {
+      if (d_all - d_top) atomicAdd(p.deep, d_all - d_top);
+      if (d_top) atomicAdd(p.deep + 1, d_top);
     }
     if (sketch_bits) {
       atomicMax(reinterpret_cast<A*>(p.ext), (A)~kmin);  // zero is the identity of ~min
@@ -729,9 +875,15 @@ int launch(const W* data, long long L, long long n_valid, int is_float, W key_xo
            unsigned* hist, unsigned* counts, unsigned* cert_out, unsigned* deep, W* ext,
            unsigned* done, unsigned* ticket, unsigned long long* status, W* surv,
            void* arena, long long arena_bytes, int blocks, int sms, cudaStream_t stream) {
-  // a prefix table at most half full (the build and the lookup end)
+  // a prefix table at most half full (the build and the lookup end);
+  // counters of 4 or 2 bytes in shared memory, or none; 16-bit counters
+  // only in the wide order-free block, and of a histogram of one row and copy
+  const bool ordered = nc + nt > 0;
+  const bool wide = hist_smem == 2 || deep_smem == 2;
   if (nd < 0 || nd > 1 << (kTableBits - 1) || tbits > kTableBits || nc < 0 || nt < 0 || copies < 1 ||
-      blocks < 1)
+      blocks < 1 || (hist_smem != 0 && hist_smem != 2 && hist_smem != 4) ||
+      (deep_smem != 0 && deep_smem != 2 && deep_smem != 4) || (wide && ordered) ||
+      (hist_smem == 2 && (nd != 1 || copies != 1)))
     return (int)cudaErrorInvalidValue;
   Params<W> p{};
   p.data = data;
@@ -777,7 +929,6 @@ int launch(const W* data, long long L, long long n_valid, int is_float, W key_xo
   p.ticket = ticket;
   p.status = status;
   p.surv = surv;
-  const bool ordered = n_specs > 0;
   constexpr long long kTile = kTileBytes / sizeof(W);
   p.n_tiles = ordered ? (L + kTile - 1) / kTile : 0;
 
@@ -798,17 +949,24 @@ int launch(const W* data, long long L, long long n_valid, int is_float, W key_xo
   // without other parts (the streamed collect) and one that checks them
   const int parts = (nd ? kPartHist : 0) | (cert ? kPartCert : 0) | (sketch_bits ? kPartSketch : 0);
   if (ordered)
-    return go(parts ? sweep_ingest_kernel<W, true, kPartsChecked> : sweep_ingest_kernel<W, true, 0>,
+    return go(parts ? sweep_ingest_kernel<W, true, kPartsChecked, false> : sweep_ingest_kernel<W, true, 0, false>,
               kOrdThreads,
               layout<W, true>(nd, tbits, copies, rb, hist_smem, n_specs, sketch_bits, deep_smem));
   using Kernel = void (*)(Params<W>);
-  const Kernel order_free[8] = {
-      sweep_ingest_kernel<W, false, 0>, sweep_ingest_kernel<W, false, 1>,
-      sweep_ingest_kernel<W, false, 2>, sweep_ingest_kernel<W, false, 3>,
-      sweep_ingest_kernel<W, false, 4>, sweep_ingest_kernel<W, false, 5>,
-      sweep_ingest_kernel<W, false, 6>, sweep_ingest_kernel<W, false, 7>,
+  const Kernel order_free[2][8] = {
+      {sweep_ingest_kernel<W, false, 0, false>, sweep_ingest_kernel<W, false, 1, false>,
+       sweep_ingest_kernel<W, false, 2, false>, sweep_ingest_kernel<W, false, 3, false>,
+       sweep_ingest_kernel<W, false, 4, false>, sweep_ingest_kernel<W, false, 5, false>,
+       sweep_ingest_kernel<W, false, 6, false>, sweep_ingest_kernel<W, false, 7, false>},
+      // the wide block serves launches with 16-bit counters: a histogram or a sketch
+      {nullptr, sweep_ingest_kernel<W, false, 1, true>,
+       nullptr, sweep_ingest_kernel<W, false, 3, true>,
+       sweep_ingest_kernel<W, false, 4, true>, sweep_ingest_kernel<W, false, 5, true>,
+       sweep_ingest_kernel<W, false, 6, true>, sweep_ingest_kernel<W, false, 7, true>},
   };
-  return go(order_free[parts], kThreads,
+  const Kernel k = order_free[wide][parts];
+  if (!k) return (int)cudaErrorInvalidValue;  // 16-bit counters of a part the launch does not have
+  return go(k, wide ? kWideThreads : kThreads,
             layout<W, false>(nd, tbits, copies, rb, hist_smem, n_specs, sketch_bits, deep_smem));
 }
 

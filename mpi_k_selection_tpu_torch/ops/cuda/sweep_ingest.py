@@ -34,7 +34,8 @@ A CUDA tensor launches ``csrc/sweep_ingest.cu`` or raises; a CPU tensor
 takes :func:`sweep_ingest_plain`. ``LAUNCHES`` counts kernel launches and
 ``PLAIN_CALLS`` the plain version's calls. :func:`sweep_plan` lays out a
 launch: its route (order-free without survivor buffers, ordered with
-them), tiles, grid and shared memory. One launch serves a bucket, unless
+them), tiles, grid and shared memory (int32 counters, or 16-bit ones for
+a 15- or 16-bit sketch or histogram of one prefix). One launch serves a bucket, unless
 it holds more than ``MAX_TABLE_PREFIXES`` distinct histogram prefixes.
 The outputs are views of one zeroed arena of counters, and each survivor
 buffer is written whole by the kernel.
@@ -58,11 +59,12 @@ PLAIN_CALLS = {"sweep_ingest": 0}
 
 # The kernel's geometry (csrc/sweep_ingest.cu mirrors each number). The
 # order-free route (no survivor buffer) streams with THREADS-thread blocks
-# and UNROLL 16-byte loads in flight per thread; the ordered route takes
+# and UNROLL 16-byte loads in flight per thread, or, with 16-bit counters,
+# WIDE_THREADS-thread blocks, one an SM; the ordered route takes
 # TILE_BYTES tiles by ticket into STAGES shared-memory stages, with
 # ORD_THREADS-thread blocks and a ROW_BYTES staging row per warp.
 ORDER_FREE, ORDERED = "order-free", "ordered"
-THREADS, UNROLL = 256, 4
+THREADS, UNROLL, WIDE_THREADS = 256, 4, 1024
 ORD_THREADS, TILE_BYTES, STAGES, ROW_BYTES = 512, 64 * 1024, 3, 512
 # Parameters travel by value up to PARAM_PREFIXES distinct prefixes and
 # PARAM_SPECS specs, in device arrays above. The prefix table holds up to
@@ -73,13 +75,16 @@ TABLE_BITS = 12
 MAX_TABLE_PREFIXES = 1 << (TABLE_BITS - 1)
 # Shared memory: an H100 SM's 228 KB (1 KB reserved per block) and a
 # block's 227 KB, less 1 KB for the kernel's static variables; one
-# histogram copy or the sketch counters in shared memory up to HIST_SMEM;
-# sub-histogram copies up to COPIES_SMEM, an eighth of the SM's (the rest
-# is L1, which holds the loads in flight).
+# histogram copy or the sketch counters in shared memory as int32 up to
+# HIST_SMEM; sub-histogram copies up to COPIES_SMEM, an eighth of the SM's
+# (the rest is L1, which holds the loads in flight). Wider counters, at
+# PACKED_BITS (the sketch, or a histogram of one prefix), are 16-bit
+# halves of 32-bit words in the wide order-free block: 128 KB at 16 bits.
 SMEM_PER_SM, SMEM_RESERVED, SMEM_PER_BLOCK = 228 * 1024, 1024, 226 * 1024
 MAX_THREADS_PER_SM = 2048
 HIST_SMEM = 64 * 1024
 COPIES_SMEM = SMEM_PER_SM // 8
+PACKED_BITS = (15, 16)
 
 _SMS: dict[int, int] = {}  # SM count per CUDA device index
 
@@ -193,8 +198,8 @@ class SweepPlan(NamedTuple):
     n_tiles: int
     tbits: int  # prefix table bits (more than one prefix), else 0
     copies: int  # sub-histogram copies
-    hist_smem: bool  # histogram counters in shared memory (else global)
-    deep_smem: bool  # sketch counters in shared memory (else global)
+    hist_smem: int  # bytes of a histogram counter in shared memory: 4, 2 (16-bit halves) or 0 (global)
+    deep_smem: int  # the same for the sketch's counters
     smem: int  # dynamic shared memory of one block, bytes
     per_sm: int  # blocks an SM holds, by threads and shared memory
     blocks: int  # the grid asked for: at most per_sm per SM, at most the work
@@ -206,7 +211,8 @@ def _smem_bytes(route, bits, nd, tbits, copies, radix_bits, hist_smem, n_specs, 
     """Dynamic shared memory of one block (``csrc/sweep_ingest.cu:layout``):
     the tile stages, the warps' row staging and the specs (ordered route),
     the prefix table and the prefixes (more than one prefix), the
-    sub-histogram copies and the sketch counters, each 16-byte aligned."""
+    sub-histogram copies and the sketch counters (``hist_smem`` and
+    ``deep_smem`` bytes a counter), each 16-byte aligned."""
     def a16(b):
         return -(-b // 16) * 16
 
@@ -216,11 +222,7 @@ def _smem_bytes(route, bits, nd, tbits, copies, radix_bits, hist_smem, n_specs, 
         total += STAGES * TILE_BYTES + (ORD_THREADS // 32) * ROW_BYTES + a16(2 * n_specs * wb)
     if nd > 1:
         total += a16(2 << tbits) + a16(nd * wb)
-    if hist_smem:
-        total += copies * nd * (4 << radix_bits)
-    if deep_smem:
-        total += 4 << sketch_bits
-    return total
+    return total + copies * nd * (hist_smem << radix_bits) + (deep_smem << sketch_bits)
 
 
 def sweep_plan(bits: int, n: int, *, nd: int, shift: int = 0, radix_bits: int = 1, n_collect: int = 0,
@@ -232,18 +234,22 @@ def sweep_plan(bits: int, n: int, *, nd: int, shift: int = 0, radix_bits: int = 
 
     The route: ordered when any survivor buffer is asked for, else
     order-free. Shared memory, in order of need within the block's 227 KB:
-    the fixed parts of the route; the histogram's counters when one copy
-    fits ``HIST_SMEM`` (else global atomics), in the most of 8, 4, 2
-    copies within ``COPIES_SMEM`` (the rest of an SM's shared memory is
-    L1, which holds the loads in flight), else one; the sketch's counters
-    when they fit ``HIST_SMEM`` and the block. The grid: every block
-    resident at once (the kernel clamps it further by the occupancy of
-    its registers), and no more blocks than work."""
+    the fixed parts of the route; the histogram's int32 counters when one
+    copy fits ``HIST_SMEM``, in the most of 8, 4, 2 copies within
+    ``COPIES_SMEM`` (the rest of an SM's shared memory is L1, which holds
+    the loads in flight), else one; the sketch's int32 counters when they
+    fit ``HIST_SMEM`` and the block (an order-free 1-bit sketch, the
+    extremes' launch of sub-32-bit keys, counts in registers). On the order-free route, a histogram
+    of one prefix or a sketch at ``PACKED_BITS`` that has no room as int32
+    takes 16-bit counters when they fit the block, in a block of
+    ``WIDE_THREADS`` threads, one an SM (its launch bounds). Counters that
+    do not fit go to global memory. The grid: every block resident at
+    once (the kernel clamps it further by the occupancy of its registers),
+    and no more blocks than work."""
     if not 0 <= nd <= MAX_TABLE_PREFIXES:
         raise ValueError(f"{nd} distinct prefixes in one launch; at most {MAX_TABLE_PREFIXES}")
     n_specs = n_collect + n_tee
     route = ORDERED if n_specs else ORDER_FREE
-    threads = ORD_THREADS if route == ORDERED else THREADS
     tile_words = TILE_BYTES // (bits // 8) if route == ORDERED else 0
     n_tiles = -(-n // tile_words) if tile_words else 0
     pbits = bits - shift - radix_bits
@@ -252,16 +258,28 @@ def sweep_plan(bits: int, n: int, *, nd: int, shift: int = 0, radix_bits: int = 
     def smem(copies, hist_smem, deep_smem):
         return _smem_bytes(route, bits, nd, tbits, copies, radix_bits, hist_smem, n_specs, sketch_bits, deep_smem)
 
+    def packed(width, others):  # 16-bit counters at this width, if they fit beside the others
+        return route == ORDER_FREE and width in PACKED_BITS and smem(*others) <= SMEM_PER_BLOCK
+
     copy = nd * (4 << radix_bits)
-    hist_smem = 0 < copy <= HIST_SMEM and smem(1, True, False) <= SMEM_PER_BLOCK
+    hist_smem = 4 if 0 < copy <= HIST_SMEM and smem(1, 4, 0) <= SMEM_PER_BLOCK else 0
+    if not hist_smem and nd == 1 and packed(radix_bits, (1, 2, 0)):
+        hist_smem = 2
     copies = 1
-    if hist_smem:
-        fits = [c for c in (8, 4, 2) if c * copy <= COPIES_SMEM and smem(c, True, False) <= SMEM_PER_BLOCK]
+    if hist_smem == 4:
+        fits = [c for c in (8, 4, 2) if c * copy <= COPIES_SMEM and smem(c, 4, 0) <= SMEM_PER_BLOCK]
         copies = (fits + [1])[0]
-    deep_smem = bool(sketch_bits) and 4 << sketch_bits <= HIST_SMEM and smem(copies, hist_smem, True) <= SMEM_PER_BLOCK
+    deep_smem = 0
+    in_registers = sketch_bits == 1 and route == ORDER_FREE
+    if sketch_bits and not in_registers and 4 << sketch_bits <= HIST_SMEM and smem(copies, hist_smem, 4) <= SMEM_PER_BLOCK:
+        deep_smem = 4
+    elif sketch_bits and packed(sketch_bits, (copies, hist_smem, 2)):
+        deep_smem = 2
     nbytes = smem(copies, hist_smem, deep_smem)
-    per_sm = max(1, min(MAX_THREADS_PER_SM // threads, SMEM_PER_SM // (nbytes + SMEM_RESERVED)))
-    work = n_tiles if route == ORDERED else -(-n // (THREADS * UNROLL * 16 // (bits // 8)))
+    wide = 2 in (hist_smem, deep_smem)
+    threads = ORD_THREADS if route == ORDERED else WIDE_THREADS if wide else THREADS
+    per_sm = 1 if wide else max(1, min(MAX_THREADS_PER_SM // threads, SMEM_PER_SM // (nbytes + SMEM_RESERVED)))
+    work = n_tiles if route == ORDERED else -(-n // (threads * UNROLL * 16 // (bits // 8)))
     return SweepPlan(
         route=route, threads=threads, tile_words=tile_words, n_tiles=n_tiles, tbits=tbits, copies=copies,
         hist_smem=hist_smem, deep_smem=deep_smem, smem=nbytes, per_sm=per_sm,
@@ -445,11 +463,11 @@ def sweep_ingest(data, n_valid, *, key_op="none", key_xor=0, shift=0, radix_bits
                 rc = fn(
                     w.data_ptr(), n, n_valid, int(key_op == "float"), xor,
                     len(group), ctypes.cast(host, ctypes.c_void_p), pref_dev.data_ptr() if pref_dev is not None else None,
-                    shift, radix_bits, bits - shift - radix_bits, plan.tbits, plan.copies, int(plan.hist_smem),
+                    shift, radix_bits, bits - shift - radix_bits, plan.tbits, plan.copies, plan.hist_smem,
                     len(collect) if g == 0 else 0, len(tee) if g == 0 else 0,
                     ctypes.cast(lay.specs, ctypes.c_void_p), spec_dev.data_ptr() if spec_dev is not None else None,
                     int(g == 0 and vkey is not None), 0 if vkey is None else int(vkey),
-                    sketch_bits if g == 0 else 0, int(plan.deep_smem),
+                    sketch_bits if g == 0 else 0, plan.deep_smem,
                     base + 4 * g * MAX_TABLE_PREFIXES * nb, base + 4 * lay.off_counts, base + 4 * lay.off_cert,
                     base + 4 * lay.off_deep, base + 4 * lay.off_ext, base + 4 * lay.off_done,
                     base + 4 * lay.off_done + 4, base + 4 * lay.off_status, surv.data_ptr(),

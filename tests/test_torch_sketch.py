@@ -105,6 +105,72 @@ def test_sketch_matches_jax_on_every_dtype(name):
             assert streamed == port
 
 
+def skewed(case: str, sizes=(3001, 1, 0, 999)) -> list:
+    """Seeded chunks of skewed data, every key in one bucket of the deepest
+    level: int64 below 2^27 (``distributed_sketch``'s 2^30 int64 shape,
+    its keys all under one 16-bit prefix) and int16 / bfloat16 chunks of
+    one value."""
+    rng = np.random.default_rng(23)
+    if case == "int64 below 2^27":
+        return [rng.integers(0, 1 << 27, size=s, dtype=np.int64) for s in sizes]
+    dtype = numpy_dtype(case.split()[0])
+    one = np.array([-1234.0 if dtype == np.int16 else 1.5], np.float32)
+    value = one.astype(np.int16) if dtype == np.int16 else (one.view(np.uint32) >> 16).astype(np.uint16).view(dtype)
+    return [np.repeat(value, s) for s in sizes]
+
+
+SKEWED = ("int64 below 2^27", "int16 all equal", "bfloat16 all equal")
+
+
+@pytest.mark.parametrize("case", SKEWED)
+def test_sketch_of_skewed_data_matches_jax(case):
+    """Data whose every key falls in one counter of the deepest level (the
+    sweep kernel's hottest case: one 16-bit counter takes every key, the
+    16-bit dtypes through the histogram part) sketches as the JAX
+    package's ``update`` does: ``update`` and ``update_stream`` at depth 0
+    and 2, pyramid, n, extremes and every query."""
+    chunks = skewed(case)
+    name = str(chunks[0].dtype)
+    ref = jax_sketch(name, chunks)
+    assert np.count_nonzero(ref.hists[-1]) == 1 and ref.hists[-1].max() == ref.n  # one hot counter
+    port = RadixSketch(chunks[0].dtype, device="cpu")
+    for c in chunks:
+        port.update(c)
+    same(port, ref)
+    assert queries(port, ref.n) == queries(ref, ref.n)
+    for depth in (0, 2):
+        streamed = RadixSketch(chunks[0].dtype, device="cpu").update_stream(chunks, pipeline_depth=depth)
+        same(streamed, ref)
+
+
+@pytest.mark.parametrize("sketch_bits", [15, 16])
+def test_plain_sketch_part_matches_jax_sweep_kernel_on_one_hot_keys(sketch_bits):
+    """The sketch part at 15 and 16 bits on one-hot keys and pads (a 2^12
+    bucket: every valid key in one counter, the pads in counter 0), the
+    port's plain version against ``sweep_ingest_core`` in interpret mode."""
+    import jax.numpy as jnp
+
+    from mpi_k_selection_tpu.ops.pallas import sweep_ingest as si
+
+    bucket, n_valid = 1 << 12, (1 << 12) - 100
+    keys = np.full(bucket, 0xFFFF0000 | 1234, np.uint32)  # the last counter at 16 bits
+    keys[n_valid:] = 0
+    none = np.zeros(0, np.uint32)
+    ref = si.sweep_ingest_core(
+        jnp.asarray(keys), np.int32(n_valid), jnp.asarray(none), jnp.asarray(none), jnp.asarray(none),
+        jnp.asarray(none), jnp.asarray(none), np.uint32(0), sketch_bits=sketch_bits, block_rows=8, interpret=True,
+    )
+    deep = np.asarray(ref[4][0])
+    assert deep[-1] == n_valid and deep[0] == bucket - n_valid  # the reference against the counts first
+    words = torch.from_numpy(keys.view(np.int32) ^ np.int32(-(1 << 31)))
+    S.reset_counts()
+    _, _, _, _, (got, kmin, kmax) = S.sweep_ingest(words, n_valid, key_op="xor", key_xor=1 << 31,
+                                                   sketch_bits=sketch_bits)
+    assert S.PLAIN_CALLS["sweep_ingest"] == 1
+    np.testing.assert_array_equal(got.numpy(), deep)
+    assert int(kmin) & 0xFFFFFFFF == int(ref[4][1]) & 0xFFFFFFFF == int(kmax) & 0xFFFFFFFF
+
+
 @pytest.mark.parametrize("name", ["float32", "float64", "bfloat16"])
 def test_sketch_extremes_order_nan_and_signed_zero_like_jax(name):
     """Extremes in key space: ``-nan`` below ``-inf``, ``-0.0`` below
@@ -296,6 +362,7 @@ def rank_cases(mesh):
     out["shard"] = flat(kt.distributed_sketch(kt.parallel.shard_1d(x, mesh), mesh=mesh))
     out["3x4"] = flat(kt.distributed_sketch(x, mesh=mesh, radix_bits=3, levels=4))
     out["tiny"] = flat(kt.distributed_sketch(x[:1], mesh=mesh))  # one rank holds the only key
+    out["one-hot int64"] = flat(kt.distributed_sketch(np.concatenate(skewed("int64 below 2^27")), mesh=mesh))
     local = RadixSketch(np.int32, device="cpu")
     if mesh.rank != 1:  # rank 1 saw nothing: its extremes must not count
         local.update(x[mesh.rank::mesh.size])
@@ -358,6 +425,15 @@ def test_distributed_sketch_shards_geometry_and_dcn_merge(port, world):
             merged.update(x[r::world])
     same_flat(out["dcn"], merged)
     assert out["dcn_collectives"] == 1
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_distributed_sketch_of_one_hot_int64_matches_jax(port, world):
+    """``distributed_sketch`` of int64 below 2^27 (every key of every shard
+    in one counter of the deepest level) equals the JAX package's on
+    ``make_mesh(P)``, bit for bit."""
+    x = np.concatenate(skewed("int64 below 2^27"))
+    same_flat(port[world]["one-hot int64"], jax_distributed("int64", x, world))
 
 
 def test_dcn_payloads_cross_decode_between_packages(port, rng):

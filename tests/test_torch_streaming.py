@@ -235,10 +235,19 @@ _PLAN_CASES = {  # label: (sweep_plan keywords, route)
     "2048 prefixes, 12-bit digit": (dict(nd=2048, shift=-36, radix_bits=12), S.ORDER_FREE),
     "certificate": (dict(nd=0), S.ORDER_FREE),
     "sketch of 20 bits": (dict(nd=0, sketch_bits=20), S.ORDER_FREE),
+    "sketch of 16 bits": (dict(nd=0, sketch_bits=16), S.ORDER_FREE),
+    "sketch of 15 bits": (dict(nd=0, sketch_bits=15), S.ORDER_FREE),
+    "16-bit digit, no prefix": (dict(nd=1, shift=-16, radix_bits=16), S.ORDER_FREE),
+    "16-bit digit, no prefix, and a sketch of 1 bit": (dict(nd=1, shift=-16, radix_bits=16, sketch_bits=1),
+                                                      S.ORDER_FREE),
+    "4 prefixes and a sketch of 16 bits": (dict(nd=4, shift=-16, radix_bits=8, sketch_bits=16), S.ORDER_FREE),
     "collect, 1 spec": (dict(nd=0, n_collect=1), S.ORDERED),
     "collect, 4 specs": (dict(nd=0, n_collect=4), S.ORDERED),
     "collect, 17 specs, a device array": (dict(nd=0, n_collect=17), S.ORDERED),
+    "collect, 1 spec, and a sketch of 1 bit": (dict(nd=0, n_collect=1, sketch_bits=1), S.ORDERED),
     "all five": (dict(nd=4, shift=-16, radix_bits=8, n_collect=2, n_tee=2, sketch_bits=20), S.ORDERED),
+    "all five, a sketch of 16 bits": (dict(nd=4, shift=-16, radix_bits=8, n_collect=2, n_tee=2, sketch_bits=16),
+                                      S.ORDERED),
 }
 
 
@@ -250,8 +259,10 @@ def test_sweep_plan_routes_tiles_grid_and_budget(bits, case):
     chunk takes 4096 tickets; the grid within the blocks an SM holds (by
     threads and shared memory) and within the work; shared memory within a
     block's 227 KB; sub-histogram copies within ``COPIES_SMEM`` and no more
-    when twice as many would fit; parameters by value up to the capacity,
-    in a device array above it."""
+    when twice as many would fit; int32 counters in shared memory up to
+    ``HIST_SMEM``, 16-bit ones for a histogram of one prefix or a sketch at
+    ``PACKED_BITS`` on the order-free route, in the wide block, one an SM;
+    parameters by value up to the capacity, in a device array above it."""
     kw, route = _PLAN_CASES[case]
     kw = dict(kw)
     if "shift" in kw:
@@ -259,13 +270,14 @@ def test_sweep_plan_routes_tiles_grid_and_budget(bits, case):
     n, sms = (1 << 26) * 32 // bits, 132
     plan = S.sweep_plan(bits, n, sms=sms, **kw)
     assert plan.route == route
-    assert plan.threads == (S.ORD_THREADS if route == S.ORDERED else S.THREADS)
+    wide = 2 in (plan.hist_smem, plan.deep_smem)
+    assert plan.threads == (S.ORD_THREADS if route == S.ORDERED else S.WIDE_THREADS if wide else S.THREADS)
     if route == S.ORDERED:
         assert plan.tile_words * bits // 8 == S.TILE_BYTES and plan.n_tiles == 4096
         work = plan.n_tiles
     else:
         assert plan.tile_words == plan.n_tiles == 0
-        work = -(-n // (S.THREADS * S.UNROLL * 16 // (bits // 8)))
+        work = -(-n // (plan.threads * S.UNROLL * 16 // (bits // 8)))
     assert plan.smem == S._smem_bytes(plan.route, bits, kw["nd"], plan.tbits, plan.copies, kw.get("radix_bits", 1),
                                       plan.hist_smem, kw.get("n_collect", 0) + kw.get("n_tee", 0),
                                       kw.get("sketch_bits", 0), plan.deep_smem)
@@ -274,14 +286,68 @@ def test_sweep_plan_routes_tiles_grid_and_budget(bits, case):
     assert plan.per_sm * (plan.smem + S.SMEM_RESERVED) <= S.SMEM_PER_SM
     assert 1 <= plan.blocks <= min(plan.per_sm * sms, work)
     copy = kw["nd"] * (4 << kw.get("radix_bits", 1))
-    assert plan.hist_smem == (0 < copy <= S.HIST_SMEM)
+    order_free = route == S.ORDER_FREE
+    packed_hist = order_free and kw["nd"] == 1 and kw.get("radix_bits") in S.PACKED_BITS
+    assert plan.hist_smem == (4 if 0 < copy <= S.HIST_SMEM else 2 if packed_hist else 0)
     assert plan.copies in (8, 4, 2, 1) and (plan.copies == 1 or plan.copies * copy <= S.COPIES_SMEM)
-    if plan.hist_smem and plan.copies < 8:
+    if plan.hist_smem == 4 and plan.copies < 8:
         assert 2 * plan.copies * copy > S.COPIES_SMEM
     assert plan.tbits == (min(bits - kw["shift"] - kw["radix_bits"], S.TABLE_BITS) if kw["nd"] > 1 else 0)
     assert plan.prefixes_by_value == (kw["nd"] <= S.PARAM_PREFIXES)
     assert plan.specs_by_value == (kw.get("n_collect", 0) + kw.get("n_tee", 0) <= S.PARAM_SPECS)
-    assert plan.deep_smem == (0 < kw.get("sketch_bits", 0) and (4 << kw["sketch_bits"]) <= S.HIST_SMEM)
+    sketch_bits = kw.get("sketch_bits", 0)
+    in_registers = order_free and sketch_bits == 1  # the order-free route's 1-bit sketch
+    assert plan.deep_smem == (4 if sketch_bits and not in_registers and (4 << sketch_bits) <= S.HIST_SMEM
+                              else 2 if order_free and sketch_bits in S.PACKED_BITS else 0)
+    assert plan.per_sm == 1 or not wide
+
+
+@pytest.mark.parametrize("bits", [32, 64])
+@pytest.mark.parametrize("width", range(13, S.MAX_BITS + 1))
+def test_sweep_plan_packs_16_bit_counters(bits, width):
+    """The sketch's counters, and those of a histogram of one prefix
+    (prefix-free or not), lie in shared memory at every width up to 16
+    within a block's ``SMEM_PER_BLOCK``: int32 up to 14 bits, 16-bit halves
+    (two to a word, in the wide block) at 15 and 16; from 17 bits in
+    global memory. Two prefixes at 15-16 bits stay global (one row only)."""
+    n, sms = (1 << 26) * 32 // bits, 132
+    want = 4 if width <= 14 else 2 if width in S.PACKED_BITS else 0
+    plans = {
+        "sketch": S.sweep_plan(bits, n, nd=0, sketch_bits=width, sms=sms),
+        "no prefix": S.sweep_plan(bits, n, nd=1, shift=bits - width, radix_bits=width, sms=sms),
+        "one prefix": S.sweep_plan(bits, n, nd=1, shift=bits - width - 8, radix_bits=width, sms=sms),
+    }
+    for label, plan in plans.items():
+        smem = plan.deep_smem if label == "sketch" else plan.hist_smem
+        assert smem == want, label
+        assert plan.smem == want << width and plan.smem <= S.SMEM_PER_BLOCK
+        assert plan.threads == (S.WIDE_THREADS if want == 2 else S.THREADS)
+        assert plan.per_sm == (1 if want == 2 else max(1, min(8, S.SMEM_PER_SM // (plan.smem + S.SMEM_RESERVED))))
+        assert plan.blocks == min(plan.per_sm * sms, -(-n // (plan.threads * S.UNROLL * 16 // (bits // 8))))
+        assert plan.copies == 1 or want == 4
+    two = S.sweep_plan(bits, n, nd=2, shift=bits - width - 8, radix_bits=width, sms=sms)
+    assert two.hist_smem == (4 if 2 * (4 << width) <= S.HIST_SMEM else 0) and two.threads == S.THREADS
+
+
+@pytest.mark.parametrize("bits", [32, 64])
+@pytest.mark.parametrize("sketch_bits", [8, 14, 15, 16, 20])
+@pytest.mark.parametrize("n_specs", [0, 2])
+def test_sweep_plan_keeps_the_histogram_copies_beside_a_sketch(bits, sketch_bits, n_specs):
+    """Shared memory goes first to the histogram: a launch with a sketch of
+    any width keeps the sub-histogram copies of the same launch without
+    it (order-free, and the ordered all-parts launch), and the sketch's
+    counters take shared memory only where they fit beside them."""
+    n, sms = (1 << 26) * 32 // bits, 132
+    hist = dict(nd=4, shift=bits - 16, radix_bits=8, n_collect=n_specs, n_tee=n_specs)
+    alone = S.sweep_plan(bits, n, sms=sms, **hist)
+    both = S.sweep_plan(bits, n, sketch_bits=sketch_bits, sms=sms, **hist)
+    assert (both.copies, both.hist_smem, both.route) == (alone.copies, alone.hist_smem, alone.route)
+    assert alone.hist_smem == 4 and alone.copies > 1
+    assert both.smem == alone.smem + (both.deep_smem << sketch_bits) <= S.SMEM_PER_BLOCK
+    if n_specs:  # the ordered route's stages leave no room for a 16-bit sketch
+        assert both.deep_smem == (4 if sketch_bits <= 8 else 0)
+    else:
+        assert both.deep_smem == (4 if sketch_bits <= 14 else 2 if sketch_bits in S.PACKED_BITS else 0)
 
 
 def test_sweep_plan_refuses_a_table_past_half_full():
@@ -711,6 +777,120 @@ def test_sweep_kernel_matches_plain_on_card(cuda_device, bits):
         S.sweep_ingest(w.view(torch.int16), 10)  # no 2-byte words: raises, no fallback
     with pytest.raises(ValueError):
         S.sweep_ingest(w[::2], 10)
+
+
+T16 = 1 << 16  # a 16-bit counter's range: the add that reaches it credits the global counter
+
+
+def _block_positions(plan, n: int, bits: int, block: int) -> np.ndarray:
+    """The words of an ``n``-word bucket that block ``block`` of the
+    order-free route reads (vector i goes to block (i mod stride) //
+    threads), when the card runs ``plan.blocks`` blocks."""
+    v = 16 // (bits // 8)
+    vec = np.arange(n // v)
+    mine = vec[(vec % (plan.blocks * plan.threads)) // plan.threads == block]
+    return (mine[:, None] * v + np.arange(v)).ravel()
+
+
+def skewed_buckets(bits: int, sketch_bits: int, sms: int, n: int = 1 << 24) -> dict:
+    """Raw words (key_op "none": the words are the keys) of skewed buckets
+    for the sketch part at ``sketch_bits``, label -> (words, n_valid): one
+    hot counter (a 2^24-key chunk: every block's counter passes 2^16 many
+    times); counters that one block's keys bring exactly to 2^16 and to
+    2^16 + 1 (the rest of the bucket spread over other counters); two hot
+    counters that share a 32-bit word in alternating keys; the last
+    counter; pads only."""
+    rng = np.random.default_rng(sketch_bits)
+    ndt = np.uint32 if bits == 32 else np.uint64
+    low = bits - sketch_bits
+
+    def key(bin_):  # a key of counter bin_, its low bits random
+        return (np.uint64(bin_) << np.uint64(low)) | (rng.integers(0, 1 << min(low, 62), dtype=np.uint64))
+
+    def words(keys):
+        return keys.astype(ndt).view(np.int32 if bits == 32 else np.int64)
+
+    last = (1 << sketch_bits) - 1
+    out = {"one hot counter": words(np.full(n, key(12345), np.uint64)),
+           "the last counter": words(np.full(n, key(last), np.uint64))}
+    plan = S.sweep_plan(bits, n, nd=0, sketch_bits=sketch_bits, sms=sms)
+    spread = rng.integers(0, (1 << sketch_bits) - 8, size=n, dtype=np.uint64) << np.uint64(low)
+    for extra, block in ((0, 0), (1, 1)):
+        hot = np.uint64(last - 1 - block)  # two counters of one word at 16 bits
+        k = spread.copy()
+        k[_block_positions(plan, n, bits, block)[: T16 + extra]] = hot << np.uint64(low)
+        out[f"a counter at 2^16 + {extra} in block {block}"] = words(k)
+    alt = np.empty(n, np.uint64)
+    alt[0::2], alt[1::2] = key(last - 1), key(last)
+    out["two hot counters alternating"] = words(alt)
+    cases = {label: (w, n) for label, w in out.items()}
+    cases["pads only"] = (words(np.full(n, key(7), np.uint64)), 0)
+    return cases
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [32, 64])
+@pytest.mark.parametrize("sketch_bits", [15, 16, 20])
+def test_sweep_sketch_on_skewed_buckets_matches_plain_on_card(cuda_device, bits, sketch_bits):
+    """The sketch part on skewed buckets (:func:`skewed_buckets`: 16-bit
+    counters in shared memory at 15 and 16 bits, int32 in global memory at
+    20), exactly equal to the plain version (tolerance: none; counts are
+    integers), its counts summing to the padded bucket's length; and a
+    histogram of one prefix, with and without a prefix, at the same
+    width where it fits a digit."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    cases = skewed_buckets(bits, sketch_bits, sms)
+    plan = S.sweep_plan(bits, 1 << 24, nd=0, sketch_bits=sketch_bits, sms=sms)
+    assert plan.deep_smem == (2 if sketch_bits in S.PACKED_BITS else 0)
+    S.reset_counts()
+    for label, (raw, n_valid) in cases.items():
+        w = torch.from_numpy(raw).to(cuda_device)
+        parts = [dict(sketch_bits=sketch_bits)]
+        if sketch_bits in S.PACKED_BITS:
+            parts += [dict(hist_prefixes=[0], shift=bits - sketch_bits, radix_bits=sketch_bits),
+                      dict(hist_prefixes=[(int(raw[0]) & ((1 << bits) - 1)) >> (bits - 4)],
+                           shift=bits - 4 - sketch_bits, radix_bits=sketch_bits, sketch_bits=1)]
+        for kw in parts:
+            got = _flat(S.sweep_ingest(w, n_valid, **kw))
+            want = _flat(S.sweep_ingest_plain(w, n_valid, **kw))
+            assert len(got) == len(want)
+            assert all(a is b is None or torch.equal(a, b) for a, b in zip(got, want)), (label, kw)
+            if kw.get("sketch_bits", 0) > 1:
+                assert int(got[-3].sum()) == w.numel(), label
+    torch.cuda.synchronize()
+    assert S.LAUNCHES[f"sweep_ingest{bits}"] > 0 and not S.PLAIN_CALLS["sweep_ingest"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["int16", "uint16", "float16", "bfloat16"])
+def test_sweep_16_bit_keys_through_the_histogram_part_on_card(cuda_device, name):
+    """16-bit keys widened into 32-bit words, the sketch consumer's launch
+    (the prefix-free histogram part at a 16-bit digit, in 16-bit counters,
+    and a 1-bit sketch for the extremes), exactly equal to the plain
+    version on a 2^24-key chunk of random keys, of one key, of half one
+    key, and with pads."""
+    rng = np.random.default_rng(5)
+    n = 1 << 24
+    u = rng.integers(0, 1 << 16, size=n, dtype=np.uint16)
+    half = u.copy()
+    half[::2] = 0x3FC0
+    x = {"random": u, "one key": np.full(n, 0xBF80, np.uint16), "half one key": half}
+    kw = dict(hist_prefixes=[0], shift=0, radix_bits=16, sketch_bits=1)
+    plan = S.sweep_plan(32, n, nd=1, shift=0, radix_bits=16, sketch_bits=1,
+                        sms=torch.cuda.get_device_properties(cuda_device).multi_processor_count)
+    assert (plan.hist_smem, plan.threads) == (2, S.WIDE_THREADS)
+    S.reset_counts()
+    for label, raw in x.items():
+        chunk = torch.from_numpy(raw.view(np.int16)).to(cuda_device).view(dt.torch_dtype(name))
+        keys = pl.stage_chunk(chunk, dt.torch_dtype(name), cuda_device)
+        for n_valid in (n, n - 4097):
+            got = _flat(S.sweep_ingest(keys.data, n_valid, **kw))
+            want = _flat(S.sweep_ingest_plain(keys.data, n_valid, **kw))
+            assert all(a is b is None or torch.equal(a, b) for a, b in zip(got, want)), (label, n_valid)
+            assert int(got[0].sum()) == n
+        keys.release()
+    torch.cuda.synchronize()
+    assert S.LAUNCHES["sweep_ingest32"] == 6 and not S.PLAIN_CALLS["sweep_ingest"]
 
 
 @pytest.mark.gpu
