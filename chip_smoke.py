@@ -138,6 +138,25 @@ Phases, each of which must pass (any failure exits non-zero):
    one-shot generator of the int32 chunks (window 8, a sample every 8
    chunks), exact and decayed, each window against NumPy's counts.
 
+8. The spill descent (``phase_spill``, run after phase 7 and before phase
+   6) on the int32 stream of phase 3, halved when the disk under the temp
+   dir has less than 1.5x its bytes free: the median of the stream read
+   as a one-shot generator with ``spill="auto"``, under the profiler
+   (answer against phase 3's, wall ms, its ``pass_log`` beside the
+   arithmetic, the bytes over the link against the replay's, the peak
+   bytes on disk sampled after each commit, the sweep kernel's device
+   time and the idle share); the p50/p90/p99/p99.9 with
+   ``spill="force"`` (against phase 3, with its ``pass_log``);
+   ``StreamingQuantiles.update_stream(one_shot, spill=store)``, then
+   ``refine_quantiles`` and ``streaming_rank_certificate`` from the store
+   (against phase 3 and NumPy's certificate); each call's sweep launches
+   counted against the chunks each pass read; and row 8's tee launch kind
+   (a histogram under one 8-bit prefix and a one-spec tee) on chunk 0 of
+   each stream, held exactly against the plain version, then timed as
+   phase 4 times the other kinds, beside its bound (the read and the
+   L-word survivor buffer), the plain version and ``torch.bincount`` +
+   ``torch.masked_select``.
+
 The timed kernel rows of phase 4 also time the nearest torch composition
 of each of rows 1-6 on the same tensor (a ``torch.bincount`` of the digits
 under the prefix mask; a row-wise compare-and-sum), held equal to the
@@ -150,7 +169,9 @@ object describing every kernel, and
 
 from __future__ import annotations
 
+import glob
 import json
+import os
 import subprocess
 import sys
 
@@ -1202,10 +1223,12 @@ def phase_streaming():
                    lambda: kt.kselect_streaming(f64, n64 // 2, pipeline_depth=2), f64, 64, 2, 1)
     checks = [(ints, 32, k, answers[(k, 2)]) for k in ranks] + [(ints, 32, k, v) for k, v in zip(qranks, qans)]
     checks.append((f64, 64, n64 // 2, fmed))
+    np_certs = {}
     for src, bits, label in ((ints, 32, "int32 uniform 2^32"), (f64, 64, "float64 normal 2^30")):
         mine = [(k, v) for s, _, k, v in checks if s is src]
         want = np_certificates(src.chunks, [v for _, v in mine])
         for (k, v), (less, leq) in zip(mine, want):
+            np_certs[(bits, k)] = (less, leq)
             if not less < k <= leq:
                 fail(f"k={k}: answer {v!r} fails NumPy's certificate ({less}, {leq}]")
             got = counted(f"streaming_rank_certificate k={k}, {label}",
@@ -1218,6 +1241,9 @@ def phase_streaming():
     notes = {"stream_peaks": {k: {"peak_bytes": p, "limit_bytes": lim} for k, (p, lim) in peaks.items()},
              "stream_answers": {str(k): repr(v) for k, v in answers.items()}}
     certified = {"median32": answers[(n32 // 2, 2)], "qranks": qranks, "quantiles32": qans, "median64": fmed,
+                 "median32_certificate": np_certs[(32, n32 // 2)],
+                 "median_passes": per_call[f"kselect_streaming k={n32 // 2} depth=2, int32 uniform 2^32"]
+                 ["sweep_ingest32"] // len(ints.chunks),
                  "quantile_passes": per_call["kselect_streaming_many p50/p90/p99/p99.9 depth=2, int32 uniform 2^32"]
                  ["sweep_ingest32"] // len(ints.chunks)}
     return ints, f64, launches, per_call, notes, certified
@@ -1457,7 +1483,7 @@ def profiled_call(fn):
         hi = max(hi, end)
     busy = (busy + hi - lo) / 1e3
     top = sorted(((e.key[:90], e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA), key=lambda t: -t[2])[:4]
+                  if e.device_type == DeviceType.CUDA), key=lambda t: -t[2])
     return out, ms, busy, max(0.0, 1.0 - busy / ms), top
 
 
@@ -1585,7 +1611,7 @@ def phase_sketch_staging(ints, f64, certified):
                "peak_pinned_in_use_bytes": pl.STAGING_POOL.peak_live_bytes,
                "peak_pinned_held_bytes": pl.STAGING_POOL.peak_bytes, "pinned_bound_bytes": pinned_bound,
                "peak_device_bytes": peak_dev, "device_bound_bytes": dev_bound, "answer": repr(got),
-               "top": [{"name": n, "calls": c, "ms": m} for n, c, m in top]}
+               "top": [{"name": n, "calls": c, "ms": m} for n, c, m in top[:4]]}
         out["staging"].append(rec)
         print(f"[phase7] {what}: {got!r} == phase 3; {ms:.1f} ms; device busy "
               + ("not measured" if busy is None else f"{busy:.1f} ms, idle share {idle:.3f}")
@@ -1670,6 +1696,283 @@ def phase_sketch_staging(ints, f64, certified):
                                 "last": windows[-1][0].as_dict()}
         print(f"[phase7] {what}: {len(windows)} samples, each window == NumPy's counts; {secs * 1e3:.1f} ms, "
               f"{secs * 1e3 / len(windows):.1f} ms a sample; last: {windows[-1][0].format_line()}")
+    return launches, per_call, out
+
+
+SPILL_DISK_FACTOR = 1.5  # free disk under the spill root needed, times the int32 stream's bytes
+# The arithmetic of the int32 stream's spill median (values in [1, 10^8]:
+# the top 8-bit key digit takes 6 values, the median's about 16.8% of N):
+# (pass, GiB read, GiB written), and the collect's read
+SPILL_PREDICTED = ((0, 16.0, 16.0), (1, 16.0, 2.69), (2, 2.69, 10.7 / 1024), ("collect", 10.7 / 1024, None))
+
+
+def disk_bytes(root: str) -> int:
+    """Bytes of the files under ``root`` (``os.scandir``)."""
+    total = 0
+    for entry in os.scandir(root):
+        if entry.is_dir(follow_symlinks=False):
+            total += disk_bytes(entry.path)
+        elif entry.is_file(follow_symlinks=False):
+            total += entry.stat(follow_symlinks=False).st_size
+    return total
+
+
+class SpillWatch:
+    """While active, every generation committed under ``root`` is noted
+    with its record count, and the bytes on disk under ``root`` are
+    sampled after each commit (the peak is what the store held at once):
+    ``SpillWriter.commit`` is wrapped for the call's duration."""
+
+    def __init__(self, root: str, base: int | None = None):
+        self.root = root
+        self.base = base  # records of a generation read before the first commit (a store as source)
+        self.stores, self.records, self.samples = [], [], []
+
+    def __enter__(self):
+        from mpi_k_selection_tpu_torch.streaming import spill as sp
+
+        self._sp, self._commit = sp, sp.SpillWriter.commit
+        watch = self
+
+        def commit(writer):
+            gen = watch._commit(writer)
+            if writer.store not in watch.stores:
+                watch.stores.append(writer.store)
+            watch.records.append(len(gen.records))
+            watch.samples.append(disk_bytes(watch.root))
+            return gen
+
+        sp.SpillWriter.commit = commit
+        return self
+
+    def __exit__(self, *exc):
+        self._sp.SpillWriter.commit = self._commit
+
+    @property
+    def peak(self) -> int:
+        return max(self.samples, default=0)
+
+
+def print_pass_log(what: str, log, predicted=None) -> None:
+    """One line a pass: keys and bytes read and written (GiB), beside the
+    arithmetic where given; then the bytes over the link and to disk."""
+    pred = {p: (r, w) for p, r, w in predicted or ()}
+    for e in log:
+        line = (f"[spill] {what}: pass {e['pass']!s:>7} read {e['read']:<6} {e['keys_read']:>11} keys "
+                f"{e['bytes_read'] / 2**30:8.4f} GiB")
+        if "keys_written" in e:
+            line += f", wrote {e['keys_written']:>11} keys {e['bytes_written'] / 2**30:8.4f} GiB"
+        if e["pass"] in pred:
+            r, w = pred[e["pass"]]
+            line += f"   (arithmetic: read {r:.4f} GiB" + ("" if w is None else f", write {w:.4f} GiB") + ")"
+        print(line)
+    link = sum(e["bytes_read"] for e in log)
+    disk = sum(e.get("bytes_written", 0) for e in log)
+    print(f"[spill] {what}: {link / 2**30:.3f} GiB read over the link, {disk / 2**30:.3f} GiB written to disk")
+
+
+def phase_spill(ints, f64, certified):
+    """Phase 8, the spill descent (this slice's path), on the 2^32 int32
+    stream of phase 3, each call driven with the launch counts set to 0
+    just before it and read just after (the sweep kernel once per chunk
+    read in each pass, counted from the generations' records; no other
+    kernel, no plain call):
+
+    - the free disk under the spill root (``shutil.disk_usage``): below
+      1.5x the stream's bytes the stream is halved, and the cut printed;
+    - the median of the stream read as a ONE-SHOT generator, ``spill="auto"``,
+      one call under the profiler: its answer against phase 3's certified
+      median, wall ms, its ``pass_log`` beside the arithmetic above, the
+      bytes over the link against phase 3's replay (4 reads), the peak
+      bytes on disk (sampled after each commit), the sweep kernel's device
+      time and the idle share;
+    - the p50/p90/p99/p99.9 of the replayable chunks with ``spill="force"``,
+      against phase 3's answers, with its ``pass_log``;
+    - ``StreamingQuantiles.update_stream(one_shot, spill=store)`` into a
+      store this phase owns, ``refine_quantiles`` from the store (exact
+      against phase 3) and ``streaming_rank_certificate(store, median)``
+      equal to NumPy's certificate of phase 3;
+    - row 8's tee launch kind (the histogram under one 8-bit prefix and a
+      one-spec tee, a later spill pass's launch) on chunk 0 of each
+      stream, timed as phase 4 times the other kinds.
+    """
+    import shutil
+    import tempfile
+
+    import mpi_k_selection_tpu_torch as kt
+    from mpi_k_selection_tpu_torch.ops.cuda import histogram as H
+    from mpi_k_selection_tpu_torch.ops.cuda import sweep_ingest as S
+    from mpi_k_selection_tpu_torch.ops.cuda import topk as T
+    from mpi_k_selection_tpu_torch.utils.timing import time_fn
+
+    out = {"calls": {}}
+    launches = {"sweep_ingest32": 0, "sweep_ingest64": 0}
+    per_call = {}
+    tmp = tempfile.gettempdir()
+    free = shutil.disk_usage(tmp).free
+    chunks = ints.chunks
+    print(f"[spill] free disk under {tmp}: {free / 2**30:.1f} GiB (needed "
+          f"{SPILL_DISK_FACTOR * sum(c.nbytes for c in chunks) / 2**30:.1f} GiB)")
+    cuts = []
+    while len(chunks) > 1 and free < SPILL_DISK_FACTOR * sum(c.nbytes for c in chunks):
+        chunks = chunks[: len(chunks) // 2]
+        cuts.append(f"free disk {free} bytes < {SPILL_DISK_FACTOR}x the stream: halved to {len(chunks)} chunks")
+        print(f"[spill] CUT: {cuts[-1]}")
+    if cuts:
+        out["cut"] = cuts
+    full = len(chunks) == len(ints.chunks)
+    n = len(chunks) * STREAM_CHUNK
+    root = tempfile.mkdtemp(prefix="chip-smoke-spill-root-", dir=tmp)
+
+    def counted(what, fn, watch, source_chunks):
+        """One call with every count at 0 just before it: fails unless the
+        sweep kernel launched once for each chunk read in each pass (the
+        source's chunks in pass 0 when it reads the source, then the
+        records of each generation read) and nothing else ran."""
+        for m in (H, T, S):
+            m.reset_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        log = watch.stores[-1].pass_log
+        want, prev = 0, watch.base
+        gens = iter(watch.records)
+        for e in log:
+            want += source_chunks if e["read"] == "source" else prev
+            if "keys_written" in e:
+                prev = next(gens)
+        others = {k: v for k, v in {**H.LAUNCHES, **T.LAUNCHES}.items() if v}
+        plain = {k: v for k, v in {**H.PLAIN_CALLS, **T.PLAIN_CALLS, **S.PLAIN_CALLS}.items() if v}
+        if S.LAUNCHES["sweep_ingest32"] != want or S.LAUNCHES["sweep_ingest64"] or others or plain:
+            fail(f"{what}: launches {dict(S.LAUNCHES)}, expected {want} from the pass log {log} and the "
+                 f"generations' records {watch.records}; other kernels {others}; plain calls {plain}")
+        for kn in launches:
+            launches[kn] += S.LAUNCHES[kn]
+        per_call[what] = {kn: v for kn, v in S.LAUNCHES.items() if v}
+        if glob.glob(os.path.join(root, "ksel-spill-*")) and what not in out.get("keep", ()):
+            fail(f"{what}: a spill store outlived the call: {os.listdir(root)}")
+        print(f"[spill] {what}: {want} launches of sweep_ingest32 over {len(log)} passes, no plain call")
+        return res
+
+    try:
+        # the median of a one-shot generator, spill="auto", under the profiler
+        what = f"streaming median spill=auto one-shot depth=2, int32 uniform {n} elements"
+        k = n // 2
+        with SpillWatch(root) as watch:
+            got, ms, busy, idle, top = counted(what, lambda: profiled_call(lambda: kt.kselect_streaming(
+                (c for c in chunks), k, spill="auto", spill_dir=root)), watch, len(chunks))
+        if full and got.tobytes() != certified["median32"].tobytes():
+            fail(f"{what}: {got!r} != phase 3's certified median {certified['median32']!r}")
+        if not full:
+            less, leq = np_certificates(chunks, [got])[0]
+            if not less < k <= leq:
+                fail(f"{what}: {got!r} fails NumPy's certificate ({less}, {leq}]")
+        log = watch.stores[-1].pass_log
+        sweep = sum(m for name, _, m in top if "sweep_ingest_kernel" in name)
+        sweep_calls = sum(c for name, c, _ in top if "sweep_ingest_kernel" in name)
+        print_pass_log(what, log, SPILL_PREDICTED if full else None)
+        link = sum(e["bytes_read"] for e in log)
+        replay = certified["median_passes"] * n * 4
+        print(f"[spill] {what}: {got!r} == phase 3's certified median; {ms:.1f} ms; peak on disk "
+              f"{watch.peak / 2**30:.3f} GiB (samples {[round(b / 2**30, 3) for b in watch.samples]}); over the "
+              f"link {link / 2**30:.2f} GiB against the replay's {replay / 2**30:.0f} GiB "
+              f"({certified['median_passes']} reads); device busy "
+              + ("not measured" if busy is None else f"{busy:.1f} ms, idle share {idle:.3f}")
+              + f"; sweep_ingest_kernel {sweep:.3f} ms over {sweep_calls} launches (torch.profiler)")
+        out["calls"][what] = {"ms": ms, "busy_ms": busy, "idle_share": idle, "answer": repr(got),
+                              "pass_log": log, "peak_disk_bytes": watch.peak, "disk_samples": watch.samples,
+                              "generation_records": watch.records, "link_bytes": link, "replay_link_bytes": replay,
+                              "sweep_device_ms": sweep, "sweep_launches_profiled": sweep_calls,
+                              "top": [{"name": nm, "calls": c, "ms": m} for nm, c, m in top[:6]]}
+
+        # quantiles K=4 of the replayable chunks, spill="force"
+        what = f"streaming quantiles K=4 spill=force depth=2, int32 uniform {n} elements"
+        qranks = certified["qranks"] if full else [max(1, min(n, int(np.ceil(q * n)))) for q in QS]
+        with SpillWatch(root) as watch:
+            secs, qans = time_fn(lambda: counted(what, lambda: kt.kselect_streaming_many(
+                chunks, qranks, spill="force", spill_dir=root), watch, len(chunks)), device="cuda")
+        if full and np.array(qans).tobytes() != np.array(certified["quantiles32"]).tobytes():
+            fail(f"{what}: {qans!r} != phase 3's {certified['quantiles32']!r}")
+        if not full:
+            for kq, v, (less, leq) in zip(qranks, qans, np_certificates(chunks, qans)):
+                if not less < kq <= leq:
+                    fail(f"{what}: k={kq}: {v!r} fails NumPy's certificate ({less}, {leq}]")
+        log = watch.stores[-1].pass_log
+        print_pass_log(what, log)
+        print(f"[spill] {what}: {[repr(v) for v in qans]} exact; {secs * 1e3:.1f} ms; peak on disk "
+              f"{watch.peak / 2**30:.3f} GiB")
+        out["calls"][what] = {"ms": secs * 1e3, "answers": [repr(v) for v in qans], "pass_log": log,
+                              "peak_disk_bytes": watch.peak, "generation_records": watch.records}
+
+        # the sketch-then-refine flow through a store this phase owns
+        with kt.SpillStore(root) as store:
+            sq = kt.StreamingQuantiles(np.int32)
+            what = f"StreamingQuantiles.update_stream(one-shot, spill=store), int32 uniform {n} elements"
+            out["keep"] = {what}
+            with SpillWatch(root) as watch:
+                for m in (H, T, S):
+                    m.reset_counts()
+                secs, _ = time_fn(lambda: sq.update_stream((c for c in chunks), spill=store), device="cuda")
+                torch.cuda.synchronize()
+            if S.LAUNCHES["sweep_ingest32"] != len(chunks) or any(S.PLAIN_CALLS.values()):
+                fail(f"{what}: launches {dict(S.LAUNCHES)} for {len(chunks)} chunks; plain {dict(S.PLAIN_CALLS)}")
+            launches["sweep_ingest32"] += S.LAUNCHES["sweep_ingest32"]
+            per_call[what] = {"sweep_ingest32": S.LAUNCHES["sweep_ingest32"]}
+            gen0 = store.latest_generation()
+            if gen0.keys != n:
+                fail(f"{what}: generation 0 holds {gen0.keys} keys, not {n}")
+            print(f"[spill] {what}: {secs * 1e3:.1f} ms; generation 0 {gen0.keys} keys, "
+                  f"{gen0.nbytes / 2**30:.3f} GiB on disk, {len(gen0.records)} records")
+            out["calls"][what] = {"ms": secs * 1e3, "generation0_bytes": gen0.nbytes}
+            what = f"refine_quantiles p50/p90/p99/p99.9 from the store, int32 uniform {n} elements"
+            out["keep"].add(what)
+            with SpillWatch(root, base=len(gen0.records)) as watch:
+                watch.stores.append(store)
+                secs, refined = time_fn(lambda: counted(
+                    what, lambda: sq.refine_quantiles(QS, store), watch, 0), device="cuda")
+            if full and np.array(refined).tobytes() != np.array(certified["quantiles32"]).tobytes():
+                fail(f"{what}: {refined!r} != phase 3's {certified['quantiles32']!r}")
+            if not full and np.array(refined).tobytes() != np.array(qans).tobytes():
+                fail(f"{what}: {refined!r} != the spill-forced quantiles {qans!r}")
+            print_pass_log(what, store.pass_log)
+            print(f"[spill] {what}: exact; {secs * 1e3:.1f} ms")
+            out["calls"][what] = {"ms": secs * 1e3, "pass_log": list(store.pass_log)}
+            what = f"streaming_rank_certificate(store, median), int32 uniform {n} elements"
+            med = certified["median32"] if full else got
+            for m in (H, T, S):
+                m.reset_counts()
+            secs, cert = time_fn(lambda: kt.streaming_rank_certificate(store, med), device="cuda")
+            want = certified["median32_certificate"] if full else np_certificates(chunks, [med])[0]
+            if tuple(cert) != tuple(want) or S.LAUNCHES["sweep_ingest32"] != len(chunks):
+                fail(f"{what}: {cert} != NumPy's {want}, or launches {dict(S.LAUNCHES)} != {len(chunks)}")
+            launches["sweep_ingest32"] += S.LAUNCHES["sweep_ingest32"]
+            per_call[what] = {"sweep_ingest32": S.LAUNCHES["sweep_ingest32"]}
+            print(f"[spill] {what}: {cert} == NumPy's certificate of phase 3; {secs * 1e3:.1f} ms from disk")
+            out["calls"][what] = {"ms": secs * 1e3, "certificate": list(cert)}
+        out.pop("keep")
+        if glob.glob(os.path.join(root, "ksel-spill-*")):
+            fail(f"a spill store outlived phase 8: {os.listdir(root)}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # row 8's tee launch kind on chunk 0 of each stream
+    rows = []
+
+    def row(what, ms, b, by, extra=""):
+        rows.append({"what": what, "ms": ms, "bound_ms": b, "bound_by": by})
+        print(f"[time] {what:<60} {ms:11.4f} ms   bound {b:9.4f} ms ({by}){extra}")
+
+    kinds = {}
+    for bits, src, key_op, key_xor in ((32, ints, "xor", 1 << 31), (64, f64, "float", 0)):
+        c = src.chunks[0]
+        keys = host_keys(c)
+        p8 = int(np.partition(keys, keys.size // 2)[keys.size // 2]) >> (bits - 8)
+        w = torch.from_numpy(c.view(np.int32 if bits == 32 else np.int64)).cuda()
+        kinds[f"sweep_ingest{bits}"] = sweep_kind_rows(row, bits, w, [("hist 1 prefix + tee 1 spec (spill pass)", dict(
+            hist_prefixes=[p8], shift=bits - 16, radix_bits=8, tee=[(bits - 8, p8)]))], key_op, key_xor)
+        del w
+        torch.cuda.empty_cache()
+    out["tee_kind"] = kinds
+    out["timings"] = rows
     return launches, per_call, out
 
 
@@ -2110,8 +2413,8 @@ def sweep_kind_rows(row, bits: int, w: torch.Tensor, kinds, key_op: str, key_xor
         kw = dict(key_op=key_op, key_xor=key_xor, **parts)
         got = S.sweep_ingest(w, n, **kw)
         err = sweep_err(got, S.sweep_ingest_plain(w, n, **kw), f"sweep_ingest{bits} {label}")
-        survivors = sum(int(c) for _, c in got[1])
-        n_surv = len(got[1])
+        survivors = sum(int(c) for _, c in got[1]) + (int(got[2][1]) if got[2] is not None else 0)
+        n_surv = len(got[1]) + (got[2] is not None)  # the collect buffers and the tee's
         sketch_bits = parts.get("sketch_bits", 0)
         counters = 4 * ((1 << sketch_bits if sketch_bits else 0)
                         + len(parts.get("hist_prefixes", ())) * (1 << parts.get("radix_bits", 1)))
@@ -2133,9 +2436,44 @@ def sweep_kind_rows(row, bits: int, w: torch.Tensor, kinds, key_op: str, key_xor
             out[label]["library_ms"] = library_sketch_ms(w, got, bits, key_op, key_xor, parts)
             what = "the 16-bit digit" if sketch_bits == 1 else f"the top {sketch_bits} key bits"
             row(f"torch.bincount of {what} + torch.aminmax, {n} words", out[label]["library_ms"], b, by)
+        elif parts.get("tee"):
+            out[label]["plain_ms"] = cuda_ms(lambda: S.sweep_ingest_plain(w, n, **kw), iters=3, warmup=1)
+            row(f"sweep_ingest_plain {label}, a {n}-word chunk", out[label]["plain_ms"], b, by)
+            out[label]["library_ms"] = library_tee_ms(w, got, bits, key_op, key_xor, parts)
+            row(f"torch.bincount + torch.masked_select of the tee's mask, {n} words", out[label]["library_ms"], b, by)
         del got
         torch.cuda.empty_cache()
     return out
+
+
+def library_tee_ms(w: torch.Tensor, got, bits: int, key_op: str, key_xor: int, parts) -> float:
+    """The sweep kernel's tee launch (a histogram under one prefix and a
+    one-spec tee, a later spill pass's launch) as library calls on the same
+    words: ``torch.bincount`` of the digits under the prefix and
+    ``torch.masked_select`` of the keys under the tee's mask, held equal to
+    the kernel's output ``got`` first; digits and masks are made untimed.
+    CUDA-event milliseconds of the two calls."""
+    from mpi_k_selection_tpu_torch.utils import dtypes as dt
+    from mpi_k_selection_tpu_torch.utils.timing import cuda_ms
+
+    keys = dt.keys_from_raw(w, key_op, key_xor)
+    shift, width = parts["shift"], parts["radix_bits"]
+    [prefix] = parts["hist_prefixes"]
+    [(tshift, tprefix)] = parts["tee"]
+    hmask = dt.shift_right_logical(keys, shift + width, bits) == dt.signed_const(prefix, bits)
+    digit = torch.where(hmask, dt.shift_right_logical(keys, shift, bits) & ((1 << width) - 1), 1 << width).long()
+    tmask = dt.shift_right_logical(keys, tshift, bits) == dt.signed_const(tprefix, bits)
+
+    def fn():
+        return torch.bincount(digit, minlength=(1 << width) + 1), torch.masked_select(keys, tmask)
+
+    counts, surv = fn()
+    buf, cnt = got[2]
+    if not (torch.equal(counts[:-1].to(torch.int32), got[0][0]) and torch.equal(surv, buf[: int(cnt)])):
+        fail(f"sweep_ingest{bits} {parts}: library calls != kernel")
+    ms = cuda_ms(fn)
+    del keys, hmask, digit, tmask, counts, surv
+    return ms
 
 
 def library_sketch_ms(w: torch.Tensor, got, bits: int, key_op: str, key_xor: int, parts) -> float:
@@ -2224,6 +2562,11 @@ def main() -> int:
     for kname, v in p7_launches.items():
         launches[kname] += v
     per_call.update(p7_per_call)
+    # phase 8: the spill descent on the int32 stream
+    p8_launches, p8_per_call, notes["phase8"] = phase_spill(ints, f64, certified)
+    for kname, v in p8_launches.items():
+        launches[kname] += v
+    per_call.update(p8_per_call)
     # phase 6: the host chunks and the resident data go first (the ranks
     # need the card's memory and the host's for the 8 GiB array)
     del ints, f64, data, x30

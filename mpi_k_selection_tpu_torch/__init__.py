@@ -17,6 +17,9 @@ selection over a stream of chunks::
     kt.kselect_streaming(chunks, k)       # over a replayable chunk source
     kt.kselect_streaming_many(chunks, ks) # every k, the passes shared
     kt.streaming_rank_certificate(chunks, v)  # (#< v, #<= v), streamed
+    kt.kselect_streaming(iter(chunks), k)  # a one-shot stream: the spill store
+    with kt.SpillStore() as store:         # a store the caller owns
+        kt.kselect_streaming(chunks, k, spill=store)  # store.pass_log, generation 0 kept
     kt.StreamingQuantiles(dtype).update_stream(chunks)  # mergeable online quantiles
     kt.RadixSketch(dtype)        # the sketch under it: exact bounds, refine()
     kt.WindowedSketch(dtype, window=8)  # a sliding window of sketches
@@ -66,6 +69,7 @@ from mpi_k_selection_tpu_torch.ops.radix import radix_select, radix_select_many
 from mpi_k_selection_tpu_torch.ops.sort import sort_select
 from mpi_k_selection_tpu_torch.ops.topk import batched_topk, topk
 from mpi_k_selection_tpu_torch.streaming.sketch import RadixSketch
+from mpi_k_selection_tpu_torch.streaming.spill import SpillStore
 from mpi_k_selection_tpu_torch.parallel import (
     DISTRIBUTED_ALGORITHMS,
     distributed_cgm_select,
@@ -79,7 +83,8 @@ from mpi_k_selection_tpu_torch.parallel import (
 )
 
 __all__ = [
-    "DISTRIBUTED_ALGORITHMS", "DeviceVector", "Monitor", "RadixSketch", "StreamingQuantiles", "WindowedSketch",
+    "DISTRIBUTED_ALGORITHMS", "DeviceVector", "Monitor", "RadixSketch", "SpillStore", "StreamingQuantiles",
+    "WindowedSketch",
     "as_selection_array", "batched_kselect", "batched_median", "batched_topk", "distributed_cgm_select",
     "distributed_kselect", "distributed_radix_select", "distributed_radix_select_many", "distributed_sketch",
     "distributed_topk", "get_backend", "kselect", "kselect_many", "kselect_streaming", "kselect_streaming_many",

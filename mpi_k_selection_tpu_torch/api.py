@@ -202,7 +202,9 @@ class StreamingQuantiles:
     ``"cuda"``; ``"cpu"`` runs the kernel's plain version). The JAX
     package's ``deferred`` and ``fused`` have no counterpart here;
     ``width_schedule``, ``pack_spill``, ``devices`` and ``obs`` are
-    refused until their ROADMAP items bring them."""
+    refused until their ROADMAP items bring them. The spill flow of a
+    one-shot stream: ``update_stream(it, spill=store)``, then
+    ``refine_quantiles(qs, store)``."""
 
     def __init__(self, dtype, *, radix_bits: int = 4, levels: int = 4, pipeline_depth: int | None = None,
                  ingest_workers=None, device=None, **kwargs):
@@ -224,12 +226,14 @@ class StreamingQuantiles:
         self.sketch.update(chunk)
         return self
 
-    def update_stream(self, source, **kwargs) -> "StreamingQuantiles":
+    def update_stream(self, source, *, spill=None) -> "StreamingQuantiles":
         """Fold every chunk of ``source`` in, one launch of the sweep
         kernel per chunk on the tracker's device: the same sketch as
-        ``update`` of each chunk in turn."""
+        ``update`` of each chunk in turn. ``spill`` (a caller-owned
+        SpillStore) tees the pass into the store, which makes a one-shot
+        source refinable: pass the store to :meth:`refine_quantiles`."""
         self.sketch.update_stream(
-            source, pipeline_depth=self.pipeline_depth, ingest_workers=self.ingest_workers, **kwargs
+            source, pipeline_depth=self.pipeline_depth, ingest_workers=self.ingest_workers, spill=spill
         )
         return self
 
@@ -248,8 +252,9 @@ class StreamingQuantiles:
 
     def refine_quantiles(self, qs, source):
         """Exact nearest-rank quantiles over ``source``, which must replay
-        the stream this tracker accumulated: one sketch-seeded descent
-        shares every pass across the ranks."""
+        the stream this tracker accumulated (or be the SpillStore its
+        ``update_stream`` teed into): one sketch-seeded descent shares
+        every pass across the ranks."""
         return _chunked.streaming_kselect_many(
             source, quantile_ranks(qs, self.sketch.n), radix_bits=self.sketch.radix_bits, sketch=self.sketch,
             pipeline_depth=self.pipeline_depth, ingest_workers=self.ingest_workers, device=self.device,

@@ -25,6 +25,10 @@ ranks::
     # checked by the streamed rank certificate and a NumPy oracle
     python -m mpi_k_selection_tpu_torch --streaming --n 1073741824 --chunk-elems 67108864 --verify
 
+    # the same through the spill store (later passes read the shrinking
+    # spilled survivors), certified from the spilled generation 0
+    python -m mpi_k_selection_tpu_torch --streaming --n 1073741824 --chunk-elems 67108864 --spill force --check
+
     # the reference's CGM over 4 ranks (4 spawned processes; gloo when they
     # share a card or run on the CPU, nccl with a card each), with its rounds
     python -m mpi_k_selection_tpu_torch --devices 4 --algorithm cgm --n 16000000 --verify --json
@@ -137,9 +141,26 @@ def build_parser() -> argparse.ArgumentParser:
         help="--streaming: the JAX CLI's ingest-pool width (auto = min(4, cores)), checked as it "
         "checks it; every width runs the one producer thread, as the pool is not ported",
     )
+    p.add_argument(
+        "--spill", choices=("auto", "off", "force"), default="auto",
+        help="--streaming survivor spill store: tee pass 0's keys to disk and serve later passes from the "
+        "shrinking spilled survivors instead of replaying the source (auto = only for one-shot sources, so "
+        "the CLI's replayable stream stays on the replay path; force = always; off = never). The same "
+        "answers in every mode",
+    )
+    p.add_argument(
+        "--spill-dir", default=None,
+        help="directory of --spill stores (default: the temp dir); at worst about 2x the stream's key bytes "
+        "(3x for a store that keeps its generation 0, as --spill force does for --check)",
+    )
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     p.add_argument("--repeats", type=int, default=1)
     p.add_argument("--verify", action="store_true", help="check against a NumPy oracle")
+    p.add_argument(
+        "--check", action="store_true",
+        help="verify the answer's rank certificate (an O(n) count, no oracle sort; k-th mode; with "
+        "--streaming --spill force it reads the spilled generation 0, not the source)",
+    )
     p.add_argument("--json", action="store_true", help="emit a JSON result record")
     return p
 
@@ -423,6 +444,7 @@ def _parse_ingest_workers(raw):
 def _run_streaming(args):
     from mpi_k_selection_tpu_torch import api
     from mpi_k_selection_tpu_torch.backends import cuda as backend
+    from mpi_k_selection_tpu_torch.streaming.spill import SpillStore
 
     n = args.n
     if args.chunk_elems < 1:
@@ -434,22 +456,47 @@ def _run_streaming(args):
     depth = args.pipeline_depth
     workers = _parse_ingest_workers(args.ingest_workers)
     knobs = dict(pipeline_depth=depth, ingest_workers=workers, device=args.device)
-    seconds, answer = time_fn(
-        lambda: backend.kselect_streaming(source, k, **knobs), repeats=args.repeats, device=args.device,
-    )
-    record = _record(args, n, k, answer.item(), "streaming-chunked", seconds)
-    record.extra.update(chunks=-(-n // args.chunk_elems), chunk_elems=args.chunk_elems, pipeline_depth=depth,
-                        ingest_workers=workers)
-    ok = True
-    if args.verify:
-        less, leq = api.streaming_rank_certificate(source, answer, **knobs)
-        want = oracle(np.concatenate(list(source())), k)  # the streamed descent answers in key order
-        exact = np.asarray(answer).tobytes() == want.tobytes()
-        ok = less < k <= leq and exact
-        record.extra.update(
-            rank_certificate=[less, leq], certificate_ok=less < k <= leq, oracle=want.item(), exact_match=exact
+    # --spill force with one run tees into a store the CLI owns, so the
+    # certificate reads the spilled generation 0 instead of the source;
+    # with --repeats each run makes (and removes) a store of its own
+    store = SpillStore(args.spill_dir) if args.spill == "force" and args.repeats <= 1 else None
+    try:
+        seconds, answer = time_fn(
+            lambda: backend.kselect_streaming(source, k, spill=store if store is not None else args.spill,
+                                              spill_dir=args.spill_dir, **knobs),
+            repeats=args.repeats, device=args.device,
         )
-    return record, ok
+        record = _record(args, n, k, answer.item(), "streaming-chunked", seconds)
+        record.extra.update(chunks=-(-n // args.chunk_elems), chunk_elems=args.chunk_elems, pipeline_depth=depth,
+                            ingest_workers=workers, spill=args.spill)
+        ok = True
+        if args.verify or args.check:
+            less, leq = api.streaming_rank_certificate(store if store is not None else source, answer, **knobs)
+            cert_ok = less < k <= leq
+            record.extra.update(rank_certificate=[less, leq], certificate_ok=cert_ok)
+            ok = cert_ok
+        if args.verify:
+            want = oracle(np.concatenate(list(source())), k)  # the streamed descent answers in key order
+            exact = np.asarray(answer).tobytes() == want.tobytes()
+            ok = ok and exact
+            record.extra.update(oracle=want.item(), exact_match=exact)
+        return record, ok
+    finally:
+        if store is not None:
+            store.close()
+
+
+def _check_resident(args, x: np.ndarray, record, ok: bool) -> bool:
+    """``--check`` of a resident k-th answer: its rank certificate over the
+    whole array (utils/debug.py), ``less < k <= leq``."""
+    from mpi_k_selection_tpu_torch.utils.debug import rank_certificate
+    from mpi_k_selection_tpu_torch.utils.interop import numpy_dtype, tensor_from_numpy
+
+    value = np.asarray(record.answer, numpy_dtype(args.dtype))
+    less, leq = (int(c) for c in rank_certificate(tensor_from_numpy(x, "cpu"), tensor_from_numpy(value, "cpu")))
+    cert_ok = less < record.k <= leq
+    record.extra.update(rank_certificate=[less, leq], certificate_ok=cert_ok)
+    return ok and cert_ok
 
 
 def _run_topk_seq(args, x: np.ndarray):
@@ -507,6 +554,8 @@ def main(argv=None) -> int:
         raise SystemExit("error: --batch only applies to --topk mode")
     if args.streaming and (args.quantiles is not None or args.topk is not None):
         raise SystemExit("error: --streaming is k-th mode only")
+    if args.check and (args.quantiles is not None or args.topk is not None):
+        raise SystemExit("error: --check applies to k-th selection; use --verify for top-k and --quantiles")
     if args.backend == "mpi" and (args.topk is not None or args.quantiles is not None):
         raise SystemExit("error: the mpi backend runs the k-th mode only")
     if args.backend != "cuda" and (args.streaming or args.quantiles is not None):
@@ -528,6 +577,8 @@ def main(argv=None) -> int:
             batch = (args.batch,) if args.batch else ()
             x = datagen.generate(args.n, pattern=args.gen, seed=args.seed, dtype=numpy_dtype(args.dtype), batch=batch)
             record, ok = run(args, x)
+            if args.check:
+                ok = _check_resident(args, x, record, ok)
     except (ValueError, RuntimeError, TimeoutError) as e:
         raise SystemExit(f"error: {e}") from e
     if args.json:
@@ -536,6 +587,8 @@ def main(argv=None) -> int:
         record.print_reference_style()
         if args.verify:
             print(f"oracle check: {'exact match' if ok else 'MISMATCH'}")
+        if args.check:
+            print(f"rank certificate: {'ok' if record.extra.get('certificate_ok') else 'FAILED'}")
     return 0 if ok else 1
 
 

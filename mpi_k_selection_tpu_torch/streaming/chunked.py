@@ -30,29 +30,62 @@ A :class:`~mpi_k_selection_tpu_torch.streaming.sketch.RadixSketch` built
 over the same stream (``sketch=``) seeds the descent: its deepest level
 resolves the first ``sketch.resolution_bits`` key bits, so those passes
 are skipped (``RadixSketch.refine``).
+
+The ``spill`` knob adds the reference CGM's discard step to the stream
+(streaming/spill.py): pass 0 tees each chunk's encoded keys to a
+generation on disk (on the host, on the producer thread), and every later
+pass reads the previous generation, keeps on the card only the keys under
+the surviving prefixes (the sweep kernel's tee part, in the same launch as
+the pass's histograms) and writes them as the next generation, so each
+pass after the first reads about 1/2^radix_bits of the one before, and a
+one-shot source is read once. ``"auto"`` (default) spills only for a
+one-shot source, ``"force"`` always, ``"off"`` never (a one-shot source is
+then refused); a caller-owned :class:`~mpi_k_selection_tpu_torch.
+streaming.spill.SpillStore` keeps its generation 0 for later calls, and a
+store with a committed generation is itself a source. Answers are the same
+bits in every mode. A corrupt record (``SpillRecordError``) is read again
+once, then the pass is rebuilt from the replayable source or a one-shot
+run's generation 0; running out of disk (``ENOSPC``) while teeing a later
+generation degrades ``"auto"`` to replaying the last good generation
+(with a RuntimeWarning) and raises ``SpillCapacityError`` otherwise.
 """
 
 from __future__ import annotations
 
 import contextlib
+import errno
+import warnings
 
 import numpy as np
 import torch
 
+from mpi_k_selection_tpu_torch.errors import SpillCapacityError, SpillRecordError
 from mpi_k_selection_tpu_torch.ops.cuda.sweep_ingest import MAX_BITS
 from mpi_k_selection_tpu_torch.streaming import executor as _ex
 from mpi_k_selection_tpu_torch.streaming import pipeline as _pl
+from mpi_k_selection_tpu_torch.streaming import spill as _sp
 from mpi_k_selection_tpu_torch.streaming.pipeline import DEFAULT_PIPELINE_DEPTH
 from mpi_k_selection_tpu_torch.utils import dtypes as _dt
 from mpi_k_selection_tpu_torch.utils.interop import numpy_dtype
 
 DEFAULT_COLLECT_BUDGET = 1 << 20
 
+#: Default of the ``spill`` knob: spill only when the source cannot be
+#: replayed (the JAX package's default).
+DEFAULT_SPILL = "auto"
+
+
+def _is_one_shot_source(source) -> bool:
+    """True for a bare iterator or generator: it can be read once."""
+    if callable(source) or isinstance(source, (list, tuple, np.ndarray, torch.Tensor, _sp.SpillStore)):
+        return False
+    return hasattr(source, "__iter__") or hasattr(source, "__next__")
+
 
 class _OneShotSource:
-    """A bare iterator as a chunk source that may be read once (a
-    monitor's stream); a second read is a bug and raises instead of
-    yielding an empty stream."""
+    """A bare iterator as a chunk source that may be read once (the spill
+    descent's pass 0, a monitor's stream); a second read is a bug and
+    raises instead of yielding an empty stream."""
 
     def __init__(self, it):
         self._it = iter(it)
@@ -60,7 +93,10 @@ class _OneShotSource:
 
     def __call__(self):
         if self._used:
-            raise RuntimeError("one-shot chunk source invoked a second time")
+            raise RuntimeError(
+                "one-shot chunk source invoked a second time: the spill descent must serve every pass after "
+                "pass 0 from the spill store. This is a bug in streaming/chunked.py, not in the caller's stream."
+            )
         self._used = True
         return self._it
 
@@ -68,10 +104,14 @@ class _OneShotSource:
 def as_chunk_source(source, *, one_shot_ok: bool = False):
     """``source`` as a zero-arg callable returning a fresh chunk iterator,
     the replayable form every pass needs: a list or tuple of chunks (numpy
-    arrays or torch tensors), one array (one chunk), or such a callable.
-    A one-shot iterator is accepted only under ``one_shot_ok`` (a reader of
-    one pass, such as the monitor); otherwise it is rejected: exact
+    arrays or torch tensors), one array (one chunk), such a callable, or a
+    :class:`~mpi_k_selection_tpu_torch.streaming.spill.SpillStore` with a
+    committed generation (its newest, read from disk). A one-shot iterator is accepted
+    only under ``one_shot_ok`` (the spill descent's pass 0, or a reader of
+    one pass such as the monitor); otherwise it is refused: exact
     selection re-reads the stream once per radix pass."""
+    if isinstance(source, _sp.SpillStore):
+        return source.latest_generation().as_source()
     if callable(source):
         return source
     if isinstance(source, (list, tuple)):
@@ -85,8 +125,13 @@ def as_chunk_source(source, *, one_shot_ok: bool = False):
             "streaming selection re-reads the data once per radix pass; a "
             "one-shot iterator/generator cannot be replayed. Pass a "
             "list/tuple of chunks or a zero-arg callable returning a fresh "
-            "iterator (e.g. lambda: (load(i) for i in range(nchunks))). For "
-            "single-pass approximate answers, RadixSketch alone suffices."
+            "iterator (e.g. lambda: (load(i) for i in range(nchunks))) — or "
+            "keep the one-shot stream and let the spill store serve the "
+            "later passes: spill='auto'|'force' on the streaming entry "
+            "points tees pass 0's encoded keys to disk (streaming/spill.py),"
+            " and RadixSketch.update_stream(..., spill=store) does the same "
+            "for the sketch-then-refine flow. For single-pass approximate "
+            "answers, RadixSketch alone suffices."
         )
     raise TypeError(f"unsupported chunk source type {type(source).__name__!r}")
 
@@ -99,7 +144,18 @@ def _normalize_chunk(chunk, dtype):
     """One chunk raveled (a 1-D numpy array or tensor) and checked, or None
     for an empty chunk: the 2^31 per-chunk guard and the one-dtype-per-
     stream check against ``dtype`` (None: the first chunk, whose dtype the
-    caller adopts)."""
+    caller adopts). A replayed spill record (``SpillChunk``) holds keys
+    already: its stream dtype is checked and it passes through whole."""
+    if isinstance(chunk, _sp.SpillChunk):
+        if chunk.keys.size == 0:
+            return None
+        odt = _dt.torch_dtype(chunk.orig_dtype)
+        if dtype is not None and odt != dtype:
+            raise TypeError(
+                f"spill chunk dtype {_dtype_name(odt)} != stream dtype {_dtype_name(dtype)}; "
+                "streaming selection requires one dtype per stream"
+            )
+        return chunk
     c = chunk.reshape(-1) if isinstance(chunk, torch.Tensor) else np.ravel(np.asarray(chunk))
     n = c.numel() if isinstance(c, torch.Tensor) else c.size
     if n == 0:
@@ -119,9 +175,31 @@ def _normalize_chunk(chunk, dtype):
     return c
 
 
-def _iter_staged(src, dtype, device):
+def _chunk_dtype(c) -> torch.dtype:
+    """The stream dtype of a normalized chunk."""
+    return _dt.torch_dtype(c.orig_dtype if isinstance(c, _sp.SpillChunk) else c.dtype)
+
+
+def _np_dtype(dtype) -> np.dtype:
+    return numpy_dtype(_dtype_name(dtype))
+
+
+def _tee(writer, c, dtype, slot) -> None:
+    """Append one normalized chunk's keys, encoded on the host, to the
+    pass-0 generation ``writer`` (a replayed record keeps its own slot)."""
+    if isinstance(c, _sp.SpillChunk):
+        keys, slot = c.keys, c.device_slot
+    elif isinstance(c, torch.Tensor):
+        keys = _dt.np_to_sortable_bits(_dt.bit_view(c).cpu().numpy().view(_np_dtype(dtype)))
+    else:
+        keys = _dt.np_to_sortable_bits(c)
+    writer.append(keys, _np_dtype(dtype), device_slot=slot)
+
+
+def _iter_staged(src, dtype, device, spill=None):
     """The synchronous ``(StagedKeys, dtype)`` iterator (depth 0): each
-    chunk is staged on the caller's thread when the descent asks for it."""
+    chunk is staged on the caller's thread when the descent asks for it
+    (after the tee to ``spill``, a SpillWriter, if given)."""
     stager = (
         _pl.HostStager(device, torch.cuda.current_stream(device)) if device.type == "cuda" else None
     )
@@ -130,32 +208,38 @@ def _iter_staged(src, dtype, device):
         if c is None:
             continue
         if dtype is None:
-            dtype = _dt.torch_dtype(c.dtype)
+            dtype = _chunk_dtype(c)
+        if spill is not None:
+            _tee(spill, c, dtype, None)
         yield _pl.stage_chunk(c, dtype, device, stager), dtype
 
 
 @contextlib.contextmanager
-def _key_chunk_stream(src, dtype, *, pipeline_depth: int, device):
+def _key_chunk_stream(src, dtype, *, pipeline_depth: int, device, spill=None, spill_slot=None):
     """The pass's ``(StagedKeys, dtype)`` iterator; a pipelined one is
-    closed (its thread joined) on every exit."""
+    closed (its thread joined) on every exit. ``spill`` tees every chunk
+    to a SpillWriter; its records name ``spill_slot`` when pipelined and
+    no slot at depth 0 (the slots the JAX package's records carry)."""
     if pipeline_depth == 0:
-        yield _iter_staged(src, dtype, device)
+        yield _iter_staged(src, dtype, device, spill)
         return
-    pipe = _pl.ChunkPipeline(src, dtype, depth=pipeline_depth, device=device)
+    pipe = _pl.ChunkPipeline(src, dtype, depth=pipeline_depth, device=device, spill=spill, spill_slot=spill_slot)
     try:
         yield iter(pipe)
     finally:
         pipe.close()
 
 
-def _stream_pass(src, dtype, make_consumer, *, pipeline_depth: int, device):
+def _stream_pass(src, dtype, make_consumer, *, pipeline_depth: int, device, spill=None, spill_slot=None):
     """Stream every chunk of ``src`` through one consumer, built by
-    ``make_consumer(dtype)`` at the first chunk. Returns ``(consumer,
+    ``make_consumer(dtype)`` at the first chunk (``spill``, ``spill_slot``:
+    the host tee of :func:`_key_chunk_stream`). Returns ``(consumer,
     dtype, n)``; the consumer is None for an empty stream."""
     consumer = ex = keys = None
     n = 0
     try:
-        with _key_chunk_stream(src, dtype, pipeline_depth=pipeline_depth, device=device) as chunks:
+        with _key_chunk_stream(src, dtype, pipeline_depth=pipeline_depth, device=device, spill=spill,
+                               spill_slot=spill_slot) as chunks:
             for keys, dtype in chunks:
                 if consumer is None:
                     consumer = make_consumer(dtype)
@@ -199,7 +283,8 @@ def _collect_survivors(src, dtype, specs, *, pipeline_depth, device):
         lambda _: _ex.FusedIngestConsumer(total_bits=total_bits, collect_specs=sorted_specs),
         pipeline_depth=pipeline_depth, device=device,
     )
-    collected = collector.collected(np.uint64 if total_bits == 64 else np.uint32)
+    kdt = np.uint64 if total_bits == 64 else np.uint32
+    collected = collector.collected(kdt) if collector is not None else {s: np.empty((0,), kdt) for s in sorted_specs}
     for spec in sorted_specs:
         if collected[spec].size != specs[spec]:
             raise RuntimeError(
@@ -210,35 +295,100 @@ def _collect_survivors(src, dtype, specs, *, pipeline_depth, device):
     return collected
 
 
+def _recover_pass(run, *, reading_spill: bool, fallback, on_enospc):
+    """Run ONE streamed pass under the JAX package's recovery ladder (its
+    two rungs that need no retry policy). ``run(src, tee)`` is a pass body
+    that unwinds completely on raise: ``src=None`` reads the pass's own
+    source, ``tee=False`` writes no generation.
+
+    - ``SpillRecordError`` while reading a generation: read it again once,
+      then rebuild the pass from ``fallback`` (the replayable source, or a
+      one-shot run's generation 0; the pass's own filters make that wider
+      read give the same bits). No fallback, or a failing one: it raises.
+    - ``OSError(ENOSPC)`` while teeing: ``on_enospc`` raises
+      SpillCapacityError or allows the pass to run again without its tee.
+
+    Everything else propagates. The transient-retry rung is ROADMAP Queue
+    1 item 4's."""
+    reread = False
+    src = None
+    tee = True
+    while True:
+        try:
+            return run(src, tee)
+        except SpillRecordError:
+            if not reading_spill or src is not None:
+                raise
+            if not reread:
+                reread = True
+                continue
+            if fallback is None:
+                raise
+            src = fallback
+        except OSError as e:
+            if e.errno != errno.ENOSPC or not tee or on_enospc is None:
+                raise
+            on_enospc(e)
+            tee = False
+
+
+def _resolve_spill(source, spill, spill_dir):
+    """The ``spill`` knob against the source's replayability:
+    ``(store, own_store, read_gen)``, where ``store`` is the SpillStore the
+    descent tees into and reads back (None: the replay path), ``own_store``
+    whether this call made it (and removes it on every exit), and
+    ``read_gen`` a generation that serves pass 0 (the source is a store)."""
+    spill = _sp.validate_spill_mode(spill)
+    in_store = source if isinstance(source, _sp.SpillStore) else None
+    read_gen = in_store.latest_generation() if in_store is not None else None
+    if isinstance(spill, _sp.SpillStore):
+        return spill, False, read_gen
+    if spill == "force":
+        return _sp.SpillStore(spill_dir), True, read_gen
+    if spill == "auto":
+        if in_store is not None:  # the source's own store serves the descent's generations too
+            return in_store, False, read_gen
+        if _is_one_shot_source(source):
+            return _sp.SpillStore(spill_dir), True, None
+    # "off", or "auto" with a replayable source: the replay path (a store
+    # source still replays its newest generation every pass)
+    return None, False, read_gen
+
+
 def streaming_kselect(source, k, *, radix_bits: int = 8, collect_budget: int = DEFAULT_COLLECT_BUDGET,
                       sketch=None, pipeline_depth: int = DEFAULT_PIPELINE_DEPTH, ingest_workers=None,
-                      device=None):
+                      spill=DEFAULT_SPILL, spill_dir=None, device=None):
     """Exact k-th smallest (1-indexed) over a chunked stream: a host
     scalar of the stream's dtype (numpy; ml_dtypes' bfloat16 for
     bfloat16), bit for bit the JAX package's ``streaming_kselect``.
 
-    ``source`` per :func:`as_chunk_source`. ``radix_bits`` is the digit
-    width of a pass (it must divide the key bits, or with a ``sketch`` the
-    bits below its resolved prefix); ``collect_budget`` bounds the
-    survivors a rank collects to the host, and so the passes; ``sketch``
-    (a RadixSketch of the same stream) seeds the descent;
-    ``pipeline_depth`` (0 = synchronous), ``ingest_workers`` (None,
-    ``"auto"`` or an int; checked only) and ``device`` are described in
-    the module docstring."""
+    ``source`` per :func:`as_chunk_source` (a one-shot iterator too, with
+    ``spill`` on). ``radix_bits`` is the digit width of a pass (it must
+    divide the key bits, or with a ``sketch`` the bits below its resolved
+    prefix); ``collect_budget`` bounds the survivors a rank collects to
+    the host, and so the passes; ``sketch`` (a RadixSketch of the same
+    stream) seeds the descent; ``pipeline_depth`` (0 = synchronous),
+    ``ingest_workers`` (None, ``"auto"`` or an int; checked only),
+    ``spill`` (``"auto"``, ``"off"``, ``"force"`` or a SpillStore),
+    ``spill_dir`` (the root of the stores a call makes; default the temp
+    dir) and ``device`` are described in the module docstring."""
     return streaming_kselect_many(
         source, [k], radix_bits=radix_bits, collect_budget=collect_budget, sketch=sketch,
-        pipeline_depth=pipeline_depth, ingest_workers=ingest_workers, device=device,
+        pipeline_depth=pipeline_depth, ingest_workers=ingest_workers, spill=spill, spill_dir=spill_dir,
+        device=device,
     )[0]
 
 
 def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: int = DEFAULT_COLLECT_BUDGET,
                            sketch=None, pipeline_depth: int = DEFAULT_PIPELINE_DEPTH, ingest_workers=None,
-                           device=None):
+                           spill=DEFAULT_SPILL, spill_dir=None, device=None):
     """Exact k-th smallest for EVERY (1-indexed) rank in ``ks``, as a list
     in ``ks`` order, sharing each pass across ranks: the stream is read
     once per radix level plus one collect, not once per rank, with one
-    histogram per DISTINCT surviving prefix at each level. Knobs as
-    :func:`streaming_kselect`."""
+    histogram per DISTINCT surviving prefix at each level. With spill on,
+    pass 0 tees the stream to the store and every later pass reads (and
+    shrinks) the previous generation; ``store.pass_log`` records each
+    pass. Knobs as :func:`streaming_kselect`."""
     depth = _pl.validate_pipeline_depth(pipeline_depth)
     _pl.resolve_ingest_workers(ingest_workers)
     if not 1 <= radix_bits <= MAX_BITS:  # the JAX package's MAX_PASS_BITS
@@ -246,78 +396,247 @@ def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: i
     ks = [int(k) for k in ks]
     if not ks:
         return []
-    src = as_chunk_source(source)
     dev = _pl.resolve_device(device)
     run = dict(pipeline_depth=depth, device=dev)
+    store, own_store, read_gen = _resolve_spill(source, spill, spill_dir)
+    one_shot = _is_one_shot_source(source)
+    # ENOSPC degrades to the replay of the last good generation only when
+    # the caller did not ask for spilling explicitly
+    degrade_ok = isinstance(spill, str) and spill == "auto"
+    spill_disabled = False
+    created = []  # generations this call wrote: its cleanup set
+    # the generation never dropped mid-descent: a caller-owned store's
+    # pass-0 tee (kept for later calls), or a one-shot run's generation 0
+    # (the only rebuild source a consumed stream has)
+    protected = None
+    n = 0
 
-    def first_pass(dtype):
-        # pass 0 is also the length scan and the dtype probe: one histogram
-        # of the top digit, no prefix filter
-        total_bits = _dt.key_bits(dtype)
-        if total_bits % radix_bits:
-            raise ValueError(f"radix_bits={radix_bits} must divide key bits {total_bits}")
-        return _ex.FusedIngestConsumer(total_bits=total_bits, hist=(total_bits - radix_bits, radix_bits, [None]))
+    def gen_src():
+        return read_gen.as_source() if read_gen is not None else src
 
-    # per-rank descent state: [prefix, rebased k, resolved bits, population]
-    if sketch is not None:
-        # the sketch names the stream dtype (every chunk is held to it) and
-        # resolves its top bits: the passes walk the bits below them
-        dtype = _dt.torch_dtype(sketch.dtype)
-        sketch.check_stream(dtype, radix_bits)
-        n = sketch.n
-        _validate_ks(ks, n)
-        states = [list(sketch.walk(k)) for k in ks]
-    else:
-        first, dtype, n = _stream_pass(src, None, first_pass, **run)
-        if first is None:
-            raise ValueError("streaming selection requires a non-empty stream")
-        _validate_ks(ks, n)
-        states = []
-        for k in ks:
-            prefix, kk, pop = _np_walk(first.hists[None], k, None, radix_bits)
-            states.append([prefix, kk, radix_bits, pop])
-    total_bits = _dt.key_bits(dtype)
+    def fallback_src():
+        """The rebuild source when the generation being read is corrupt:
+        the replayable original, or a one-shot run's generation 0."""
+        if not one_shot:
+            return src
+        if protected is not None and not protected.dropped:
+            return protected.as_source()
+        return None
 
-    def active(st):
-        return st[2] < total_bits and st[3] > collect_budget
+    def log_pass(label, wrote=None, *, keys_read=None, read=None):
+        if store is None:
+            return
+        if read is None:
+            read = "spill" if read_gen is not None else "source"
+        if keys_read is None:
+            keys_read = read_gen.keys if read_gen is not None else n
+        # format v1 stores keys at full width: the disk bytes are the key bytes
+        entry = {"pass": label, "read": read, "keys_read": int(keys_read), "bytes_read": int(keys_read) * kbytes,
+                 "disk_bytes_read": int(keys_read) * kbytes}
+        if wrote is not None:
+            entry.update(keys_written=int(wrote.keys), bytes_written=int(wrote.logical_nbytes),
+                         disk_bytes_written=int(wrote.nbytes))
+        store.pass_log.append(entry)
 
-    while any(active(st) for st in states):
-        # active ranks advance in lockstep, so they sit at one depth: one
-        # pass serves every distinct surviving prefix
-        resolved = next(st[2] for st in states if active(st))
-        shift = total_bits - resolved - radix_bits
-        prefixes = sorted({st[0] for st in states if active(st)})
-        expected = {st[0]: st[3] for st in states if active(st)}
-        consumer, _, _ = _stream_pass(
-            src, dtype,
-            lambda _: _ex.FusedIngestConsumer(total_bits=total_bits, hist=(shift, radix_bits, prefixes)),
-            **run,
+    def rotate(gen):
+        """The just-committed generation becomes the next read; the one it
+        replaces is dropped (at most two exist, plus the protected one)."""
+        nonlocal read_gen
+        created.append(gen)
+        prev, read_gen = read_gen, gen
+        if prev is not None and prev in created and prev is not protected:
+            store.drop_generation(prev)
+            created.remove(prev)
+
+    def on_enospc(e):
+        nonlocal spill_disabled
+        if not degrade_ok:
+            raise SpillCapacityError(
+                "spill store out of disk while writing the next survivor generation; spilling was requested "
+                f"explicitly (spill={spill!r}), so there is no silent fallback — free disk space, point "
+                "spill_dir elsewhere, or run spill='auto'/'off'"
+            ) from e
+        spill_disabled = True
+        warnings.warn(
+            "spill store out of disk (ENOSPC); degrading spill='auto' to the replay of the last good "
+            "generation — spilling is disabled for the rest of this descent and later passes re-read that "
+            "generation whole",
+            RuntimeWarning,
+            stacklevel=3,
         )
-        for p in prefixes:
-            if int(consumer.hists[p].sum()) != expected[p]:
-                raise RuntimeError(
-                    f"chunk source is not replay-stable: prefix {p:#x} holds "
-                    f"{int(consumer.hists[p].sum())} elements this pass, previous pass "
-                    f"counted {expected[p]}. The source callable must yield identical "
-                    "data on every invocation."
-                )
-        for st in states:
-            if active(st):
-                st[0], st[1], st[3] = _np_walk(consumer.hists[st[0]], st[1], st[0], radix_bits)
-                st[2] = resolved + radix_bits
 
-    specs = {(resolved, int(prefix)): pop for prefix, _, resolved, pop in states if resolved < total_bits}
-    collected = _collect_survivors(src, dtype, specs, **run) if specs else {}
-    np_dtype = numpy_dtype(_dtype_name(dtype))
-    kdt = _dt.np_to_sortable_bits(np.zeros(1, np_dtype)).dtype
-    answers = []
-    for prefix, kk, resolved, _ in states:
-        if resolved == total_bits:  # every key bit resolved: the prefix IS the key
-            key = prefix
+    def enospc_pass0(e):
+        raise SpillCapacityError(
+            "spill store out of disk while teeing generation 0 — no prior generation exists to degrade to; "
+            "free disk space, point spill_dir elsewhere, or use spill='off' with a replayable source"
+        ) from e
+
+    try:
+        src = as_chunk_source(source, one_shot_ok=store is not None)
+
+        # per-rank descent state: [prefix, rebased k, resolved bits, population]
+        if sketch is not None:
+            # the sketch names the stream dtype (every chunk is held to it) and
+            # resolves its top bits: the passes walk the bits below them
+            dtype = _dt.torch_dtype(sketch.dtype)
+            sketch.check_stream(dtype, radix_bits)
+            n = sketch.n
+            _validate_ks(ks, n)
+            states = [list(sketch.walk(k)) for k in ks]
+            kbytes = _dt.key_bits(dtype) // 8
         else:
-            key = np.partition(collected[(resolved, int(prefix))], kk - 1)[kk - 1]
-        answers.append(_dt.np_from_sortable_bits(np.asarray([key], kdt), np_dtype)[0])
-    return answers
+            def first_pass(dtype):
+                # pass 0 is also the length scan and the dtype probe: one
+                # histogram of the top digit, no prefix filter
+                total_bits = _dt.key_bits(dtype)
+                if total_bits % radix_bits:
+                    raise ValueError(f"radix_bits={radix_bits} must divide key bits {total_bits}")
+                return _ex.FusedIngestConsumer(
+                    total_bits=total_bits, hist=(total_bits - radix_bits, radix_bits, [None])
+                )
+
+            def pass0(src_override, tee):
+                # with spill on, pass 0 also tees every chunk to generation 0
+                writer = store.new_generation() if tee and store is not None and read_gen is None else None
+                try:
+                    first, dtype, n0 = _stream_pass(
+                        src_override if src_override is not None else gen_src(), None, first_pass,
+                        spill=writer, spill_slot=0, **run,
+                    )
+                    if first is None:
+                        raise ValueError("streaming selection requires a non-empty stream")
+                except BaseException:
+                    if writer is not None:
+                        writer.abort()
+                    raise
+                return first, dtype, n0, writer.commit() if writer is not None else None
+
+            # a one-shot source is consumed as it is teed: its pass 0
+            # cannot run again, and fails typed with the writer aborted
+            first, dtype, n, gen0 = _recover_pass(
+                pass0, reading_spill=read_gen is not None, fallback=None, on_enospc=enospc_pass0
+            )
+            kbytes = _dt.key_bits(dtype) // 8
+            if gen0 is not None:
+                created.append(gen0)
+                if not own_store or one_shot:
+                    protected = gen0
+                log_pass(0, gen0)
+                read_gen = gen0
+            else:
+                log_pass(0)
+            _validate_ks(ks, n)
+            states = []
+            for k in ks:
+                prefix, kk, pop = _np_walk(first.hists[None], k, None, radix_bits)
+                states.append([prefix, kk, radix_bits, pop])
+        total_bits = _dt.key_bits(dtype)
+        np_dtype = _np_dtype(dtype)
+
+        def active(st):
+            return st[2] < total_bits and st[3] > collect_budget
+
+        while any(active(st) for st in states):
+            # active ranks advance in lockstep, so they sit at one depth: one
+            # pass serves every distinct surviving prefix
+            resolved = next(st[2] for st in states if active(st))
+            shift = total_bits - resolved - radix_bits
+            prefixes = sorted({st[0] for st in states if active(st)})
+            expected = {st[0]: st[3] for st in states if active(st)}
+            tee_specs = None
+            if store is not None and not spill_disabled:
+                # the survivors this pass carries forward: the active
+                # prefixes, and parked ranks (population within the budget)
+                # still awaiting the collect, so the last generation serves
+                # every collect spec
+                tee_specs = sorted(
+                    {(resolved, int(st[0])) for st in states if active(st)}
+                    | {(st[2], int(st[0])) for st in states if not active(st) and st[2] < total_bits}
+                )
+            pass_read_gen = read_gen
+
+            def run_pass(src_override, tee, shift=shift, prefixes=prefixes, expected=expected,
+                         tee_specs=tee_specs, pass_read_gen=pass_read_gen):
+                writer = store.new_generation() if tee and tee_specs is not None else None
+                # what THIS attempt reads: the previous generation (or the
+                # source), or the ladder's fallback
+                read_from = ("spill" if (src_override is None and pass_read_gen is not None)
+                             or (src_override is not None and one_shot) else "source")
+                try:
+                    consumer, _, pass_keys = _stream_pass(
+                        src_override if src_override is not None else gen_src(), dtype,
+                        lambda _: _ex.FusedIngestConsumer(
+                            total_bits=total_bits, hist=(shift, radix_bits, prefixes),
+                            tee_specs=tee_specs if writer is not None else (), writer=writer, orig_dtype=np_dtype,
+                        ),
+                        **run,
+                    )
+                    hists = consumer.hists if consumer is not None else {p: np.zeros(1, np.int64) for p in prefixes}
+                    for p in prefixes:
+                        if int(hists[p].sum()) != expected[p]:
+                            raise RuntimeError(
+                                f"chunk source is not replay-stable: prefix {p:#x} holds "
+                                f"{int(hists[p].sum())} elements this pass, previous pass "
+                                f"counted {expected[p]}. The source callable must yield identical "
+                                "data on every invocation."
+                            )
+                except BaseException:
+                    if writer is not None:
+                        writer.abort()
+                    raise
+                return hists, writer.commit() if writer is not None else None, pass_keys, read_from
+
+            hists, gen, pass_keys, read_from = _recover_pass(
+                run_pass, reading_spill=read_gen is not None, fallback=fallback_src(), on_enospc=on_enospc
+            )
+            log_pass(resolved // radix_bits, gen, keys_read=pass_keys, read=read_from)
+            if gen is not None:
+                rotate(gen)
+            for st in states:
+                if active(st):
+                    st[0], st[1], st[3] = _np_walk(hists[st[0]], st[1], st[0], radix_bits)
+                    st[2] = resolved + radix_bits
+
+        specs = {(resolved, int(prefix)): pop for prefix, _, resolved, pop in states if resolved < total_bits}
+        collected = {}
+        if specs:
+
+            def run_collect(src_override, tee):
+                # what this attempt reads: the last generation (or the
+                # source), or the ladder's fallback
+                if src_override is None:
+                    read_from = "spill" if read_gen is not None else "source"
+                    kr = read_gen.read_keys(tuple(specs)) if read_gen is not None else n
+                elif one_shot:
+                    read_from, kr = "spill", protected.keys
+                else:
+                    read_from, kr = "source", n
+                out = _collect_survivors(src_override if src_override is not None else gen_src(), dtype, specs,
+                                         **run)
+                return out, read_from, kr
+
+            collected, read_from, keys_read = _recover_pass(
+                run_collect, reading_spill=read_gen is not None, fallback=fallback_src(), on_enospc=None
+            )
+            log_pass("collect", keys_read=keys_read, read=read_from)
+        kdt = _dt.np_to_sortable_bits(np.zeros(1, np_dtype)).dtype
+        answers = []
+        for prefix, kk, resolved, _ in states:
+            if resolved == total_bits:  # every key bit resolved: the prefix IS the key
+                key = prefix
+            else:
+                key = np.partition(collected[(resolved, int(prefix))], kk - 1)[kk - 1]
+            answers.append(_dt.np_from_sortable_bits(np.asarray([key], kdt), np_dtype)[0])
+        return answers
+    finally:
+        if own_store:
+            store.close()
+        elif store is not None:
+            # a caller-owned store keeps its pass-0 tee (it serves refine,
+            # the certificate, the next call); the rest goes
+            for g in created:
+                if g is not protected and not g.dropped:
+                    store.drop_generation(g)
 
 
 def streaming_rank_certificate(source, value, *, pipeline_depth: int = DEFAULT_PIPELINE_DEPTH, ingest_workers=None,
@@ -326,15 +645,17 @@ def streaming_rank_certificate(source, value, *, pipeline_depth: int = DEFAULT_P
     as Python ints: an answer for rank k is exact iff ``less < k <= leq``.
     Compared in key space (ties, ``-0.0``/``+0.0`` and NaNs behave exactly
     as in the selection itself), on the card by the sweep kernel's
-    certificate part."""
+    certificate part. ``source`` may be a SpillStore with a committed
+    generation: its newest is read from disk (a caller-owned store after a
+    descent or a sketch tee holds its generation 0), so a one-shot
+    stream's answer is certified without reading the stream again."""
     depth = _pl.validate_pipeline_depth(pipeline_depth)
     _pl.resolve_ingest_workers(ingest_workers)
     src = as_chunk_source(source)
 
     def certificate(dtype):
         # key the probe value in the stream's dtype, known at the first chunk
-        np_dtype = numpy_dtype(_dtype_name(dtype))
-        return _ex.CountLessLeqConsumer(int(_dt.np_to_sortable_bits(np.asarray([value], np_dtype))[0]))
+        return _ex.CountLessLeqConsumer(int(_dt.np_to_sortable_bits(np.asarray([value], _np_dtype(dtype)))[0]))
 
     counter, _, _ = _stream_pass(src, None, certificate, pipeline_depth=depth, device=_pl.resolve_device(device))
     if counter is None:

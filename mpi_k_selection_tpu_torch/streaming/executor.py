@@ -7,7 +7,9 @@ the card, its plain version for a chunk on the CPU. There are three
 consumers, one per part set a streamed pass uses:
 
 - :class:`FusedIngestConsumer`: the descent's histograms (one per
-  distinct surviving prefix) and the survivor collect, from one read;
+  distinct surviving prefix), the survivor collect and the spill tee
+  (the survivors of a spec union, appended to the next spill
+  generation), from one read;
 - :class:`CountLessLeqConsumer`: the rank certificate's pair;
 - :class:`SketchFoldConsumer`: a RadixSketch's deepest level and key
   extremes (``RadixSketch.update_stream`` and the monitor).
@@ -54,35 +56,48 @@ def finish_chunk_histograms(hist, prefixes, pad: int) -> dict:
 
 
 class FusedIngestConsumer:
-    """One pass's histograms and survivor collect, from one kernel launch
-    per chunk. ``hist`` is ``(shift, radix_bits, prefixes)`` (``[None]``:
-    the first pass, no prefix filter) or None; ``collect_specs`` is a list
-    of ``(resolved_bits, prefix)`` specs, whose keys (the top
-    ``resolved_bits`` bits equal ``prefix``) are gathered per spec in
-    chunk order."""
+    """One pass's histograms, survivor collect and spill tee, from one
+    kernel launch per chunk. ``hist`` is ``(shift, radix_bits, prefixes)``
+    (``[None]``: the first pass, no prefix filter) or None;
+    ``collect_specs`` is a list of ``(resolved_bits, prefix)`` specs, whose
+    keys (the top ``resolved_bits`` bits equal ``prefix``) are gathered per
+    spec in chunk order. ``tee_specs`` is such a list too, with ``writer``
+    (a streaming/spill.py ``SpillWriter``) and ``orig_dtype`` (the stream's
+    NumPy dtype): the keys matching any of them, in chunk order, are
+    appended to the writer as one record a chunk at finish (chunks with
+    none are skipped), so the records follow chunk order, as the JAX
+    package's ``SpillTeeConsumer`` writes them."""
 
-    def __init__(self, *, total_bits: int, hist=None, collect_specs=()):
-        if hist is None and not collect_specs:
+    def __init__(self, *, total_bits: int, hist=None, collect_specs=(), tee_specs=(), writer=None, orig_dtype=None):
+        if hist is None and not collect_specs and not tee_specs:
             raise ValueError("FusedIngestConsumer needs at least one part")
         self._bits = total_bits
         self._hist = hist
         self.hists = {} if hist is None else {p: np.zeros(1 << hist[1], np.int64) for p in hist[2]}
         self.specs = list(collect_specs)
         self.out = {s: [] for s in self.specs}
+        self._tee_specs = [(self._bits - r, p) for r, p in tee_specs]
+        self._writer = writer
+        self._orig_dtype = orig_dtype
+        self._kdt = np.dtype(f"uint{total_bits}")
 
     def dispatch(self, keys: StagedKeys):
         kw = {}
         if self._hist is not None:
             shift, radix_bits, prefixes = self._hist
             kw = dict(shift=shift, radix_bits=radix_bits, hist_prefixes=[p or 0 for p in prefixes])
-        hist, collect, _, _, _ = sweep_ingest(
+        hist, collect, tee, _, _ = sweep_ingest(
             keys.data, keys.n_valid, key_op=keys.key_op, key_xor=keys.key_xor,
-            collect=[(self._bits - r, p) for r, p in self.specs], **kw,
+            collect=[(self._bits - r, p) for r, p in self.specs], tee=self._tee_specs, **kw,
         )
-        return keys.pad, hist, collect
+        return keys.pad, hist, collect, tee
 
     def finish(self, handle) -> None:
-        pad, hist, collect = handle
+        pad, hist, collect, tee = handle
+        if tee is not None:
+            surv = materialize_compacted(tee)
+            if surv.size:  # sub-32-bit keys sit in the low bits of 32-bit words
+                self._writer.append(surv.astype(self._kdt, copy=False), self._orig_dtype)
         if hist is not None:
             for p, h in finish_chunk_histograms(hist, self._hist[2], pad).items():
                 self.hists[p] += h
@@ -160,7 +175,8 @@ class SketchFoldConsumer:
 
 
 #: Bundles in flight: one card, so one (the JAX package's window is one
-#: slot per ingest device; multi-device staging, ROADMAP Queue 4, widens it).
+#: slot per ingest device; multi-device staging, ROADMAP Queue 1 item 3e,
+#: widens it).
 WINDOW = 1
 
 

@@ -281,6 +281,16 @@ class HostStager:
         return out, give_back
 
 
+def _bucket_elems(n: int) -> int:
+    """The JAX package's power-of-two staging bucket of an ``n``-element
+    chunk (chunks past 2^30 stay unpadded: their ceiling would cross the
+    2^31 per-chunk counter bound). The port stages each chunk at its own
+    length; spill records carry this bucket in their header as the JAX
+    package's do."""
+    bucket = 1 << max(0, n - 1).bit_length()
+    return n if bucket >= 1 << 31 else bucket
+
+
 def _raw_words(c) -> torch.Tensor:
     """A normalized chunk (1-D numpy array or tensor) as a tensor of its
     own bits in the signed integer dtype of its width (no copy)."""
@@ -306,8 +316,13 @@ def stage_chunk(c, dtype: torch.dtype, device: torch.device, stager=None, on_rel
     """Stage one normalized chunk ``c`` of ``dtype`` on ``device`` (see the
     module docstring); ``stager`` (a :class:`HostStager`) carries host
     chunks to a CUDA device. ``on_release`` runs at release, after the
-    pinned buffer has gone back."""
-    raw = _raw_words(c)
+    pinned buffer has gone back. A replayed spill record
+    (streaming/spill.py: ``SpillChunk``) holds keys already: they are
+    staged as they are (sub-32-bit keys widened on the device)."""
+    from mpi_k_selection_tpu_torch.streaming.spill import SpillChunk
+
+    is_keys = isinstance(c, SpillChunk)
+    raw = _raw_words(c.keys if is_keys else c)
     give_back = None
     if raw.device != device:
         if raw.device.type == "cpu":
@@ -315,7 +330,11 @@ def stage_chunk(c, dtype: torch.dtype, device: torch.device, stager=None, on_rel
         else:
             raw = raw.to(device)
     release = _chain([give_back, on_release])
-    if _dt.key_bits(dtype) < 32:  # widened to 32-bit keys on the device
+    bits = _dt.key_bits(dtype)
+    if is_keys:
+        keys = raw.to(torch.int32) & ((1 << bits) - 1) if bits < 32 else raw
+        return StagedKeys(keys, raw.numel(), on_release=release)
+    if bits < 32:  # widened to 32-bit keys on the device
         return StagedKeys(_dt.to_sortable_bits(raw.view(dtype)), raw.numel(), on_release=release)
     fold = _dt.key_fold(dtype)
     return StagedKeys(raw, raw.numel(), fold[0], fold[1] if fold[0] == "xor" else 0, release)
@@ -361,13 +380,17 @@ class ChunkPipeline:
     twin of the synchronous chunk iterator (streaming/chunked.py:
     ``_iter_staged``), with the same pairs, order, checks and errors.
     ``dtype`` is the stream dtype to hold chunks to (None: the first
-    chunk's)."""
+    chunk's). ``spill`` (a streaming/spill.py ``SpillWriter``) tees every
+    chunk's host keys to a spill generation on the producer thread, each
+    record naming ``spill_slot`` as its device slot."""
 
     _ids = itertools.count()
 
-    def __init__(self, src, dtype=None, *, depth: int, device: torch.device):
+    def __init__(self, src, dtype=None, *, depth: int, device: torch.device, spill=None, spill_slot=None):
         self._src = src
         self._dtype = dtype
+        self._spill = spill  # the pass-0 tee's SpillWriter, appended to on this thread
+        self._spill_slot = spill_slot
         self._depth = validate_pipeline_depth(depth)
         if self._depth == 0:
             raise ValueError("ChunkPipeline requires pipeline_depth >= 1; depth 0 is the synchronous path")
@@ -392,7 +415,7 @@ class ChunkPipeline:
         return False
 
     def _produce(self) -> None:
-        from mpi_k_selection_tpu_torch.streaming.chunked import _normalize_chunk
+        from mpi_k_selection_tpu_torch.streaming.chunked import _chunk_dtype, _normalize_chunk, _tee
 
         keys = None  # the staged chunk in hand; None once the consumer owns it
         try:
@@ -408,7 +431,9 @@ class ChunkPipeline:
                 if c is None:
                     continue
                 if dtype is None:
-                    dtype = _dt.torch_dtype(c.dtype)
+                    dtype = _chunk_dtype(c)
+                if self._spill is not None:
+                    _tee(self._spill, c, dtype, self._spill_slot)
                 if not self._acquire_slot():
                     return
                 keys = stage_chunk(c, dtype, self._device, stager, on_release=self._slots.release)

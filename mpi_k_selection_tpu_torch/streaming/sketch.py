@@ -49,7 +49,6 @@ _MAX_RESOLUTION_BITS = MAX_BITS
 #: The JAX package's streaming knobs the port does not take yet: what each
 #: is, and the ROADMAP Queue 1 item that brings it.
 LATER_KNOBS = {
-    "spill": "the spill store, ROADMAP Queue 1 item 3b",
     "width_schedule": "the width schedule, ROADMAP Queue 1 item 3d",
     "pack_spill": "packed spill records, ROADMAP Queue 1 item 3d",
     "devices": "multi-device staging, ROADMAP Queue 1 item 3e",
@@ -133,7 +132,8 @@ class RadixSketch:
         on_card = isinstance(c, torch.Tensor) and c.is_cuda
         return self._fold_stream(lambda: iter((c,)), 0, c.device if on_card else self.device)
 
-    def update_stream(self, source, *, pipeline_depth=None, ingest_workers=None, **kwargs) -> "RadixSketch":
+    def update_stream(self, source, *, pipeline_depth=None, ingest_workers=None, spill=None,
+                      **kwargs) -> "RadixSketch":
         """Fold every chunk of ``source`` in (one pass; a list or tuple of
         chunks or a zero-arg callable, streaming/chunked.py:
         ``as_chunk_source``): chunks are staged to the sketch's device as
@@ -142,21 +142,42 @@ class RadixSketch:
         launch of the sweep kernel's sketch part, folded into the host
         int64 pyramid in chunk order. The same sketch, bit for bit, as
         :meth:`update` of each chunk in turn, at every depth.
+
+        ``spill`` (a caller-owned streaming/spill.py ``SpillStore``) tees
+        the same pass into a new generation of the store (a one-shot
+        iterator is then accepted): afterwards ``refine(store, k)`` runs
+        the exact descent from disk, never reading the stream again.
         Returns ``self``."""
         reject_later_knobs("update_stream", kwargs)
+        from mpi_k_selection_tpu_torch.streaming import spill as _sp
         from mpi_k_selection_tpu_torch.streaming.chunked import as_chunk_source
 
         depth = _pl.validate_pipeline_depth(pipeline_depth)
         _pl.resolve_ingest_workers(ingest_workers)
-        return self._fold_stream(as_chunk_source(source), depth, self.device)
+        if spill is not None and not isinstance(spill, _sp.SpillStore):
+            raise TypeError(
+                "update_stream's spill must be a SpillStore (the caller owns its lifecycle), "
+                f"got {type(spill).__name__!r}"
+            )
+        src = as_chunk_source(source, one_shot_ok=spill is not None)
+        writer = spill.new_generation() if spill is not None else None
+        try:
+            self._fold_stream(src, depth, self.device, spill=writer)
+            if writer is not None:
+                writer.commit()
+        except BaseException:
+            if writer is not None:
+                writer.abort()
+            raise
+        return self
 
-    def _fold_stream(self, src, depth: int, device) -> "RadixSketch":
+    def _fold_stream(self, src, depth: int, device, spill=None) -> "RadixSketch":
         from mpi_k_selection_tpu_torch.streaming import chunked as _chunked
         from mpi_k_selection_tpu_torch.streaming.executor import SketchFoldConsumer
 
         _chunked._stream_pass(
             src, _dt.torch_dtype(self.dtype), lambda _: SketchFoldConsumer(self),
-            pipeline_depth=depth, device=_pl.resolve_device(device),
+            pipeline_depth=depth, device=_pl.resolve_device(device), spill=spill,
         )
         return self
 

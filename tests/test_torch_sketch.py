@@ -260,7 +260,8 @@ def test_errors_match_jax():
         with pytest.raises(ValueError, match="must divide the 16 key bits left"):
             cls(np.int32).check_stream(np.int32, 5)
     RadixSketch(np.int32).check_stream(torch.int32, 8)
-    for knob, item in (("spill", "3b"), ("pack_spill", "3d"), ("devices", "3e"), ("obs", "4")):
+    for knob, item in (("width_schedule", "3d"), ("pack_spill", "3d"), ("devices", "3e"), ("obs", "4"),
+                       ("timer", "4")):
         with pytest.raises(TypeError, match=f"{knob}.*item {item}"):
             RadixSketch(np.int32, device="cpu").update_stream([np.arange(3, dtype=np.int32)], **{knob: None})
     for knob in ("deferred", "fused", "width_schedule", "devices", "obs"):

@@ -535,7 +535,7 @@ def test_rejections_match_jax():
         k = kw.get("k", 1)
         for depth in (0, 2):
             with pytest.raises(err, match=msg):
-                kt.kselect_streaming(make(), k, pipeline_depth=depth, device="cpu")
+                kt.kselect_streaming(make(), k, pipeline_depth=depth, spill="off", device="cpu")
         with pytest.raises(err, match=msg):
             ref_select(make(), k, spill="off")
     with pytest.raises(ValueError, match="requires a non-empty stream"):
@@ -673,8 +673,8 @@ def test_ingest_workers_run_the_one_producer(monkeypatch):
 def test_ingest_pool_errors_reach_the_caller_in_order():
     """A dtype that drifts at chunk 3 with ``ingest_workers`` > 1 raises
     the JAX package's TypeError; a source that raises mid-stream re-raises in
-    the caller; a one-shot iterator is still refused by the descent; no
-    thread outlives either."""
+    the caller; a one-shot iterator is still refused by the descent with
+    spill off; no thread outlives either."""
     good = np.arange(4096, dtype=np.int32)
     chunks = np.array_split(good, 6)
     chunks[3] = chunks[3].astype(np.float32)
@@ -690,7 +690,7 @@ def test_ingest_pool_errors_reach_the_caller_in_order():
         with pytest.raises(OSError, match="disk gone"):
             kt.kselect_streaming(failing, 5, ingest_workers=workers, device="cpu")
         with pytest.raises(TypeError, match="one-shot iterator/generator cannot be replayed"):
-            kt.kselect_streaming(iter([good]), 5, ingest_workers=workers, device="cpu")
+            kt.kselect_streaming(iter([good]), 5, ingest_workers=workers, spill="off", device="cpu")
     with pytest.raises(ValueError, match="ingest_workers"):
         kt.kselect_streaming([good], 5, ingest_workers=0, device="cpu")
     assert not [t.name for t in threading.enumerate() if t.name.startswith(("ksel-pipeline", "ksel-ingest"))]
