@@ -99,7 +99,7 @@ def generation_files(store) -> dict:
     return out
 
 
-def test_prefix_errors_and_knobs_match_jax():
+def test_prefix_errors_and_knobs_match_jax(tmp_path):
     """The spill dir prefix is the JAX registry's (so the conftest leak
     check covers the port's stores); the error classes nest as the JAX
     package's; ``spill`` is ported, while ``pack_spill``,
@@ -129,10 +129,11 @@ def test_prefix_errors_and_knobs_match_jax():
     for bad in ("always", True):
         with pytest.raises(ValueError, match="spill must be one of"):
             kt.kselect_streaming(a, 1, spill=bad, device="cpu")
-    s = SpillStore(tempfile.gettempdir())
+    s = SpillStore(str(tmp_path))
     s.close()
     with pytest.raises(SpillError, match="closed"):
         sp.validate_spill_mode(s)
+    assert not spill_dirs(tmp_path)
 
 
 @pytest.mark.parametrize("name", DTYPES)
