@@ -145,17 +145,38 @@ Phases, each of which must pass (any failure exits non-zero):
    (answer against phase 3's, wall ms, its ``pass_log`` beside the
    arithmetic, the bytes over the link against the replay's, the peak
    bytes on disk sampled after each commit, the sweep kernel's device
-   time and the idle share); the p50/p90/p99/p99.9 with
-   ``spill="force"`` (against phase 3, with its ``pass_log``);
+   time and the idle share); on the first half of the stream (the run's
+   time), the p50/p90/p99/p99.9 with ``spill="force"`` (against NumPy's
+   certificates, with its ``pass_log``),
    ``StreamingQuantiles.update_stream(one_shot, spill=store)``, then
    ``refine_quantiles`` and ``streaming_rank_certificate`` from the store
-   (against phase 3 and NumPy's certificate); each call's sweep launches
+   (against those answers and NumPy's certificate); each call's sweep launches
    counted against the chunks each pass read; and row 8's tee launch kind
    (a histogram under one 8-bit prefix and a one-spec tee) on chunk 0 of
    each stream, held exactly against the plain version, then timed as
    phase 4 times the other kinds, beside its bound (the read and the
    L-word survivor buffer), the plain version and ``torch.bincount`` +
    ``torch.masked_select``.
+
+9. The width schedule and packed spill records (``phase_width_pack``, run
+   after phase 8 and before phase 6): the replay median of each stream
+   with ``width_schedule="off"`` and ``"auto"`` under the profiler (answer
+   against phase 3's, wall ms, reads and bytes over the link, idle share);
+   the int32 stream's one-shot median with ``spill="auto"`` and both knobs
+   on ``"auto"`` under the profiler beside phase 8's format-v1 call (its
+   ``pass_log`` with logical and physical bytes, each pass's host ms in
+   the record work from ``spill.HOST_TIMES``, the peak on disk, the bytes
+   over the link, the idle share); quantiles K=4 ``spill="force"`` with
+   both knobs; ``StreamingQuantiles(width_schedule="auto",
+   pack_spill="auto")``'s one-shot ``update_stream`` into a store, then
+   ``refine_quantiles`` and the rank certificate from it; the digit pack
+   of chunk 0 on the card against the host's; and row 8 at each launch
+   kind ``"auto"`` adds (the 16-bit first pass; digits under 16- and
+   32-bit prefixes, one and four; the spill pass's tee beside one), held
+   exactly against the plain version, then timed as phase 4 times the
+   other kinds, beside ``torch.bincount`` of the same digits. Phase 2
+   also holds the histogram part at 16-20-bit digits (no prefix, one and
+   four prefixes) and a tee beside an 8- and a 16-bit digit.
 
 The timed kernel rows of phase 4 also time the nearest torch composition
 of each of rows 1-6 on the same tensor (a ``torch.bincount`` of the digits
@@ -476,6 +497,15 @@ def sweep_cases(bits: int, keys: torch.Tensor):
         ("sketch 1", dict(sketch_bits=1)), ("collect sparse, sketch 1", dict(collect=[sparse], sketch_bits=1)),
         ("all five, K=4 rb=8, sketch 20", dict(hist4, collect=[sparse, every], **tee, vkey=u[7], sketch_bits=20)),
         ("all five, K=1 rb=4, sketch 8", dict(hist1, collect=[sparse], **tee, vkey=absent, sketch_bits=8)),
+        # the width schedule's launches: a wide first pass, one and four
+        # prefixes above a wide digit, and a spill pass's tee beside them
+        *((f"hist K={len(ps)} rb={wd}" + (" under 8-bit prefixes" if ps != [0] else ", no prefix"),
+           dict(hist_prefixes=ps, shift=bits - wd - (8 if ps != [0] else 0), radix_bits=wd))
+          for wd in WIDE_BITS for ps in ([0], [top(10, 8)], [top(11, 8), top(12, 8), top(13, 8), top(11, 8)])),
+        ("hist K=1 rb=8 under a 16-bit prefix + its tee",
+         dict(hist_prefixes=[top(6, 16)], shift=bits - 24, radix_bits=8, tee=[(bits - 16, top(6, 16))])),
+        ("hist K=1 rb=16 under a 16-bit prefix + its tee",
+         dict(hist_prefixes=[top(6, 16)], shift=bits - 32, radix_bits=16, tee=[(bits - 16, top(6, 16))])),
     ]
 
 
@@ -560,6 +590,7 @@ def sweep_vs_plain(gen, err):
     torch.cuda.empty_cache()
 
 
+WIDE_BITS = (16, 17, 18, 19, 20)  # histogram digits of the width schedule: 16 from "auto", up to 20 in a tuple
 SKEWED_SKETCH_BITS = (15, 16, 20)  # 16-bit counters in shared memory at 15 and 16 bits; int32 in global memory at 20
 
 
@@ -1786,12 +1817,14 @@ def phase_spill(ints, f64, certified):
       bytes over the link against phase 3's replay (4 reads), the peak
       bytes on disk (sampled after each commit), the sweep kernel's device
       time and the idle share;
-    - the p50/p90/p99/p99.9 of the replayable chunks with ``spill="force"``,
-      against phase 3's answers, with its ``pass_log``;
-    - ``StreamingQuantiles.update_stream(one_shot, spill=store)`` into a
-      store this phase owns, ``refine_quantiles`` from the store (exact
-      against phase 3) and ``streaming_rank_certificate(store, median)``
-      equal to NumPy's certificate of phase 3;
+    - on the first half of the stream (the run's time; phase 9 runs the
+      format-v2 twins whole): the p50/p90/p99/p99.9 with
+      ``spill="force"``, against NumPy's certificates, with its
+      ``pass_log``; ``StreamingQuantiles.update_stream(one_shot,
+      spill=store)`` into a store this phase owns, ``refine_quantiles``
+      from the store (equal to the spill-forced answers) and
+      ``streaming_rank_certificate(store, median)`` equal to NumPy's
+      certificate;
     - row 8's tee launch kind (the histogram under one 8-bit prefix and a
       one-spec tee, a later spill pass's launch) on chunk 0 of each
       stream, timed as phase 4 times the other kinds.
@@ -1884,6 +1917,14 @@ def phase_spill(ints, f64, certified):
                               "sweep_device_ms": sweep, "sweep_launches_profiled": sweep_calls,
                               "top": [{"name": nm, "calls": c, "ms": m} for nm, c, m in top[:6]]}
 
+        # the later calls read the first half of the stream, for the run's
+        # time: phase 9 runs their format-v2 twins on the whole stream
+        chunks, full = chunks[: max(1, len(chunks) // 2)], False
+        n = len(chunks) * STREAM_CHUNK
+        out.setdefault("cut", []).append(f"quantiles K=4 spill=force and the sketch flow on the first {len(chunks)} "
+                                         "chunks (the run's time)")
+        print(f"[spill] CUT: {out['cut'][-1]}")
+
         # quantiles K=4 of the replayable chunks, spill="force"
         what = f"streaming quantiles K=4 spill=force depth=2, int32 uniform {n} elements"
         qranks = certified["qranks"] if full else [max(1, min(n, int(np.ceil(q * n)))) for q in QS]
@@ -1946,7 +1987,7 @@ def phase_spill(ints, f64, certified):
                 fail(f"{what}: {cert} != NumPy's {want}, or launches {dict(S.LAUNCHES)} != {len(chunks)}")
             launches["sweep_ingest32"] += S.LAUNCHES["sweep_ingest32"]
             per_call[what] = {"sweep_ingest32": S.LAUNCHES["sweep_ingest32"]}
-            print(f"[spill] {what}: {cert} == NumPy's certificate of phase 3; {secs * 1e3:.1f} ms from disk")
+            print(f"[spill] {what}: {cert} == NumPy's certificate; {secs * 1e3:.1f} ms from disk")
             out["calls"][what] = {"ms": secs * 1e3, "certificate": list(cert)}
         out.pop("keep")
         if glob.glob(os.path.join(root, "ksel-spill-*")):
@@ -1972,6 +2013,316 @@ def phase_spill(ints, f64, certified):
         del w
         torch.cuda.empty_cache()
     out["tee_kind"] = kinds
+    out["timings"] = rows
+    return launches, per_call, out
+
+
+def auto_kinds(bits: int, chunk: np.ndarray):
+    """(label, sweep_ingest parts) of each launch kind ``width_schedule=
+    "auto"`` adds on one chunk of a stream, with the prefixes its own
+    median and quantile keys give: the 16-bit first pass; for 32-bit keys
+    an 8-bit digit under the median's 16-bit prefix (pass 1), under the
+    4 quantile keys' 16-bit prefixes, and beside the tee of that prefix
+    (a spill pass 1), and the last 16 bits under one and under the 4
+    prefixes (the refinement of a 16-bit sketch); for 64-bit keys a 16-bit digit under one and under
+    the 4 quantile keys' 16-bit prefixes (pass 1), and an 8-bit digit
+    under a 32-bit prefix (pass 2)."""
+    keys = host_keys(chunk)
+    n = keys.size
+    ranks = [n // 2] + [max(0, int(np.ceil(q * n)) - 1) for q in QS]
+    part = np.partition(keys, ranks)
+    med = int(part[ranks[0]])
+    q16 = sorted({int(part[r]) >> (bits - 16) for r in ranks[1:]})
+    kinds = [("hist 16 bits, no prefix (auto pass 0)", dict(hist_prefixes=[0], shift=bits - 16, radix_bits=16))]
+    if bits == 32:
+        one = dict(hist_prefixes=[med >> 16], shift=8, radix_bits=8)
+        return kinds + [
+            ("hist 8 bits under a 16-bit prefix (auto pass 1)", one),
+            (f"hist 8 bits under {len(q16)} 16-bit prefixes (auto quantiles pass 1)",
+             dict(hist_prefixes=q16, shift=8, radix_bits=8)),
+            ("hist 8 bits under a 16-bit prefix + its tee (auto spill pass 1)", dict(one, tee=[(16, med >> 16)])),
+            ("hist 16 bits under a 16-bit prefix (auto refine of a 16-bit sketch)",
+             dict(hist_prefixes=[med >> 16], shift=0, radix_bits=16)),
+            (f"hist 16 bits under {len(q16)} 16-bit prefixes (auto refine_quantiles)",
+             dict(hist_prefixes=q16, shift=0, radix_bits=16)),
+        ]
+    return kinds + [
+        ("hist 16 bits under a 16-bit prefix (auto pass 1)", dict(hist_prefixes=[med >> 48], shift=32, radix_bits=16)),
+        (f"hist 16 bits under {len(q16)} 16-bit prefixes (auto quantiles pass 1)",
+         dict(hist_prefixes=q16, shift=32, radix_bits=16)),
+        ("hist 8 bits under a 32-bit prefix (auto pass 2)", dict(hist_prefixes=[med >> 32], shift=24, radix_bits=8)),
+    ]
+
+
+def print_pack_log(what: str, log, host) -> None:
+    """One line a pass of a spilled call: the keys and the logical and
+    physical bytes it read and wrote (GiB), and its host ms in the record
+    work (prepare: checksums, and the pack of format v2; write; read: file
+    reads, checksums and the v2 decode), from ``SpillStore.pass_host_ms``."""
+    for e, h in zip(log, host):
+        line = (f"[width] {what}: pass {e['pass']!s:>7} read {e['read']:<6} {e['keys_read']:>11} keys "
+                f"{e['bytes_read'] / 2**30:8.4f} GiB ({e['disk_bytes_read'] / 2**30:8.4f} on disk)")
+        if "keys_written" in e:
+            line += (f", wrote {e['keys_written']:>11} keys {e['bytes_written'] / 2**30:8.4f} GiB "
+                     f"({e['disk_bytes_written'] / 2**30:8.4f} on disk)")
+        line += f"; host ms prepare {h['prepare_ms']:.1f}, write {h['write_ms']:.1f}, read {h['read_ms']:.1f}"
+        print(line)
+
+
+def phase_width_pack(ints, f64, certified, v1):
+    """Phase 9, the width schedule and packed spill records (this slice's
+    paths) on the streams of phase 3, each call driven with the launch
+    counts set to 0 just before it and read just after (the sweep kernel
+    of the stream's width at least once a pass, no other kernel, no plain
+    call):
+
+    - the replay median of each stream with ``width_schedule="off"`` and
+      ``"auto"``, each under the profiler: answer against phase 3's, wall
+      ms, passes read and bytes over the link, the sweep kernel's device
+      time and the idle share; quantiles K=4 of each stream, ``"off"``
+      beside ``"auto"`` (the same answers; the int32 ones phase 3's);
+    - the int32 stream's median read as a one-shot generator with
+      ``spill="auto"``, ``width_schedule="auto"``, ``pack_spill="auto"``,
+      under the profiler, beside phase 8's format-v1 call (``v1``): its
+      ``pass_log`` with logical and physical bytes, each pass's host ms
+      in the record work, the peak bytes on disk, the bytes over the link,
+      wall ms and idle share (the stream is halved when the disk under the
+      temp dir holds less than 1.5x its bytes);
+    - quantiles K=4 of the replayable chunks, ``spill="force"`` with both
+      knobs on ``"auto"``;
+    - ``StreamingQuantiles(width_schedule="auto", pack_spill="auto")``:
+      ``update_stream(one_shot, spill=store)`` (generation 0 packed on the
+      card), then ``refine_quantiles`` and ``streaming_rank_certificate``
+      from the store;
+    - the card's digit pack of a chunk against the host's (each whole,
+      through the record's checksums), on chunk 0 of each stream;
+    - row 8 at each launch kind ``"auto"`` adds (:func:`auto_kinds`), on
+      chunk 0 of each stream, held exactly against the plain version, the
+      kernel alone and the call beside its bound, the plain version and
+      ``torch.bincount``."""
+    import shutil
+    import tempfile
+
+    import mpi_k_selection_tpu_torch as kt
+    from mpi_k_selection_tpu_torch.api import quantile_ranks
+    from mpi_k_selection_tpu_torch.ops.cuda import histogram as H
+    from mpi_k_selection_tpu_torch.ops.cuda import sweep_ingest as S
+    from mpi_k_selection_tpu_torch.ops.cuda import topk as T
+    from mpi_k_selection_tpu_torch.streaming import spill as sp
+    from mpi_k_selection_tpu_torch.utils import dtypes as dt
+    from mpi_k_selection_tpu_torch.utils.timing import time_fn
+
+    out = {"calls": {}}
+    launches = {"sweep_ingest32": 0, "sweep_ingest64": 0}
+    per_call = {}
+
+    def counted(what, fn, bits, passes_fn):
+        """One call with every count at 0 just before it; fails unless the
+        sweep kernel of ``bits`` launched at least once for each pass
+        ``passes_fn()`` counts, and nothing else ran."""
+        for m in (H, T, S):
+            m.reset_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        passes = passes_fn()
+        kn = f"sweep_ingest{bits}"
+        others = {k: v for k, v in {**H.LAUNCHES, **T.LAUNCHES}.items() if v}
+        plain = {k: v for k, v in {**H.PLAIN_CALLS, **T.PLAIN_CALLS, **S.PLAIN_CALLS}.items() if v}
+        if S.LAUNCHES[kn] < max(1, passes) or sum(S.LAUNCHES.values()) != S.LAUNCHES[kn] or others or plain:
+            fail(f"{what}: launches {dict(S.LAUNCHES)} over {passes} passes; other kernels {others}; plain {plain}")
+        for k in launches:
+            launches[k] += S.LAUNCHES[k]
+        per_call[what] = {k: v for k, v in S.LAUNCHES.items() if v}
+        print(f"[width] {what}: {S.LAUNCHES[kn]} launches of {kn} over {passes} passes, no plain call")
+        return res
+
+    # the replay medians, "off" beside "auto"
+    for src, bits, label, want in ((ints, 32, "int32 uniform", certified["median32"]),
+                                   (f64, 64, "float64 normal", certified["median64"])):
+        n = len(src.chunks) * src.chunks[0].size
+        for ws in ("off", "auto"):
+            what = f"streaming median width_schedule={ws} depth=2, {label} {n} elements"
+            src.passes = 0
+            got, ms, busy, idle, top = counted(what, lambda: profiled_call(
+                lambda: kt.kselect_streaming(src, n // 2, width_schedule=ws)), bits, lambda: src.passes)
+            if got.tobytes() != want.tobytes():
+                fail(f"{what}: {got!r} != phase 3's certified median {want!r}")
+            link = src.passes * n * bits // 8
+            sweep = sum(m for nm, _, m in top if "sweep_ingest_kernel" in nm)
+            print(f"[width] {what}: {got!r} == phase 3; {ms:.1f} ms; {src.passes} reads, {link / 2**30:.1f} GiB over "
+                  f"the link; device busy " + ("not measured" if busy is None else f"{busy:.1f} ms, idle share "
+                                                f"{idle:.3f}") + f"; sweep_ingest_kernel {sweep:.3f} ms")
+            out["calls"][what] = {"ms": ms, "busy_ms": busy, "idle_share": idle, "passes": src.passes,
+                                  "link_bytes": link, "sweep_device_ms": sweep, "answer": repr(got),
+                                  "top": [{"name": nm, "calls": c, "ms": m} for nm, c, m in top[:6]]}
+
+    # quantiles K=4 of each stream on the replay path, "off" beside "auto"
+    # (the float64 stream's "auto" pass 1 is a 16-bit digit under 4 prefixes)
+    for src, bits, label in ((ints, 32, "int32 uniform"), (f64, 64, "float64 normal")):
+        n = len(src.chunks) * src.chunks[0].size
+        ranks = quantile_ranks(QS, n)
+        answers = {}
+        for ws in ("off", "auto"):
+            what = f"streaming quantiles K=4 width_schedule={ws} depth=2, {label} {n} elements"
+            src.passes = 0
+            secs, answers[ws] = time_fn(lambda: counted(what, lambda: kt.kselect_streaming_many(
+                src, ranks, width_schedule=ws), bits, lambda: src.passes), device="cuda")
+            print(f"[width] {what}: {[repr(v) for v in answers[ws]]}; {secs * 1e3:.1f} ms; {src.passes} reads")
+            out["calls"][what] = {"ms": secs * 1e3, "passes": src.passes, "answers": [repr(v) for v in answers[ws]]}
+        if np.array(answers["auto"]).tobytes() != np.array(answers["off"]).tobytes() or (
+                bits == 32 and np.array(answers["off"]).tobytes() != np.array(certified["quantiles32"]).tobytes()):
+            fail(f"quantiles K=4, {label}: auto {answers['auto']!r} != off {answers['off']!r} (or phase 3's)")
+
+    # the spilled calls
+    tmp = tempfile.gettempdir()
+    free = shutil.disk_usage(tmp).free
+    chunks = ints.chunks
+    cuts = []
+    while len(chunks) > 1 and free < SPILL_DISK_FACTOR * sum(c.nbytes for c in chunks):
+        chunks = chunks[: len(chunks) // 2]
+        cuts.append(f"free disk {free} bytes < {SPILL_DISK_FACTOR}x the stream: halved to {len(chunks)} chunks")
+        print(f"[width] CUT: {cuts[-1]}")
+    if cuts:
+        out["cut"] = cuts
+    full = len(chunks) == len(ints.chunks)
+    n = len(chunks) * STREAM_CHUNK
+    qranks = certified["qranks"] if full else [max(1, min(n, int(np.ceil(q * n)))) for q in QS]
+    root = tempfile.mkdtemp(prefix="chip-smoke-width-root-", dir=tmp)
+    knobs = dict(width_schedule="auto", pack_spill="auto")
+
+    def check(what, vals, ks):
+        if full:
+            want = [certified["median32"]] if len(ks) == 1 else certified["quantiles32"]
+            if np.array(vals).tobytes() != np.array(want).tobytes():
+                fail(f"{what}: {vals!r} != phase 3's {want!r}")
+            return
+        for kq, v, (less, leq) in zip(ks, vals, np_certificates(chunks, vals)):
+            if not less < kq <= leq:
+                fail(f"{what}: k={kq}: {v!r} fails NumPy's certificate ({less}, {leq}]")
+
+    try:
+        what = f"streaming median spill=auto one-shot width_schedule=auto pack_spill=auto, int32 uniform {n} elements"
+        k = n // 2
+        with SpillWatch(root) as watch:
+            got, ms, busy, idle, top = counted(what, lambda: profiled_call(lambda: kt.kselect_streaming(
+                (c for c in chunks), k, spill="auto", spill_dir=root, **knobs)), 32,
+                lambda: len(watch.stores[-1].pass_log))
+        check(what, [got], [k])
+        store = watch.stores[-1]
+        log, host = store.pass_log, store.pass_host_ms
+        print_pack_log(what, log, host)
+        link = sum(e["bytes_read"] for e in log)
+        sweep = sum(m for nm, _, m in top if "sweep_ingest_kernel" in nm)
+        v1_call = next((c for w_, c in v1.get("calls", {}).items() if w_.startswith("streaming median spill=auto")),
+                       None) if full else None
+        print(f"[width] {what}: {got!r} exact; {ms:.1f} ms; peak on disk {watch.peak / 2**30:.3f} GiB (samples "
+              f"{[round(b / 2**30, 3) for b in watch.samples]}); over the link {link / 2**30:.3f} GiB; device busy "
+              + ("not measured" if busy is None else f"{busy:.1f} ms, idle share {idle:.3f}")
+              + f"; sweep_ingest_kernel {sweep:.3f} ms"
+              + ("" if v1_call is None else f"; format v1 (phase 8): {v1_call['ms']:.1f} ms, peak on disk "
+                 f"{v1_call['peak_disk_bytes'] / 2**30:.3f} GiB, over the link {v1_call['link_bytes'] / 2**30:.3f} GiB"))
+        out["calls"][what] = {"ms": ms, "busy_ms": busy, "idle_share": idle, "answer": repr(got), "pass_log": log,
+                              "pass_host_ms": host, "peak_disk_bytes": watch.peak, "disk_samples": watch.samples,
+                              "generation_records": watch.records, "link_bytes": link, "sweep_device_ms": sweep,
+                              "top": [{"name": nm, "calls": c, "ms": m} for nm, c, m in top[:6]]}
+
+        what = f"streaming quantiles K=4 spill=force width_schedule=auto pack_spill=auto, int32 uniform {n} elements"
+        with SpillWatch(root) as watch:
+            secs, qans = time_fn(lambda: counted(what, lambda: kt.kselect_streaming_many(
+                chunks, qranks, spill="force", spill_dir=root, **knobs), 32,
+                lambda: len(watch.stores[-1].pass_log)), device="cuda")
+        check(what, qans, qranks)
+        store = watch.stores[-1]
+        print_pack_log(what, store.pass_log, store.pass_host_ms)
+        print(f"[width] {what}: exact; {secs * 1e3:.1f} ms; peak on disk {watch.peak / 2**30:.3f} GiB")
+        out["calls"][what] = {"ms": secs * 1e3, "pass_log": store.pass_log, "pass_host_ms": store.pass_host_ms,
+                              "peak_disk_bytes": watch.peak}
+
+        with kt.SpillStore(root) as store:
+            sq = kt.StreamingQuantiles(np.int32, **knobs)
+            what = f"StreamingQuantiles(auto, auto).update_stream(one-shot, spill=store), int32 uniform {n} elements"
+            marks = {name: sw.seconds for name, sw in sp.HOST_TIMES.items()}
+            secs, _ = time_fn(lambda: counted(what, lambda: sq.update_stream((c for c in chunks), spill=store), 32,
+                                              lambda: 1), device="cuda")
+            gen0 = store.latest_generation()
+            if gen0.keys != n or not gen0.packed:
+                fail(f"{what}: generation 0 holds {gen0.keys} keys (packed: {gen0.packed}), not {n} packed")
+            host = {f"{name}_ms": (sw.seconds - marks[name]) * 1e3 for name, sw in sp.HOST_TIMES.items()}
+            print(f"[width] {what}: {secs * 1e3:.1f} ms; generation 0 {gen0.keys} keys, {gen0.nbytes / 2**30:.3f} GiB "
+                  f"on disk ({gen0.logical_nbytes / 2**30:.3f} logical); host ms {host}")
+            out["calls"][what] = {"ms": secs * 1e3, "generation0_bytes": gen0.nbytes,
+                                  "generation0_logical_bytes": gen0.logical_nbytes, "host_ms": host}
+            what = f"refine_quantiles (auto, auto) from the packed store, int32 uniform {n} elements"
+            secs, refined = time_fn(lambda: counted(what, lambda: sq.refine_quantiles(QS, store), 32,
+                                                    lambda: len(store.pass_log)), device="cuda")
+            check(what, refined, qranks)
+            print_pack_log(what, store.pass_log, store.pass_host_ms)
+            print(f"[width] {what}: exact; {secs * 1e3:.1f} ms")
+            out["calls"][what] = {"ms": secs * 1e3, "pass_log": list(store.pass_log),
+                                  "pass_host_ms": list(store.pass_host_ms)}
+            what = f"streaming_rank_certificate(packed store, median), int32 uniform {n} elements"
+            med = certified["median32"] if full else got
+            marks = {name: sw.seconds for name, sw in sp.HOST_TIMES.items()}
+            secs, cert = time_fn(lambda: counted(what, lambda: kt.streaming_rank_certificate(store, med), 32,
+                                                 lambda: 1), device="cuda")
+            want = certified["median32_certificate"] if full else np_certificates(chunks, [med])[0]
+            if tuple(cert) != tuple(want):
+                fail(f"{what}: {cert} != NumPy's {want}")
+            host = {f"{name}_ms": (sw.seconds - marks[name]) * 1e3 for name, sw in sp.HOST_TIMES.items()}
+            print(f"[width] {what}: {cert} == NumPy's certificate; {secs * 1e3:.1f} ms from disk; host ms {host}")
+            out["calls"][what] = {"ms": secs * 1e3, "certificate": list(cert), "host_ms": host}
+        if glob.glob(os.path.join(root, "ksel-spill-*")):
+            fail(f"a spill store outlived phase 9: {os.listdir(root)}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # the digit pack of a chunk, on the card and on the host, to a record
+    rows = []
+
+    def row(what, ms, b, by, extra=""):
+        rows.append({"what": what, "ms": ms, "bound_ms": b, "bound_by": by})
+        print(f"[time] {what:<60} {ms:11.4f} ms   bound {b:9.4f} ms ({by}){extra}")
+
+    out["digit_pack"] = {}
+    for bits, src in ((32, ints), (64, f64)):
+        c = src.chunks[0]
+        keys = host_keys(c)
+        carrier = dt.keys_from_raw(torch.from_numpy(c.view(np.int32 if bits == 32 else np.int64)).cuda(),
+                                   "xor" if bits == 32 else "float", 1 << 31 if bits == 32 else 0)
+
+        def on_card():
+            counts, payload = sp.pack_digits(carrier, sp.GEN0_SEGMENT_BITS, bits)
+            segs = sp.digit_segments_from(counts.cpu().numpy(), payload.cpu().numpy(), sp.GEN0_SEGMENT_BITS, bits)
+            return sp.prepared_record(lambda: keys, keys.size, keys.dtype, c.dtype, segs)
+
+        def on_host():
+            return sp.prepared_record(lambda: keys, keys.size, keys.dtype, c.dtype,
+                                      sp._digit_segments(keys, sp.GEN0_SEGMENT_BITS))
+
+        a, b_ = on_card(), on_host()
+        if a.segments != b_.segments or b"".join(bytes(p.data) for p in a.parts) != b"".join(
+                bytes(p.data) for p in b_.parts):
+            fail(f"digit pack of {bits}-bit chunk 0: the card's record != the host's")
+        card_s, _ = time_fn(on_card, repeats=3, device="cpu")
+        host_s, _ = time_fn(on_host, repeats=2, device="cpu")
+        out["digit_pack"][bits] = {"card_ms": card_s * 1e3, "host_ms": host_s * 1e3, "record_bytes": a.nbytes,
+                                   "keys": keys.size}
+        print(f"[width] digit pack of {bits}-bit chunk 0 ({keys.size} keys) to a format-v2 record of "
+              f"{a.nbytes / 2**20:.1f} MiB: on the card (and back, with the record's checksums) {card_s * 1e3:.1f} ms; "
+              f"on the host {host_s * 1e3:.1f} ms (host clock, best of 3 and 2)")
+        del carrier
+        torch.cuda.empty_cache()
+
+    # row 8 at the launch kinds "auto" adds
+    kinds = {}
+    for bits, src, key_op, key_xor in ((32, ints, "xor", 1 << 31), (64, f64, "float", 0)):
+        c = src.chunks[0]
+        w = torch.from_numpy(c.view(np.int32 if bits == 32 else np.int64)).cuda()
+        kinds[f"sweep_ingest{bits}"] = sweep_kind_rows(row, bits, w, auto_kinds(bits, c), key_op, key_xor,
+                                                       library_hist=True)
+        del w
+        torch.cuda.empty_cache()
+    out["auto_kinds"] = kinds
     out["timings"] = rows
     return launches, per_call, out
 
@@ -2349,19 +2700,22 @@ def phase_distributed():
 def kernel_device_ms(fn, name: str, reps: int = 10):
     """Device milliseconds per launch of the kernels whose name holds
     ``name`` over ``reps`` calls of ``fn`` (torch.profiler), or None when
-    the profiler saw none."""
+    three profiles in a row saw none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and name in e.key]
-    count = sum(e.count for e in evs)
-    return sum(e.self_device_time_total for e in evs) / 1e3 / count if count else None
+    for _ in range(3):  # a profile that recorded no device event is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and name in e.key]
+        count = sum(e.count for e in evs)
+        if count:
+            return sum(e.self_device_time_total for e in evs) / 1e3 / count
+    return None
 
 
 def sweep_kinds(bits: int, chunk: np.ndarray):
@@ -2391,7 +2745,7 @@ def sweep_kinds(bits: int, chunk: np.ndarray):
     ]
 
 
-def sweep_kind_rows(row, bits: int, w: torch.Tensor, kinds, key_op: str, key_xor: int) -> dict:
+def sweep_kind_rows(row, bits: int, w: torch.Tensor, kinds, key_op: str, key_xor: int, library_hist=False) -> dict:
     """Phase 4 for the sweep kernel at each launch kind of ``kinds``
     (:func:`sweep_kinds`: (label, parts)) on the words ``w`` on the card:
     held exactly against the plain version first, then the kernel's own
@@ -2403,7 +2757,9 @@ def sweep_kind_rows(row, bits: int, w: torch.Tensor, kinds, key_op: str, key_xor
     every word of the bucket (its counts sum to L); it is also timed as
     the plain version and beside ``torch.bincount`` of the top key bits (of
     the 16-bit digit, for a histogram of 16-bit keys) and
-    ``torch.aminmax`` of the keys, held equal first."""
+    ``torch.aminmax`` of the keys, held equal first; so is a tee launch
+    (beside ``torch.bincount`` + ``torch.masked_select``) and, with
+    ``library_hist``, a histogram launch (beside ``torch.bincount``)."""
     from mpi_k_selection_tpu_torch.ops.cuda import sweep_ingest as S
     from mpi_k_selection_tpu_torch.utils.timing import cuda_ms
 
@@ -2441,6 +2797,11 @@ def sweep_kind_rows(row, bits: int, w: torch.Tensor, kinds, key_op: str, key_xor
             row(f"sweep_ingest_plain {label}, a {n}-word chunk", out[label]["plain_ms"], b, by)
             out[label]["library_ms"] = library_tee_ms(w, got, bits, key_op, key_xor, parts)
             row(f"torch.bincount + torch.masked_select of the tee's mask, {n} words", out[label]["library_ms"], b, by)
+        elif parts.get("hist_prefixes") and library_hist:
+            out[label]["plain_ms"] = cuda_ms(lambda: S.sweep_ingest_plain(w, n, **kw), iters=3, warmup=1)
+            row(f"sweep_ingest_plain {label}, a {n}-word chunk", out[label]["plain_ms"], b, by)
+            out[label]["library_ms"] = library_hist_ms(w, got, bits, key_op, key_xor, parts)
+            row(f"torch.bincount of the digits under the prefixes, {n} words", out[label]["library_ms"], b, by)
         del got
         torch.cuda.empty_cache()
     return out
@@ -2473,6 +2834,37 @@ def library_tee_ms(w: torch.Tensor, got, bits: int, key_op: str, key_xor: int, p
         fail(f"sweep_ingest{bits} {parts}: library calls != kernel")
     ms = cuda_ms(fn)
     del keys, hmask, digit, tmask, counts, surv
+    return ms
+
+
+def library_hist_ms(w: torch.Tensor, got, bits: int, key_op: str, key_xor: int, parts) -> float:
+    """The sweep kernel's histogram launch as one library call on the same
+    words: ``torch.bincount`` of (prefix row, digit) over the keys under
+    any of the launch's prefixes (the rest in one spare bin), held equal
+    to the kernel's counts ``got[0]`` first; the bin indices are made
+    untimed. CUDA-event milliseconds of the call."""
+    from mpi_k_selection_tpu_torch.utils import dtypes as dt
+    from mpi_k_selection_tpu_torch.utils.timing import cuda_ms
+
+    keys = dt.keys_from_raw(w, key_op, key_xor)
+    shift, width, prefixes = parts["shift"], parts["radix_bits"], parts["hist_prefixes"]
+    distinct = sorted(set(prefixes))
+    above = dt.shift_right_logical(keys, shift + width, bits).long()  # non-negative: a logical shift
+    table = torch.tensor(distinct, dtype=torch.int64, device=w.device)
+    row_of = torch.searchsorted(table, above).clamp(max=len(distinct) - 1)
+    hit = table[row_of] == above
+    digit = (dt.shift_right_logical(keys, shift, bits) & ((1 << width) - 1)).long()
+    index = torch.where(hit, row_of * (1 << width) + digit, len(distinct) << width)
+    del keys, above, row_of, hit, digit
+
+    def fn():
+        return torch.bincount(index, minlength=(len(distinct) << width) + 1)
+
+    counts = fn()[: len(distinct) << width].view(len(distinct), 1 << width).to(torch.int32)
+    if not all(torch.equal(counts[distinct.index(p)], got[0][i]) for i, p in enumerate(prefixes)):
+        fail(f"sweep_ingest{bits} {parts}: library call != kernel")
+    ms = cuda_ms(fn)
+    del index, counts
     return ms
 
 
@@ -2567,6 +2959,11 @@ def main() -> int:
     for kname, v in p8_launches.items():
         launches[kname] += v
     per_call.update(p8_per_call)
+    # phase 9: the width schedule and packed spill records
+    p9_launches, p9_per_call, notes["phase9"] = phase_width_pack(ints, f64, certified, notes["phase8"])
+    for kname, v in p9_launches.items():
+        launches[kname] += v
+    per_call.update(p9_per_call)
     # phase 6: the host chunks and the resident data go first (the ranks
     # need the card's memory and the host's for the 8 GiB array)
     del ints, f64, data, x30

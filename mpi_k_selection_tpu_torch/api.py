@@ -199,20 +199,27 @@ class StreamingQuantiles:
     ``pipeline_depth`` governs the staging of ``update_stream`` and of
     the refinement passes (streaming/pipeline.py; ``ingest_workers`` is
     checked only), and ``device`` where they count (default
-    ``"cuda"``; ``"cpu"`` runs the kernel's plain version). The JAX
-    package's ``deferred`` and ``fused`` have no counterpart here;
-    ``width_schedule``, ``pack_spill``, ``devices`` and ``obs`` are
-    refused until their ROADMAP items bring them. The spill flow of a
-    one-shot stream: ``update_stream(it, spill=store)``, then
+    ``"cuda"``; ``"cpu"`` runs the kernel's plain version).
+    ``width_schedule`` (None = ``"off"``) sets the refinement's digit
+    widths and ``pack_spill`` (None = ``"off"``) the format of the
+    ``update_stream`` tee and of the refinement's generations
+    (streaming/chunked.py); both are checked here. The JAX package's
+    ``deferred`` and ``fused`` have no counterpart here; ``devices`` and
+    ``obs`` are refused until their ROADMAP items bring them. The spill
+    flow of a one-shot stream: ``update_stream(it, spill=store)``, then
     ``refine_quantiles(qs, store)``."""
 
     def __init__(self, dtype, *, radix_bits: int = 4, levels: int = 4, pipeline_depth: int | None = None,
-                 ingest_workers=None, device=None, **kwargs):
+                 width_schedule=None, pack_spill=None, ingest_workers=None, device=None, **kwargs):
         from mpi_k_selection_tpu_torch.streaming import pipeline as _pl
         from mpi_k_selection_tpu_torch.streaming.sketch import RadixSketch, reject_later_knobs
+        from mpi_k_selection_tpu_torch.streaming.spill import validate_pack_spill
 
         reject_later_knobs("StreamingQuantiles", kwargs)
         self.pipeline_depth = _pl.validate_pipeline_depth(pipeline_depth)
+        self.width_schedule = _chunked.DEFAULT_WIDTH_SCHEDULE if width_schedule is None else width_schedule
+        _chunked.validate_width_schedule(self.width_schedule)  # checked now
+        self.pack_spill = validate_pack_spill(pack_spill)
         _pl.resolve_ingest_workers(ingest_workers)  # checked now
         self.ingest_workers = ingest_workers
         self.device = device
@@ -231,16 +238,19 @@ class StreamingQuantiles:
         kernel per chunk on the tracker's device: the same sketch as
         ``update`` of each chunk in turn. ``spill`` (a caller-owned
         SpillStore) tees the pass into the store, which makes a one-shot
-        source refinable: pass the store to :meth:`refine_quantiles`."""
+        source refinable: pass the store to :meth:`refine_quantiles`. The
+        tracker's ``pack_spill`` sets the tee's format."""
         self.sketch.update_stream(
-            source, pipeline_depth=self.pipeline_depth, ingest_workers=self.ingest_workers, spill=spill
+            source, pipeline_depth=self.pipeline_depth, ingest_workers=self.ingest_workers, spill=spill,
+            pack_spill=self.pack_spill,
         )
         return self
 
     def merge(self, other) -> "StreamingQuantiles":
         out = StreamingQuantiles(
             self.sketch.dtype, radix_bits=self.sketch.radix_bits, levels=self.sketch.levels,
-            pipeline_depth=self.pipeline_depth, ingest_workers=self.ingest_workers, device=self.device,
+            pipeline_depth=self.pipeline_depth, width_schedule=self.width_schedule, pack_spill=self.pack_spill,
+            ingest_workers=self.ingest_workers, device=self.device,
         )
         out.sketch = self.sketch.merge(other.sketch if isinstance(other, StreamingQuantiles) else other)
         return out
@@ -257,5 +267,6 @@ class StreamingQuantiles:
         every pass across the ranks."""
         return _chunked.streaming_kselect_many(
             source, quantile_ranks(qs, self.sketch.n), radix_bits=self.sketch.radix_bits, sketch=self.sketch,
-            pipeline_depth=self.pipeline_depth, ingest_workers=self.ingest_workers, device=self.device,
+            pipeline_depth=self.pipeline_depth, width_schedule=self.width_schedule, pack_spill=self.pack_spill,
+            ingest_workers=self.ingest_workers, device=self.device,
         )

@@ -29,6 +29,10 @@ ranks::
     # spilled survivors), certified from the spilled generation 0
     python -m mpi_k_selection_tpu_torch --streaming --n 1073741824 --chunk-elems 67108864 --spill force --check
 
+    # a wide first digit and packed spill records (format v2)
+    python -m mpi_k_selection_tpu_torch --streaming --n 1073741824 --chunk-elems 67108864 --spill force \
+        --width-schedule auto --pack-spill auto --check
+
     # the reference's CGM over 4 ranks (4 spawned processes; gloo when they
     # share a card or run on the CPU, nccl with a card each), with its rounds
     python -m mpi_k_selection_tpu_torch --devices 4 --algorithm cgm --n 16000000 --verify --json
@@ -152,6 +156,18 @@ def build_parser() -> argparse.ArgumentParser:
         "--spill-dir", default=None,
         help="directory of --spill stores (default: the temp dir); at worst about 2x the stream's key bytes "
         "(3x for a store that keeps its generation 0, as --spill force does for --check)",
+    )
+    p.add_argument(
+        "--width-schedule", default="off", metavar="auto|off|W0,W1,...",
+        help="--streaming per-pass digit widths: off (default) = radix_bits every pass, auto = one wide first "
+        "digit (up to 16 bits; 64-bit keys a second one), or a comma-separated width list summing to the key "
+        "width. The same answers for every schedule",
+    )
+    p.add_argument(
+        "--pack-spill", choices=("auto", "off"), default="off",
+        help="--streaming spill record format: auto = format v2 (each survivor's unresolved low bits, "
+        "bit-packed per segment with a CRC each; the pass-0 tee segmented by the top digit, so later passes "
+        "read only the surviving segments), off (default) = format v1. The same answers either way",
     )
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     p.add_argument("--repeats", type=int, default=1)
@@ -441,6 +457,23 @@ def _parse_ingest_workers(raw):
         raise SystemExit(f"error: --ingest-workers must be auto or an int, got {raw!r}") from None
 
 
+def _parse_width_schedule(raw):
+    """``--width-schedule`` as the JAX CLI parses it: the mode strings,
+    or a comma-separated width list, checked before any stream is read."""
+    from mpi_k_selection_tpu_torch.streaming.chunked import validate_width_schedule
+
+    schedule = raw
+    if raw not in ("auto", "off"):
+        try:
+            schedule = tuple(int(w) for w in raw.split(",") if w.strip())
+        except ValueError:
+            raise SystemExit(f"error: --width-schedule must be auto, off, or comma-separated ints, got {raw!r}") from None
+    try:
+        return validate_width_schedule(schedule)
+    except ValueError as e:
+        raise SystemExit(f"error: {e}") from None
+
+
 def _run_streaming(args):
     from mpi_k_selection_tpu_torch import api
     from mpi_k_selection_tpu_torch.backends import cuda as backend
@@ -455,7 +488,9 @@ def _run_streaming(args):
     source = chunk_source(args)
     depth = args.pipeline_depth
     workers = _parse_ingest_workers(args.ingest_workers)
-    knobs = dict(pipeline_depth=depth, ingest_workers=workers, device=args.device)
+    schedule = _parse_width_schedule(args.width_schedule)
+    knobs = dict(pipeline_depth=depth, ingest_workers=workers, width_schedule=schedule, pack_spill=args.pack_spill,
+                 device=args.device)
     # --spill force with one run tees into a store the CLI owns, so the
     # certificate reads the spilled generation 0 instead of the source;
     # with --repeats each run makes (and removes) a store of its own
@@ -468,7 +503,9 @@ def _run_streaming(args):
         )
         record = _record(args, n, k, answer.item(), "streaming-chunked", seconds)
         record.extra.update(chunks=-(-n // args.chunk_elems), chunk_elems=args.chunk_elems, pipeline_depth=depth,
-                            ingest_workers=workers, spill=args.spill)
+                            ingest_workers=workers, spill=args.spill,
+                            width_schedule=list(schedule) if isinstance(schedule, tuple) else schedule,
+                            pack_spill=args.pack_spill)
         ok = True
         if args.verify or args.check:
             less, leq = api.streaming_rank_certificate(store if store is not None else source, answer, **knobs)

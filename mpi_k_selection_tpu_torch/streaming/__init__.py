@@ -13,7 +13,8 @@
 - ``sketch.py``: ``RadixSketch``, the mergeable online-quantile sketch
   whose counts come from the sweep kernel's sketch part, and which seeds
   the descent (``sketch=``, ``refine``).
-- ``spill.py``: ``SpillStore``, the survivor spill store (format v1, the
-  JAX package's records byte for byte): pass 0 tees the stream to disk,
-  later passes read the shrinking generations (``spill=``).
+- ``spill.py``: ``SpillStore``, the survivor spill store (formats v1 and
+  v2, the JAX package's records byte for byte): pass 0 tees the stream to
+  disk, later passes read the shrinking generations (``spill=``;
+  ``pack_spill="auto"`` packs them and prunes the reads).
 """

@@ -33,7 +33,8 @@ are skipped (``RadixSketch.refine``).
 
 The ``spill`` knob adds the reference CGM's discard step to the stream
 (streaming/spill.py): pass 0 tees each chunk's encoded keys to a
-generation on disk (on the host, on the producer thread), and every later
+generation on disk (on the host, on the producer thread; grouped on the
+card under ``pack_spill="auto"``), and every later
 pass reads the previous generation, keeps on the card only the keys under
 the surviving prefixes (the sweep kernel's tee part, in the same launch as
 the pass's histograms) and writes them as the next generation, so each
@@ -48,6 +49,19 @@ once, then the pass is rebuilt from the replayable source or a one-shot
 run's generation 0; running out of disk (``ENOSPC``) while teeing a later
 generation degrades ``"auto"`` to replaying the last good generation
 (with a RuntimeWarning) and raises ``SpillCapacityError`` otherwise.
+
+Two knobs cut the descent's bytes, both bit-identical to their ``"off"``
+defaults, which are the historical descent byte for byte.
+``width_schedule`` sets the digit width of each pass: ``"off"`` is
+``radix_bits`` a pass, ``"auto"`` a wide first digit (at most 16 bits,
+the rest on ``radix_bits`` boundaries; 64-bit keys a second wide one), or
+a tuple of widths summing to the bits to resolve
+(:func:`resolve_width_schedule`, resolved at pass 0's dtype probe).
+``pack_spill="auto"`` writes spill generations in format v2
+(streaming/spill.py): pass 0's records segmented by the top
+``GEN0_SEGMENT_BITS`` of each key, a later generation's by the pass's
+filter union with only each key's unresolved low bits on disk, and each
+later pass reads only the segments under its surviving prefixes.
 """
 
 from __future__ import annotations
@@ -73,6 +87,101 @@ DEFAULT_COLLECT_BUDGET = 1 << 20
 #: Default of the ``spill`` knob: spill only when the source cannot be
 #: replayed (the JAX package's default).
 DEFAULT_SPILL = "auto"
+
+#: The widest digit of one streamed pass (the JAX package's; the sweep
+#: kernel's widest histogram, 2^20 int32 counters).
+MAX_PASS_BITS = MAX_BITS
+
+#: Defaults of ``width_schedule`` and ``pack_spill`` (the JAX package's):
+#: one ``radix_bits`` digit a pass, and format-v1 records.
+DEFAULT_WIDTH_SCHEDULE = "off"
+DEFAULT_PACK_SPILL = "off"
+
+WIDTH_SCHEDULE_MODES = ("auto", "off")
+
+
+def validate_width_schedule(width_schedule):
+    """Normalize the ``width_schedule`` knob: ``"auto"``, ``"off"`` (None
+    = off) or a tuple of per-pass digit widths, each in ``[1,
+    MAX_PASS_BITS]``; checked before any stream is read, with the JAX
+    package's messages."""
+    if width_schedule is None:
+        return "off"
+    if width_schedule in WIDTH_SCHEDULE_MODES:
+        return width_schedule
+    bad = ValueError(
+        f"width_schedule must be one of {WIDTH_SCHEDULE_MODES} or a tuple of per-pass digit widths, got "
+        f"{width_schedule!r}"
+    )
+    if isinstance(width_schedule, str):
+        raise bad
+    try:
+        widths = tuple(int(w) for w in width_schedule)
+    except TypeError:
+        raise bad from None
+    if not widths:
+        raise ValueError("width_schedule tuple must name at least one pass")
+    for w in widths:
+        if not 1 <= w <= MAX_PASS_BITS:
+            raise ValueError(
+                f"width_schedule pass width {w} outside [1, {MAX_PASS_BITS}]: a streamed pass histograms 2**width "
+                "int32 device partials per in-flight (prefix, chunk) dispatch (KSC102's counter discipline), so "
+                f"wider digits would overflow the device histogram budget (2**{MAX_PASS_BITS} bins = 4 MiB); split "
+                "the schedule into more passes instead"
+            )
+    return widths
+
+
+def _fixed_schedule(total_bits: int, radix_bits: int, start_bits: int) -> tuple:
+    """``radix_bits`` a pass over the bits below ``start_bits``, which it
+    must divide."""
+    remaining = total_bits - start_bits
+    if remaining % radix_bits:
+        if start_bits:
+            raise ValueError(
+                f"radix_bits={radix_bits} must divide the {remaining} key bits left below the resolved "
+                f"{start_bits} bits"
+            )
+        raise ValueError(f"radix_bits={radix_bits} must divide key bits {total_bits}")
+    return (radix_bits,) * (remaining // radix_bits)
+
+
+def resolve_width_schedule(width_schedule, total_bits: int, radix_bits: int, start_bits: int = 0) -> tuple:
+    """A validated ``width_schedule`` against the stream's key bits: the
+    per-pass widths, summing to ``total_bits - start_bits`` (a seeding
+    sketch's resolved bits). ``"off"`` is ``radix_bits`` a pass (which
+    must divide the bits); ``"auto"`` takes the widest first digit of at
+    most 16 bits that leaves the rest on ``radix_bits`` boundaries, and
+    where more than 32 bits remain (64-bit keys) a second digit wider than
+    ``radix_bits`` by the same rule; a tuple must sum to the bits. The JAX
+    package's ``resolve_width_schedule``, message for message."""
+    remaining = total_bits - start_bits
+    if width_schedule == "off":
+        return _fixed_schedule(total_bits, radix_bits, start_bits)
+    if width_schedule == "auto":
+        for w in range(min(16, remaining), 0, -1):
+            if (remaining - w) % radix_bits == 0:
+                rem = remaining - w
+                head = (w,)
+                if rem > 16 and w > radix_bits and remaining > 32:
+                    for w2 in range(min(16, rem), radix_bits, -1):
+                        if (rem - w2) % radix_bits == 0:
+                            head += (w2,)
+                            rem -= w2
+                            break
+                return head + (radix_bits,) * (rem // radix_bits)
+        # radix_bits above 16: no first digit fits, so the fixed schedule,
+        # with its divisibility check (the JAX package returns a schedule
+        # short of the bits here, ROADMAP Queue 3 item 5)
+        return _fixed_schedule(total_bits, radix_bits, start_bits)
+    widths = tuple(width_schedule)
+    if sum(widths) != remaining:
+        raise ValueError(
+            f"width_schedule {widths} resolves {sum(widths)} bits but the descent must resolve {remaining}"
+            + (f" ({total_bits} key bits minus the sketch's {start_bits} resolved)" if start_bits
+               else f" ({total_bits} key bits)")
+        )
+    return widths
 
 
 def _is_one_shot_source(source) -> bool:
@@ -232,18 +341,24 @@ def _key_chunk_stream(src, dtype, *, pipeline_depth: int, device, spill=None, sp
 
 def _stream_pass(src, dtype, make_consumer, *, pipeline_depth: int, device, spill=None, spill_slot=None):
     """Stream every chunk of ``src`` through one consumer, built by
-    ``make_consumer(dtype)`` at the first chunk (``spill``, ``spill_slot``:
-    the host tee of :func:`_key_chunk_stream`). Returns ``(consumer,
-    dtype, n)``; the consumer is None for an empty stream."""
+    ``make_consumer(dtype)`` at the first chunk. ``spill`` tees every chunk
+    to a SpillWriter, its records naming ``spill_slot`` when pipelined and
+    no slot at depth 0: on the host (:func:`_key_chunk_stream`) for a
+    format-v1 writer, through a DigitTeeConsumer for a digit-segmenting
+    one. Returns ``(consumer, dtype, n)``; the consumer is None for an
+    empty stream."""
     consumer = ex = keys = None
     n = 0
+    digit_tee = spill if spill is not None and spill.pack_digit_bits is not None else None
     try:
-        with _key_chunk_stream(src, dtype, pipeline_depth=pipeline_depth, device=device, spill=spill,
-                               spill_slot=spill_slot) as chunks:
+        with _key_chunk_stream(src, dtype, pipeline_depth=pipeline_depth, device=device,
+                               spill=None if digit_tee is not None else spill, spill_slot=spill_slot) as chunks:
             for keys, dtype in chunks:
                 if consumer is None:
                     consumer = make_consumer(dtype)
-                    ex = _ex.StreamExecutor([consumer])
+                    tees = [] if digit_tee is None else [_ex.DigitTeeConsumer(
+                        digit_tee, _dt.key_bits(dtype), _np_dtype(dtype), spill_slot if pipeline_depth else None)]
+                    ex = _ex.StreamExecutor([*tees, consumer])
                 n += keys.size
                 ex.push(keys)
             if ex is not None:
@@ -357,7 +472,8 @@ def _resolve_spill(source, spill, spill_dir):
 
 def streaming_kselect(source, k, *, radix_bits: int = 8, collect_budget: int = DEFAULT_COLLECT_BUDGET,
                       sketch=None, pipeline_depth: int = DEFAULT_PIPELINE_DEPTH, ingest_workers=None,
-                      spill=DEFAULT_SPILL, spill_dir=None, device=None):
+                      spill=DEFAULT_SPILL, spill_dir=None, width_schedule=DEFAULT_WIDTH_SCHEDULE,
+                      pack_spill=DEFAULT_PACK_SPILL, device=None):
     """Exact k-th smallest (1-indexed) over a chunked stream: a host
     scalar of the stream's dtype (numpy; ml_dtypes' bfloat16 for
     bfloat16), bit for bit the JAX package's ``streaming_kselect``.
@@ -365,30 +481,36 @@ def streaming_kselect(source, k, *, radix_bits: int = 8, collect_budget: int = D
     ``source`` per :func:`as_chunk_source` (a one-shot iterator too, with
     ``spill`` on). ``radix_bits`` is the digit width of a pass (it must
     divide the key bits, or with a ``sketch`` the bits below its resolved
-    prefix); ``collect_budget`` bounds the survivors a rank collects to
-    the host, and so the passes; ``sketch`` (a RadixSketch of the same
-    stream) seeds the descent; ``pipeline_depth`` (0 = synchronous),
-    ``ingest_workers`` (None, ``"auto"`` or an int; checked only),
-    ``spill`` (``"auto"``, ``"off"``, ``"force"`` or a SpillStore),
-    ``spill_dir`` (the root of the stores a call makes; default the temp
-    dir) and ``device`` are described in the module docstring."""
+    prefix, under ``width_schedule="off"``); ``collect_budget`` bounds the
+    survivors a rank collects to the host, and so the passes; ``sketch``
+    (a RadixSketch of the same stream) seeds the descent;
+    ``pipeline_depth`` (0 = synchronous), ``ingest_workers`` (None,
+    ``"auto"`` or an int; checked only), ``spill`` (``"auto"``, ``"off"``,
+    ``"force"`` or a SpillStore), ``spill_dir`` (the root of the stores a
+    call makes; default the temp dir), ``width_schedule`` (``"off"``,
+    ``"auto"`` or a tuple of widths), ``pack_spill`` (``"off"`` or
+    ``"auto"``) and ``device`` are described in the module docstring."""
     return streaming_kselect_many(
         source, [k], radix_bits=radix_bits, collect_budget=collect_budget, sketch=sketch,
         pipeline_depth=pipeline_depth, ingest_workers=ingest_workers, spill=spill, spill_dir=spill_dir,
-        device=device,
+        width_schedule=width_schedule, pack_spill=pack_spill, device=device,
     )[0]
 
 
 def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: int = DEFAULT_COLLECT_BUDGET,
                            sketch=None, pipeline_depth: int = DEFAULT_PIPELINE_DEPTH, ingest_workers=None,
-                           spill=DEFAULT_SPILL, spill_dir=None, device=None):
+                           spill=DEFAULT_SPILL, spill_dir=None, width_schedule=DEFAULT_WIDTH_SCHEDULE,
+                           pack_spill=DEFAULT_PACK_SPILL, device=None):
     """Exact k-th smallest for EVERY (1-indexed) rank in ``ks``, as a list
     in ``ks`` order, sharing each pass across ranks: the stream is read
     once per radix level plus one collect, not once per rank, with one
     histogram per DISTINCT surviving prefix at each level. With spill on,
     pass 0 tees the stream to the store and every later pass reads (and
     shrinks) the previous generation; ``store.pass_log`` records each
-    pass. Knobs as :func:`streaming_kselect`."""
+    pass (``store.pass_host_ms`` its host time in the record work). Knobs
+    as :func:`streaming_kselect`."""
+    width_schedule = validate_width_schedule(width_schedule)
+    pack_spill = _sp.validate_pack_spill(pack_spill)
     depth = _pl.validate_pipeline_depth(pipeline_depth)
     _pl.resolve_ingest_workers(ingest_workers)
     if not 1 <= radix_bits <= MAX_BITS:  # the JAX package's MAX_PASS_BITS
@@ -411,8 +533,10 @@ def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: i
     protected = None
     n = 0
 
-    def gen_src():
-        return read_gen.as_source() if read_gen is not None else src
+    def gen_src(filter_specs=None):
+        # filter_specs prune the read of a v2 generation to the segments
+        # that may hold matching keys (the consumers' own filters select)
+        return read_gen.as_source(filter_specs=filter_specs) if read_gen is not None else src
 
     def fallback_src():
         """The rebuild source when the generation being read is corrupt:
@@ -423,20 +547,28 @@ def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: i
             return protected.as_source()
         return None
 
-    def log_pass(label, wrote=None, *, keys_read=None, read=None):
+    host_mark = {name: sw.seconds for name, sw in _sp.HOST_TIMES.items()}
+
+    def log_pass(label, wrote=None, *, keys_read=None, read=None, disk_read=None):
         if store is None:
             return
         if read is None:
             read = "spill" if read_gen is not None else "source"
         if keys_read is None:
             keys_read = read_gen.keys if read_gen is not None else n
-        # format v1 stores keys at full width: the disk bytes are the key bytes
+        # bytes_* are full-width key bytes, disk_bytes_* the physical ones
+        # (smaller for v2 records; a source read's equal the key bytes)
         entry = {"pass": label, "read": read, "keys_read": int(keys_read), "bytes_read": int(keys_read) * kbytes,
-                 "disk_bytes_read": int(keys_read) * kbytes}
+                 "disk_bytes_read": int(keys_read) * kbytes if disk_read is None else int(disk_read)}
         if wrote is not None:
             entry.update(keys_written=int(wrote.keys), bytes_written=int(wrote.logical_nbytes),
                          disk_bytes_written=int(wrote.nbytes))
         store.pass_log.append(entry)
+        host = {"pass": label}
+        for name, sw in _sp.HOST_TIMES.items():
+            host[f"{name}_ms"] = (sw.seconds - host_mark[name]) * 1e3
+            host_mark[name] = sw.seconds
+        store.pass_host_ms.append(host)
 
     def rotate(gen):
         """The just-committed generation becomes the next read; the one it
@@ -479,25 +611,35 @@ def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: i
             # the sketch names the stream dtype (every chunk is held to it) and
             # resolves its top bits: the passes walk the bits below them
             dtype = _dt.torch_dtype(sketch.dtype)
-            sketch.check_stream(dtype, radix_bits)
+            sketch.check_stream(dtype, radix_bits, width_schedule=width_schedule)
+            # the passes walk the bits below the sketch's resolved prefix
+            start_bits = sketch.resolution_bits
+            schedule = resolve_width_schedule(width_schedule, _dt.key_bits(dtype), radix_bits, start_bits=start_bits)
             n = sketch.n
             _validate_ks(ks, n)
             states = [list(sketch.walk(k)) for k in ks]
             kbytes = _dt.key_bits(dtype) // 8
         else:
+            start_bits = 0
+            schedule = None
+            pass0_gen = read_gen  # what pass 0 reads: a store source's generation, or None
+
             def first_pass(dtype):
                 # pass 0 is also the length scan and the dtype probe: one
-                # histogram of the top digit, no prefix filter
+                # histogram of the first digit, no prefix filter; the
+                # schedule resolves here, where the key bits are known
+                nonlocal schedule
                 total_bits = _dt.key_bits(dtype)
-                if total_bits % radix_bits:
-                    raise ValueError(f"radix_bits={radix_bits} must divide key bits {total_bits}")
+                schedule = resolve_width_schedule(width_schedule, total_bits, radix_bits)
                 return _ex.FusedIngestConsumer(
-                    total_bits=total_bits, hist=(total_bits - radix_bits, radix_bits, [None])
+                    total_bits=total_bits, hist=(total_bits - schedule[0], schedule[0], [None])
                 )
 
             def pass0(src_override, tee):
-                # with spill on, pass 0 also tees every chunk to generation 0
-                writer = store.new_generation() if tee and store is not None and read_gen is None else None
+                # with spill on, pass 0 also tees every chunk to generation 0,
+                # segmented by each key's top digit under pack_spill="auto"
+                writer = (store.new_generation(pack_digit_bits=_sp.GEN0_SEGMENT_BITS if pack_spill == "auto" else None)
+                          if tee and store is not None and read_gen is None else None)
                 try:
                     first, dtype, n0 = _stream_pass(
                         src_override if src_override is not None else gen_src(), None, first_pass,
@@ -521,17 +663,24 @@ def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: i
                 created.append(gen0)
                 if not own_store or one_shot:
                     protected = gen0
-                log_pass(0, gen0)
+            log_pass(0, gen0, disk_read=None if pass0_gen is None else pass0_gen.nbytes)
+            if gen0 is not None:
                 read_gen = gen0
-            else:
-                log_pass(0)
             _validate_ks(ks, n)
             states = []
             for k in ks:
-                prefix, kk, pop = _np_walk(first.hists[None], k, None, radix_bits)
-                states.append([prefix, kk, radix_bits, pop])
+                prefix, kk, pop = _np_walk(first.hists[None], k, None, schedule[0])
+                states.append([prefix, kk, schedule[0], pop])
         total_bits = _dt.key_bits(dtype)
         np_dtype = _np_dtype(dtype)
+        # each schedule step's boundary -> (digit width, pass label): active
+        # ranks advance in lockstep, so every pass starts on one; under
+        # "off" the labels are the historical resolved // radix_bits
+        steps = {}
+        acc = start_bits
+        for i, w in enumerate(schedule):
+            steps[acc] = (w, start_bits // radix_bits + i)
+            acc += w
 
         def active(st):
             return st[2] < total_bits and st[3] > collect_budget
@@ -540,7 +689,8 @@ def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: i
             # active ranks advance in lockstep, so they sit at one depth: one
             # pass serves every distinct surviving prefix
             resolved = next(st[2] for st in states if active(st))
-            shift = total_bits - resolved - radix_bits
+            width, label = steps[resolved]
+            shift = total_bits - resolved - width
             prefixes = sorted({st[0] for st in states if active(st)})
             expected = {st[0]: st[3] for st in states if active(st)}
             tee_specs = None
@@ -555,18 +705,25 @@ def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: i
                 )
             pass_read_gen = read_gen
 
-            def run_pass(src_override, tee, shift=shift, prefixes=prefixes, expected=expected,
+            def run_pass(src_override, tee, shift=shift, width=width, prefixes=prefixes, expected=expected,
                          tee_specs=tee_specs, pass_read_gen=pass_read_gen):
-                writer = store.new_generation() if tee and tee_specs is not None else None
+                # under pack_spill="auto" the tee's own filter union is the
+                # records' segment directory
+                writer = (store.new_generation(pack_specs=tee_specs if pack_spill == "auto" else None,
+                                               total_bits=total_bits)
+                          if tee and tee_specs is not None else None)
                 # what THIS attempt reads: the previous generation (or the
                 # source), or the ladder's fallback
                 read_from = ("spill" if (src_override is None and pass_read_gen is not None)
                              or (src_override is not None and one_shot) else "source")
+                # the generation whose physical bytes this attempt reads (None:
+                # a source read): the scheduled one, or a one-shot rebuild's gen 0
+                disk_gen = pass_read_gen if src_override is None else (protected if one_shot else None)
                 try:
                     consumer, _, pass_keys = _stream_pass(
-                        src_override if src_override is not None else gen_src(), dtype,
+                        src_override if src_override is not None else gen_src(tee_specs), dtype,
                         lambda _: _ex.FusedIngestConsumer(
-                            total_bits=total_bits, hist=(shift, radix_bits, prefixes),
+                            total_bits=total_bits, hist=(shift, width, prefixes),
                             tee_specs=tee_specs if writer is not None else (), writer=writer, orig_dtype=np_dtype,
                         ),
                         **run,
@@ -584,41 +741,49 @@ def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: i
                     if writer is not None:
                         writer.abort()
                     raise
-                return hists, writer.commit() if writer is not None else None, pass_keys, read_from
+                if disk_gen is None:
+                    disk_read = pass_keys * kbytes
+                elif src_override is None:  # the scheduled read, pruned to the tee's segments
+                    disk_read = disk_gen.read_nbytes(tee_specs)
+                else:
+                    disk_read = disk_gen.nbytes
+                return hists, writer.commit() if writer is not None else None, pass_keys, read_from, disk_read
 
-            hists, gen, pass_keys, read_from = _recover_pass(
+            hists, gen, pass_keys, read_from, disk_read = _recover_pass(
                 run_pass, reading_spill=read_gen is not None, fallback=fallback_src(), on_enospc=on_enospc
             )
-            log_pass(resolved // radix_bits, gen, keys_read=pass_keys, read=read_from)
+            log_pass(label, gen, keys_read=pass_keys, read=read_from, disk_read=disk_read)
             if gen is not None:
                 rotate(gen)
             for st in states:
                 if active(st):
-                    st[0], st[1], st[3] = _np_walk(hists[st[0]], st[1], st[0], radix_bits)
-                    st[2] = resolved + radix_bits
+                    st[0], st[1], st[3] = _np_walk(hists[st[0]], st[1], st[0], width)
+                    st[2] = resolved + width
 
         specs = {(resolved, int(prefix)): pop for prefix, _, resolved, pop in states if resolved < total_bits}
         collected = {}
         if specs:
 
             def run_collect(src_override, tee):
-                # what this attempt reads: the last generation (or the
-                # source), or the ladder's fallback
+                # what this attempt reads: the last generation pruned to the
+                # collect's specs (or the source), or the ladder's fallback
+                cspecs = tuple(specs)
                 if src_override is None:
                     read_from = "spill" if read_gen is not None else "source"
-                    kr = read_gen.read_keys(tuple(specs)) if read_gen is not None else n
+                    kr = read_gen.read_keys(cspecs) if read_gen is not None else n
+                    disk = read_gen.read_nbytes(cspecs) if read_gen is not None else kr * kbytes
                 elif one_shot:
-                    read_from, kr = "spill", protected.keys
+                    read_from, kr, disk = "spill", protected.keys, protected.nbytes
                 else:
-                    read_from, kr = "source", n
-                out = _collect_survivors(src_override if src_override is not None else gen_src(), dtype, specs,
-                                         **run)
-                return out, read_from, kr
+                    read_from, kr, disk = "source", n, n * kbytes
+                out = _collect_survivors(src_override if src_override is not None else gen_src(cspecs), dtype,
+                                         specs, **run)
+                return out, read_from, kr, disk
 
-            collected, read_from, keys_read = _recover_pass(
+            collected, read_from, keys_read, disk_read = _recover_pass(
                 run_collect, reading_spill=read_gen is not None, fallback=fallback_src(), on_enospc=None
             )
-            log_pass("collect", keys_read=keys_read, read=read_from)
+            log_pass("collect", keys_read=keys_read, read=read_from, disk_read=disk_read)
         kdt = _dt.np_to_sortable_bits(np.zeros(1, np_dtype)).dtype
         answers = []
         for prefix, kk, resolved, _ in states:
@@ -640,7 +805,7 @@ def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: i
 
 
 def streaming_rank_certificate(source, value, *, pipeline_depth: int = DEFAULT_PIPELINE_DEPTH, ingest_workers=None,
-                               device=None):
+                               width_schedule=DEFAULT_WIDTH_SCHEDULE, pack_spill=DEFAULT_PACK_SPILL, device=None):
     """``(#elements < value, #elements <= value)`` over a chunked stream,
     as Python ints: an answer for rank k is exact iff ``less < k <= leq``.
     Compared in key space (ties, ``-0.0``/``+0.0`` and NaNs behave exactly
@@ -648,7 +813,12 @@ def streaming_rank_certificate(source, value, *, pipeline_depth: int = DEFAULT_P
     certificate part. ``source`` may be a SpillStore with a committed
     generation: its newest is read from disk (a caller-owned store after a
     descent or a sketch tee holds its generation 0), so a one-shot
-    stream's answer is certified without reading the stream again."""
+    stream's answer is certified without reading the stream again (a
+    packed generation too). ``width_schedule`` and ``pack_spill`` are
+    checked, as the JAX package checks them, and change nothing: one
+    comparison pass has no digit to widen and writes no generation."""
+    validate_width_schedule(width_schedule)
+    _sp.validate_pack_spill(pack_spill)
     depth = _pl.validate_pipeline_depth(pipeline_depth)
     _pl.resolve_ingest_workers(ingest_workers)
     src = as_chunk_source(source)

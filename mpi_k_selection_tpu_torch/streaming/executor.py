@@ -14,6 +14,11 @@ consumers, one per part set a streamed pass uses:
 - :class:`SketchFoldConsumer`: a RadixSketch's deepest level and key
   extremes (``RadixSketch.update_stream`` and the monitor).
 
+Beside them, :class:`DigitTeeConsumer` tees a pass-0 or sketch pass to a
+format-v2 generation (``pack_spill="auto"``): the chunk's keys are grouped
+by their top digit and cut to their low bytes on the chunk's device
+(torch operations, no kernel of the JAX package's), and come back packed.
+
 :class:`StreamExecutor` dispatches each chunk's work when it arrives and
 finishes it (the host-side folds) in chunk order through an
 :class:`~mpi_k_selection_tpu_torch.streaming.pipeline.InflightWindow`,
@@ -28,7 +33,9 @@ import numpy as np
 import torch
 
 from mpi_k_selection_tpu_torch.ops.cuda.sweep_ingest import sweep_ingest
+from mpi_k_selection_tpu_torch.streaming import spill as _sp
 from mpi_k_selection_tpu_torch.streaming.pipeline import InflightWindow, StagedKeys
+from mpi_k_selection_tpu_torch.utils import dtypes as _dt
 
 _NP_UNSIGNED = {4: np.uint32, 8: np.uint64}
 
@@ -172,6 +179,48 @@ class SketchFoldConsumer:
         width = ext.element_size() * 8
         kmin, kmax = (int(v) & ((1 << width) - 1) for v in ext.cpu().tolist())
         sk._fold_counts(h, kmin, kmax, n_valid)
+
+
+class DigitTeeConsumer:
+    """Appends each chunk's keys to ``writer`` (a digit-segmenting
+    streaming/spill.py ``SpillWriter``) as one record, in chunk order: the
+    keys of ``total_bits`` bits of the stream dtype ``orig_dtype`` are
+    grouped and cut on the chunk's device (:func:`spill.pack_digits`) when
+    the width below the digit is whole bytes, else on the host; the
+    finish checksums the segments and writes the record (format v1 where
+    packing would not shrink it). Records name ``slot``, or a replayed
+    record's own slot."""
+
+    def __init__(self, writer, total_bits: int, orig_dtype, slot):
+        self._writer = writer
+        self._bits = total_bits
+        self._digit = writer.digit_bits(total_bits)
+        self._orig_dtype = orig_dtype
+        self._slot = slot
+        self._kdt = np.dtype(f"uint{total_bits}")
+
+    def dispatch(self, keys: StagedKeys):
+        k = _dt.keys_from_raw(keys.data[: keys.n_valid], keys.key_op, keys.key_xor)
+        slot = self._slot if keys.slot is StagedKeys.NO_SLOT else keys.slot
+        if (self._bits - self._digit) % 8:
+            return k, slot, None
+        return k, slot, _sp.pack_digits(k, self._digit, self._bits)
+
+    def _host_keys(self, k) -> np.ndarray:
+        return k.cpu().numpy().view(_NP_UNSIGNED[k.element_size()]).astype(self._kdt, copy=False)
+
+    def finish(self, handle) -> None:
+        k, slot, packed = handle
+        w = self._writer
+        if packed is None:
+            w.append(self._host_keys(k), self._orig_dtype, device_slot=slot)
+            return
+        with _sp.HOST_TIMES["prepare"].timing():
+            counts, payload = (t.cpu().numpy() for t in packed)
+            segments = _sp.digit_segments_from(counts, payload, self._digit, self._bits)
+            prep = _sp.prepared_record(lambda: self._host_keys(k), int(k.numel()), self._kdt, self._orig_dtype,
+                                       segments)
+        w.append_prepared(prep, device_slot=slot)
 
 
 #: Bundles in flight: one card, so one (the JAX package's window is one

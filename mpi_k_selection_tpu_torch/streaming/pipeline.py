@@ -220,11 +220,14 @@ class StagedKeys:
     staging slot and the pinned buffer once every result depending on the
     chunk is on the host; it is idempotent."""
 
+    NO_SLOT = object()  # ``slot`` of a chunk that is not a replayed spill record
+
     data: torch.Tensor
     n_valid: int
     key_op: str = "none"
     key_xor: int = 0
     on_release: object = None  # returns the staging slot and the pinned buffer
+    slot: object = NO_SLOT  # a replayed spill record's device slot (a tee keeps it)
     _lock: threading.Lock = dataclasses.field(default_factory=threading.Lock, repr=False)
 
     @property
@@ -333,7 +336,7 @@ def stage_chunk(c, dtype: torch.dtype, device: torch.device, stager=None, on_rel
     bits = _dt.key_bits(dtype)
     if is_keys:
         keys = raw.to(torch.int32) & ((1 << bits) - 1) if bits < 32 else raw
-        return StagedKeys(keys, raw.numel(), on_release=release)
+        return StagedKeys(keys, raw.numel(), on_release=release, slot=c.device_slot)
     if bits < 32:  # widened to 32-bit keys on the device
         return StagedKeys(_dt.to_sortable_bits(raw.view(dtype)), raw.numel(), on_release=release)
     fold = _dt.key_fold(dtype)

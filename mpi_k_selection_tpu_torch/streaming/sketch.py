@@ -49,8 +49,6 @@ _MAX_RESOLUTION_BITS = MAX_BITS
 #: The JAX package's streaming knobs the port does not take yet: what each
 #: is, and the ROADMAP Queue 1 item that brings it.
 LATER_KNOBS = {
-    "width_schedule": "the width schedule, ROADMAP Queue 1 item 3d",
-    "pack_spill": "packed spill records, ROADMAP Queue 1 item 3d",
     "devices": "multi-device staging, ROADMAP Queue 1 item 3e",
     "obs": "observability, ROADMAP Queue 1 item 4",
     "timer": "observability, ROADMAP Queue 1 item 4",
@@ -132,7 +130,7 @@ class RadixSketch:
         on_card = isinstance(c, torch.Tensor) and c.is_cuda
         return self._fold_stream(lambda: iter((c,)), 0, c.device if on_card else self.device)
 
-    def update_stream(self, source, *, pipeline_depth=None, ingest_workers=None, spill=None,
+    def update_stream(self, source, *, pipeline_depth=None, ingest_workers=None, spill=None, pack_spill=None,
                       **kwargs) -> "RadixSketch":
         """Fold every chunk of ``source`` in (one pass; a list or tuple of
         chunks or a zero-arg callable, streaming/chunked.py:
@@ -147,12 +145,16 @@ class RadixSketch:
         the same pass into a new generation of the store (a one-shot
         iterator is then accepted): afterwards ``refine(store, k)`` runs
         the exact descent from disk, never reading the stream again.
-        Returns ``self``."""
+        ``pack_spill="auto"`` writes that generation in format v2,
+        segmented by each key's top digit as the descent's pass 0 is, so a
+        refine reads only the segments under its sketch buckets (None =
+        ``"off"``: format v1). Returns ``self``."""
         reject_later_knobs("update_stream", kwargs)
         from mpi_k_selection_tpu_torch.streaming import spill as _sp
         from mpi_k_selection_tpu_torch.streaming.chunked import as_chunk_source
 
         depth = _pl.validate_pipeline_depth(pipeline_depth)
+        pack_spill = _sp.validate_pack_spill(pack_spill)
         _pl.resolve_ingest_workers(ingest_workers)
         if spill is not None and not isinstance(spill, _sp.SpillStore):
             raise TypeError(
@@ -160,7 +162,8 @@ class RadixSketch:
                 f"got {type(spill).__name__!r}"
             )
         src = as_chunk_source(source, one_shot_ok=spill is not None)
-        writer = spill.new_generation() if spill is not None else None
+        writer = (spill.new_generation(pack_digit_bits=_sp.GEN0_SEGMENT_BITS if pack_spill == "auto" else None)
+                  if spill is not None else None)
         try:
             self._fold_stream(src, depth, self.device, spill=writer)
             if writer is not None:
@@ -397,11 +400,16 @@ class RadixSketch:
         b, lo, hi = self._bucket(k)
         return b, int(k) - lo, self.resolution_bits, hi - lo
 
-    def check_stream(self, dtype, radix_bits: int) -> None:
+    def check_stream(self, dtype, radix_bits: int, width_schedule="off") -> None:
         """Check that a streamed descent of ``radix_bits`` digits over a
-        stream of ``dtype`` can continue from this sketch's prefix."""
+        stream of ``dtype`` can continue from this sketch's prefix. Under
+        another ``width_schedule`` than ``"off"`` only the dtype is
+        checked: the schedule itself must cover the bits below the prefix
+        (streaming/chunked.py: ``resolve_width_schedule``)."""
         if sketch_dtype(dtype) != self.dtype:
             raise TypeError(f"stream dtype {sketch_dtype(dtype)} != sketch dtype {self.dtype}")
+        if width_schedule != "off":
+            return
         remaining = self.total_bits - self.resolution_bits
         if remaining % radix_bits:
             raise ValueError(

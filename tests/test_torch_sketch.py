@@ -236,8 +236,10 @@ def test_merge_copy_fold_scaled_and_update_value_like_jax(rng):
 
 def test_errors_match_jax():
     """The resolution cap, incompatible merges, dtype checks and
-    ``check_stream``, with the JAX package's messages; the JAX knobs the
-    port does not take yet name their ROADMAP item."""
+    ``check_stream``, with the JAX package's messages; ``pack_spill`` is
+    taken by ``update_stream`` and both width knobs by
+    ``StreamingQuantiles``, as the JAX package takes them, while the JAX
+    knobs the port does not take yet name their ROADMAP item."""
     from mpi_k_selection_tpu.streaming.sketch import RadixSketch as JaxSketch
 
     for cls in (RadixSketch, JaxSketch):
@@ -260,13 +262,24 @@ def test_errors_match_jax():
         with pytest.raises(ValueError, match="must divide the 16 key bits left"):
             cls(np.int32).check_stream(np.int32, 5)
     RadixSketch(np.int32).check_stream(torch.int32, 8)
-    for knob, item in (("width_schedule", "3d"), ("pack_spill", "3d"), ("devices", "3e"), ("obs", "4"),
-                       ("timer", "4")):
+    for cls in (RadixSketch, JaxSketch):  # a schedule moves the divisibility check to the schedule
+        cls(np.int32).check_stream(np.int32, 5, width_schedule="auto")
+    for knob, item in (("devices", "3e"), ("obs", "4"), ("timer", "4")):
         with pytest.raises(TypeError, match=f"{knob}.*item {item}"):
             RadixSketch(np.int32, device="cpu").update_stream([np.arange(3, dtype=np.int32)], **{knob: None})
-    for knob in ("deferred", "fused", "width_schedule", "devices", "obs"):
+    with pytest.raises(TypeError, match="unexpected keyword argument 'width_schedule'$"):  # as the JAX package's
+        RadixSketch(np.int32, device="cpu").update_stream([np.arange(3, dtype=np.int32)], width_schedule="auto")
+    for pack in (None, "off", "auto"):
+        assert RadixSketch(np.int32, device="cpu").update_stream([np.arange(3, dtype=np.int32)], pack_spill=pack).n == 3
+    with pytest.raises(ValueError, match="pack_spill must be one of"):
+        RadixSketch(np.int32, device="cpu").update_stream([np.arange(3, dtype=np.int32)], pack_spill="on")
+    for knob in ("deferred", "fused", "devices", "obs"):
         with pytest.raises(TypeError, match=knob):
             kt.StreamingQuantiles(np.int32, **{knob: None})
+    t = kt.StreamingQuantiles(np.int32, width_schedule=(16, 8, 8), pack_spill="auto")
+    assert (t.width_schedule, t.pack_spill) == ((16, 8, 8), "auto")
+    with pytest.raises(ValueError, match="outside \\[1, 20\\]"):
+        kt.StreamingQuantiles(np.int32, width_schedule=(32,))
     with pytest.raises(TypeError, match="unexpected keyword argument 'bogus'$"):
         RadixSketch(np.int32).update_stream([], bogus=1)
     with pytest.raises(ValueError, match="ingest_workers"):

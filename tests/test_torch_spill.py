@@ -69,6 +69,7 @@ def port_generation(store, jax_gen):
     recs = tuple(sp.SpillRecord(
         path=r.path, chunk_index=r.chunk_index, n_valid=r.n_valid, bucket=r.bucket, device_slot=r.device_slot,
         key_dtype=r.key_dtype, orig_dtype=r.orig_dtype, crc32=r.crc32, nbytes=r.nbytes, version=r.version,
+        segments=r.segments,
     ) for r in jax_gen.records)
     gen = sp.SpillGeneration(store, jax_gen.index, jax_gen.path, recs)
     store._register(gen)
@@ -83,6 +84,7 @@ def jax_generation(store, port_gen):
     recs = tuple(jsp.SpillRecord(
         path=r.path, chunk_index=r.chunk_index, n_valid=r.n_valid, bucket=r.bucket, device_slot=r.device_slot,
         key_dtype=r.key_dtype, orig_dtype=r.orig_dtype, crc32=r.crc32, nbytes=r.nbytes, version=r.version,
+        segments=r.segments,
     ) for r in port_gen.records)
     gen = jsp.SpillGeneration(store, port_gen.index, port_gen.path, recs)
     store.generations[gen.index] = gen
@@ -102,9 +104,9 @@ def generation_files(store) -> dict:
 def test_prefix_errors_and_knobs_match_jax(tmp_path):
     """The spill dir prefix is the JAX registry's (so the conftest leak
     check covers the port's stores); the error classes nest as the JAX
-    package's; ``spill`` is ported, while ``pack_spill``,
-    ``width_schedule``, ``devices``, ``obs`` and ``timer`` still refuse,
-    naming their ROADMAP items."""
+    package's; ``spill`` and ``pack_spill`` are ported (the format-v2
+    constants are the JAX package's), while ``devices``, ``obs`` and
+    ``timer`` still refuse, naming their ROADMAP items."""
     from mpi_k_selection_tpu import errors as jerr
     from mpi_k_selection_tpu.resource_protocols import SPILL_DIR_PREFIX
     from mpi_k_selection_tpu.streaming import spill as jsp
@@ -113,15 +115,19 @@ def test_prefix_errors_and_knobs_match_jax(tmp_path):
     assert sp.SPILL_MODES == jsp.SPILL_MODES
     assert (sp._MAGIC, sp._VERSION, sp._VERSION_PACKED, sp._HEADER.format) == (
         jsp._MAGIC, jsp._VERSION, jsp._VERSION_PACKED, jsp._HEADER.format)
+    assert (sp.PACK_SPILL_MODES, sp._SEG_COUNT.format, sp._SEG_ENTRY.format, sp.GEN0_SEGMENT_BITS) == (
+        jsp.PACK_SPILL_MODES, jsp._SEG_COUNT.format, jsp._SEG_ENTRY.format, jsp.GEN0_SEGMENT_BITS)
     assert chunked.DEFAULT_SPILL == "auto"
     for mine, theirs in ((SpillError, jerr.SpillError), (SpillRecordError, jerr.SpillRecordError),
                          (SpillCapacityError, jerr.SpillCapacityError)):
         assert mine.__name__ == theirs.__name__
         assert [c.__name__ for c in mine.__mro__] == [c.__name__ for c in theirs.__mro__]
-    assert "spill" not in LATER_KNOBS
+    assert not {"spill", "pack_spill", "width_schedule"} & set(LATER_KNOBS)
     a = [np.arange(3, dtype=np.int32)]
-    for knob, item in (("pack_spill", "3d"), ("width_schedule", "3d"), ("devices", "3e"), ("obs", "4"),
-                       ("timer", "4")):
+    with SpillStore(str(tmp_path)) as store:
+        RadixSketch(np.int32, device="cpu").update_stream(a, spill=store, pack_spill="auto")
+        assert store.latest_generation().keys == 3
+    for knob, item in (("devices", "3e"), ("obs", "4"), ("timer", "4")):
         with pytest.raises(TypeError, match=f"{knob}.*item {item}"):
             RadixSketch(np.int32, device="cpu").update_stream(a, **{knob: None})
     with pytest.raises(TypeError, match="SpillStore"):
@@ -257,23 +263,28 @@ def test_each_package_reads_the_others_generation(name, tmp_path):
 
 
 def test_port_refuses_a_packed_generation(tmp_path):
-    """A JAX ``pack_spill="auto"`` generation (format v2) is refused with a
-    SpillError naming ROADMAP item 3d, not a SpillRecordError (the
-    recovery ladder must not rebuild around it)."""
+    """A JAX ``pack_spill="auto"`` generation (format v2), once refused, is
+    now read: its keys are the JAX package's own read of it, whole and
+    pruned, and descents over it (replayed, spill-forced, packed) answer
+    as over the stream."""
     from mpi_k_selection_tpu.streaming import streaming_kselect as ref_select
 
     chunks = stream("int32", seed=9, sizes=(4000, 4000))
+    x = np.concatenate(chunks)
     theirs = jax_store(tmp_path)
     ref_select(chunks, 100, spill=theirs, pack_spill="auto", **NARROW)
-    assert any(r.version == 2 for r in theirs.latest_generation().records)
+    jgen = theirs.latest_generation()
+    assert any(r.version == 2 for r in jgen.records)
     reader = SpillStore(str(tmp_path))
-    port_generation(reader, theirs.latest_generation())
-    for call in (lambda: list(reader.latest_generation().iter_chunks()),
-                 lambda: kt.kselect_streaming(reader, 100, device="cpu"),
-                 lambda: kt.kselect_streaming(reader, 100, spill="force", spill_dir=str(tmp_path), device="cpu")):
-        with pytest.raises(SpillError, match="item 3d") as info:
-            call()
-        assert not isinstance(info.value, SpillRecordError)
+    gen = port_generation(reader, jgen)
+    assert gen.packed and gen.nbytes == jgen.nbytes < gen.logical_nbytes
+    for specs in (None, ((8, 0x80),), ((4, 0x8), (12, 0x7FF))):
+        assert [c.keys.tobytes() for c in gen.iter_chunks(filter_specs=specs)] == [
+            c.keys.tobytes() for c in jgen.iter_chunks(filter_specs=specs)]
+        assert (gen.read_keys(specs), gen.read_nbytes(specs)) == (jgen.read_keys(specs), jgen.read_nbytes(specs))
+    want = key_oracle(x, [100])
+    for kw in ({}, {"spill": "force", "spill_dir": str(tmp_path)}, {"pack_spill": "auto", "width_schedule": "auto"}):
+        assert bits([kt.kselect_streaming(reader, 100, device="cpu", **NARROW, **kw)], x.dtype) == want, kw
     theirs.close()
     reader.close()
     assert not spill_dirs(tmp_path)
