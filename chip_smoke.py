@@ -140,13 +140,14 @@ Phases, each of which must pass (any failure exits non-zero):
 
 8. The spill descent (``phase_spill``, run after phase 7 and before phase
    6) on the int32 stream of phase 3, halved when the disk under the temp
-   dir has less than 1.5x its bytes free: the median of the stream read
-   as a one-shot generator with ``spill="auto"``, under the profiler
-   (answer against phase 3's, wall ms, its ``pass_log`` beside the
-   arithmetic, the bytes over the link against the replay's, the peak
-   bytes on disk sampled after each commit, the sweep kernel's device
-   time and the idle share); on the first half of the stream (the run's
-   time), the p50/p90/p99/p99.9 with ``spill="force"`` (against NumPy's
+   dir has less than 1.5x its bytes free: the median of the first half of
+   the stream (the run's time, since PR 13) read as a one-shot generator
+   with ``spill="auto"``, under the profiler (answer against NumPy's
+   certificate, wall ms, its ``pass_log``, the bytes over the link
+   against the replay's, the peak bytes on disk sampled after each
+   commit, the sweep kernel's device time and the idle share); on the
+   first quarter (2^30 keys; the run's time), the p50/p90/p99/p99.9 with
+   ``spill="force"`` (against NumPy's
    certificates, with its ``pass_log``),
    ``StreamingQuantiles.update_stream(one_shot, spill=store)``, then
    ``refine_quantiles`` and ``streaming_rank_certificate`` from the store
@@ -162,12 +163,14 @@ Phases, each of which must pass (any failure exits non-zero):
    after phase 8 and before phase 6): the replay median of each stream
    with ``width_schedule="off"`` and ``"auto"`` under the profiler (answer
    against phase 3's, wall ms, reads and bytes over the link, idle share);
-   the int32 stream's one-shot median with ``spill="auto"`` and both knobs
-   on ``"auto"`` under the profiler beside phase 8's format-v1 call (its
+   the one-shot median of the int32 stream's first half with ``spill="auto"``
+   and both knobs on ``"auto"`` under the profiler beside phase 8's
+   format-v1 call on the same chunks (its
    ``pass_log`` with logical and physical bytes, each pass's host ms in
    the record work from ``spill.HOST_TIMES``, the peak on disk, the bytes
-   over the link, the idle share); quantiles K=4 ``spill="force"`` with
-   both knobs; ``StreamingQuantiles(width_schedule="auto",
+   over the link, the idle share); on the first quarter, as phase 8's
+   twins: quantiles K=4 ``spill="force"`` with both knobs;
+   ``StreamingQuantiles(width_schedule="auto",
    pack_spill="auto")``'s one-shot ``update_stream`` into a store, then
    ``refine_quantiles`` and the rank certificate from it; the digit pack
    of chunk 0 on the card against the host's; and row 8 at each launch
@@ -177,6 +180,25 @@ Phases, each of which must pass (any failure exits non-zero):
    other kinds, beside ``torch.bincount`` of the same digits. Phase 2
    also holds the histogram part at 16-20-bit digits (no prefix, one and
    four prefixes) and a tee beside an 8- and a 16-bit digit.
+
+10. Multi-device staging and the telemetry (``phase_multidevice_obs``,
+   run after phase 9 and before phase 6) on the streams of phase 3: the
+   int32 replay median at depth 2 on one slot, on two slots of ``cuda:0``
+   (a window of two bundles) and on two slots with every telemetry
+   channel on, each under the profiler (answers against phase 3's, wall
+   ms, idle share; the instrumented stream's invariants, chunk events,
+   ``ingest.*`` and ``staging_pool.*`` metrics and trace tracks checked);
+   the float64 median bare and instrumented; the one-shot spilled median
+   with both width knobs ``"auto"`` on two slots with telemetry, on the
+   first half of the int32 stream (its ``stream.pass`` events against the
+   ``pass_log``, its ``spill.*`` counters against the log's sums);
+   ``kselect`` and ``kselect_many`` of the 2^30 int32 array with telemetry
+   (``resident.select`` events, the ledger's ``api.select`` site); and,
+   with two cards or more, the int32 median with one slot a card (per-card
+   chunk counts and sweep launches from the profiler, per-card busy time,
+   the wall beside one slot). ``python3 chip_smoke.py --phase10`` runs the
+   build, the streams (certified by NumPy) and phase 10 alone: the
+   measurement for a host of several cards.
 
 The timed kernel rows of phase 4 also time the nearest torch composition
 of each of rows 1-6 on the same tensor (a ``torch.bincount`` of the digits
@@ -1811,14 +1833,17 @@ def phase_spill(ints, f64, certified):
 
     - the free disk under the spill root (``shutil.disk_usage``): below
       1.5x the stream's bytes the stream is halved, and the cut printed;
-    - the median of the stream read as a ONE-SHOT generator, ``spill="auto"``,
-      one call under the profiler: its answer against phase 3's certified
-      median, wall ms, its ``pass_log`` beside the arithmetic above, the
-      bytes over the link against phase 3's replay (4 reads), the peak
-      bytes on disk (sampled after each commit), the sweep kernel's device
-      time and the idle share;
-    - on the first half of the stream (the run's time; phase 9 runs the
-      format-v2 twins whole): the p50/p90/p99/p99.9 with
+    - the median of the first half of the stream (the run's time: 2^31
+      keys, 8 GiB; since PR 13, when phase 10 joined the run) read as a
+      ONE-SHOT generator, ``spill="auto"``, one call under the profiler:
+      its answer against NumPy's certificate (phase 3's certified median
+      when the whole stream is read), wall ms, its ``pass_log`` (beside
+      the arithmetic above on the whole stream), the bytes over the link
+      against the replay's, the peak bytes on disk (sampled after each
+      commit), the sweep kernel's device time and the idle share;
+    - on the first quarter of the stream (2^30 keys, BASELINE.md's 1B
+      int32; the run's time; phase 9 runs the format-v2 twins on the same
+      quarter): the p50/p90/p99/p99.9 with
       ``spill="force"``, against NumPy's certificates, with its
       ``pass_log``; ``StreamingQuantiles.update_stream(one_shot,
       spill=store)`` into a store this phase owns, ``refine_quantiles``
@@ -1853,6 +1878,10 @@ def phase_spill(ints, f64, certified):
         print(f"[spill] CUT: {cuts[-1]}")
     if cuts:
         out["cut"] = cuts
+    # the first half, for the run's time
+    chunks = chunks[: max(1, min(len(chunks), len(ints.chunks) // 2))]
+    out.setdefault("cut", []).append(f"the one-shot median on the first {len(chunks)} chunks (the run's time)")
+    print(f"[spill] CUT: {out['cut'][-1]}")
     full = len(chunks) == len(ints.chunks)
     n = len(chunks) * STREAM_CHUNK
     root = tempfile.mkdtemp(prefix="chip-smoke-spill-root-", dir=tmp)
@@ -1904,8 +1933,8 @@ def phase_spill(ints, f64, certified):
         sweep_calls = sum(c for name, c, _ in top if "sweep_ingest_kernel" in name)
         print_pass_log(what, log, SPILL_PREDICTED if full else None)
         link = sum(e["bytes_read"] for e in log)
-        replay = certified["median_passes"] * n * 4
-        print(f"[spill] {what}: {got!r} == phase 3's certified median; {ms:.1f} ms; peak on disk "
+        replay = certified["median_passes"] * n * 4  # the replay's reads of the same chunks
+        print(f"[spill] {what}: {got!r} certified; {ms:.1f} ms; peak on disk "
               f"{watch.peak / 2**30:.3f} GiB (samples {[round(b / 2**30, 3) for b in watch.samples]}); over the "
               f"link {link / 2**30:.2f} GiB against the replay's {replay / 2**30:.0f} GiB "
               f"({certified['median_passes']} reads); device busy "
@@ -1917,8 +1946,8 @@ def phase_spill(ints, f64, certified):
                               "sweep_device_ms": sweep, "sweep_launches_profiled": sweep_calls,
                               "top": [{"name": nm, "calls": c, "ms": m} for nm, c, m in top[:6]]}
 
-        # the later calls read the first half of the stream, for the run's
-        # time: phase 9 runs their format-v2 twins on the whole stream
+        # the later calls read the first quarter of the stream, for the
+        # run's time: phase 9 runs their format-v2 twins on the same quarter
         chunks, full = chunks[: max(1, len(chunks) // 2)], False
         n = len(chunks) * STREAM_CHUNK
         out.setdefault("cut", []).append(f"quantiles K=4 spill=force and the sketch flow on the first {len(chunks)} "
@@ -2086,10 +2115,12 @@ def phase_width_pack(ints, f64, certified, v1):
       under the profiler, beside phase 8's format-v1 call (``v1``): its
       ``pass_log`` with logical and physical bytes, each pass's host ms
       in the record work, the peak bytes on disk, the bytes over the link,
-      wall ms and idle share (the stream is halved when the disk under the
-      temp dir holds less than 1.5x its bytes);
-    - quantiles K=4 of the replayable chunks, ``spill="force"`` with both
-      knobs on ``"auto"``;
+      wall ms and idle share, on the first half of the stream as phase 8's
+      call (the run's time; halved again when the disk under the temp dir
+      holds less than 1.5x its bytes);
+    - on the first quarter (the run's time, the same chunks as phase 8's
+      format-v1 twins): quantiles K=4 of the replayable chunks,
+      ``spill="force"`` with both knobs on ``"auto"``;
     - ``StreamingQuantiles(width_schedule="auto", pack_spill="auto")``:
       ``update_stream(one_shot, spill=store)`` (generation 0 packed on the
       card), then ``refine_quantiles`` and ``streaming_rank_certificate``
@@ -2173,11 +2204,12 @@ def phase_width_pack(ints, f64, certified, v1):
                 bits == 32 and np.array(answers["off"]).tobytes() != np.array(certified["quantiles32"]).tobytes()):
             fail(f"quantiles K=4, {label}: auto {answers['auto']!r} != off {answers['off']!r} (or phase 3's)")
 
-    # the spilled calls
+    # the spilled calls: the one-shot median on the first half, as phase 8's
     tmp = tempfile.gettempdir()
     free = shutil.disk_usage(tmp).free
-    chunks = ints.chunks
-    cuts = []
+    chunks = ints.chunks[: max(1, len(ints.chunks) // 2)]
+    cuts = [f"the one-shot median on the first {len(chunks)} chunks (the run's time)"]
+    print(f"[width] CUT: {cuts[-1]}")
     while len(chunks) > 1 and free < SPILL_DISK_FACTOR * sum(c.nbytes for c in chunks):
         chunks = chunks[: len(chunks) // 2]
         cuts.append(f"free disk {free} bytes < {SPILL_DISK_FACTOR}x the stream: halved to {len(chunks)} chunks")
@@ -2213,8 +2245,8 @@ def phase_width_pack(ints, f64, certified, v1):
         print_pack_log(what, log, host)
         link = sum(e["bytes_read"] for e in log)
         sweep = sum(m for nm, _, m in top if "sweep_ingest_kernel" in nm)
-        v1_call = next((c for w_, c in v1.get("calls", {}).items() if w_.startswith("streaming median spill=auto")),
-                       None) if full else None
+        v1_call = next((c for w_, c in v1.get("calls", {}).items() if w_.startswith("streaming median spill=auto")
+                        and c["pass_log"][0]["keys_read"] == n), None)  # phase 8's on the same chunks
         print(f"[width] {what}: {got!r} exact; {ms:.1f} ms; peak on disk {watch.peak / 2**30:.3f} GiB (samples "
               f"{[round(b / 2**30, 3) for b in watch.samples]}); over the link {link / 2**30:.3f} GiB; device busy "
               + ("not measured" if busy is None else f"{busy:.1f} ms, idle share {idle:.3f}")
@@ -2225,6 +2257,15 @@ def phase_width_pack(ints, f64, certified, v1):
                               "pass_host_ms": host, "peak_disk_bytes": watch.peak, "disk_samples": watch.samples,
                               "generation_records": watch.records, "link_bytes": link, "sweep_device_ms": sweep,
                               "top": [{"name": nm, "calls": c, "ms": m} for nm, c, m in top[:6]]}
+
+        # the later calls read the first quarter, the chunks of phase 8's
+        # format-v1 twins (the run's time)
+        chunks, full = chunks[: max(1, len(chunks) // 2)], False
+        n = len(chunks) * STREAM_CHUNK
+        qranks = [max(1, min(n, int(np.ceil(q * n)))) for q in QS]
+        out.setdefault("cut", []).append(f"quantiles K=4 spill=force and the sketch flow on the first {len(chunks)} "
+                                         "chunks (the run's time)")
+        print(f"[width] CUT: {out['cut'][-1]}")
 
         what = f"streaming quantiles K=4 spill=force width_schedule=auto pack_spill=auto, int32 uniform {n} elements"
         with SpillWatch(root) as watch:
@@ -2324,6 +2365,299 @@ def phase_width_pack(ints, f64, certified, v1):
         torch.cuda.empty_cache()
     out["auto_kinds"] = kinds
     out["timings"] = rows
+    return launches, per_call, out
+
+
+TWO_SLOTS = ("cuda:0", "cuda:0")  # phase 10: two ingest slots on one card, a window of two bundles
+
+
+def profiled_per_card(fn):
+    """One call of ``fn`` under torch.profiler, timed with CUDA events on
+    card 0 (the call returns after every card's bundles were waited on):
+    ``(result, ms, {card: busy ms}, {card: sweep kernel launches})``, the
+    busy time the union of each card's kernel and copy intervals."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cards = range(torch.cuda.device_count())
+    for i in cards:
+        torch.cuda.synchronize(i)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        a.record()
+        out = fn()
+        b.record()
+        for i in cards:
+            torch.cuda.synchronize(i)
+    ms = a.elapsed_time(b)
+    spans, sweeps = {}, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            spans.setdefault(e.device_index, []).append((e.time_range.start, e.time_range.end))
+            if "sweep_ingest_kernel" in e.name:
+                sweeps[e.device_index] = sweeps.get(e.device_index, 0) + 1
+    busy = {}
+    for dev, iv in spans.items():
+        iv.sort()
+        total, (lo, hi) = 0.0, iv[0]
+        for start, end in iv[1:]:
+            if start > hi:
+                total, lo = total + hi - lo, start
+            hi = max(hi, end)
+        busy[dev] = (total + hi - lo) / 1e3
+    return out, ms, busy, sweeps
+
+
+def phase_multidevice_obs(ints, f64, certified, x30):
+    """Phase 10, multi-device staging and the telemetry on the streams of
+    phase 3, each call driven with the launch counts set to 0 just before
+    it and read just after (the sweep kernel once per chunk per pass read,
+    nothing else, no plain version):
+
+    - the int32 replay median at depth 2 three ways, each under the
+      profiler: one slot without telemetry, two slots on ``cuda:0`` (a
+      window of two bundles) without, and two slots with
+      ``Observability.collecting()`` and a ``PhaseTimer``: each answer
+      against phase 3's; the instrumented stream holds
+      ``check_stream_invariants``, 64 ``stream.chunk`` events a pass,
+      ``ingest.chunks`` / ``ingest.bytes`` equal to the chunks and key
+      bytes its passes read, ``staging_pool.*`` equal to the pool's own
+      counters, and at least two thread tracks in its trace; wall ms and
+      the idle share of each;
+    - the float64 replay median, one slot bare beside two slots with
+      telemetry, the same checks;
+    - the one-shot spilled median (``spill="auto"``, ``width_schedule`` and
+      ``pack_spill`` ``"auto"``) on two slots with telemetry, on the first
+      half of the int32 stream (the run's time, as phase 8's later calls),
+      against NumPy's certificate: its ``stream.pass`` events equal the
+      store's ``pass_log`` entry for entry, and the ``spill.*`` counters
+      the log's sums;
+    - ``kselect`` twice and ``kselect_many`` (p50/p90/p99/p99.9) of the 2^30
+      int32 array with telemetry: one ``resident.select`` event a call,
+      the answers those of the calls without it, the histogram kernels
+      launched, and the ledger's ``api.select`` site counting one compile
+      a key in the process (the repeat a hit);
+    - with two cards or more, the int32 replay median with
+      ``devices=torch.cuda.device_count()``: its answer, each card's
+      ``ingest.chunks{device=i}`` (64 / p a pass, exactly) and the
+      profiler's sweep kernels on that card (never more than its chunks,
+      none on another card, at least 95% of them seen: the profiler may
+      drop a record), each card's busy time, and the wall beside the
+      one-slot call. On one card this step does not run, and says so."""
+    import shutil
+    import tempfile
+
+    import mpi_k_selection_tpu_torch as kt
+    from mpi_k_selection_tpu_torch import obs as obs_lib
+    from mpi_k_selection_tpu_torch.api import quantile_ranks
+    from mpi_k_selection_tpu_torch.ops.cuda import histogram as H
+    from mpi_k_selection_tpu_torch.ops.cuda import sweep_ingest as S
+    from mpi_k_selection_tpu_torch.ops.cuda import topk as T
+    from mpi_k_selection_tpu_torch.streaming import pipeline as pl
+    from mpi_k_selection_tpu_torch.utils.profiling import PhaseTimer
+
+    launches = {k: 0 for k in KERNELS}
+    per_call, out = {}, {"calls": {}}
+
+    def counted(what, fn, bits, want_launches, kind="sweep"):
+        """One call with every count at 0 just before it: fails unless the
+        sweep kernel of ``bits`` launched ``want_launches()`` times (or,
+        for the resident calls, the histogram kernels launched), nothing
+        else ran and no plain version ran."""
+        for m in (H, T, S):
+            m.reset_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        plain = {k: v for k, v in {**H.PLAIN_CALLS, **T.PLAIN_CALLS, **S.PLAIN_CALLS}.items() if v}
+        got = {k: v for k, v in {**H.LAUNCHES, **T.LAUNCHES, **S.LAUNCHES}.items() if v}
+        if kind == "sweep":
+            want = want_launches()
+            ok = got == {f"sweep_ingest{bits}": want} and want > 0
+        else:
+            ok = got.get(f"radix_histogram{bits}", 0) + got.get(f"radix_histogram_multi{bits}", 0) > 0 \
+                and not any(k.startswith("sweep") for k in got)
+        if not ok or plain:
+            fail(f"{what}: launches {got}; plain calls {plain}")
+        for k, v in got.items():
+            launches[k] += v
+        per_call[what] = got
+        print(f"[phase10] {what}: launches {got}, no plain call")
+        return res
+
+    def check_obs(what, o, src_chunks, kbytes, timer):
+        """The instrumented stream's checks; returns its summary."""
+        ev = o.events.events
+        obs_lib.check_stream_invariants(ev)
+        passes = o.events.of_kind("stream.pass")
+        chunks = o.events.of_kind("stream.chunk")
+        per_pass = {}
+        for c in chunks:
+            per_pass[c.pass_index] = per_pass.get(c.pass_index, 0) + 1
+        if set(per_pass.values()) != {src_chunks} or set(per_pass) != {e.pass_index for e in passes}:
+            fail(f"{what}: chunk events a pass {per_pass}, expected {src_chunks} in each of "
+                 f"{[e.pass_index for e in passes]}")
+        reg = o.metrics
+        by_dev = {dict(m.labels)["device"]: m.value for m in reg.metrics() if m.name == "ingest.chunks"}
+        nbytes = sum(m.value for m in reg.metrics() if m.name == "ingest.bytes")
+        if sum(by_dev.values()) != len(chunks) or nbytes != sum(e.keys_read for e in passes) * kbytes:
+            fail(f"{what}: ingest.chunks {by_dev} / ingest.bytes {nbytes} against {len(chunks)} chunk events and "
+                 f"{sum(e.keys_read for e in passes) * kbytes} key bytes read")
+        pool = (reg.counter("staging_pool.hits").value, reg.counter("staging_pool.misses").value,
+                reg.gauge("staging_pool.resident_bytes").value)
+        if pool != (pl.STAGING_POOL.hits, pl.STAGING_POOL.misses, pl.STAGING_POOL.resident_bytes):
+            fail(f"{what}: staging_pool metrics {pool} != the pool's own ({pl.STAGING_POOL.hits}, "
+                 f"{pl.STAGING_POOL.misses}, {pl.STAGING_POOL.resident_bytes})")
+        tracks = len(o.trace.thread_ids())
+        if tracks < 2:
+            fail(f"{what}: {tracks} thread track(s) in the trace, expected the producer's and the consumer's")
+        phases = {k: round(v["seconds"] * 1e3, 3) for k, v in timer.as_dict().items()}
+        print(f"[phase10] {what}: invariants hold; {len(passes)} passes x {src_chunks} chunk events; ingest.chunks "
+              f"{by_dev}; staging_pool metrics == the pool's {pool}; {tracks} trace tracks; spans "
+              f"{len(o.trace.spans)}; phases ms {phases}")
+        return {"passes": len(passes), "ingest_chunks": by_dev, "ingest_bytes": nbytes, "trace_tracks": tracks,
+                "spans": len(o.trace.spans), "phase_ms": phases,
+                "occupancy_max": reg.histogram("inflight.occupancy").max}
+
+    def replay(what, src, k, want, bits, **kw):
+        src.passes = 0
+        got, ms, busy, idle, top = counted(what, lambda: profiled_call(
+            lambda: kt.kselect_streaming(src, k, pipeline_depth=2, **kw)), bits, lambda: src.passes * len(src.chunks))
+        if got.tobytes() != want.tobytes():
+            fail(f"{what}: {got!r} != phase 3's certified answer {want!r}")
+        rec = {"ms": ms, "busy_ms": busy, "idle_share": idle, "passes": src.passes, "answer": repr(got)}
+        print(f"[phase10] {what}: {got!r} == phase 3; {ms:.1f} ms; device busy "
+              + ("not measured" if busy is None else f"{busy:.1f} ms, idle share {idle:.3f}"))
+        out["calls"][what] = rec
+        return rec
+
+    # the int32 and float64 replay medians, bare and with telemetry
+    n32, n64 = len(ints.chunks) * STREAM_CHUNK, len(f64.chunks) * F64_CHUNK
+    runs = ((ints, 32, n32 // 2, certified["median32"], "int32 uniform 2^32", True),
+            (f64, 64, n64 // 2, certified["median64"], "float64 normal 2^30", False))
+    for src, bits, k, want, label, with_bare_slots in runs:
+        replay(f"median depth=2 devices=None obs=None, {label}", src, k, want, bits)
+        if with_bare_slots:
+            replay(f"median depth=2 devices=2 slots on cuda:0 obs=None, {label}", src, k, want, bits,
+                   devices=TWO_SLOTS)
+        o, timer = obs_lib.Observability.collecting(), PhaseTimer()
+        what = f"median depth=2 devices=2 slots on cuda:0 obs=on, {label}"
+        rec = replay(what, src, k, want, bits, devices=TWO_SLOTS, obs=o, timer=timer)
+        rec.update(check_obs(what, o, len(src.chunks), bits // 8, timer))
+
+    # the one-shot spilled median, both knobs "auto", two slots, telemetry
+    tmp = tempfile.gettempdir()
+    chunks = ints.chunks[: len(ints.chunks) // 2]
+    free = shutil.disk_usage(tmp).free
+    while len(chunks) > 1 and free < SPILL_DISK_FACTOR * sum(c.nbytes for c in chunks):
+        chunks = chunks[: len(chunks) // 2]
+        out.setdefault("cut", []).append(f"free disk {free} bytes: the spilled median read {len(chunks)} chunks")
+        print(f"[phase10] CUT: {out['cut'][-1]}")
+    n = len(chunks) * STREAM_CHUNK
+    root = tempfile.mkdtemp(prefix="chip-smoke-phase10-", dir=tmp)
+    try:
+        what = f"median one-shot spill=auto width_schedule=auto pack_spill=auto devices=2 slots obs=on, int32 {n}"
+        o, timer = obs_lib.Observability.collecting(), PhaseTimer()
+        with SpillWatch(root) as watch:
+            got, ms, busy, idle, top = counted(what, lambda: profiled_call(lambda: kt.kselect_streaming(
+                (c for c in chunks), n // 2, spill="auto", spill_dir=root, width_schedule="auto", pack_spill="auto",
+                devices=TWO_SLOTS, obs=o, timer=timer)), 32,
+                lambda: len(o.events.of_kind("stream.chunk")))  # one launch a chunk read (the pack is torch ops)
+        less, leq = np_certificates(chunks, [got])[0]
+        if not less < n // 2 <= leq:
+            fail(f"{what}: {got!r} fails NumPy's certificate ({less}, {leq}]")
+        log = watch.stores[-1].pass_log
+        obs_lib.check_stream_invariants(o.events.events, spill_pass_log=log)
+        events = o.events.of_kind("stream.pass")
+        fields = ("keys_read", "bytes_read", "disk_bytes_read", "keys_written", "bytes_written", "disk_bytes_written")
+        mine = [{"pass": e.pass_index, "read": e.read_from, **{f: getattr(e, f) for f in fields
+                                                                  if getattr(e, f) is not None}} for e in events]
+        if mine != log:
+            fail(f"{what}: stream.pass events {mine} != pass_log {log}")
+        reg = o.metrics
+        sums = {name: sum(int(e.get(name) or 0) for e in log) for name in fields}
+        got_sums = {name: reg.counter(f"spill.{name}").value for name in fields}
+        if got_sums != sums or reg.counter("spill.passes").value != len(log):
+            fail(f"{what}: spill counters {got_sums} (passes {reg.counter('spill.passes').value}) != the log's sums "
+                 f"{sums} ({len(log)} entries)")
+        if glob.glob(os.path.join(root, "ksel-spill-*")):
+            fail(f"{what}: a spill store outlived the call: {os.listdir(root)}")
+        print(f"[phase10] {what}: {got!r} passes NumPy's certificate; {ms:.1f} ms; device busy "
+              + ("not measured" if busy is None else f"{busy:.1f} ms, idle share {idle:.3f}")
+              + f"; {len(log)} stream.pass events == pass_log entry for entry; spill counters == the log's sums "
+              f"{got_sums}")
+        out["calls"][what] = {"ms": ms, "busy_ms": busy, "idle_share": idle, "answer": repr(got), "pass_log": log,
+                              "spill_counters": got_sums, "peak_disk_bytes": watch.peak}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # the resident selects with telemetry, and the ledger's api.select site
+    o = obs_lib.Observability.collecting()
+    n30 = x30.numel()
+    qranks = quantile_ranks(QS, n30)
+    base = {"kselect": kt.kselect(x30, n30 // 2), "kselect_many": kt.kselect_many(x30, qranks)}
+    before = obs_lib.LEDGER.snapshot()
+    for what, fn in (("kselect twice", lambda: [kt.kselect(x30, n30 // 2, obs=o) for _ in range(2)]),
+                     ("kselect_many p50/p90/p99/p99.9", lambda: [kt.kselect_many(x30, qranks, obs=o)])):
+        what = f"{what} obs=on, int32 uniform 2^30"
+        vals = counted(what, fn, 32, None, kind="resident")
+        ref = base["kselect" if what.startswith("kselect twice") else "kselect_many"]
+        if any(v.cpu().numpy().tobytes() != ref.cpu().numpy().tobytes() for v in vals):
+            fail(f"{what}: {vals!r} != the calls without telemetry {ref!r}")
+    after = obs_lib.LEDGER.snapshot()
+    site = obs_lib.snapshot_delta(before, after)["sites"].get("api.select", {})
+    events = o.events.of_kind("resident.select")
+    whole = after["sites"]["api.select"]
+    if [(e.algorithm, e.queries, e.n) for e in events] != [("radix", 1, n30)] * 2 + [("radix-many", 4, n30)] \
+            or site.get("hits", 0) < 1 or site.get("compiles", 0) + site.get("hits", 0) != 3 \
+            or whole["compiles"] != whole["distinct_keys"]:
+        fail(f"resident selects: events {[e.as_dict() for e in events]}, api.select delta {site}, process {whole}")
+    # the cost of the event and the ledger entry: best of 5 each, telemetry off and on, in turns
+    from mpi_k_selection_tpu_torch.utils.timing import time_fn
+
+    ms = {}
+    for label, kw in (("off", {}), ("on", {"obs": obs_lib.Observability.collecting()})) * 2:
+        for name, fn in (("kselect", lambda: kt.kselect(x30, n30 // 2, **kw)),
+                         ("kselect_many", lambda: kt.kselect_many(x30, qranks, **kw))):
+            secs, _ = time_fn(fn, repeats=5, device="cuda")
+            ms.setdefault(f"{name} obs={label}", []).append(secs * 1e3)
+    print(f"[phase10] resident selects obs=on: 3 resident.select events; api.select this phase {site}; in the "
+          f"process {whole} (one compile a key); ms (off, on, off, on turns) {ms}")
+    out["resident"] = {"events": [e.as_dict() for e in events], "api_select_delta": site, "api_select": whole,
+                       "ms": ms}
+
+    # one slot a card
+    p = torch.cuda.device_count()
+    what = f"median depth=2 devices={p} (one slot a card), int32 uniform 2^32"
+    if p < 2:
+        print(f"[phase10] {what}: needs two cards or more ({p} here): not run")
+        out["multi_card"] = {"run": False, "cards": p}
+        return launches, per_call, out
+    if len(ints.chunks) % p:
+        fail(f"{what}: {len(ints.chunks)} chunks do not split evenly over {p} cards")
+    o = obs_lib.Observability.collecting()
+    ints.passes = 0
+    got, ms, busy, sweeps = counted(what, lambda: profiled_per_card(
+        lambda: kt.kselect_streaming(ints, n32 // 2, pipeline_depth=2, devices=p, obs=o)), 32,
+        lambda: ints.passes * len(ints.chunks))
+    if got.tobytes() != certified["median32"].tobytes():
+        fail(f"{what}: {got!r} != phase 3's certified answer {certified['median32']!r}")
+    chunks_by = {dict(m.labels)["device"]: m.value for m in o.metrics.metrics() if m.name == "ingest.chunks"}
+    each = ints.passes * len(ints.chunks) // p
+    # the profiler may drop an activity record under load (seen: 255 of 256), never add one: no card may show
+    # more sweep kernels than the chunks staged to it, none outside the set, and nearly all must be seen
+    seen = sum(sweeps.values())
+    if chunks_by != {str(i): each for i in range(p)} or not set(sweeps) <= set(range(p)) \
+            or any(v > each for v in sweeps.values()) or seen < 0.95 * p * each:
+        fail(f"{what}: ingest.chunks {chunks_by} and the profiler's sweep launches by card {sweeps}, expected {each} "
+             f"on each of {p} cards")
+    one = out["calls"]["median depth=2 devices=None obs=None, int32 uniform 2^32"]["ms"]
+    print(f"[phase10] {what}: {got!r} == phase 3; {ms:.1f} ms against {one:.1f} ms on one slot; ingest.chunks "
+          f"{chunks_by}; sweep kernels by card (profiler) {dict(sorted(sweeps.items()))}, {p * each - seen} of "
+          f"{p * each} records not seen, none on a card its chunk was not staged to; busy ms by card "
+          f"{ {i: round(b, 1) for i, b in sorted(busy.items())} }")
+    out["multi_card"] = {"run": True, "cards": p, "ms": ms, "one_slot_ms": one, "ingest_chunks": chunks_by,
+                         "sweep_kernels_by_card_profiler": sweeps, "busy_ms_by_card": busy, "passes": ints.passes,
+                         "answer": repr(got)}
     return launches, per_call, out
 
 
@@ -2900,6 +3234,35 @@ def library_sketch_ms(w: torch.Tensor, got, bits: int, key_op: str, key_xor: int
     return ms
 
 
+def main_phase10(smi: str) -> int:
+    """``python3 chip_smoke.py --phase10``: phase 10 alone (the build, the
+    streams, their answers certified by NumPy as phase 3 certifies them,
+    then phase 10): the measurement for a host of several cards."""
+    import mpi_k_selection_tpu_torch as kt
+    from mpi_k_selection_tpu_torch.utils import datagen
+
+    phase_build()
+    ints = Replay(make_chunks(STREAM_CHUNKS, STREAM_CHUNK, "uniform", np.int32))
+    f64 = Replay(make_chunks(F64_CHUNKS, F64_CHUNK, "normal", np.float64))
+    certified = {}
+    for src, key, n in ((ints, "median32", STREAM_CHUNKS * STREAM_CHUNK), (f64, "median64", F64_CHUNKS * F64_CHUNK)):
+        v = kt.kselect_streaming(src, n // 2)
+        less, leq = np_certificates(src.chunks, [v])[0]
+        if not less < n // 2 <= leq:
+            fail(f"{key}: {v!r} fails NumPy's certificate ({less}, {leq}]")
+        certified[key] = v
+        print(f"[phase10] {key}: {v!r}, NumPy certificate {less} < k <= {leq}")
+    x30 = torch.from_numpy(datagen.generate(1 << 30, pattern="uniform", seed=0, dtype=np.int32)).to("cuda")
+    _, _, notes = phase_multidevice_obs(ints, f64, certified, x30)
+    print(json.dumps({"phase10": notes}, default=str))
+    print(smi)
+    print(json.dumps({
+        "ok": True,
+        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},
+    }))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the card")
@@ -2911,7 +3274,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
-    print(f"[device] {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi: {smi}")
+    print(f"[device] {name} x {torch.cuda.device_count()}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
+          f"nvidia-smi: {smi}")
+    if sys.argv[1:] == ["--phase10"]:
+        return main_phase10(smi)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     phase_build()
@@ -2964,6 +3330,11 @@ def main() -> int:
     for kname, v in p9_launches.items():
         launches[kname] += v
     per_call.update(p9_per_call)
+    # phase 10: multi-device staging and the telemetry
+    p10_launches, p10_per_call, notes["phase10"] = phase_multidevice_obs(ints, f64, certified, x30)
+    for kname, v in p10_launches.items():
+        launches[kname] += v
+    per_call.update(p10_per_call)
     # phase 6: the host chunks and the resident data go first (the ranks
     # need the card's memory and the host's for the 8 GiB array)
     del ints, f64, data, x30

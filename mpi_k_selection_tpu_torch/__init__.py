@@ -24,6 +24,8 @@ selection over a stream of chunks::
     kt.RadixSketch(dtype)        # the sketch under it: exact bounds, refine()
     kt.WindowedSketch(dtype, window=8)  # a sliding window of sketches
     kt.Monitor(window=8).run(chunk_iter, dtype)  # p50/p90/p99 samples, one pass
+    kt.kselect_streaming(chunks, k, devices=2)   # chunk j staged on card j % 2
+    kt.Observability.collecting()  # telemetry (obs= on the entry points): events, metrics, spans
 
 Distributed selection runs one process per rank over a
 ``torch.distributed`` group (parallel/): every rank calls the entry point
@@ -65,6 +67,7 @@ from mpi_k_selection_tpu_torch.api import (
 from mpi_k_selection_tpu_torch.backends import get_backend
 from mpi_k_selection_tpu_torch.buffer import DeviceVector
 from mpi_k_selection_tpu_torch.monitor import Monitor, WindowedSketch
+from mpi_k_selection_tpu_torch.obs import Observability
 from mpi_k_selection_tpu_torch.ops.radix import radix_select, radix_select_many
 from mpi_k_selection_tpu_torch.ops.sort import sort_select
 from mpi_k_selection_tpu_torch.ops.topk import batched_topk, topk
@@ -83,8 +86,8 @@ from mpi_k_selection_tpu_torch.parallel import (
 )
 
 __all__ = [
-    "DISTRIBUTED_ALGORITHMS", "DeviceVector", "Monitor", "RadixSketch", "SpillStore", "StreamingQuantiles",
-    "WindowedSketch",
+    "DISTRIBUTED_ALGORITHMS", "DeviceVector", "Monitor", "Observability", "RadixSketch", "SpillStore",
+    "StreamingQuantiles", "WindowedSketch",
     "as_selection_array", "batched_kselect", "batched_median", "batched_topk", "distributed_cgm_select",
     "distributed_kselect", "distributed_radix_select", "distributed_radix_select_many", "distributed_sketch",
     "distributed_topk", "get_backend", "kselect", "kselect_many", "kselect_streaming", "kselect_streaming_many",

@@ -1,7 +1,10 @@
 """High-level selection API (counterpart of ``mpi_k_selection_tpu/api.py``).
 
 Entry points run on the CUDA device unless the caller passes
-``device="cpu"`` or a CPU tensor.
+``device="cpu"`` or a CPU tensor. ``obs`` (obs/:``Observability``) on
+:func:`kselect` and :func:`kselect_many` records each resolved dispatch as
+one ``resident.select`` event; every call reports to the process ledger's
+``api.select`` site under the JAX package's key.
 """
 
 from __future__ import annotations
@@ -12,6 +15,8 @@ import warnings
 import numpy as np
 import torch
 
+from mpi_k_selection_tpu_torch.obs import ledger as _ldg
+from mpi_k_selection_tpu_torch.obs.events import ResidentSelectEvent
 from mpi_k_selection_tpu_torch.ops.radix import radix_select, radix_select_many
 from mpi_k_selection_tpu_torch.ops.sort import sort_order_keys, sort_select
 from mpi_k_selection_tpu_torch.streaming import chunked as _chunked
@@ -62,23 +67,32 @@ def many_takes_sort(n: int, n_queries: int) -> bool:
     return n <= 1 << 14 or n_queries >= many_sort_dispatch_queries(n)
 
 
-def kselect(x, k, *, algorithm: str = "auto", device=None, **kwargs) -> torch.Tensor:
+def _dtype_name(x: torch.Tensor) -> str:
+    return str(x.dtype).removeprefix("torch.")
+
+
+def kselect(x, k, *, algorithm: str = "auto", device=None, obs=None, **kwargs) -> torch.Tensor:
     """Exact k-th smallest element (1-indexed k, reference semantics:
     ``kth-problem-seq.c:32-33``), a 0-d tensor on the input's device.
     Like the JAX package's, the sort path (small inputs) answers in
     ``lax.sort``'s order and the radix path in the sortable keys' order
-    (ops/sort.py). ``kwargs`` go to
+    (ops/sort.py). ``obs`` records the dispatch (see the module
+    docstring). ``kwargs`` go to
     :func:`~mpi_k_selection_tpu_torch.ops.radix.radix_select`."""
     x = as_selection_array(x, device)
     if x.numel() == 0:
         raise ValueError("kselect requires a non-empty input")
     check_concrete_k(k, x.numel())
-    if resolve_algorithm(algorithm, x.numel()) == "radix":
-        return radix_select(x, k, **kwargs)
-    return sort_select(x, k)
+    algorithm = resolve_algorithm(algorithm, x.numel())
+    if obs is not None:
+        obs.emit(ResidentSelectEvent(n=x.numel(), queries=1, algorithm=algorithm, dtype=_dtype_name(x)))
+    with _ldg.ledger_dispatch("api.select", (x.numel(), _dtype_name(x), algorithm, 1), obs):
+        if algorithm == "radix":
+            return radix_select(x, k, **kwargs)
+        return sort_select(x, k)
 
 
-def kselect_many(x, ks, *, device=None, **kwargs) -> torch.Tensor:
+def kselect_many(x, ks, *, device=None, obs=None, **kwargs) -> torch.Tensor:
     """Exact k-th smallest for every (1-indexed) k in ``ks`` over one array,
     in ``ks`` order and with ``ks``'s shape (a scalar k returns a 0-d
     tensor, as :func:`kselect` does).
@@ -87,24 +101,30 @@ def kselect_many(x, ks, *, device=None, **kwargs) -> torch.Tensor:
     :func:`many_sort_dispatch_queries`) sort once and gather; otherwise the
     radix walk shares every pass across the queries
     (:func:`~mpi_k_selection_tpu_torch.ops.radix.radix_select_many`, which
-    ``kwargs`` go to)."""
+    ``kwargs`` go to). ``obs`` records the dispatch (``sort-many`` or
+    ``radix-many``, and the query count) as :func:`kselect` does."""
     x = as_selection_array(x, device)
     n = x.numel()
     if n == 0:
         raise ValueError("kselect_many requires a non-empty input")
     check_concrete_ks(ks, n)
     n_queries = ks.numel() if isinstance(ks, torch.Tensor) else int(np.size(ks))
-    if many_takes_sort(n, n_queries):
-        if kwargs:
-            warnings.warn(
-                f"kselect_many: this shape takes the sort path (small input or "
-                f">= {many_sort_dispatch_queries(n)} queries at this n); radix options "
-                f"{sorted(kwargs)} are ignored",
-                stacklevel=2,
-            )
-        out = sort_select(x, ks)
-    else:
-        out = radix_select_many(x, ks, **kwargs)
+    use_sort = many_takes_sort(n, n_queries)
+    algorithm = "sort-many" if use_sort else "radix-many"
+    if obs is not None:
+        obs.emit(ResidentSelectEvent(n=n, queries=n_queries, algorithm=algorithm, dtype=_dtype_name(x)))
+    with _ldg.ledger_dispatch("api.select", (n, _dtype_name(x), algorithm, n_queries), obs):
+        if use_sort:
+            if kwargs:
+                warnings.warn(
+                    f"kselect_many: this shape takes the sort path (small input or "
+                    f">= {many_sort_dispatch_queries(n)} queries at this n); radix options "
+                    f"{sorted(kwargs)} are ignored",
+                    stacklevel=2,
+                )
+            out = sort_select(x, ks)
+        else:
+            out = radix_select_many(x, ks, **kwargs)
     return restore_k_shape(out, ks)
 
 
@@ -199,24 +219,30 @@ class StreamingQuantiles:
     ``pipeline_depth`` governs the staging of ``update_stream`` and of
     the refinement passes (streaming/pipeline.py; ``ingest_workers`` is
     checked only), and ``device`` where they count (default
-    ``"cuda"``; ``"cpu"`` runs the kernel's plain version).
+    ``"cuda"``; ``"cpu"`` runs the kernel's plain version); ``devices``
+    spreads that ingest over cards (streaming/chunked.py) and ``obs``
+    records it (checked now, kept for every pass).
     ``width_schedule`` (None = ``"off"``) sets the refinement's digit
     widths and ``pack_spill`` (None = ``"off"``) the format of the
     ``update_stream`` tee and of the refinement's generations
     (streaming/chunked.py); both are checked here. The JAX package's
-    ``deferred`` and ``fused`` have no counterpart here; ``devices`` and
-    ``obs`` are refused until their ROADMAP items bring them. The spill
-    flow of a one-shot stream: ``update_stream(it, spill=store)``, then
+    ``deferred`` and ``fused`` have no counterpart here. The spill flow of
+    a one-shot stream: ``update_stream(it, spill=store)``, then
     ``refine_quantiles(qs, store)``."""
 
     def __init__(self, dtype, *, radix_bits: int = 4, levels: int = 4, pipeline_depth: int | None = None,
-                 width_schedule=None, pack_spill=None, ingest_workers=None, device=None, **kwargs):
+                 width_schedule=None, pack_spill=None, ingest_workers=None, device=None, devices=None, obs=None,
+                 **kwargs):
         from mpi_k_selection_tpu_torch.streaming import pipeline as _pl
         from mpi_k_selection_tpu_torch.streaming.sketch import RadixSketch, reject_later_knobs
         from mpi_k_selection_tpu_torch.streaming.spill import validate_pack_spill
 
         reject_later_knobs("StreamingQuantiles", kwargs)
         self.pipeline_depth = _pl.validate_pipeline_depth(pipeline_depth)
+        if devices is not None:
+            _pl.resolve_ingest(device, devices)  # checked now, like depth
+        self.devices = devices
+        self.obs = obs
         self.width_schedule = _chunked.DEFAULT_WIDTH_SCHEDULE if width_schedule is None else width_schedule
         _chunked.validate_width_schedule(self.width_schedule)  # checked now
         self.pack_spill = validate_pack_spill(pack_spill)
@@ -235,14 +261,15 @@ class StreamingQuantiles:
 
     def update_stream(self, source, *, spill=None) -> "StreamingQuantiles":
         """Fold every chunk of ``source`` in, one launch of the sweep
-        kernel per chunk on the tracker's device: the same sketch as
-        ``update`` of each chunk in turn. ``spill`` (a caller-owned
-        SpillStore) tees the pass into the store, which makes a one-shot
-        source refinable: pass the store to :meth:`refine_quantiles`. The
-        tracker's ``pack_spill`` sets the tee's format."""
+        kernel per chunk on the tracker's device (or its ``devices``):
+        the same sketch as ``update`` of each chunk in turn. ``spill`` (a
+        caller-owned SpillStore) tees the pass into the store, which makes
+        a one-shot source refinable: pass the store to
+        :meth:`refine_quantiles`. The tracker's ``pack_spill`` sets the
+        tee's format."""
         self.sketch.update_stream(
             source, pipeline_depth=self.pipeline_depth, ingest_workers=self.ingest_workers, spill=spill,
-            pack_spill=self.pack_spill,
+            pack_spill=self.pack_spill, devices=self.devices, obs=self.obs,
         )
         return self
 
@@ -250,7 +277,7 @@ class StreamingQuantiles:
         out = StreamingQuantiles(
             self.sketch.dtype, radix_bits=self.sketch.radix_bits, levels=self.sketch.levels,
             pipeline_depth=self.pipeline_depth, width_schedule=self.width_schedule, pack_spill=self.pack_spill,
-            ingest_workers=self.ingest_workers, device=self.device,
+            ingest_workers=self.ingest_workers, device=self.device, devices=self.devices, obs=self.obs,
         )
         out.sketch = self.sketch.merge(other.sketch if isinstance(other, StreamingQuantiles) else other)
         return out
@@ -268,5 +295,5 @@ class StreamingQuantiles:
         return _chunked.streaming_kselect_many(
             source, quantile_ranks(qs, self.sketch.n), radix_bits=self.sketch.radix_bits, sketch=self.sketch,
             pipeline_depth=self.pipeline_depth, width_schedule=self.width_schedule, pack_spill=self.pack_spill,
-            ingest_workers=self.ingest_workers, device=self.device,
+            ingest_workers=self.ingest_workers, device=self.device, devices=self.devices, obs=self.obs,
         )

@@ -105,7 +105,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--devices", type=int, default=None,
         help="ranks of a distributed run (cuda backend, k-th and --quantiles modes): DEVICES processes "
         "started by the launcher, each with its shard on --device; gloo when ranks share a card or run "
-        "on the CPU, nccl with a card for each",
+        "on the CPU, nccl with a card for each. With --streaming: the cards the pipelined passes stage "
+        "onto, round robin (capped at the cards present; with --device cpu, that many CPU slots)",
     )
     p.add_argument("--num-procs", type=int, default=4, help="process count for the mpi backend (mpirun -np P)")
     p.add_argument(
@@ -178,6 +179,24 @@ def build_parser() -> argparse.ArgumentParser:
         "--streaming --spill force it reads the spilled generation 0, not the source)",
     )
     p.add_argument("--json", action="store_true", help="emit a JSON result record")
+    p.add_argument("--profile", action="store_true", help="print per-phase wall timing")
+    p.add_argument(
+        "--trace-dir", default=None,
+        help="write a torch.profiler trace of the solve (host and, with a card, its kernels and copies) as "
+        "Chrome trace JSON into this directory",
+    )
+    p.add_argument(
+        "--metrics-json", default=None, metavar="PATH",
+        help="write the run's metrics registry (StagingPool hits/misses, pipeline stall seconds, in-flight "
+        "window occupancy, chunks/bytes per ingest slot, spilled bytes, per-phase wall time) as JSON to "
+        "PATH; counters and phase totals add up over all --repeats (the run.repeats gauge is the divisor)",
+    )
+    p.add_argument(
+        "--trace-events", default=None, metavar="PATH",
+        help="write host-thread spans (the producer's produce/encode/stage/spill, the consumer's "
+        "stall/pass/collect) as Chrome trace-event JSON to PATH (open in https://ui.perfetto.dev); "
+        "composes with --trace-dir",
+    )
     return p
 
 
@@ -474,10 +493,12 @@ def _parse_width_schedule(raw):
         raise SystemExit(f"error: {e}") from None
 
 
-def _run_streaming(args):
+def _run_streaming(args, obs=None):
     from mpi_k_selection_tpu_torch import api
     from mpi_k_selection_tpu_torch.backends import cuda as backend
+    from mpi_k_selection_tpu_torch.streaming import pipeline as _pl
     from mpi_k_selection_tpu_torch.streaming.spill import SpillStore
+    from mpi_k_selection_tpu_torch.utils.profiling import PhaseTimer
 
     n = args.n
     if args.chunk_elems < 1:
@@ -489,8 +510,14 @@ def _run_streaming(args):
     depth = args.pipeline_depth
     workers = _parse_ingest_workers(args.ingest_workers)
     schedule = _parse_width_schedule(args.width_schedule)
+    # --devices caps the round-robin ingest set; the record names what it resolved to
+    devices = args.devices
+    n_ingest = len(_pl.resolve_ingest(args.device, devices)[1])
     knobs = dict(pipeline_depth=depth, ingest_workers=workers, width_schedule=schedule, pack_spill=args.pack_spill,
-                 device=args.device)
+                 device=args.device, devices=devices)
+    # a timer of the pipeline's own: its producer phases run beside the
+    # solve, so folding them into the solve timer would overstate its total
+    ptimer = PhaseTimer() if args.profile or args.trace_events or args.metrics_json else None
     # --spill force with one run tees into a store the CLI owns, so the
     # certificate reads the spilled generation 0 instead of the source;
     # with --repeats each run makes (and removes) a store of its own
@@ -498,17 +525,30 @@ def _run_streaming(args):
     try:
         seconds, answer = time_fn(
             lambda: backend.kselect_streaming(source, k, spill=store if store is not None else args.spill,
-                                              spill_dir=args.spill_dir, **knobs),
+                                              spill_dir=args.spill_dir, timer=ptimer, obs=obs, **knobs),
             repeats=args.repeats, device=args.device,
         )
         record = _record(args, n, k, answer.item(), "streaming-chunked", seconds)
+        record.n_devices = n_ingest
         record.extra.update(chunks=-(-n // args.chunk_elems), chunk_elems=args.chunk_elems, pipeline_depth=depth,
-                            ingest_workers=workers, spill=args.spill,
+                            ingest_devices=n_ingest, ingest_workers=workers, spill=args.spill,
                             width_schedule=list(schedule) if isinstance(schedule, tuple) else schedule,
                             pack_spill=args.pack_spill)
+        if ptimer is not None and ptimer.phases:
+            reps = max(1, args.repeats)
+            record.extra["pipeline_phases"] = {
+                name: {"seconds": d["seconds"] / reps, "calls": max(1, d["calls"] // reps)}
+                for name, d in ptimer.as_dict().items()
+            }
         ok = True
         if args.verify or args.check:
-            less, leq = api.streaming_rank_certificate(store if store is not None else source, answer, **knobs)
+            # the certificate shares only the trace channel: its spans belong
+            # on the same timeline, its counters not in the solve's registry
+            from mpi_k_selection_tpu_torch import obs as obs_lib
+
+            cert_obs = obs_lib.Observability(trace=obs.trace) if obs is not None and obs.trace is not None else None
+            less, leq = api.streaming_rank_certificate(store if store is not None else source, answer, obs=cert_obs,
+                                                       **knobs)
             cert_ok = less < k <= leq
             record.extra.update(rank_certificate=[less, leq], certificate_ok=cert_ok)
             ok = cert_ok
@@ -599,25 +639,68 @@ def main(argv=None) -> int:
         raise SystemExit("error: --streaming and --quantiles run on the cuda backend")
     if args.devices is not None and args.devices < 1:
         raise SystemExit("error: --devices must be >= 1")
-    if (args.devices or 1) > 1 and (args.backend != "cuda" or args.streaming or args.topk is not None):
-        raise SystemExit("error: --devices runs the cuda backend's k-th and --quantiles modes")
+    if (args.devices or 1) > 1 and (args.backend != "cuda" or args.topk is not None):
+        raise SystemExit("error: --devices runs the cuda backend's k-th, --quantiles and --streaming modes")
     if args.quantiles is not None:
         try:
             args.qs = [float(q) for q in args.quantiles.split(",") if q.strip()]
         except ValueError as e:
             raise SystemExit(f"error: bad --quantiles value: {e}") from e
+    import contextlib
+
+    from mpi_k_selection_tpu_torch.obs import wiring as _wr
+    from mpi_k_selection_tpu_torch.utils import profiling
+
+    # the telemetry behind --metrics-json / --trace-events (None: off)
+    obs = None
+    if args.metrics_json or args.trace_events:
+        from mpi_k_selection_tpu_torch import obs as obs_lib
+
+        obs = obs_lib.Observability(metrics=obs_lib.MetricsRegistry() if args.metrics_json else None,
+                                    trace=obs_lib.TraceRecorder() if args.trace_events else None)
+    timer = profiling.PhaseTimer(recorder=_wr.span_recorder(obs))
+    tracer = (lambda: profiling.trace(args.trace_dir)) if args.trace_dir else contextlib.nullcontext
     try:
         if args.streaming:
-            record, ok = _run_streaming(args)
+            with tracer(), timer.phase("solve"):
+                record, ok = _run_streaming(args, obs)
         else:
             run = _run_quantiles if args.quantiles is not None else _run_topk if args.topk is not None else _run_kth
             batch = (args.batch,) if args.batch else ()
-            x = datagen.generate(args.n, pattern=args.gen, seed=args.seed, dtype=numpy_dtype(args.dtype), batch=batch)
-            record, ok = run(args, x)
+            with timer.phase("generate"):
+                x = datagen.generate(args.n, pattern=args.gen, seed=args.seed, dtype=numpy_dtype(args.dtype),
+                                     batch=batch)
+            with tracer(), timer.phase("solve"):
+                record, ok = run(args, x)
             if args.check:
-                ok = _check_resident(args, x, record, ok)
+                with timer.phase("check"):
+                    ok = _check_resident(args, x, record, ok)
     except (ValueError, RuntimeError, TimeoutError) as e:
         raise SystemExit(f"error: {e}") from e
+    return _finish(args, record, ok, timer, obs)
+
+
+def _finish(args, record, ok: bool, timer, obs=None) -> int:
+    """The run's telemetry files, its record (JSON or the reference's
+    style) and the exit code."""
+    if obs is not None:
+        if obs.metrics is not None:
+            from mpi_k_selection_tpu_torch.obs.metrics import collect_runtime
+
+            # the driver's phases (generate / solve / check) on top of what
+            # the descent collected; counters span every repeat
+            collect_runtime(obs.metrics, timer=timer)
+            obs.metrics.gauge("run.repeats").set(max(1, args.repeats))
+            with open(args.metrics_json, "w") as f:
+                f.write(obs.metrics.to_json(indent=2))
+            record.extra["metrics_json"] = args.metrics_json
+        if obs.trace is not None:
+            obs.trace.write(args.trace_events)
+            record.extra["trace_events"] = args.trace_events
+    if args.trace_dir:
+        record.extra["trace_dir"] = args.trace_dir
+    if args.profile:
+        record.extra["phases"] = timer.as_dict()
     if args.json:
         print(record.to_json())
     else:
@@ -626,6 +709,13 @@ def main(argv=None) -> int:
             print(f"oracle check: {'exact match' if ok else 'MISMATCH'}")
         if args.check:
             print(f"rank certificate: {'ok' if record.extra.get('certificate_ok') else 'FAILED'}")
+        if args.profile:
+            print(timer.report())
+            phases = record.extra.get("pipeline_phases")
+            if phases:  # the producer's phases run beside the solve
+                print("streaming phases (producer concurrent with solve, per repeat):")
+                for name, d in sorted(phases.items(), key=lambda kv: -kv[1]["seconds"]):
+                    print(f"  {name:<24} {d['seconds'] * 1e3:10.3f} ms  ({d['calls']}x)")
     return 0 if ok else 1
 
 

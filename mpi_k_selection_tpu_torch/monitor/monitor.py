@@ -10,6 +10,9 @@ on the card (streaming/executor.py:``SketchFoldConsumer``). Every
 comes out: the requested quantiles (default p50/p90/p99) over the live
 window, each with the merged sketch's exact rank and value bounds; with
 ``decay``, over the fixed-point decayed aggregate (monitor/decay.py).
+``devices`` spreads the pipelined staging over cards as the streamed
+descent does, and ``obs`` mirrors each sample into the ``monitor.*``
+series (the HTTP exposition waits for ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -102,14 +105,16 @@ class Monitor:
     advances and a sample comes out every that many chunks), ``decay``
     (None: the exact sliding window; a float in (0, 1]: the fixed-point
     decay of monitor/decay.py), and the staging knobs ``pipeline_depth``,
-    ``ingest_workers`` and ``device`` (where the buckets count, default
-    ``"cuda"``; ``ingest_workers`` is checked only, streaming/pipeline.py).
-    Samples are the same at every depth. The JAX package's ``devices``
-    and ``obs`` wait for ROADMAP Queue 1 items 3e and 4."""
+    ``ingest_workers``, ``device`` (where the buckets count, default
+    ``"cuda"``; ``ingest_workers`` is checked only, streaming/pipeline.py)
+    and ``devices``. Samples are the same at every depth and slot count.
+    ``obs`` mirrors each sample into ``monitor.quantile{q=}``,
+    ``monitor.window_n``, ``monitor.epoch`` and ``monitor.samples``, and
+    records the run's chunk events; it never changes a count bit."""
 
     def __init__(self, *, qs=DEFAULT_QS, window: int = 32, emit_every: int = 1, decay: float | None = None,
                  radix_bits: int = 4, levels: int = 4, pipeline_depth=None, ingest_workers=None, device=None,
-                 **kwargs):
+                 devices=None, obs=None, **kwargs):
         reject_later_knobs("Monitor", kwargs)
         self.qs = tuple(float(q) for q in qs)
         if not self.qs:
@@ -124,6 +129,10 @@ class Monitor:
         self.pipeline_depth = pipeline_depth
         self.ingest_workers = ingest_workers
         self.device = device
+        self.devices = devices
+        self.obs = obs
+        # the label dicts are the monitor's fixed configuration, built once
+        self._q_labels = tuple({"q": q_label(q)} for q in self.qs)
         self.ws: WindowedSketch | None = None
 
     def _make_window(self, dtype) -> WindowedSketch:
@@ -153,21 +162,33 @@ class Monitor:
             rbounds.append((lo, hi))
             vbounds.append((vlo, vhi))
             rerrs.append(hi - lo)
-        return MonitorSample(
+        out = MonitorSample(
             epoch=ws.epoch, buckets=ws.n_live, n=m.n, scale=getattr(m, "scale", 1), qs=self.qs,
             ranks=tuple(int(k) for k in ranks), values=tuple(values), rank_bounds=tuple(rbounds),
             value_bounds=tuple(vbounds), rank_error_bounds=tuple(rerrs), chunks=chunks, keys_read=keys_read,
         )
+        if self.obs is not None and self.obs.metrics is not None:
+            reg = self.obs.metrics
+            for lab, v in zip(self._q_labels, values):
+                reg.gauge("monitor.quantile", labels=lab).set(_jsonable(v))
+            reg.gauge("monitor.window_n").set(int(m.n))
+            reg.gauge("monitor.epoch").set(int(ws.epoch))
+            reg.counter("monitor.samples").inc()
+        return out
 
-    def run(self, source, dtype=None, *, max_samples=None):
+    def run(self, source, dtype=None, *, max_samples=None, timer=None):
         """Generator of :class:`MonitorSample`: one a window advance (and a
         last one for a partial bucket at the stream's end), until the
         source ends or ``max_samples`` came out. ``dtype`` is the stream's
         (taken from a list, tuple or array source; needed for a generator
         or a callable, which a monitor cannot replay to probe). The staging
-        is torn down on every exit, an abandoned generator included."""
+        is torn down on every exit, an abandoned generator included.
+        ``timer`` times the run's ``monitor.pass``."""
+        from mpi_k_selection_tpu_torch.obs import metrics as _om
+        from mpi_k_selection_tpu_torch.obs import wiring as _wr
         from mpi_k_selection_tpu_torch.streaming import chunked as _chunked
         from mpi_k_selection_tpu_torch.streaming import executor as _ex
+        from mpi_k_selection_tpu_torch.utils.profiling import phase as _phase
 
         if dtype is None:
             if isinstance(source, (list, tuple)) and len(source):
@@ -183,18 +204,27 @@ class Monitor:
                 )
         depth = _pl.validate_pipeline_depth(self.pipeline_depth)
         _pl.resolve_ingest_workers(self.ingest_workers)
-        dev = _pl.resolve_device(self.device)
+        dev, devs = _pl.resolve_ingest(self.device, self.devices)
+        # staging to slots is gated on the knobs as given, as the JAX package's
+        staged = depth > 0 and self.devices is not None
+        obs = self.obs
         self.ws = self._make_window(dtype)
+        kdt = np.dtype(f"uint{_dt.key_bits(self.ws.dtype)}")
         src = _chunked.as_chunk_source(source, one_shot_ok=True)
-        consumer = _ex.SketchFoldConsumer(self.ws.current)
-        ex = _ex.StreamExecutor([consumer])
+        timer, restore = _wr.attach_timer(obs, timer)
+        consumer = _ex.SketchFoldConsumer(self.ws.current, obs=obs, phase="monitor")
+        ex = _ex.StreamExecutor([consumer], window=len(devs) if staged else 1,
+                                occupancy=_wr.window_occupancy(obs, phase="monitor"))
         chunk_i = keys_read = emitted = in_bucket = 0
         keys = None
         try:
-            with _chunked._key_chunk_stream(
-                src, _dt.torch_dtype(self.ws.dtype), pipeline_depth=depth, device=dev
+            with _phase(timer, "monitor.pass"), _chunked._key_chunk_stream(
+                src, _dt.torch_dtype(self.ws.dtype), pipeline_depth=depth, device=dev, devs=devs, staged=staged,
+                window=len(devs) if staged else 1, timer=timer,
             ) as chunks:
                 for keys, _ in chunks:
+                    if obs is not None:
+                        _wr.chunk_event(obs, "monitor", chunk_i, keys, kdt, devs)
                     chunk_i += 1
                     keys_read += keys.size
                     in_bucket += 1
@@ -220,3 +250,7 @@ class Monitor:
             ex.abort()
             _ex.release_staged(keys)  # the chunk in hand (idempotent)
             raise
+        finally:
+            restore()
+        if obs is not None and obs.metrics is not None:
+            _om.collect_runtime(obs.metrics, staging_pool=_pl.STAGING_POOL, timer=timer)

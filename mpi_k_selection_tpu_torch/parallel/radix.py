@@ -27,7 +27,8 @@ from __future__ import annotations
 
 import torch
 
-from mpi_k_selection_tpu_torch.ops.radix import _Descent, _select_key_on_prep, _select_many_on_prep
+from mpi_k_selection_tpu_torch.obs.events import DistributedSelectEvent
+from mpi_k_selection_tpu_torch.ops.radix import _Descent, _select_key_on_prep, _select_many_on_prep, resolve_cutover
 from mpi_k_selection_tpu_torch.parallel import mesh as mesh_lib
 from mpi_k_selection_tpu_torch.utils import debug as _debug, dtypes as _dt
 
@@ -61,6 +62,7 @@ def distributed_radix_select(
     radix_bits: int | None = None,
     cutover: int | str | None = "auto",
     cutover_budget: int = 8192,
+    obs=None,
 ) -> torch.Tensor:
     """Exact k-th smallest (1-indexed) of the global ``x`` over ``mesh``
     (default: every rank of the started group, on a CUDA card); every
@@ -72,13 +74,21 @@ def distributed_radix_select(
     schedule resolved on the padded global size. The sentinel pads carry
     the order-maximal key, so a collected pad sorts after every real
     candidate (or ties it exactly, and then the value is right either
-    way)."""
+    way). ``obs`` (obs/:``Observability``) records the resolved dispatch
+    (ranks, radix_bits, cutover schedule) as one ``distributed.select``
+    event on this rank."""
     mesh = mesh_lib.make_mesh() if mesh is None else mesh
     mesh_lib.require_distributed(mesh)
     _check_budget(cutover_budget)
     n = mesh_lib.global_size(x)
     _debug.check_concrete_k(k, n)
     prep, shard = _shard_descent(x, mesh, radix_bits)
+    if obs is not None:
+        ncut = resolve_cutover(cutover, prep.n_total, prep.total_bits, prep.radix_bits, cutover_budget)
+        obs.emit(DistributedSelectEvent(
+            n=int(n), queries=1, n_devices=int(mesh.size), radix_bits=int(prep.radix_bits),
+            cutover_passes=None if ncut is None else int(ncut), dtype=str(shard.dtype).removeprefix("torch."),
+        ))
     kk = torch.as_tensor(k, dtype=torch.int64, device=mesh.device).reshape(1).clamp(1, n)
     ans = _select_key_on_prep(prep, kk, cutover=cutover, cutover_budget=cutover_budget)
     return _dt.from_sortable_bits(ans, shard.dtype).reshape(())

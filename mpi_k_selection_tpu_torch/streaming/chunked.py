@@ -62,6 +62,17 @@ a tuple of widths summing to the bits to resolve
 ``GEN0_SEGMENT_BITS`` of each key, a later generation's by the pass's
 filter union with only each key's unresolved low bits on disk, and each
 later pass reads only the segments under its surviving prefixes.
+
+``devices`` (streaming/pipeline.py:``resolve_stream_devices``: an int p,
+or a sequence of cards, a card repeated for two slots on it) spreads the
+pipelined passes over cards: chunk *j* is staged onto ``devices[j % p]``
+and read there by the sweep kernel, one bundle a slot in flight, and the
+host folds the results in chunk order, so answers, pass logs and spill
+records are the same bits at every ``p``. It takes effect at
+``pipeline_depth >= 1`` only (depth 0 stays the synchronous path, on the
+first slot). ``obs`` (obs/:``Observability``) records the descent's
+events, metrics and host spans, and ``timer`` (utils/profiling.py:
+``PhaseTimer``) its phases; neither changes an answer bit.
 """
 
 from __future__ import annotations
@@ -74,6 +85,10 @@ import numpy as np
 import torch
 
 from mpi_k_selection_tpu_torch.errors import SpillCapacityError, SpillRecordError
+from mpi_k_selection_tpu_torch.obs import events as _ev
+from mpi_k_selection_tpu_torch.obs import ledger as _ldg
+from mpi_k_selection_tpu_torch.obs import metrics as _om
+from mpi_k_selection_tpu_torch.obs import wiring as _wr
 from mpi_k_selection_tpu_torch.ops.cuda.sweep_ingest import MAX_BITS
 from mpi_k_selection_tpu_torch.streaming import executor as _ex
 from mpi_k_selection_tpu_torch.streaming import pipeline as _pl
@@ -81,6 +96,7 @@ from mpi_k_selection_tpu_torch.streaming import spill as _sp
 from mpi_k_selection_tpu_torch.streaming.pipeline import DEFAULT_PIPELINE_DEPTH
 from mpi_k_selection_tpu_torch.utils import dtypes as _dt
 from mpi_k_selection_tpu_torch.utils.interop import numpy_dtype
+from mpi_k_selection_tpu_torch.utils.profiling import phase as _phase
 
 DEFAULT_COLLECT_BUDGET = 1 << 20
 
@@ -293,11 +309,17 @@ def _np_dtype(dtype) -> np.dtype:
     return numpy_dtype(_dtype_name(dtype))
 
 
+def _key_np(dtype) -> np.dtype:
+    """The unsigned key dtype of a stream dtype (the JAX package's
+    ``key_dtype``): its width prices ``bytes_read`` and the chunk events."""
+    return np.dtype(f"uint{_dt.key_bits(dtype)}")
+
+
 def _tee(writer, c, dtype, slot) -> None:
     """Append one normalized chunk's keys, encoded on the host, to the
-    pass-0 generation ``writer`` (a replayed record keeps its own slot)."""
+    pass-0 generation ``writer``, naming ``slot``."""
     if isinstance(c, _sp.SpillChunk):
-        keys, slot = c.keys, c.device_slot
+        keys = c.keys
     elif isinstance(c, torch.Tensor):
         keys = _dt.np_to_sortable_bits(_dt.bit_view(c).cpu().numpy().view(_np_dtype(dtype)))
     else:
@@ -308,7 +330,8 @@ def _tee(writer, c, dtype, slot) -> None:
 def _iter_staged(src, dtype, device, spill=None):
     """The synchronous ``(StagedKeys, dtype)`` iterator (depth 0): each
     chunk is staged on the caller's thread when the descent asks for it
-    (after the tee to ``spill``, a SpillWriter, if given)."""
+    (after the tee to ``spill``, a SpillWriter, if given; a replayed
+    record names its own slot, any other none)."""
     stager = (
         _pl.HostStager(device, torch.cuda.current_stream(device)) if device.type == "cuda" else None
     )
@@ -318,48 +341,73 @@ def _iter_staged(src, dtype, device, spill=None):
             continue
         if dtype is None:
             dtype = _chunk_dtype(c)
+        slot = c.device_slot if isinstance(c, _sp.SpillChunk) else None
         if spill is not None:
-            _tee(spill, c, dtype, None)
-        yield _pl.stage_chunk(c, dtype, device, stager), dtype
+            _tee(spill, c, dtype, slot)
+        yield _pl.stage_chunk(c, dtype, device, stager, tee_slot=slot), dtype
 
 
 @contextlib.contextmanager
-def _key_chunk_stream(src, dtype, *, pipeline_depth: int, device, spill=None, spill_slot=None):
+def _key_chunk_stream(src, dtype, *, pipeline_depth: int, device, devs=(None,), staged=True, window=1, spill=None,
+                      timer=None):
     """The pass's ``(StagedKeys, dtype)`` iterator; a pipelined one is
-    closed (its thread joined) on every exit. ``spill`` tees every chunk
-    to a SpillWriter; its records name ``spill_slot`` when pipelined and
-    no slot at depth 0 (the slots the JAX package's records carry)."""
+    closed (its thread joined) on every exit. At depth >= 1 the producer
+    places chunks by a :class:`~mpi_k_selection_tpu_torch.streaming.
+    pipeline.SlotCursor` over ``devs`` (``staged``: round-robin slots),
+    for a consumer window of ``window`` bundles. ``spill`` tees every
+    chunk to a SpillWriter (its records name each chunk's slot)."""
     if pipeline_depth == 0:
         yield _iter_staged(src, dtype, device, spill)
         return
-    pipe = _pl.ChunkPipeline(src, dtype, depth=pipeline_depth, device=device, spill=spill, spill_slot=spill_slot)
+    pipe = _pl.ChunkPipeline(src, dtype, depth=pipeline_depth, cursor=_pl.SlotCursor(device, devs, staged),
+                             window=window, spill=spill, timer=timer)
     try:
         yield iter(pipe)
     finally:
         pipe.close()
 
 
-def _stream_pass(src, dtype, make_consumer, *, pipeline_depth: int, device, spill=None, spill_slot=None):
+class _Pass:
+    """What a streamed pass read: its consumer (None for an empty stream),
+    the stream dtype, the keys, the chunks and the chunks staged to slots."""
+
+    __slots__ = ("consumer", "dtype", "n", "chunks", "staged_chunks")
+
+    def __init__(self):
+        self.consumer = self.dtype = None
+        self.n = self.chunks = self.staged_chunks = 0
+
+
+def _stream_pass(src, dtype, make_consumer, *, pipeline_depth: int, device, devs=(None,), staged=True, window=1,
+                 spill=None, obs=None, label=None, timer=None, phase=None, occupancy=None) -> _Pass:
     """Stream every chunk of ``src`` through one consumer, built by
     ``make_consumer(dtype)`` at the first chunk. ``spill`` tees every chunk
-    to a SpillWriter, its records naming ``spill_slot`` when pipelined and
-    no slot at depth 0: on the host (:func:`_key_chunk_stream`) for a
+    to a SpillWriter: on the host (:func:`_key_chunk_stream`) for a
     format-v1 writer, through a DigitTeeConsumer for a digit-segmenting
-    one. Returns ``(consumer, dtype, n)``; the consumer is None for an
-    empty stream."""
-    consumer = ex = keys = None
-    n = 0
+    one. ``devs``, ``staged`` and ``window`` place the chunks and size the
+    window (:func:`_key_chunk_stream`). With ``obs``, each chunk emits its
+    ChunkEvent under pass ``label``; ``phase`` names the pass's span on
+    ``timer``, and ``occupancy`` samples the window."""
+    out = _Pass()
+    ex = keys = None
     digit_tee = spill if spill is not None and spill.pack_digit_bits is not None else None
     try:
-        with _key_chunk_stream(src, dtype, pipeline_depth=pipeline_depth, device=device,
-                               spill=None if digit_tee is not None else spill, spill_slot=spill_slot) as chunks:
+        with _phase(timer, phase), _key_chunk_stream(
+            src, dtype, pipeline_depth=pipeline_depth, device=device, devs=devs, staged=staged, window=window,
+            spill=None if digit_tee is not None else spill, timer=timer,
+        ) as chunks:
             for keys, dtype in chunks:
-                if consumer is None:
-                    consumer = make_consumer(dtype)
-                    tees = [] if digit_tee is None else [_ex.DigitTeeConsumer(
-                        digit_tee, _dt.key_bits(dtype), _np_dtype(dtype), spill_slot if pipeline_depth else None)]
-                    ex = _ex.StreamExecutor([*tees, consumer])
-                n += keys.size
+                if out.consumer is None:
+                    out.consumer = make_consumer(dtype)
+                    out.dtype, kdt = dtype, _key_np(dtype)
+                    tees = [] if digit_tee is None else [
+                        _ex.DigitTeeConsumer(digit_tee, _dt.key_bits(dtype), _np_dtype(dtype))]
+                    ex = _ex.StreamExecutor([*tees, out.consumer], window=window, occupancy=occupancy)
+                if obs is not None:
+                    _wr.chunk_event(obs, label, out.chunks, keys, kdt, devs)
+                out.chunks += 1
+                out.staged_chunks += keys.staged
+                out.n += keys.size
                 ex.push(keys)
             if ex is not None:
                 ex.drain()
@@ -368,7 +416,25 @@ def _stream_pass(src, dtype, make_consumer, *, pipeline_depth: int, device, spil
             ex.abort()
         _ex.release_staged(keys)  # the chunk in hand (idempotent)
         raise
-    return consumer, dtype, n
+    if out.dtype is None:
+        out.dtype = dtype
+    return out
+
+
+def _hist_summary(hists) -> tuple[int, int, int]:
+    """(total population, heaviest bucket, nonzero buckets) across one
+    pass's ``{prefix: int64 histogram}``."""
+    total = bucket_max = nonzero = 0
+    for h in hists.values():
+        total += int(h.sum())
+        bucket_max = max(bucket_max, int(h.max()))
+        nonzero += int(np.count_nonzero(h))
+    return total, bucket_max, nonzero
+
+
+def _generation_event(obs, gen) -> None:
+    obs.emit(_ev.SpillGenerationEvent(generation=gen.index, records=len(gen.records), keys=gen.keys,
+                                      nbytes=gen.nbytes, logical_nbytes=gen.logical_nbytes, packed=gen.packed))
 
 
 def _np_walk(hist, kk, prefix, radix_bits):
@@ -387,18 +453,24 @@ def _validate_ks(ks, n):
             raise ValueError(f"k={k} out of range [1, {n}]")
 
 
-def _collect_survivors(src, dtype, specs, *, pipeline_depth, device):
+def _collect_survivors(src, dtype, specs, *, run, staged, obs=None, read_from="source", disk_bytes_read=None):
     """One pass collecting the survivors of EVERY ``(resolved_bits,
     prefix) -> expected population`` spec, filtered on the device so only
-    survivors cross to the host. Returns ``{spec: host key array}``."""
+    survivors cross to the host. Returns ``{spec: host key array}``.
+    ``run`` holds the pass knobs (:func:`_stream_pass`); ``staged`` stages
+    to round-robin slots (only with ``devices``, as the JAX package's
+    collect). With ``obs`` the pass ends in the terminal ``"collect"``
+    StreamPassEvent, one collected population a spec."""
     total_bits = _dt.key_bits(dtype)
+    kdt = _key_np(dtype)
     sorted_specs = sorted(specs)
-    collector, _, _ = _stream_pass(
+    res = _stream_pass(
         src, dtype,
-        lambda _: _ex.FusedIngestConsumer(total_bits=total_bits, collect_specs=sorted_specs),
-        pipeline_depth=pipeline_depth, device=device,
+        lambda _: _ex.FusedIngestConsumer(total_bits=total_bits, collect_specs=sorted_specs, obs=obs),
+        staged=staged, obs=obs, label="collect", phase="descent.collect",
+        occupancy=_wr.window_occupancy(obs, phase="collect"), **run,
     )
-    kdt = np.uint64 if total_bits == 64 else np.uint32
+    collector = res.consumer
     collected = collector.collected(kdt) if collector is not None else {s: np.empty((0,), kdt) for s in sorted_specs}
     for spec in sorted_specs:
         if collected[spec].size != specs[spec]:
@@ -407,6 +479,15 @@ def _collect_survivors(src, dtype, specs, *, pipeline_depth, device):
                 f"survivors, histogram pass counted {specs[spec]}. The source "
                 "callable must yield identical data on every invocation."
             )
+    if obs is not None:
+        sizes = [int(collected[s].size) for s in sorted_specs]
+        obs.emit(_ev.StreamPassEvent(
+            pass_index="collect", resolved_bits=0, prefixes=tuple(int(p) for _, p in sorted_specs),
+            chunks=res.chunks, keys_read=res.n, bytes_read=res.n * kdt.itemsize,
+            disk_bytes_read=res.n * kdt.itemsize if disk_bytes_read is None else int(disk_bytes_read),
+            read_from=read_from, bucket_total=sum(sizes), bucket_max=max(sizes, default=0),
+            bucket_nonzero=sum(1 for z in sizes if z), survivors=tuple(sizes),
+        ))
     return collected
 
 
@@ -473,7 +554,7 @@ def _resolve_spill(source, spill, spill_dir):
 def streaming_kselect(source, k, *, radix_bits: int = 8, collect_budget: int = DEFAULT_COLLECT_BUDGET,
                       sketch=None, pipeline_depth: int = DEFAULT_PIPELINE_DEPTH, ingest_workers=None,
                       spill=DEFAULT_SPILL, spill_dir=None, width_schedule=DEFAULT_WIDTH_SCHEDULE,
-                      pack_spill=DEFAULT_PACK_SPILL, device=None):
+                      pack_spill=DEFAULT_PACK_SPILL, device=None, devices=None, timer=None, obs=None):
     """Exact k-th smallest (1-indexed) over a chunked stream: a host
     scalar of the stream's dtype (numpy; ml_dtypes' bfloat16 for
     bfloat16), bit for bit the JAX package's ``streaming_kselect``.
@@ -489,18 +570,19 @@ def streaming_kselect(source, k, *, radix_bits: int = 8, collect_budget: int = D
     ``"force"`` or a SpillStore), ``spill_dir`` (the root of the stores a
     call makes; default the temp dir), ``width_schedule`` (``"off"``,
     ``"auto"`` or a tuple of widths), ``pack_spill`` (``"off"`` or
-    ``"auto"``) and ``device`` are described in the module docstring."""
+    ``"auto"``), ``device``, ``devices``, ``timer`` and ``obs`` are
+    described in the module docstring."""
     return streaming_kselect_many(
         source, [k], radix_bits=radix_bits, collect_budget=collect_budget, sketch=sketch,
         pipeline_depth=pipeline_depth, ingest_workers=ingest_workers, spill=spill, spill_dir=spill_dir,
-        width_schedule=width_schedule, pack_spill=pack_spill, device=device,
+        width_schedule=width_schedule, pack_spill=pack_spill, device=device, devices=devices, timer=timer, obs=obs,
     )[0]
 
 
 def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: int = DEFAULT_COLLECT_BUDGET,
                            sketch=None, pipeline_depth: int = DEFAULT_PIPELINE_DEPTH, ingest_workers=None,
                            spill=DEFAULT_SPILL, spill_dir=None, width_schedule=DEFAULT_WIDTH_SCHEDULE,
-                           pack_spill=DEFAULT_PACK_SPILL, device=None):
+                           pack_spill=DEFAULT_PACK_SPILL, device=None, devices=None, timer=None, obs=None):
     """Exact k-th smallest for EVERY (1-indexed) rank in ``ks``, as a list
     in ``ks`` order, sharing each pass across ranks: the stream is read
     once per radix level plus one collect, not once per rank, with one
@@ -512,14 +594,21 @@ def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: i
     width_schedule = validate_width_schedule(width_schedule)
     pack_spill = _sp.validate_pack_spill(pack_spill)
     depth = _pl.validate_pipeline_depth(pipeline_depth)
-    _pl.resolve_ingest_workers(ingest_workers)
+    pool_n = _pl.resolve_ingest_workers(ingest_workers)
+    dev, devs = _pl.resolve_ingest(device, devices) if devices is not None else (None, (None,))
     if not 1 <= radix_bits <= MAX_BITS:  # the JAX package's MAX_PASS_BITS
         raise ValueError(f"radix_bits={radix_bits} outside [1, {MAX_BITS}]")
+    _wr.ingest_workers_gauge(obs, pool_n)
     ks = [int(k) for k in ks]
     if not ks:
         return []
-    dev = _pl.resolve_device(device)
-    run = dict(pipeline_depth=depth, device=dev)
+    dev = _pl.resolve_device(device) if dev is None else dev
+    # one bundle a slot in flight when the pipelined passes spread over slots
+    multi = depth > 0 and devices is not None
+    run = dict(pipeline_depth=depth, device=dev, devs=devs, window=len(devs) if multi else 1)
+    timer, restore_recorder = _wr.attach_timer(obs, timer)
+    run["timer"] = timer
+    occupancy = _wr.window_occupancy(obs, phase="descent")
     store, own_store, read_gen = _resolve_spill(source, spill, spill_dir)
     one_shot = _is_one_shot_source(source)
     # ENOSPC degrades to the replay of the last good generation only when
@@ -632,7 +721,7 @@ def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: i
                 total_bits = _dt.key_bits(dtype)
                 schedule = resolve_width_schedule(width_schedule, total_bits, radix_bits)
                 return _ex.FusedIngestConsumer(
-                    total_bits=total_bits, hist=(total_bits - schedule[0], schedule[0], [None])
+                    total_bits=total_bits, hist=(total_bits - schedule[0], schedule[0], [None]), obs=obs
                 )
 
             def pass0(src_override, tee):
@@ -641,23 +730,24 @@ def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: i
                 writer = (store.new_generation(pack_digit_bits=_sp.GEN0_SEGMENT_BITS if pack_spill == "auto" else None)
                           if tee and store is not None and read_gen is None else None)
                 try:
-                    first, dtype, n0 = _stream_pass(
+                    res = _stream_pass(
                         src_override if src_override is not None else gen_src(), None, first_pass,
-                        spill=writer, spill_slot=0, **run,
+                        spill=writer, obs=obs, label=0, phase="descent.pass", occupancy=occupancy, **run,
                     )
-                    if first is None:
+                    if res.consumer is None:
                         raise ValueError("streaming selection requires a non-empty stream")
                 except BaseException:
                     if writer is not None:
                         writer.abort()
                     raise
-                return first, dtype, n0, writer.commit() if writer is not None else None
+                return res, writer.commit() if writer is not None else None
 
             # a one-shot source is consumed as it is teed: its pass 0
             # cannot run again, and fails typed with the writer aborted
-            first, dtype, n, gen0 = _recover_pass(
+            res0, gen0 = _recover_pass(
                 pass0, reading_spill=read_gen is not None, fallback=None, on_enospc=enospc_pass0
             )
+            dtype, n = res0.dtype, res0.n
             kbytes = _dt.key_bits(dtype) // 8
             if gen0 is not None:
                 created.append(gen0)
@@ -668,9 +758,26 @@ def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: i
                 read_gen = gen0
             _validate_ks(ks, n)
             states = []
+            hist0 = res0.consumer.hists[None]
             for k in ks:
-                prefix, kk, pop = _np_walk(first.hists[None], k, None, schedule[0])
+                prefix, kk, pop = _np_walk(hist0, k, None, schedule[0])
                 states.append([prefix, kk, schedule[0], pop])
+            if obs is not None:
+                if gen0 is not None:
+                    _generation_event(obs, gen0)
+                total0, max0, nz0 = _hist_summary({None: hist0})
+                keys_read0 = int(pass0_gen.keys) if pass0_gen is not None else n
+                obs.emit(_ev.StreamPassEvent(
+                    pass_index=0, resolved_bits=0, prefixes=(), chunks=res0.chunks, keys_read=keys_read0,
+                    bytes_read=keys_read0 * kbytes, read_from="spill" if pass0_gen is not None else "source",
+                    bucket_total=total0, bucket_max=max0, bucket_nonzero=nz0,
+                    survivors=tuple(int(st[3]) for st in states),
+                    keys_written=None if gen0 is None else int(gen0.keys),
+                    bytes_written=None if gen0 is None else int(gen0.logical_nbytes),
+                    disk_bytes_read=int(pass0_gen.nbytes) if pass0_gen is not None else n * kbytes,
+                    disk_bytes_written=None if gen0 is None else int(gen0.nbytes),
+                ))
+                _wr.resolved_bits_gauge(obs, 0, schedule[0])
         total_bits = _dt.key_bits(dtype)
         np_dtype = _np_dtype(dtype)
         # each schedule step's boundary -> (digit width, pass label): active
@@ -720,14 +827,16 @@ def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: i
                 # a source read): the scheduled one, or a one-shot rebuild's gen 0
                 disk_gen = pass_read_gen if src_override is None else (protected if one_shot else None)
                 try:
-                    consumer, _, pass_keys = _stream_pass(
+                    res = _stream_pass(
                         src_override if src_override is not None else gen_src(tee_specs), dtype,
                         lambda _: _ex.FusedIngestConsumer(
                             total_bits=total_bits, hist=(shift, width, prefixes),
                             tee_specs=tee_specs if writer is not None else (), writer=writer, orig_dtype=np_dtype,
+                            obs=obs,
                         ),
-                        **run,
+                        obs=obs, label=label, phase="descent.pass", occupancy=occupancy, **run,
                     )
+                    consumer, pass_keys = res.consumer, res.n
                     hists = consumer.hists if consumer is not None else {p: np.zeros(1, np.int64) for p in prefixes}
                     for p in prefixes:
                         if int(hists[p].sum()) != expected[p]:
@@ -747,9 +856,10 @@ def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: i
                     disk_read = disk_gen.read_nbytes(tee_specs)
                 else:
                     disk_read = disk_gen.nbytes
-                return hists, writer.commit() if writer is not None else None, pass_keys, read_from, disk_read
+                gen = writer.commit() if writer is not None else None
+                return hists, gen, pass_keys, res.chunks, read_from, disk_read
 
-            hists, gen, pass_keys, read_from, disk_read = _recover_pass(
+            hists, gen, pass_keys, pass_chunks, read_from, disk_read = _recover_pass(
                 run_pass, reading_spill=read_gen is not None, fallback=fallback_src(), on_enospc=on_enospc
             )
             log_pass(label, gen, keys_read=pass_keys, read=read_from, disk_read=disk_read)
@@ -759,6 +869,20 @@ def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: i
                 if active(st):
                     st[0], st[1], st[3] = _np_walk(hists[st[0]], st[1], st[0], width)
                     st[2] = resolved + width
+            if obs is not None:
+                if gen is not None:
+                    _generation_event(obs, gen)
+                totalp, maxp, nzp = _hist_summary(hists)
+                obs.emit(_ev.StreamPassEvent(
+                    pass_index=label, resolved_bits=resolved, prefixes=tuple(int(p) for p in prefixes),
+                    chunks=pass_chunks, keys_read=pass_keys, bytes_read=pass_keys * kbytes, read_from=read_from,
+                    bucket_total=totalp, bucket_max=maxp, bucket_nonzero=nzp,
+                    survivors=tuple(int(st[3]) for st in states),
+                    keys_written=None if gen is None else int(gen.keys),
+                    bytes_written=None if gen is None else int(gen.logical_nbytes),
+                    disk_bytes_read=disk_read, disk_bytes_written=None if gen is None else int(gen.nbytes),
+                ))
+                _wr.resolved_bits_gauge(obs, label, resolved + width)
 
         specs = {(resolved, int(prefix)): pop for prefix, _, resolved, pop in states if resolved < total_bits}
         collected = {}
@@ -777,13 +901,19 @@ def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: i
                 else:
                     read_from, kr, disk = "source", n, n * kbytes
                 out = _collect_survivors(src_override if src_override is not None else gen_src(cspecs), dtype,
-                                         specs, **run)
+                                         specs, run=run, staged=devices is not None, obs=obs, read_from=read_from,
+                                         disk_bytes_read=disk)
                 return out, read_from, kr, disk
 
             collected, read_from, keys_read, disk_read = _recover_pass(
                 run_collect, reading_spill=read_gen is not None, fallback=fallback_src(), on_enospc=None
             )
             log_pass("collect", keys_read=keys_read, read=read_from, disk_read=disk_read)
+        if obs is not None and obs.metrics is not None:
+            # the run's counters while the store is open (the finally may
+            # remove one the call made), and the process ledger
+            _om.collect_runtime(obs.metrics, staging_pool=_pl.STAGING_POOL, spill_store=store, timer=timer)
+            _ldg.collect_ledger(obs.metrics)
         kdt = _dt.np_to_sortable_bits(np.zeros(1, np_dtype)).dtype
         answers = []
         for prefix, kk, resolved, _ in states:
@@ -794,6 +924,7 @@ def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: i
             answers.append(_dt.np_from_sortable_bits(np.asarray([key], kdt), np_dtype)[0])
         return answers
     finally:
+        restore_recorder()
         if own_store:
             store.close()
         elif store is not None:
@@ -805,7 +936,8 @@ def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: i
 
 
 def streaming_rank_certificate(source, value, *, pipeline_depth: int = DEFAULT_PIPELINE_DEPTH, ingest_workers=None,
-                               width_schedule=DEFAULT_WIDTH_SCHEDULE, pack_spill=DEFAULT_PACK_SPILL, device=None):
+                               width_schedule=DEFAULT_WIDTH_SCHEDULE, pack_spill=DEFAULT_PACK_SPILL, device=None,
+                               devices=None, timer=None, obs=None):
     """``(#elements < value, #elements <= value)`` over a chunked stream,
     as Python ints: an answer for rank k is exact iff ``less < k <= leq``.
     Compared in key space (ties, ``-0.0``/``+0.0`` and NaNs behave exactly
@@ -816,18 +948,37 @@ def streaming_rank_certificate(source, value, *, pipeline_depth: int = DEFAULT_P
     stream's answer is certified without reading the stream again (a
     packed generation too). ``width_schedule`` and ``pack_spill`` are
     checked, as the JAX package checks them, and change nothing: one
-    comparison pass has no digit to widen and writes no generation."""
+    comparison pass has no digit to widen and writes no generation.
+    ``devices`` spreads the pipelined pass over cards (each counts its own
+    chunks), and ``obs`` records a ``certificate.pass`` event, as in
+    :func:`streaming_kselect`."""
     validate_width_schedule(width_schedule)
     _sp.validate_pack_spill(pack_spill)
     depth = _pl.validate_pipeline_depth(pipeline_depth)
-    _pl.resolve_ingest_workers(ingest_workers)
+    pool_n = _pl.resolve_ingest_workers(ingest_workers)
     src = as_chunk_source(source)
+    dev, devs = _pl.resolve_ingest(device, devices)
+    timer, restore_recorder = _wr.attach_timer(obs, timer)
+    _wr.ingest_workers_gauge(obs, pool_n)
+    # staging to slots is gated on the knobs as given, as the JAX package's
+    staged = depth > 0 and devices is not None
 
     def certificate(dtype):
         # key the probe value in the stream's dtype, known at the first chunk
-        return _ex.CountLessLeqConsumer(int(_dt.np_to_sortable_bits(np.asarray([value], _np_dtype(dtype)))[0]))
+        return _ex.CountLessLeqConsumer(int(_dt.np_to_sortable_bits(np.asarray([value], _np_dtype(dtype)))[0]),
+                                        obs=obs)
 
-    counter, _, _ = _stream_pass(src, None, certificate, pipeline_depth=depth, device=_pl.resolve_device(device))
+    try:
+        res = _stream_pass(src, None, certificate, pipeline_depth=depth, device=dev, devs=devs, staged=staged,
+                           window=len(devs) if staged else 1, obs=obs, label="certificate", timer=timer,
+                           phase="certificate.pass", occupancy=_wr.window_occupancy(obs, phase="certificate"))
+    finally:
+        restore_recorder()
+    counter = res.consumer
     if counter is None:
         raise ValueError("streaming_rank_certificate requires a non-empty stream")
+    if obs is not None:
+        obs.emit(_ev.CertificateEvent(chunks=res.chunks, keys_read=res.n, less=counter.less, leq=counter.leq))
+        if obs.metrics is not None:
+            _om.collect_runtime(obs.metrics, staging_pool=_pl.STAGING_POOL, timer=timer)
     return counter.less, counter.leq

@@ -21,10 +21,16 @@ by their top digit and cut to their low bytes on the chunk's device
 
 :class:`StreamExecutor` dispatches each chunk's work when it arrives and
 finishes it (the host-side folds) in chunk order through an
-:class:`~mpi_k_selection_tpu_torch.streaming.pipeline.InflightWindow`,
-then releases the chunk's staging slot: exactly when the last result
-depending on it is on the host. Histograms fold into int64 host counters,
-so counts are exact for any stream length.
+:class:`~mpi_k_selection_tpu_torch.streaming.pipeline.InflightWindow` of
+one bundle per ingest slot, then releases the chunk's staging slot:
+exactly when the last result depending on it is on the host. Histograms
+fold into int64 host counters, so counts are exact for any stream length,
+and the folds follow chunk order whatever card a chunk ran on.
+
+Every launch reports to the ledger (obs/ledger.py) under its kind:
+``ingest.histogram``, ``ingest.fused`` (a histogram with the spill tee),
+``ingest.collect``, ``ingest.certificate`` and ``ingest.sketch``; with an
+``obs``, each counts its read of the chunk (obs/wiring.py:``bucket_read``).
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mpi_k_selection_tpu_torch.obs import wiring as _wr
+from mpi_k_selection_tpu_torch.obs.ledger import ledger_dispatch
 from mpi_k_selection_tpu_torch.ops.cuda.sweep_ingest import sweep_ingest
 from mpi_k_selection_tpu_torch.streaming import spill as _sp
 from mpi_k_selection_tpu_torch.streaming.pipeline import InflightWindow, StagedKeys
@@ -47,6 +55,12 @@ def materialize_compacted(part) -> np.ndarray:
     buf, count = part
     cnt = int(count)
     return buf[:cnt].to("cpu", copy=True).numpy().view(_NP_UNSIGNED[buf.element_size()])
+
+
+def _launch_key(keys: StagedKeys) -> tuple:
+    """A sweep launch's ledger key: the key word's width (PyTorch compiles
+    nothing per shape; the kernel's instantiation is per width)."""
+    return (keys.data.element_size() * 8,)
 
 
 def finish_chunk_histograms(hist, prefixes, pad: int) -> dict:
@@ -73,11 +87,16 @@ class FusedIngestConsumer:
     NumPy dtype): the keys matching any of them, in chunk order, are
     appended to the writer as one record a chunk at finish (chunks with
     none are skipped), so the records follow chunk order, as the JAX
-    package's ``SpillTeeConsumer`` writes them."""
+    package's ``SpillTeeConsumer`` writes them, each naming the chunk's
+    ``device_slot``. ``obs`` counts each launch's read."""
 
-    def __init__(self, *, total_bits: int, hist=None, collect_specs=(), tee_specs=(), writer=None, orig_dtype=None):
+    def __init__(self, *, total_bits: int, hist=None, collect_specs=(), tee_specs=(), writer=None, orig_dtype=None,
+                 obs=None):
         if hist is None and not collect_specs and not tee_specs:
             raise ValueError("FusedIngestConsumer needs at least one part")
+        self._obs = obs
+        # the launch kind: its ledger site and its bucket_read phase
+        self._kind = "fused" if tee_specs else "histogram" if hist is not None else "collect"
         self._bits = total_bits
         self._hist = hist
         self.hists = {} if hist is None else {p: np.zeros(1 << hist[1], np.int64) for p in hist[2]}
@@ -93,18 +112,20 @@ class FusedIngestConsumer:
         if self._hist is not None:
             shift, radix_bits, prefixes = self._hist
             kw = dict(shift=shift, radix_bits=radix_bits, hist_prefixes=[p or 0 for p in prefixes])
-        hist, collect, tee, _, _ = sweep_ingest(
-            keys.data, keys.n_valid, key_op=keys.key_op, key_xor=keys.key_xor,
-            collect=[(self._bits - r, p) for r, p in self.specs], tee=self._tee_specs, **kw,
-        )
-        return keys.pad, hist, collect, tee
+        _wr.bucket_read(self._obs, self._kind, keys)
+        with ledger_dispatch(f"ingest.{self._kind}", _launch_key(keys), self._obs):
+            hist, collect, tee, _, _ = sweep_ingest(
+                keys.data, keys.n_valid, key_op=keys.key_op, key_xor=keys.key_xor,
+                collect=[(self._bits - r, p) for r, p in self.specs], tee=self._tee_specs, **kw,
+            )
+        return keys.pad, keys.device_slot, hist, collect, tee
 
     def finish(self, handle) -> None:
-        pad, hist, collect, tee = handle
+        pad, slot, hist, collect, tee = handle
         if tee is not None:
             surv = materialize_compacted(tee)
             if surv.size:  # sub-32-bit keys sit in the low bits of 32-bit words
-                self._writer.append(surv.astype(self._kdt, copy=False), self._orig_dtype)
+                self._writer.append(surv.astype(self._kdt, copy=False), self._orig_dtype, device_slot=slot)
         if hist is not None:
             for p, h in finish_chunk_histograms(hist, self._hist[2], pad).items():
                 self.hists[p] += h
@@ -124,15 +145,18 @@ class CountLessLeqConsumer:
     """The rank certificate's ``(#keys < v, #keys <= v)`` folds for the key
     ``vkey``: the kernel masks pads, so no correction."""
 
-    def __init__(self, vkey: int):
+    def __init__(self, vkey: int, obs=None):
         self.less = 0
         self.leq = 0
         self._vkey = int(vkey)
+        self._obs = obs
 
     def dispatch(self, keys: StagedKeys):
-        _, _, _, cert, _ = sweep_ingest(
-            keys.data, keys.n_valid, key_op=keys.key_op, key_xor=keys.key_xor, vkey=self._vkey
-        )
+        _wr.bucket_read(self._obs, "certificate", keys)
+        with ledger_dispatch("ingest.certificate", _launch_key(keys), self._obs):
+            _, _, _, cert, _ = sweep_ingest(
+                keys.data, keys.n_valid, key_op=keys.key_op, key_xor=keys.key_xor, vkey=self._vkey
+            )
         return cert
 
     def finish(self, handle) -> None:
@@ -153,22 +177,28 @@ class SketchFoldConsumer:
     word. Sub-32-bit keys are widened into the low bits of 32-bit words,
     so for them the deep level comes from the prefix-free histogram part
     of the same launch (the digit of ``resolution_bits`` at ``total_bits -
-    resolution_bits``), and only the extremes from a one-bit sketch part."""
+    resolution_bits``), and only the extremes from a one-bit sketch part.
+    ``obs`` counts each launch's read under ``phase`` (``sketch`` or
+    ``monitor``)."""
 
-    def __init__(self, sketch):
+    def __init__(self, sketch, obs=None, phase: str = "sketch"):
         self.sketch = sketch
+        self._obs = obs
+        self._phase = phase
 
     def dispatch(self, keys: StagedKeys):
         sk = self.sketch
         res, total = sk.resolution_bits, sk.total_bits
         kw = dict(key_op=keys.key_op, key_xor=keys.key_xor)
-        if total < 32:
-            hist, _, _, _, (_, kmin, kmax) = sweep_ingest(
-                keys.data, keys.n_valid, shift=total - res, radix_bits=res, hist_prefixes=[0], sketch_bits=1, **kw
-            )
-            deep = hist[0]
-        else:
-            _, _, _, _, (deep, kmin, kmax) = sweep_ingest(keys.data, keys.n_valid, sketch_bits=res, **kw)
+        _wr.bucket_read(self._obs, self._phase, keys)
+        with ledger_dispatch("ingest.sketch", _launch_key(keys), self._obs):
+            if total < 32:
+                hist, _, _, _, (_, kmin, kmax) = sweep_ingest(
+                    keys.data, keys.n_valid, shift=total - res, radix_bits=res, hist_prefixes=[0], sketch_bits=1, **kw
+                )
+                deep = hist[0]
+            else:
+                _, _, _, _, (deep, kmin, kmax) = sweep_ingest(keys.data, keys.n_valid, sketch_bits=res, **kw)
         return sk, keys.pad, keys.n_valid, deep, torch.stack([kmin, kmax])
 
     def finish(self, handle) -> None:
@@ -188,20 +218,18 @@ class DigitTeeConsumer:
     grouped and cut on the chunk's device (:func:`spill.pack_digits`) when
     the width below the digit is whole bytes, else on the host; the
     finish checksums the segments and writes the record (format v1 where
-    packing would not shrink it). Records name ``slot``, or a replayed
-    record's own slot."""
+    packing would not shrink it). Records name the chunk's ``tee_slot``."""
 
-    def __init__(self, writer, total_bits: int, orig_dtype, slot):
+    def __init__(self, writer, total_bits: int, orig_dtype):
         self._writer = writer
         self._bits = total_bits
         self._digit = writer.digit_bits(total_bits)
         self._orig_dtype = orig_dtype
-        self._slot = slot
         self._kdt = np.dtype(f"uint{total_bits}")
 
     def dispatch(self, keys: StagedKeys):
         k = _dt.keys_from_raw(keys.data[: keys.n_valid], keys.key_op, keys.key_xor)
-        slot = self._slot if keys.slot is StagedKeys.NO_SLOT else keys.slot
+        slot = keys.tee_slot
         if (self._bits - self._digit) % 8:
             return k, slot, None
         return k, slot, _sp.pack_digits(k, self._digit, self._bits)
@@ -223,22 +251,32 @@ class DigitTeeConsumer:
         w.append_prepared(prep, device_slot=slot)
 
 
-#: Bundles in flight: one card, so one (the JAX package's window is one
-#: slot per ingest device; multi-device staging, ROADMAP Queue 1 item 3e,
-#: widens it).
-WINDOW = 1
+#: Per-card streams the host reads of a finished bundle run on, so they do
+#: not queue behind the later bundles' launches on the compute stream.
+_READBACK: dict = {}
+
+
+def _readback_stream(device: torch.device):
+    s = _READBACK.get(device)
+    if s is None:
+        s = _READBACK[device] = torch.cuda.Stream(device=device)
+    return s
 
 
 class StreamExecutor:
     """Dispatches every consumer's work for a chunk at :meth:`push`, and
     finishes the bundles in chunk order through a FIFO window of
-    :data:`WINDOW` in flight: a bundle on the card first waits for the
-    CUDA event recorded after its launches, then its consumers fold on the
-    host, then its staging slot is released."""
+    ``window`` in flight (one a slot of a pass staged over several): a
+    bundle on a card first waits for the CUDA event recorded after its
+    launches on that card's stream, then its consumers fold on the host
+    (their reads on a readback stream of the card: the bundle's own work
+    is done, and the later bundles' launches stay queued), then its
+    staging slot is released. ``occupancy`` (obs/wiring.py:
+    ``window_occupancy``) samples the window at every push."""
 
-    def __init__(self, consumers):
+    def __init__(self, consumers, *, window: int = 1, occupancy=None):
         self.consumers = list(consumers)
-        self._win = InflightWindow(WINDOW, self._finish_bundle)
+        self._win = InflightWindow(window, self._finish_bundle, occupancy)
 
     def push(self, keys: StagedKeys) -> None:
         handles = [c.dispatch(keys) for c in self.consumers]
@@ -250,10 +288,14 @@ class StreamExecutor:
 
     def _finish_bundle(self, bundle) -> None:
         keys, handles, done = bundle
-        if done is not None:
+        if done is None:
+            for c, h in zip(self.consumers, handles):
+                c.finish(h)
+        else:
             done.synchronize()
-        for c, h in zip(self.consumers, handles):
-            c.finish(h)
+            with torch.cuda.stream(_readback_stream(keys.data.device)):
+                for c, h in zip(self.consumers, handles):
+                    c.finish(h)
         keys.release()
 
     def drain(self) -> None:

@@ -24,6 +24,15 @@ that, within its limits. Depth 0 is the synchronous path, with no thread.
 A producer error is re-raised in the consumer, and closing the pipeline
 (on every exit of a pass) stops and joins the thread.
 
+``devices`` (:func:`resolve_stream_devices`) spreads the pipelined passes
+over cards: the producer stages chunk *j* onto ``devices[j % p]`` through a
+:class:`HostStager` of that card (each with its own copy stream), and the
+consumer keeps one bundle a slot in flight (streaming/executor.py), so each
+card reads its own chunks while the host folds the results in chunk order.
+A replayed spill record goes back to the slot it was written from. The
+slot of each chunk is recorded at staging (``StagedKeys.device_slot``):
+telemetry and spill records name it, never a tensor's device.
+
 ``ingest_workers`` (:func:`resolve_ingest_workers`) is taken and checked
 as the JAX package takes it, but every width runs the one producer above:
 the JAX package's pool of ingest workers is not ported. On an H100 host a
@@ -45,7 +54,9 @@ import threading
 import numpy as np
 import torch
 
+from mpi_k_selection_tpu_torch.obs import ledger as _ledger
 from mpi_k_selection_tpu_torch.utils import dtypes as _dt
+from mpi_k_selection_tpu_torch.utils.profiling import phase as _phase
 from mpi_k_selection_tpu_torch.utils.timing import Stopwatch
 
 #: Classic double buffering: chunk i+1 staged while chunk i computes.
@@ -116,6 +127,84 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def _as_device(d) -> torch.device:
+    """One ``devices`` entry as a torch.device that exists here: a CUDA
+    entry names a present card (its index made explicit), a CPU entry
+    keeps its index (``cpu:1`` is a slot of its own)."""
+    if not isinstance(d, (str, torch.device)):
+        raise ValueError(f"devices entries must be torch devices or device strings, got {d!r}")
+    try:
+        dev = torch.device(d)
+    except RuntimeError:
+        raise ValueError(f"devices entries must be torch devices or device strings, got {d!r}") from None
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise ValueError(f"devices entry {d!r} names a CUDA card, and no CUDA card is present")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if dev.index >= torch.cuda.device_count():
+            raise ValueError(
+                f"devices entry {d!r} names a card that is not there ({torch.cuda.device_count()} present)"
+            )
+    elif dev.type != "cpu":
+        raise ValueError(f"streams are staged to CUDA devices or the CPU, got devices entry {d!r}")
+    return dev
+
+
+def resolve_stream_devices(devices, device=None) -> tuple:
+    """The ``devices`` ingest knob as a tuple of slots, with the JAX
+    package's rules and messages:
+
+    - ``None`` -> ``(None,)``: the single-slot path (every chunk on the
+      stream's ``device``);
+    - an int ``p >= 1``: the first ``min(p, torch.cuda.device_count())``
+      cards, or, when the stream's ``device`` is the CPU, ``p`` indexed CPU
+      slots ``cpu:0 .. cpu:p-1`` (one process's stand-in for cards);
+    - a sequence of torch devices or device strings, used as given: its
+      order fixes the slots, and an entry may repeat (two slots on one
+      card). A CUDA entry must name a card that is present.
+
+    ``bool``, ``p < 1``, an empty sequence and any other entry are
+    errors. Resolved on the caller's thread, before a producer starts."""
+    if devices is None:
+        return (None,)
+    if isinstance(devices, bool):
+        raise ValueError(f"devices must be an int >= 1 or a device sequence, got {devices!r}")
+    if isinstance(devices, (int, np.integer)):
+        p = int(devices)
+        if p < 1:
+            raise ValueError(f"devices={p} out of range (need >= 1)")
+        if resolve_device(device).type == "cpu":
+            return tuple(torch.device("cpu", i) for i in range(p))
+        return tuple(torch.device("cuda", i) for i in range(min(p, torch.cuda.device_count())))
+    if isinstance(devices, (list, tuple)):
+        if not devices:
+            raise ValueError("devices sequence must not be empty")
+        return tuple(_as_device(d) for d in devices)
+    raise ValueError(
+        f"devices must be None, an int >= 1, or a sequence of torch devices, got {type(devices).__name__!r}"
+    )
+
+
+def resolve_ingest(device, devices) -> tuple:
+    """``(device, devs)``: the stream's device and its ingest slots
+    (:func:`resolve_stream_devices`). With ``devices``, the stream's device
+    is its first slot (the depth-0 path stages there); a ``device`` given
+    too must agree: the slots' type, and one of them when it names an
+    index. Disagreeing knobs raise a ValueError."""
+    devs = resolve_stream_devices(devices, device)
+    if devs == (None,):
+        return resolve_device(device), devs
+    if device is not None:
+        want = torch.device(device)
+        if any(d.type != want.type for d in devs) or (want.index is not None and want not in devs):
+            raise ValueError(
+                f"device={str(want)!r} and devices={[str(d) for d in devs]} disagree: with devices, device must be "
+                "their type or one of them (or left None)"
+            )
+    return devs[0], devs
+
+
 class StagingPool:
     """Free lists of pinned host buffers (uint8 tensors), keyed by
     ``(bytes, device)``: a stream's chunks are mostly of one size, and
@@ -156,6 +245,7 @@ class StagingPool:
                 self._bytes -= nbytes
                 self._order.remove((key, nbytes))
                 self.hits += 1
+                _ledger.LEDGER.set_bytes("staging_pool", None, self._bytes)
             else:
                 self.misses += 1
             self._live += nbytes
@@ -181,6 +271,7 @@ class StagingPool:
                 old_key, old_bytes = self._order.pop(0)
                 self._free[old_key].pop(0)
                 self._bytes -= old_bytes
+            _ledger.LEDGER.set_bytes("staging_pool", None, self._bytes)
 
     @property
     def resident_bytes(self) -> int:
@@ -205,6 +296,7 @@ class StagingPool:
             self._free.clear()
             self._order.clear()
             self._bytes = 0
+            _ledger.LEDGER.set_bytes("staging_pool", None, 0)
 
 
 #: The pool every stager draws from: up to 2 GiB of pinned buffers stay
@@ -218,16 +310,25 @@ class StagedKeys:
     under ``key_op``/``key_xor``, utils/dtypes.py:key_fold) followed by
     ``pad`` pad words that count as key 0. :meth:`release` frees the
     staging slot and the pinned buffer once every result depending on the
-    chunk is on the host; it is idempotent."""
+    chunk is on the host; it is idempotent.
 
-    NO_SLOT = object()  # ``slot`` of a chunk that is not a replayed spill record
+    ``staged`` says the producer staged the chunk to a round-robin slot,
+    by the JAX package's rule: a histogram pass at depth >= 1, and the
+    collect, certificate, sketch and monitor passes only with ``devices``
+    (every other chunk is staged to the stream's device in turn).
+    ``device_slot`` is the index of its card in the ``devices`` tuple
+    (None without ``devices``), and ``tee_slot`` the slot a spill record
+    of the chunk names (the round-robin cursor; a depth-0 chunk's replayed
+    record keeps its own)."""
 
     data: torch.Tensor
     n_valid: int
     key_op: str = "none"
     key_xor: int = 0
     on_release: object = None  # returns the staging slot and the pinned buffer
-    slot: object = NO_SLOT  # a replayed spill record's device slot (a tee keeps it)
+    tee_slot: int | None = None
+    device_slot: int | None = None
+    staged: bool = False
     _lock: threading.Lock = dataclasses.field(default_factory=threading.Lock, repr=False)
 
     @property
@@ -315,46 +416,58 @@ def _chain(hooks):
     return run
 
 
-def stage_chunk(c, dtype: torch.dtype, device: torch.device, stager=None, on_release=None) -> StagedKeys:
+def stage_chunk(c, dtype: torch.dtype, device: torch.device, stager=None, on_release=None, *, tee_slot=None,
+                device_slot=None, staged=False) -> StagedKeys:
     """Stage one normalized chunk ``c`` of ``dtype`` on ``device`` (see the
     module docstring); ``stager`` (a :class:`HostStager`) carries host
-    chunks to a CUDA device. ``on_release`` runs at release, after the
-    pinned buffer has gone back. A replayed spill record
-    (streaming/spill.py: ``SpillChunk``) holds keys already: they are
-    staged as they are (sub-32-bit keys widened on the device)."""
+    chunks to a CUDA device (a chunk stays where it is on the CPU, whatever
+    the CPU slot's index). ``on_release`` runs at release, after the
+    pinned buffer has gone back; the slot fields are the
+    :class:`StagedKeys`'. A replayed spill record (streaming/spill.py:
+    ``SpillChunk``) holds keys already: they are staged as they are
+    (sub-32-bit keys widened on the device). The staged bytes are booked
+    in the ledger's ``staging`` pool of ``device`` until release."""
     from mpi_k_selection_tpu_torch.streaming.spill import SpillChunk
 
     is_keys = isinstance(c, SpillChunk)
     raw = _raw_words(c.keys if is_keys else c)
     give_back = None
-    if raw.device != device:
+    if raw.device.type != device.type or (device.type == "cuda" and raw.device != device):
         if raw.device.type == "cpu":
             raw, give_back = stager.to_device(raw)
         else:
             raw = raw.to(device)
-    release = _chain([give_back, on_release])
     bits = _dt.key_bits(dtype)
     if is_keys:
-        keys = raw.to(torch.int32) & ((1 << bits) - 1) if bits < 32 else raw
-        return StagedKeys(keys, raw.numel(), on_release=release, slot=c.device_slot)
-    if bits < 32:  # widened to 32-bit keys on the device
-        return StagedKeys(_dt.to_sortable_bits(raw.view(dtype)), raw.numel(), on_release=release)
-    fold = _dt.key_fold(dtype)
-    return StagedKeys(raw, raw.numel(), fold[0], fold[1] if fold[0] == "xor" else 0, release)
+        keys, op, xor = (raw.to(torch.int32) & ((1 << bits) - 1) if bits < 32 else raw), "none", 0
+    elif bits < 32:  # widened to 32-bit keys on the device
+        keys, op, xor = _dt.to_sortable_bits(raw.view(dtype)), "none", 0
+    else:
+        fold = _dt.key_fold(dtype)
+        keys, op, xor = raw, fold[0], fold[1] if fold[0] == "xor" else 0
+    label, nbytes = str(device), keys.numel() * keys.element_size()
+    _ledger.LEDGER.adjust_bytes("staging", label, nbytes)
+    unbook = lambda: _ledger.LEDGER.adjust_bytes("staging", label, -nbytes)  # noqa: E731
+    return StagedKeys(keys, raw.numel(), op, xor, _chain([give_back, unbook, on_release]), tee_slot=tee_slot,
+                      device_slot=device_slot, staged=staged)
 
 
 class InflightWindow:
     """FIFO window of in-flight per-chunk work: at most ``window`` handles
     pending, finished strictly in push order, so the host folds follow
-    chunk order."""
+    chunk order. ``occupancy`` (an obs/metrics.py Histogram, optional)
+    samples the pending count at every push."""
 
-    def __init__(self, window: int, finish):
+    def __init__(self, window: int, finish, occupancy=None):
         self._window = max(1, int(window))
         self._finish = finish
+        self._occupancy = occupancy
         self._q: collections.deque = collections.deque()
 
     def push(self, handle) -> None:
         self._q.append(handle)
+        if self._occupancy is not None:
+            self._occupancy.observe(len(self._q))
         if len(self._q) >= self._window:
             self._finish(self._q.popleft())
 
@@ -378,32 +491,76 @@ class _Raised:
 _DONE = object()
 
 
+class SlotCursor:
+    """Where each chunk of a pass is staged, and the slots it names: with
+    ``staged`` (the producer stages to round-robin slots, see
+    :class:`StagedKeys`) chunk *j* goes to ``devs[j % p]`` (a replayed
+    spill record to its own slot modulo ``p``; empty chunks do not advance
+    the cursor) and its spill record names ``j % p``; else every chunk goes
+    to ``device`` and names no slot. Resolved on the caller's thread."""
+
+    def __init__(self, device: torch.device, devs: tuple, staged: bool):
+        self.device = device
+        self.devs = devs
+        self.staged = staged
+        self._next = 0
+
+    def place(self, c) -> dict:
+        """``stage_chunk``'s placement of one non-empty chunk: the target
+        device and the slot fields."""
+        from mpi_k_selection_tpu_torch.streaming.spill import SpillChunk
+
+        if not self.staged:
+            return dict(device=self.device, tee_slot=None, device_slot=None, staged=False)
+        replay = c.device_slot if isinstance(c, SpillChunk) else None
+        if replay is None:
+            cursor = self._next % len(self.devs)
+            self._next += 1
+        else:
+            cursor = replay % len(self.devs)
+        dev = self.devs[cursor]
+        if dev is None:  # no devices: the stream's device, no slot
+            return dict(device=self.device, tee_slot=cursor, device_slot=None, staged=True)
+        return dict(device=dev, tee_slot=cursor, device_slot=self.devs.index(dev), staged=True)
+
+    def cuda_devices(self) -> list:
+        """The distinct CUDA devices the pass stages onto."""
+        devs = [self.device] + [d for d in self.devs if d is not None]
+        return list(dict.fromkeys(d for d in devs if d.type == "cuda"))
+
+
 class ChunkPipeline:
     """Background producer of ``(StagedKeys, dtype)`` pairs: the pipelined
     twin of the synchronous chunk iterator (streaming/chunked.py:
     ``_iter_staged``), with the same pairs, order, checks and errors.
     ``dtype`` is the stream dtype to hold chunks to (None: the first
-    chunk's). ``spill`` (a streaming/spill.py ``SpillWriter``) tees every
-    chunk's host keys to a spill generation on the producer thread, each
-    record naming ``spill_slot`` as its device slot."""
+    chunk's). ``cursor`` (a :class:`SlotCursor`) places each chunk; each
+    card it names gets a :class:`HostStager` of its own. ``window`` is the
+    consumer's in-flight bundles: at most ``depth + window`` staged chunks
+    exist at once. ``spill`` (a streaming/spill.py ``SpillWriter``) tees
+    every chunk's host keys to a spill generation on the producer thread,
+    each record naming the chunk's ``tee_slot``. ``timer`` (a PhaseTimer)
+    times the producer's ``pipeline.produce`` / ``encode`` / ``spill`` /
+    ``stage`` phases and the consumer's ``pipeline.stall``."""
 
     _ids = itertools.count()
 
-    def __init__(self, src, dtype=None, *, depth: int, device: torch.device, spill=None, spill_slot=None):
+    def __init__(self, src, dtype=None, *, depth: int, cursor: SlotCursor, window: int = 1, spill=None,
+                 timer=None):
         self._src = src
         self._dtype = dtype
         self._spill = spill  # the pass-0 tee's SpillWriter, appended to on this thread
-        self._spill_slot = spill_slot
         self._depth = validate_pipeline_depth(depth)
         if self._depth == 0:
             raise ValueError("ChunkPipeline requires pipeline_depth >= 1; depth 0 is the synchronous path")
-        self._device = device
-        # the staged chunks in the queue and in the consumer's hand: depth + 1
+        self._cursor = cursor
+        self._timer = timer
+        # the staged chunks queued, in the consumer's window and in its hand
         self._q: queue.Queue = queue.Queue()
-        self._slots = threading.Semaphore(self._depth + 1)
+        self._slots = threading.Semaphore(self._depth + max(1, int(window)))
         self._stop = threading.Event()
-        # the stream the consumer's kernels run on, captured on its thread
-        self._compute = torch.cuda.current_stream(device) if device.type == "cuda" else None
+        # the streams the consumer's kernels run on, captured on its thread
+        self._compute = {d: torch.cuda.current_stream(d) for d in cursor.cuda_devices()}
         self._thread = threading.Thread(
             target=self._produce, name=f"{THREAD_NAME_PREFIX}-{next(self._ids)}", daemon=True
         )
@@ -421,41 +578,54 @@ class ChunkPipeline:
         from mpi_k_selection_tpu_torch.streaming.chunked import _chunk_dtype, _normalize_chunk, _tee
 
         keys = None  # the staged chunk in hand; None once the consumer owns it
+        timer = self._timer
         try:
-            stager = None
-            if self._device.type == "cuda":
-                torch.cuda.set_device(self._device)  # this thread stages to the stream's card
-                stager = HostStager(self._device, self._compute)
+            if self._compute:
+                torch.cuda.set_device(self._cursor.device)  # this thread stages to the stream's card
+            stagers = {d: HostStager(d, s) for d, s in self._compute.items()}
             dtype = self._dtype
-            for chunk in self._src():
-                if self._stop.is_set():
-                    return
-                c = _normalize_chunk(chunk, dtype)
+            it = iter(self._src())
+            while True:
+                with _phase(timer, "pipeline.produce"):
+                    chunk = next(it, _DONE)
+                if chunk is _DONE or self._stop.is_set():
+                    break
+                with _phase(timer, "pipeline.encode"):
+                    c = _normalize_chunk(chunk, dtype)
                 if c is None:
                     continue
                 if dtype is None:
                     dtype = _chunk_dtype(c)
+                place = self._cursor.place(c)
                 if self._spill is not None:
-                    _tee(self._spill, c, dtype, self._spill_slot)
+                    with _phase(timer, "pipeline.spill"):
+                        _tee(self._spill, c, dtype, place["tee_slot"])
                 if not self._acquire_slot():
                     return
-                keys = stage_chunk(c, dtype, self._device, stager, on_release=self._slots.release)
+                with _phase(timer, "pipeline.stage"):
+                    keys = stage_chunk(c, dtype, stager=stagers.get(place["device"]), on_release=self._slots.release,
+                                       **place)
                 self._q.put((keys, dtype))
                 keys = None
-            self._q.put(_DONE)
+            if not self._stop.is_set():
+                self._q.put(_DONE)
         except BaseException as e:  # re-raised by the consumer
             if keys is not None:
                 keys.release()
             self._q.put(_Raised(e))
 
-    def __iter__(self):
+    def _get(self):
         while True:
             try:
-                item = self._q.get(timeout=0.1)
+                return self._q.get(timeout=0.1)
             except queue.Empty:
                 if not self._thread.is_alive() and self._q.empty():
                     raise RuntimeError("streaming pipeline producer died without a result") from None
-                continue
+
+    def __iter__(self):
+        while True:
+            with _phase(self._timer, "pipeline.stall"):
+                item = self._get()
             if item is _DONE:
                 return
             if isinstance(item, _Raised):

@@ -49,9 +49,7 @@ _MAX_RESOLUTION_BITS = MAX_BITS
 #: The JAX package's streaming knobs the port does not take yet: what each
 #: is, and the ROADMAP Queue 1 item that brings it.
 LATER_KNOBS = {
-    "devices": "multi-device staging, ROADMAP Queue 1 item 3e",
-    "obs": "observability, ROADMAP Queue 1 item 4",
-    "timer": "observability, ROADMAP Queue 1 item 4",
+    "retry": "faults, ROADMAP Queue 1 item 4",
     "fused": "no counterpart: the port has one route, the sweep kernel",
     "deferred": "no counterpart: the port has one executor discipline",
 }
@@ -128,10 +126,11 @@ class RadixSketch:
         if name != self.dtype.name:
             raise TypeError(f"chunk dtype {name} != sketch dtype {self.dtype}")
         on_card = isinstance(c, torch.Tensor) and c.is_cuda
-        return self._fold_stream(lambda: iter((c,)), 0, c.device if on_card else self.device)
+        self._fold_stream(lambda: iter((c,)), 0, c.device if on_card else self.device)
+        return self
 
     def update_stream(self, source, *, pipeline_depth=None, ingest_workers=None, spill=None, pack_spill=None,
-                      **kwargs) -> "RadixSketch":
+                      devices=None, timer=None, obs=None, **kwargs) -> "RadixSketch":
         """Fold every chunk of ``source`` in (one pass; a list or tuple of
         chunks or a zero-arg callable, streaming/chunked.py:
         ``as_chunk_source``): chunks are staged to the sketch's device as
@@ -148,41 +147,64 @@ class RadixSketch:
         ``pack_spill="auto"`` writes that generation in format v2,
         segmented by each key's top digit as the descent's pass 0 is, so a
         refine reads only the segments under its sketch buckets (None =
-        ``"off"``: format v1). Returns ``self``."""
+        ``"off"``: format v1). ``devices`` spreads the pipelined pass over
+        cards (streaming/chunked.py), ``timer`` times its ``sketch.pass``
+        and ``obs`` records its chunk events and one ``sketch.pass`` event.
+        Returns ``self``."""
         reject_later_knobs("update_stream", kwargs)
         from mpi_k_selection_tpu_torch.streaming import spill as _sp
         from mpi_k_selection_tpu_torch.streaming.chunked import as_chunk_source
 
+        from mpi_k_selection_tpu_torch.obs import events as _ev
+        from mpi_k_selection_tpu_torch.obs import metrics as _om
+        from mpi_k_selection_tpu_torch.obs import wiring as _wr
+
         depth = _pl.validate_pipeline_depth(pipeline_depth)
         pack_spill = _sp.validate_pack_spill(pack_spill)
-        _pl.resolve_ingest_workers(ingest_workers)
+        pool_n = _pl.resolve_ingest_workers(ingest_workers)
+        dev, devs = _pl.resolve_ingest(self.device, devices)
+        timer, restore_recorder = _wr.attach_timer(obs, timer)
+        # staging to slots is gated on the knobs as given, as the JAX package's
+        staged = depth > 0 and devices is not None
         if spill is not None and not isinstance(spill, _sp.SpillStore):
             raise TypeError(
                 "update_stream's spill must be a SpillStore (the caller owns its lifecycle), "
                 f"got {type(spill).__name__!r}"
             )
         src = as_chunk_source(source, one_shot_ok=spill is not None)
+        _wr.ingest_workers_gauge(obs, pool_n)
         writer = (spill.new_generation(pack_digit_bits=_sp.GEN0_SEGMENT_BITS if pack_spill == "auto" else None)
                   if spill is not None else None)
         try:
-            self._fold_stream(src, depth, self.device, spill=writer)
+            res = self._fold_stream(src, depth, dev, spill=writer, devs=devs, staged=staged, obs=obs, timer=timer)
             if writer is not None:
                 writer.commit()
         except BaseException:
             if writer is not None:
                 writer.abort()
             raise
+        finally:
+            restore_recorder()
+        if obs is not None:
+            obs.emit(_ev.SketchPassEvent(chunks=res.chunks, keys_read=res.n, bytes_read=res.n * self.kdt.itemsize,
+                                         staged_chunks=res.staged_chunks))
+            if obs.metrics is not None:
+                _om.collect_runtime(obs.metrics, staging_pool=_pl.STAGING_POOL, spill_store=spill, timer=timer)
         return self
 
-    def _fold_stream(self, src, depth: int, device, spill=None) -> "RadixSketch":
+    def _fold_stream(self, src, depth: int, device, spill=None, devs=(None,), staged=False, obs=None, timer=None):
+        """One pass of ``src`` folded in on ``device`` (or the slots
+        ``devs``); the pass's record (streaming/chunked.py:``_Pass``)."""
+        from mpi_k_selection_tpu_torch.obs import wiring as _wr
         from mpi_k_selection_tpu_torch.streaming import chunked as _chunked
         from mpi_k_selection_tpu_torch.streaming.executor import SketchFoldConsumer
 
-        _chunked._stream_pass(
-            src, _dt.torch_dtype(self.dtype), lambda _: SketchFoldConsumer(self),
-            pipeline_depth=depth, device=_pl.resolve_device(device), spill=spill,
+        return _chunked._stream_pass(
+            src, _dt.torch_dtype(self.dtype), lambda _: SketchFoldConsumer(self, obs=obs),
+            pipeline_depth=depth, device=_pl.resolve_device(device), devs=devs, staged=staged,
+            window=len(devs) if staged else 1, spill=spill, obs=obs, label="sketch", timer=timer,
+            phase="sketch.pass", occupancy=_wr.window_occupancy(obs, phase="sketch"),
         )
-        return self
 
     def _fold_counts(self, deep: np.ndarray, kmin: int, kmax: int, n: int) -> None:
         """Fold one chunk's deepest-level int64 counts, its extremes (key

@@ -76,6 +76,7 @@ import numpy as np
 import torch
 
 from mpi_k_selection_tpu_torch.errors import SpillError, SpillRecordError
+from mpi_k_selection_tpu_torch.obs import ledger as _ledger
 from mpi_k_selection_tpu_torch.streaming.pipeline import _bucket_elems
 from mpi_k_selection_tpu_torch.utils import dtypes as _dt
 from mpi_k_selection_tpu_torch.utils.interop import numpy_dtype
@@ -864,6 +865,9 @@ class SpillStore:
     def _register(self, gen: SpillGeneration) -> None:
         self._check_open()
         self.generations[gen.index] = gen
+        # the ledger's byte book (obs/ledger.py): a committed generation
+        # adds its bytes on disk, its drop or the store's close subtracts them
+        _ledger.LEDGER.adjust_bytes("spill", "disk", gen.nbytes)
 
     def latest_generation(self) -> SpillGeneration:
         """The newest committed generation: what a read of the store as a
@@ -879,7 +883,8 @@ class SpillStore:
     def drop_generation(self, gen: SpillGeneration) -> None:
         """Delete one generation's records."""
         gen.dropped = True
-        self.generations.pop(gen.index, None)
+        if self.generations.pop(gen.index, None) is not None:  # a second drop subtracts nothing
+            _ledger.LEDGER.adjust_bytes("spill", "disk", -gen.nbytes)
         shutil.rmtree(gen.path, ignore_errors=True)
 
     def close(self) -> None:
@@ -890,6 +895,7 @@ class SpillStore:
         self._closed = True
         for gen in self.generations.values():
             gen.dropped = True
+            _ledger.LEDGER.adjust_bytes("spill", "disk", -gen.nbytes)
         self.generations.clear()
         shutil.rmtree(self.root, ignore_errors=True)
 

@@ -190,8 +190,13 @@ def test_monitor_emit_every_max_samples_and_validation():
         kt.Monitor(emit_every=0)
     with pytest.raises(ValueError, match="at least one quantile"):
         kt.Monitor(qs=())
-    for knob, item in (("devices", "3e"), ("obs", "4")):
-        with pytest.raises(TypeError, match=f"{knob}.*item {item}"):
+    from mpi_k_selection_tpu_torch import obs as obs_lib
+
+    for knob, value in (("devices", 2), ("obs", obs_lib.Observability.collecting())):
+        got = kt.Monitor(window=4, emit_every=2, device="cpu", **{knob: value}).run(chunks, np.int32, max_samples=2)
+        assert records(got) == records(JaxMonitor(window=4, emit_every=2).run(chunks, np.int32, max_samples=2))
+    for knob, why in (("retry", "item 4"), ("fused", "no counterpart")):
+        with pytest.raises(TypeError, match=f"{knob}.*{why}"):
             kt.Monitor(**{knob: None})
     with pytest.raises(TypeError, match="requires one dtype per stream"):
         list(kt.Monitor(window=2, device="cpu").run([chunks[0], chunks[1].astype(np.int64)]))

@@ -238,8 +238,9 @@ def test_errors_match_jax():
     """The resolution cap, incompatible merges, dtype checks and
     ``check_stream``, with the JAX package's messages; ``pack_spill`` is
     taken by ``update_stream`` and both width knobs by
-    ``StreamingQuantiles``, as the JAX package takes them, while the JAX
-    knobs the port does not take yet name their ROADMAP item."""
+    ``StreamingQuantiles``, as the JAX package takes them; ``devices``,
+    ``obs`` and ``timer`` are taken too and give the JAX package's
+    sketch, while the JAX knobs the port does not take (yet) say why."""
     from mpi_k_selection_tpu.streaming.sketch import RadixSketch as JaxSketch
 
     for cls in (RadixSketch, JaxSketch):
@@ -264,8 +265,16 @@ def test_errors_match_jax():
     RadixSketch(np.int32).check_stream(torch.int32, 8)
     for cls in (RadixSketch, JaxSketch):  # a schedule moves the divisibility check to the schedule
         cls(np.int32).check_stream(np.int32, 5, width_schedule="auto")
-    for knob, item in (("devices", "3e"), ("obs", "4"), ("timer", "4")):
-        with pytest.raises(TypeError, match=f"{knob}.*item {item}"):
+    from mpi_k_selection_tpu_torch import obs as obs_lib
+    from mpi_k_selection_tpu_torch.utils.profiling import PhaseTimer
+
+    three = [np.arange(3, dtype=np.int32), np.arange(-5, 0, dtype=np.int32)]
+    want = JaxSketch(np.int32).update_stream(three, devices=2)
+    for knob, value in (("devices", 2), ("obs", obs_lib.Observability.collecting()), ("timer", PhaseTimer())):
+        got = RadixSketch(np.int32, device="cpu").update_stream(three, **{knob: value})
+        assert [h.tolist() for h in got.hists] == [h.tolist() for h in want.hists] and got.n == want.n == 8
+    for knob, why in (("fused", "no counterpart"), ("deferred", "no counterpart"), ("retry", "item 4")):
+        with pytest.raises(TypeError, match=f"{knob}.*{why}"):
             RadixSketch(np.int32, device="cpu").update_stream([np.arange(3, dtype=np.int32)], **{knob: None})
     with pytest.raises(TypeError, match="unexpected keyword argument 'width_schedule'$"):  # as the JAX package's
         RadixSketch(np.int32, device="cpu").update_stream([np.arange(3, dtype=np.int32)], width_schedule="auto")
@@ -273,9 +282,11 @@ def test_errors_match_jax():
         assert RadixSketch(np.int32, device="cpu").update_stream([np.arange(3, dtype=np.int32)], pack_spill=pack).n == 3
     with pytest.raises(ValueError, match="pack_spill must be one of"):
         RadixSketch(np.int32, device="cpu").update_stream([np.arange(3, dtype=np.int32)], pack_spill="on")
-    for knob in ("deferred", "fused", "devices", "obs"):
+    for knob in ("deferred", "fused", "retry"):
         with pytest.raises(TypeError, match=knob):
             kt.StreamingQuantiles(np.int32, **{knob: None})
+    for knob in ("devices", "obs"):
+        assert getattr(kt.StreamingQuantiles(np.int32, device="cpu", **{knob: None}), knob) is None
     t = kt.StreamingQuantiles(np.int32, width_schedule=(16, 8, 8), pack_spill="auto")
     assert (t.width_schedule, t.pack_spill) == ((16, 8, 8), "auto")
     with pytest.raises(ValueError, match="outside \\[1, 20\\]"):

@@ -105,8 +105,10 @@ def test_prefix_errors_and_knobs_match_jax(tmp_path):
     """The spill dir prefix is the JAX registry's (so the conftest leak
     check covers the port's stores); the error classes nest as the JAX
     package's; ``spill`` and ``pack_spill`` are ported (the format-v2
-    constants are the JAX package's), while ``devices``, ``obs`` and
-    ``timer`` still refuse, naming their ROADMAP items."""
+    constants are the JAX package's), and so are ``devices``, ``obs`` and
+    ``timer``: a sketch tee with each equals the JAX package's records
+    file for file, while ``retry`` still refuses, naming its ROADMAP
+    item."""
     from mpi_k_selection_tpu import errors as jerr
     from mpi_k_selection_tpu.resource_protocols import SPILL_DIR_PREFIX
     from mpi_k_selection_tpu.streaming import spill as jsp
@@ -127,9 +129,21 @@ def test_prefix_errors_and_knobs_match_jax(tmp_path):
     with SpillStore(str(tmp_path)) as store:
         RadixSketch(np.int32, device="cpu").update_stream(a, spill=store, pack_spill="auto")
         assert store.latest_generation().keys == 3
-    for knob, item in (("devices", "3e"), ("obs", "4"), ("timer", "4")):
-        with pytest.raises(TypeError, match=f"{knob}.*item {item}"):
-            RadixSketch(np.int32, device="cpu").update_stream(a, **{knob: None})
+    from mpi_k_selection_tpu.streaming.sketch import RadixSketch as JaxSketch
+
+    from mpi_k_selection_tpu_torch import obs as obs_lib
+    from mpi_k_selection_tpu_torch.utils.profiling import PhaseTimer
+
+    two = a + [np.arange(-4, 0, dtype=np.int32)]
+    with jax_store(tmp_path / "jax") as js:
+        JaxSketch(np.int32).update_stream(two, spill=js, devices=2)
+        want = generation_files(js)
+    for knob, value in (("devices", 2), ("obs", obs_lib.Observability.collecting()), ("timer", PhaseTimer())):
+        with SpillStore(str(tmp_path / knob)) as store:
+            RadixSketch(np.int32, device="cpu").update_stream(two, spill=store, **{"devices": 2, knob: value})
+            assert generation_files(store) == want
+    with pytest.raises(TypeError, match="retry.*item 4"):
+        RadixSketch(np.int32, device="cpu").update_stream(a, retry=None)
     with pytest.raises(TypeError, match="SpillStore"):
         RadixSketch(np.int32, device="cpu").update_stream(a, spill="force")
     for bad in ("always", True):
