@@ -200,6 +200,27 @@ Phases, each of which must pass (any failure exits non-zero):
    build, the streams (certified by NumPy) and phase 10 alone: the
    measurement for a host of several cards.
 
+11. The fault harness and the recovery policies (``phase_faults``, run
+   after phase 10 and before phase 6) on the int32 stream's first quarter
+   (2^30 keys, 16 chunks of 2^26): the spilled median with no injector
+   (the twin, against NumPy's certificate), then under a plan that strikes
+   every streamed site and kind once (source raise and stall, stage raise
+   and stall, a survivor write raised, a record read corrupt once, one
+   corrupted and one truncated on disk): its answer the twin's bits,
+   ``injector.fired`` the plan, a rebuilt pass read from the source in the
+   pass log, the ``faults.*`` counters by site and action, row 8's
+   histogram, tee and collect kinds launched; ``spill="auto"`` on a
+   one-shot stream with an ENOSPC on the first survivor generation (the
+   pass run again without its tee, a ``degrade`` event); the hard form
+   (a stage fault on every attempt) raising ``RetryExhaustedError(site=
+   "stage", attempts=3)`` with exactly one flight bundle and nothing left
+   behind (threads, stores, files, the card's allocated memory); the
+   ``Monitor`` with its registry served by ``start_metrics_server`` (a
+   mid-run scrape parsed, the last equal to the registry's text); and the
+   CLI in subprocesses (``--chaos 7 --check --debug-bundle`` on 2^28 keys,
+   ``monitor --buckets 8``). ``python3 chip_smoke.py --phase11`` runs the
+   build, the stream's first quarter and phase 11 alone.
+
 The timed kernel rows of phase 4 also time the nearest torch composition
 of each of rows 1-6 on the same tensor (a ``torch.bincount`` of the digits
 under the prefix mask; a row-wise compare-and-sum), held equal to the
@@ -2661,6 +2682,321 @@ def phase_multidevice_obs(ints, f64, certified, x30):
     return launches, per_call, out
 
 
+FAULT_CHUNKS = 16  # phase 11: the int32 stream's first quarter, 2^30 keys (BASELINE's "1B int32")
+FAULT_CLI_CHUNKS = 4  # phase 11's CLI run: 2^28 keys in chunks of 2^26
+HARD_SEED = 3  # phase 11's hard form: FaultPlan.seeded(3, sites=("stage",), recoverable=False) holds a raise
+
+
+def fault_plan(faults):
+    """Phase 11's explicit plan: every streamed site and kind once. Chunk 2
+    of the source raises and chunk 5 stalls 1 ms; the staging of chunk 3
+    raises and of chunk 7 stalls; record 1 of the first survivor generation
+    fails its write (attempt 1: generation 0 writes it at attempt 0);
+    record 4 reads corrupt once (a re-read heals it); record 6 is corrupted
+    on disk and record 9 truncated (persistent: a rebuild from the
+    source)."""
+    S = faults.FaultSpec
+    return faults.FaultPlan((
+        S("source", 2, "raise"), S("source", 5, "stall", arg=0.001),
+        S("stage", 3, "raise"), S("stage", 7, "stall", arg=0.001),
+        S("spill.write", 1, "raise", attempts=(1,)),
+        S("spill.read", 4, "corrupt"), S("spill.read", 6, "corrupt_disk"), S("spill.read", 9, "truncate"),
+    ))
+
+
+def prometheus_lines(text: str) -> dict:
+    """Prometheus text exposition as ``{series: value}``; raises on a line
+    that is not a comment or ``series value``."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        series, value = line.rsplit(" ", 1)
+        out[series] = float(value)
+    return out
+
+
+def phase_faults(chunks, device: str = "cuda", collect_budget: int | None = None):
+    """Phase 11, the fault harness and the recovery policies on the spilled
+    descent, on ``chunks`` (the int32 stream's first quarter, 16 chunks of
+    2^26), each call driven with the launch counts set to 0 just before it
+    and read just after (the sweep kernel once per chunk each pass read,
+    failed attempts included, nothing else, no plain version), and every
+    answer held against the fault-free twin's bits, which pass NumPy's
+    certificate:
+
+    - (a) the twin: ``kselect_streaming(replayable, N/2, spill=store)``
+      with no injector (its answer against NumPy's certificate), its wall
+      ms;
+    - (b) the same call under :func:`fault_plan`: ``injector.fired`` equals
+      the plan, the pass log shows a rebuilt pass read from the source, the
+      ``faults.*`` counters by site and action, row 8's histogram, tee
+      (``ingest.fused``) and collect kinds in the ledger, the wall ms;
+    - (c) a one-shot stream with ``spill="auto"`` and an ENOSPC on the
+      first survivor generation's first write: a ``degrade`` event and the
+      RuntimeWarning, the pass run again without its tee, the same answer;
+    - (d) the hard form, ``FaultPlan.seeded(HARD_SEED, sites=("stage",),
+      recoverable=False)`` under a flight recorder rooted in a temporary
+      directory: ``RetryExhaustedError(site="stage", attempts=3)``, one
+      bundle with the five sections, no ``ksel-`` thread, spill store or
+      other file left, the card's allocated memory back to its level;
+    - (e) the ``Monitor`` over a one-shot generator of the chunks with its
+      registry served by ``start_metrics_server(port=0)``: one scrape
+      mid-run parses as Prometheus text, the body after the run equals the
+      registry's text, and the server's threads are gone after ``close()``;
+    - (f) the CLI in subprocesses: ``--streaming --spill force --chaos 7
+      --check --debug-bundle`` on 2^28 keys (exit 0, the certificate true,
+      the bundle's five sections) and ``monitor --buckets 8`` (8 sample
+      lines).
+
+    ``device="cpu"`` runs the same steps with the kernel's plain version
+    (a rehearsal off the card at a small size: the plain calls stand in for
+    the launches, and ``collect_budget`` keeps the card's pass structure:
+    pass 0, pass 1, the collect)."""
+    import shutil
+    import tempfile
+    import threading
+    import urllib.request
+    import warnings
+
+    import mpi_k_selection_tpu_torch as kt
+    from mpi_k_selection_tpu_torch import faults
+    from mpi_k_selection_tpu_torch import obs as obs_lib
+    from mpi_k_selection_tpu_torch.monitor import start_metrics_server
+    from mpi_k_selection_tpu_torch.ops.cuda import histogram as H
+    from mpi_k_selection_tpu_torch.ops.cuda import sweep_ingest as S
+    from mpi_k_selection_tpu_torch.ops.cuda import topk as T
+    from mpi_k_selection_tpu_torch.utils.timing import Stopwatch
+
+    on_card = device == "cuda"
+    budget = {} if collect_budget is None else {"collect_budget": collect_budget}
+    n = len(chunks) * chunks[0].size
+    k = n // 2
+    launches = {kname: 0 for kname in KERNELS}
+    per_call, out = {}, {"calls": {}}
+
+    def counted(what, fn, want_launches):
+        """``fn()`` with every count at 0 just before it: fails unless the
+        32-bit sweep kernel launched ``want_launches()`` times (read after
+        the call), nothing else did and no plain version ran."""
+        for m in (H, T, S):
+            m.reset_counts()
+        before = obs_lib.LEDGER.snapshot()
+        sw = Stopwatch()
+        with sw.timing():
+            res = fn()
+            if on_card:
+                torch.cuda.synchronize()
+        plain = {kname: v for kname, v in {**H.PLAIN_CALLS, **T.PLAIN_CALLS, **S.PLAIN_CALLS}.items() if v}
+        got = {kname: v for kname, v in {**H.LAUNCHES, **T.LAUNCHES, **S.LAUNCHES}.items() if v}
+        if not on_card:  # the rehearsal: the plain calls stand in for the launches
+            got, plain = {"sweep_ingest32": plain.pop("sweep_ingest", 0)}, plain
+        wanted = want_launches()
+        if got != {"sweep_ingest32": wanted} or not wanted or plain:
+            fail(f"{what}: launches {got}, expected {wanted} of sweep_ingest32; plain calls {plain}")
+        sites = obs_lib.snapshot_delta(before, obs_lib.LEDGER.snapshot())["sites"]
+        kinds = {s: v["compiles"] + v["hits"] for s, v in sites.items() if s.startswith("ingest.")}
+        for kname, v in got.items():
+            launches[kname] += v
+        per_call[what] = got
+        ms = sw.seconds * 1e3
+        print(f"[phase11] {what}: launches {got} (by kind {kinds}), no plain call; {ms:.1f} ms")
+        return res, ms, kinds
+
+    def certified(what, got):
+        if np.asarray(got).tobytes() != np.asarray(twin).tobytes():
+            fail(f"{what}: {got!r} != the twin's certified median {twin!r}")
+
+    def ksel_threads():
+        return sorted(t.name for t in threading.enumerate() if t.name.startswith("ksel-"))
+
+    def chunk_events(o):
+        return lambda: len(o.events.of_kind("stream.chunk"))
+
+    policy = faults.RetryPolicy()  # the default's bounds, the real sleeper: the card waits its backoff
+    root = tempfile.mkdtemp(prefix="chip-smoke-phase11-", dir=tempfile.gettempdir())
+    try:
+        # (a) the fault-free twin
+        what = f"(a) median spilled to a SpillStore, no faults, int32 {n}"
+        o = obs_lib.Observability.collecting()
+        with kt.SpillStore(root) as store:
+            twin, twin_ms, twin_kinds = counted(what, lambda: kt.kselect_streaming(
+                Replay(chunks), k, spill=store, device=device, obs=o, **budget), chunk_events(o))
+        less, leq = np_certificates(chunks, [twin])[0]
+        if not less < k <= leq:
+            fail(f"{what}: {twin!r} fails NumPy's certificate ({less}, {leq}]")
+        print(f"[phase11] {what}: {twin!r}, NumPy's certificate {less} < k <= {leq}")
+        out["calls"]["a"] = {"ms": twin_ms, "answer": repr(twin), "kinds": twin_kinds}
+
+        # (b) the same call under the plan that strikes every site and kind
+        what = f"(b) median spilled to a SpillStore under the fault plan, int32 {n}"
+        plan = fault_plan(faults)
+        o = obs_lib.Observability.collecting()
+        with kt.SpillStore(root) as store:
+            with faults.inject(plan, obs=o) as inj:
+                src = inj.wrap_chunk_source(Replay(chunks))
+                got, ms, kinds = counted(what, lambda: kt.kselect_streaming(
+                    src, k, spill=store, retry=policy, device=device, obs=o, **budget), chunk_events(o))
+            log = list(store.pass_log)
+        certified(what, got)
+        fired = sorted((f["site"], f["kind"], f["index"], f["attempt"]) for f in inj.fired)
+        planned = sorted((s.site, s.kind, s.index, a) for s in plan.specs for a in s.attempts)
+        if fired != planned:
+            fail(f"{what}: fired {fired} != the plan {planned}")
+        rebuilt = [e for e in log if e["pass"] != 0 and e["read"] == "source"]
+        if not rebuilt:
+            fail(f"{what}: no pass after pass 0 read the source (the rebuild): {log}")
+        reg = o.metrics
+        counters = {(m.name, tuple(sorted(dict(m.labels).items()))): m.value for m in reg.metrics()
+                    if m.name.startswith("faults.")}
+        by_site = {site: sum(1 for f in inj.fired if f["site"] == site) for site in faults.FAULT_SITES}
+        for site, count in by_site.items():
+            if count and counters.get(("faults.injected", (("site", site),))) != count:
+                fail(f"{what}: faults.injected{{site={site}}} != {count}: {counters}")
+        need = {("faults.retries", (("site", "source"),)): 1, ("faults.retries", (("site", "stage"),)): 1}
+        actions = {}
+        for (name, labels), v in counters.items():
+            if name == "faults.recovered":
+                actions[dict(labels)["action"]] = actions.get(dict(labels)["action"], 0) + v
+        if any(counters.get(key) != v for key, v in need.items()) or not actions.get("reread") \
+                or not actions.get("rebuild") or not actions.get("retry"):
+            fail(f"{what}: faults counters {counters}")
+        for kind in ("ingest.histogram", "ingest.fused", "ingest.collect"):
+            if not kinds.get(kind):
+                fail(f"{what}: row 8's {kind} kind never launched: {kinds}")
+        print(f"[phase11] {what}: {got!r} == the twin == NumPy's certificate; fired == the plan ({len(fired)}); "
+              f"pass log {[(e['pass'], e['read']) for e in log]}; faults counters {counters}; {ms:.1f} ms against "
+              f"the twin's {twin_ms:.1f} ms")
+        out["calls"]["b"] = {"ms": ms, "twin_ms": twin_ms, "answer": repr(got), "fired": inj.fired,
+                             "pass_log": log, "kinds": kinds,
+                             "counters": {f"{name}{dict(labels)}": v for (name, labels), v in counters.items()}}
+
+        # (c) spill="auto" on a one-shot stream, ENOSPC on the first survivor generation
+        what = f"(c) median one-shot spill=auto, ENOSPC on generation 1, int32 {n}"
+        o = obs_lib.Observability.collecting()
+        plan = faults.FaultPlan((faults.FaultSpec("spill.write", 0, "enospc", attempts=(1,)),))
+        with faults.inject(plan, obs=o) as inj, warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            got, ms, kinds = counted(what, lambda: kt.kselect_streaming(
+                (c for c in chunks), k, spill="auto", spill_dir=root, retry=policy, device=device, obs=o,
+                **budget), chunk_events(o))
+        certified(what, got)
+        degrade = [e for e in o.events.of_kind("fault") if e.action == "degrade"]
+        if len(inj.fired) != 1 or len(degrade) != 1 or not any("ENOSPC" in str(w.message) for w in caught):
+            fail(f"{what}: fired {inj.fired}, degrade events {degrade}, warnings {[str(w.message) for w in caught]}")
+        print(f"[phase11] {what}: {got!r} == the twin; one degrade event, the RuntimeWarning; {ms:.1f} ms")
+        out["calls"]["c"] = {"ms": ms, "answer": repr(got), "kinds": kinds}
+
+        # (d) the hard form: a stage fault on every attempt
+        what = f"(d) median spill=force, FaultPlan.seeded({HARD_SEED}, sites=('stage',), recoverable=False)"
+        dump = os.path.join(root, "flight")
+        os.makedirs(dump)
+        rec = obs_lib.FlightRecorder(dump_dir=dump)
+        o = obs_lib.Observability(metrics=obs_lib.MetricsRegistry(), flight=rec)
+        plan = faults.FaultPlan.seeded(HARD_SEED, sites=("stage",), recoverable=False, n_chunks=len(chunks))
+        threads_before = ksel_threads()
+        mem_before = torch.cuda.memory_allocated() if on_card else 0
+        err = None
+        S.reset_counts()
+        with faults.inject(plan, obs=o) as inj:
+            try:
+                kt.kselect_streaming(Replay(chunks), k, spill="force", spill_dir=root, retry=policy, device=device,
+                                     obs=o, **budget)
+            except faults.RetryExhaustedError as e:
+                err = e
+        if on_card:
+            torch.cuda.synchronize()
+        per_call[what] = {kname: v for kname, v in S.LAUNCHES.items() if v}
+        if err is None or (err.site, err.attempts) != ("stage", 3):
+            fail(f"{what}: expected RetryExhaustedError(site='stage', attempts=3), got {err!r}")
+        bundles = os.listdir(dump)
+        if len(bundles) != 1 or rec.auto_dumps != [os.path.join(dump, bundles[0])]:
+            fail(f"{what}: bundles {bundles}, recorder {rec.auto_dumps}")
+        bundle = json.load(open(rec.auto_dumps[0]))
+        missing = [s for s in obs_lib.flight.BUNDLE_SECTIONS if s not in bundle]
+        if missing or bundle["reason"] != "retry-exhausted":
+            fail(f"{what}: the bundle lacks {missing} or its reason is {bundle.get('reason')!r}")
+        obs_lib.flight.drain_dumped()
+        left = sorted(set(os.listdir(root)) - {"flight"})
+        mem_after = torch.cuda.memory_allocated() if on_card else 0
+        if ksel_threads() != threads_before or left or mem_after != mem_before:
+            fail(f"{what}: left behind threads {ksel_threads()}, files {left}, allocated bytes {mem_after} "
+                 f"against {mem_before}")
+        print(f"[phase11] {what}: {type(err).__name__}(site={err.site!r}, attempts={err.attempts}); fired "
+              f"{len(inj.fired)}; one bundle with the five sections; no thread, store or file left; allocated "
+              f"{mem_after} bytes == before")
+        out["calls"]["d"] = {"error": str(err), "fired": inj.fired, "bundle_events": len(bundle["events"]),
+                             "allocated_bytes": mem_after}
+        shutil.rmtree(dump)
+
+        # (e) the monitor, its registry served as Prometheus text
+        what = f"(e) Monitor over a one-shot generator with start_metrics_server, int32 {n}"
+        o = obs_lib.Observability(metrics=obs_lib.MetricsRegistry())
+        scrapes = {}
+
+        def monitor_run():
+            samples = []
+            with start_metrics_server(o.metrics, port=0) as srv:
+                url = f"http://127.0.0.1:{srv.port}/metrics"
+                for s in kt.Monitor(window=8, emit_every=4, device=device, obs=o).run((c for c in chunks), np.int32):
+                    samples.append(s)
+                    if len(samples) == 1:
+                        with urllib.request.urlopen(url, timeout=10) as r:
+                            scrapes["mid"] = r.read().decode()
+                with urllib.request.urlopen(url, timeout=10) as r:
+                    scrapes["end"] = r.read().decode()
+            return samples
+
+        samples, ms, kinds = counted(what, monitor_run, lambda: len(chunks))
+        mid = prometheus_lines(scrapes["mid"])
+        if len(samples) != len(chunks) // 4 or mid.get("ksel_monitor_samples") != 1.0 \
+                or scrapes["end"] != o.metrics.render_prometheus() or ksel_threads() != threads_before:
+            fail(f"{what}: {len(samples)} samples; mid-run scrape {mid}; end scrape equal to the registry: "
+                 f"{scrapes['end'] == o.metrics.render_prometheus()}; threads {ksel_threads()}")
+        print(f"[phase11] {what}: {len(samples)} samples; the mid-run scrape parses ({len(mid)} series, "
+              f"ksel_monitor_samples 1); the last scrape == the registry's text; the server's threads gone; "
+              f"{ms:.1f} ms")
+        out["calls"]["e"] = {"ms": ms, "samples": len(samples), "mid_series": len(mid)}
+
+        # (f) the CLI in subprocesses
+        bundle_path = os.path.join(root, "b.json")
+        cli = [sys.executable, "-m", "mpi_k_selection_tpu_torch"]
+        runs = {
+            "chaos": cli + ["--streaming", "--n", str(FAULT_CLI_CHUNKS * chunks[0].size), "--chunk-elems",
+                            str(chunks[0].size), "--spill", "force", "--spill-dir", root, "--chaos", "7", "--check",
+                            "--debug-bundle", bundle_path, "--json", "--device", device],
+            "monitor": cli + ["monitor", "--buckets", "8", "--chunk-elems", str(1 << 20), "--drift", "1000",
+                              "--device", device],
+        }
+        for name, argv in runs.items():
+            sw = Stopwatch()
+            with sw.timing():
+                res = subprocess.run(argv, capture_output=True, text=True, timeout=300)
+            lines = res.stdout.strip().splitlines()
+            if res.returncode != 0:
+                fail(f"(f) CLI {name}: exit {res.returncode}: {res.stderr[-2000:]}")
+            if name == "chaos":
+                record = json.loads(lines[-1])
+                bundle = json.load(open(bundle_path))
+                if not record["extra"]["certificate_ok"] or not record["extra"]["chaos"]["fired"] \
+                        or any(s not in bundle for s in obs_lib.flight.BUNDLE_SECTIONS):
+                    fail(f"(f) CLI chaos: {record}")
+                note = (f"answer {record['answer']}, certificate {record['extra']['rank_certificate']}, fired "
+                        f"{record['extra']['chaos']['fired']}, bundle sections {sorted(bundle)}")
+            else:
+                samples = [ln for ln in lines if ln.startswith("multirank_p50_p90_p99")]
+                if len(samples) != 8:
+                    fail(f"(f) CLI monitor: {len(samples)} sample lines: {lines[:3]}")
+                note = f"8 sample lines, the last: {samples[-1]}"
+            print(f"[phase11] (f) CLI {name}: exit 0 in {sw.seconds:.1f} s; {note}")
+            out["calls"][f"f {name}"] = {"s": sw.seconds, "note": note}
+        if glob.glob(os.path.join(root, "ksel-spill-*")):
+            fail(f"phase 11: a spill store outlived its call: {os.listdir(root)}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches, per_call, out
+
+
 DIST_WORLD = 4  # ranks of the distributed phase, all on cuda:0 (one card: gloo)
 DIST_REPS = 3  # timed runs of each distributed path (the median run's counts reported)
 DIST_N64 = 1 << 30  # BASELINE.md's "Multi-chip distributed median: N=1B int64"
@@ -3263,6 +3599,21 @@ def main_phase10(smi: str) -> int:
     return 0
 
 
+def main_phase11(smi: str) -> int:
+    """``python3 chip_smoke.py --phase11``: phase 11 alone (the build, the
+    int32 stream's first quarter, then phase 11)."""
+    phase_build()
+    chunks = make_chunks(FAULT_CHUNKS, STREAM_CHUNK, "uniform", np.int32)
+    launches, _, notes = phase_faults(chunks)
+    print(json.dumps({"phase11": notes, "launches": launches}, default=str))
+    print(smi)
+    print(json.dumps({
+        "ok": True,
+        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},
+    }))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the card")
@@ -3278,6 +3629,8 @@ def main() -> int:
           f"nvidia-smi: {smi}")
     if sys.argv[1:] == ["--phase10"]:
         return main_phase10(smi)
+    if sys.argv[1:] == ["--phase11"]:
+        return main_phase11(smi)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     phase_build()
@@ -3335,6 +3688,11 @@ def main() -> int:
     for kname, v in p10_launches.items():
         launches[kname] += v
     per_call.update(p10_per_call)
+    # phase 11: the fault harness and the recovery policies on the spilled descent
+    p11_launches, p11_per_call, notes["phase11"] = phase_faults(ints.chunks[:FAULT_CHUNKS])
+    for kname, v in p11_launches.items():
+        launches[kname] += v
+    per_call.update(p11_per_call)
     # phase 6: the host chunks and the resident data go first (the ranks
     # need the card's memory and the host's for the 8 GiB array)
     del ints, f64, data, x30

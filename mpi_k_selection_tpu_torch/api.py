@@ -237,7 +237,7 @@ class StreamingQuantiles:
         from mpi_k_selection_tpu_torch.streaming.sketch import RadixSketch, reject_later_knobs
         from mpi_k_selection_tpu_torch.streaming.spill import validate_pack_spill
 
-        reject_later_knobs("StreamingQuantiles", kwargs)
+        reject_later_knobs("StreamingQuantiles.__init__", kwargs)
         self.pipeline_depth = _pl.validate_pipeline_depth(pipeline_depth)
         if devices is not None:
             _pl.resolve_ingest(device, devices)  # checked now, like depth

@@ -43,11 +43,21 @@ ranks::
     # the oracle backends: NumPy / std::nth_element, and the native forked-rank CGM
     python -m mpi_k_selection_tpu_torch --backend seq --n 100000000 --k 250
     python -m mpi_k_selection_tpu_torch --backend mpi --num-procs 4 --n 100000000 --k 150 --verify
+
+    # the spilled median under a seeded fault plan (the same SEED, the same
+    # faults), certified against the clean stream, with the debug bundle
+    python -m mpi_k_selection_tpu_torch --streaming --n 1073741824 --chunk-elems 67108864 --spill force \
+        --chaos 7 --check --debug-bundle bundle.json
+
+    # continuous p50/p90/p99 over a drifting stream, 8 samples, served as
+    # Prometheus text on a free port
+    python -m mpi_k_selection_tpu_torch monitor --buckets 8 --drift 1000 --prometheus-port 0 --port-file port.txt
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import tempfile
@@ -197,7 +207,137 @@ def build_parser() -> argparse.ArgumentParser:
         "stall/pass/collect) as Chrome trace-event JSON to PATH (open in https://ui.perfetto.dev); "
         "composes with --trace-dir",
     )
+    p.add_argument(
+        "--retry", choices=("default", "off"), default="default",
+        help="--streaming resilience policies: default = bounded retry (3 attempts, exponential backoff) of "
+        "transient source and staging failures, pass re-runs, the corrupt-record re-read/rebuild ladder and the "
+        "ENOSPC spill downgrade; off = fail on the first fault. Recovered answers are the same bits",
+    )
+    p.add_argument(
+        "--chaos", type=int, default=None, metavar="SEED",
+        help="--streaming fault injection: run the solve under FaultPlan.seeded(SEED) (transient source and "
+        "staging raises, spill-record corruption, stalls; the same SEED, the same faults) and record what fired "
+        "in the record's 'chaos' entry; --verify and --check judge the recovered answer against the clean "
+        "stream. Faults strike the first touch of each chosen site and index, so later --repeats run clean",
+    )
+    p.add_argument(
+        "--debug-bundle", default=None, metavar="PATH",
+        help="arm the flight recorder (the recent events and spans) and write its JSON debug bundle (events, "
+        "metrics, ledger, spans, faults) to PATH at exit, success or failure; a terminal failure also dumps one "
+        "ksel-flight-*.json bundle under the temp dir the moment it fires",
+    )
     return p
+
+
+def build_monitor_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m mpi_k_selection_tpu_torch monitor",
+        description="continuous quantiles over an unbounded stream: a sliding ring of per-time-bucket RadixSketches "
+        "counted on the card, one p50/p90/p99 sample per window advance, each value with its exact rank and value "
+        "bounds; --decay switches to the fixed-point exponentially decayed aggregate",
+    )
+    p.add_argument("--chunk-elems", type=int, default=1 << 16, help="elements a chunk (one chunk = one tick)")
+    p.add_argument("--gen", choices=datagen.PATTERNS, default="uniform")
+    p.add_argument("--dtype", choices=DTYPES, default="int32")
+    p.add_argument("--seed", type=int, default=config.DEFAULT_SEED)
+    p.add_argument(
+        "--drift", type=float, default=0.0,
+        help="additive drift of the stream a chunk (chunk i is shifted by round(drift * i))",
+    )
+    p.add_argument("--window", type=int, default=32, help="ring length in time buckets (the open one included)")
+    p.add_argument(
+        "--emit-every", type=int, default=1, metavar="CHUNKS",
+        help="chunks a time bucket: the window advances and a sample comes out every this many chunks",
+    )
+    p.add_argument(
+        "--decay", type=float, default=None,
+        help="exponential decay a window advance, in (0, 1] (fixed-point counts; 1.0 is the undecayed window's "
+        "bits; default: the exact sliding window)",
+    )
+    p.add_argument("--quantiles", default="0.5,0.9,0.99", help="comma-separated quantiles (default p50/p90/p99)")
+    p.add_argument(
+        "--buckets", type=int, default=None, metavar="N",
+        help="stop after N samples (default: run until interrupted; the stream is unbounded)",
+    )
+    p.add_argument("--sketch-bits", type=int, default=4)
+    p.add_argument("--sketch-levels", type=int, default=4)
+    p.add_argument("--pipeline-depth", type=int, default=None, help="staging depth, as in --streaming")
+    p.add_argument("--devices", type=int, default=None, help="round-robin staging over this many cards")
+    p.add_argument("--device", default="cuda", help="torch device the buckets count on (default cuda)")
+    p.add_argument(
+        "--metrics-json", default=None, metavar="PATH",
+        help="write the monitor's metrics registry (monitor.quantile{q=} gauges, ingest counters) as JSON at exit",
+    )
+    p.add_argument(
+        "--prometheus-port", type=int, default=None, metavar="PORT",
+        help="serve the registry's Prometheus text exposition on PORT (GET /metrics; 0 = a free port, see "
+        "--port-file) for the whole run",
+    )
+    p.add_argument("--port-file", default=None, metavar="PATH", help="write the bound Prometheus port here")
+    p.add_argument("--json", action="store_true", help="one JSON object a sample (JSONL)")
+    return p
+
+
+def monitor_main(argv=None) -> int:
+    """``python -m mpi_k_selection_tpu_torch monitor ...``: the continuous
+    quantile monitor over a synthetic (optionally drifting) chunk stream,
+    one sample line a window advance, until ``--buckets`` samples or an
+    interrupt. Exit 0 on a clean stop (Ctrl-C included)."""
+    import json
+
+    from mpi_k_selection_tpu_torch import obs as obs_lib
+    from mpi_k_selection_tpu_torch.monitor import Monitor, start_metrics_server
+    from mpi_k_selection_tpu_torch.utils.interop import numpy_dtype
+
+    args = build_monitor_parser().parse_args(argv)
+    if args.chunk_elems < 1:
+        raise SystemExit("error: --chunk-elems must be >= 1")
+    try:
+        qs = [float(q) for q in args.quantiles.split(",") if q.strip()]
+    except ValueError as e:
+        raise SystemExit(f"error: bad --quantiles value: {e}") from e
+    dtype = numpy_dtype(args.dtype)
+    max_chunks = None if args.buckets is None else args.buckets * args.emit_every
+
+    def source():  # the JAX CLI's stream: chunk i of seed SEED + i, shifted by round(drift * i)
+        i = 0
+        while max_chunks is None or i < max_chunks:
+            c = datagen.generate(args.chunk_elems, pattern=args.gen, seed=args.seed + i, dtype=dtype)
+            if args.drift:
+                off = args.drift * i
+                if np.issubdtype(dtype, np.integer):
+                    off = int(round(off))
+                c = (c + dtype.type(off)).astype(dtype, copy=False)
+            yield c
+            i += 1
+
+    obs = None
+    if args.metrics_json or args.prometheus_port is not None:
+        obs = obs_lib.Observability(metrics=obs_lib.MetricsRegistry())
+    exporter = None
+    try:
+        mon = Monitor(qs=qs, window=args.window, emit_every=args.emit_every, decay=args.decay,
+                      radix_bits=args.sketch_bits, levels=args.sketch_levels, pipeline_depth=args.pipeline_depth,
+                      device=args.device, devices=args.devices, obs=obs)
+        if args.prometheus_port is not None:
+            exporter = start_metrics_server(obs.metrics, port=args.prometheus_port)
+            if args.port_file:
+                with open(args.port_file, "w") as f:
+                    f.write(str(exporter.port))
+        try:
+            for sample in mon.run(source(), dtype, max_samples=args.buckets):
+                print(json.dumps(sample.as_dict()) if args.json else sample.format_line(), flush=True)
+        except KeyboardInterrupt:
+            pass
+    except (ValueError, RuntimeError, TypeError) as e:
+        raise SystemExit(f"error: {e}") from e
+    finally:
+        if exporter is not None:
+            exporter.close()
+        if obs is not None and args.metrics_json:
+            with open(args.metrics_json, "w") as f:
+                f.write(obs.metrics.to_json(indent=2))
+    return 0
 
 
 def oracle_many(x: np.ndarray, ks, *, sort_order: bool = False) -> np.ndarray:
@@ -523,17 +663,35 @@ def _run_streaming(args, obs=None):
     # with --repeats each run makes (and removes) a store of its own
     store = SpillStore(args.spill_dir) if args.spill == "force" and args.repeats <= 1 else None
     try:
-        seconds, answer = time_fn(
-            lambda: backend.kselect_streaming(source, k, spill=store if store is not None else args.spill,
-                                              spill_dir=args.spill_dir, timer=ptimer, obs=obs, **knobs),
-            repeats=args.repeats, device=args.device,
-        )
+        # --chaos SEED: the solve reads the stream through the seeded plan's
+        # injector; --verify and --check read the clean stream
+        injector, solve_source, armed = None, source, contextlib.nullcontext()
+        if args.chaos is not None:
+            from mpi_k_selection_tpu_torch.faults import FaultInjector, FaultPlan, inject
+
+            injector = FaultInjector(FaultPlan.seeded(args.chaos, n_chunks=max(1, -(-n // args.chunk_elems))),
+                                     obs=obs)
+            solve_source, armed = injector.wrap_chunk_source(source), inject(injector)
+        with armed:
+            seconds, answer = time_fn(
+                lambda: backend.kselect_streaming(solve_source, k, spill=store if store is not None else args.spill,
+                                                  spill_dir=args.spill_dir, retry=args.retry, timer=ptimer, obs=obs,
+                                                  **knobs),
+                repeats=args.repeats, device=args.device,
+            )
         record = _record(args, n, k, answer.item(), "streaming-chunked", seconds)
         record.n_devices = n_ingest
         record.extra.update(chunks=-(-n // args.chunk_elems), chunk_elems=args.chunk_elems, pipeline_depth=depth,
                             ingest_devices=n_ingest, ingest_workers=workers, spill=args.spill,
                             width_schedule=list(schedule) if isinstance(schedule, tuple) else schedule,
-                            pack_spill=args.pack_spill)
+                            pack_spill=args.pack_spill, retry=args.retry)
+        if injector is not None:
+            record.extra["chaos"] = {
+                "seed": args.chaos,
+                "plan": [{"site": f.site, "index": f.index, "kind": f.kind, "attempts": list(f.attempts)}
+                         for f in injector.plan.specs],
+                "fired": list(injector.fired),
+            }
         if ptimer is not None and ptimer.phases:
             reps = max(1, args.repeats)
             record.extra["pipeline_phases"] = {
@@ -547,8 +705,11 @@ def _run_streaming(args, obs=None):
             from mpi_k_selection_tpu_torch import obs as obs_lib
 
             cert_obs = obs_lib.Observability(trace=obs.trace) if obs is not None and obs.trace is not None else None
-            less, leq = api.streaming_rank_certificate(store if store is not None else source, answer, obs=cert_obs,
-                                                       **knobs)
+            # under --chaos a persistent disk fault may have damaged the
+            # store's generation 0 (the solve rebuilt from the source): certify
+            # against the clean source, the stronger check
+            cert_src = store if store is not None and injector is None else source
+            less, leq = api.streaming_rank_certificate(cert_src, answer, retry=args.retry, obs=cert_obs, **knobs)
             cert_ok = less < k <= leq
             record.extra.update(rank_certificate=[less, leq], certificate_ok=cert_ok)
             ok = cert_ok
@@ -622,7 +783,10 @@ def _run_topk(args, x: np.ndarray):
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] == "monitor":
+        return monitor_main(argv[1:])
+    args = build_parser().parse_args(argv)
     from mpi_k_selection_tpu_torch.utils.interop import numpy_dtype
 
     if args.quantiles is not None and args.topk is not None:
@@ -646,18 +810,18 @@ def main(argv=None) -> int:
             args.qs = [float(q) for q in args.quantiles.split(",") if q.strip()]
         except ValueError as e:
             raise SystemExit(f"error: bad --quantiles value: {e}") from e
-    import contextlib
-
     from mpi_k_selection_tpu_torch.obs import wiring as _wr
     from mpi_k_selection_tpu_torch.utils import profiling
 
-    # the telemetry behind --metrics-json / --trace-events (None: off)
+    # the telemetry behind --metrics-json / --trace-events / --debug-bundle
+    # (None: off); the flight ring keeps the recent tail for the bundle
     obs = None
-    if args.metrics_json or args.trace_events:
+    if args.metrics_json or args.trace_events or args.debug_bundle:
         from mpi_k_selection_tpu_torch import obs as obs_lib
 
         obs = obs_lib.Observability(metrics=obs_lib.MetricsRegistry() if args.metrics_json else None,
-                                    trace=obs_lib.TraceRecorder() if args.trace_events else None)
+                                    trace=obs_lib.TraceRecorder() if args.trace_events else None,
+                                    flight=True if args.debug_bundle else None)
     timer = profiling.PhaseTimer(recorder=_wr.span_recorder(obs))
     tracer = (lambda: profiling.trace(args.trace_dir)) if args.trace_dir else contextlib.nullcontext
     try:
@@ -676,13 +840,33 @@ def main(argv=None) -> int:
                 with timer.phase("check"):
                     ok = _check_resident(args, x, record, ok)
     except (ValueError, RuntimeError, TimeoutError) as e:
+        # a failing run still writes the bundle it was asked for
+        _write_debug_bundle(args, None, obs, reason="cli-error", exc=e)
         raise SystemExit(f"error: {e}") from e
     return _finish(args, record, ok, timer, obs)
+
+
+def _write_debug_bundle(args, record, obs, *, reason, exc=None) -> None:
+    """``--debug-bundle PATH``: the flight ring's debug bundle
+    (obs/flight.py) written to PATH, on the success exit and on the error
+    exit. An unwritable PATH warns instead of masking the run's outcome."""
+    path = args.debug_bundle
+    if not path or obs is None or obs.flight is None:
+        return
+    try:
+        obs.flight.dump(path, obs=obs, reason=reason,
+                        extra=None if exc is None else {"error": f"{type(exc).__name__}: {exc}"})
+    except OSError as write_err:
+        print(f"warning: --debug-bundle {path}: {write_err}", file=sys.stderr)
+        return
+    if record is not None:
+        record.extra["debug_bundle"] = path
 
 
 def _finish(args, record, ok: bool, timer, obs=None) -> int:
     """The run's telemetry files, its record (JSON or the reference's
     style) and the exit code."""
+    _write_debug_bundle(args, record, obs, reason="cli")
     if obs is not None:
         if obs.metrics is not None:
             from mpi_k_selection_tpu_torch.obs.metrics import collect_runtime

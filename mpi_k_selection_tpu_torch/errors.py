@@ -2,9 +2,7 @@
 
 The reference signals every failure as a process exit (``MPI_Abort``,
 ``TODO-kth-problem-cgm.c:58``); a library needs typed errors so callers can
-tell "this machine cannot run it" from "the run failed". The JAX package's
-``TransientError`` and ``RetryExhaustedError`` come with the fault layer
-(ROADMAP Queue 1 item 4).
+tell "this machine cannot run it" from "the run failed".
 """
 
 from __future__ import annotations
@@ -35,3 +33,25 @@ class SpillCapacityError(SpillError):
     capacity problem. ``spill="auto"`` descents degrade to the replay of
     the last good generation instead of raising this (with a
     RuntimeWarning)."""
+
+
+class TransientError(RuntimeError):
+    """A failure the caller believes is retryable: a chunk-source hiccup,
+    a staging transfer blip. The resilience policies
+    (faults/policy.py:RetryPolicy) retry exactly this class (plus
+    ``ConnectionError``/``TimeoutError``) with bounded backoff; anything
+    else propagates at once, because retrying a logic error repeats it.
+    The fault-injection harness raises this for its ``"raise"`` fault
+    kind, so injected transients take the recovery path real ones take."""
+
+
+class RetryExhaustedError(RuntimeError):
+    """A :class:`~mpi_k_selection_tpu_torch.faults.RetryPolicy` ran out of
+    attempts: the operation kept failing with transient errors past
+    ``max_attempts``. Carries ``site`` (which operation) and ``attempts``;
+    the last underlying error rides ``__cause__``."""
+
+    def __init__(self, message: str, *, site: str = "", attempts: int = 0):
+        super().__init__(message)
+        self.site = site
+        self.attempts = attempts

@@ -12,12 +12,16 @@ window, each with the merged sketch's exact rank and value bounds; with
 ``decay``, over the fixed-point decayed aggregate (monitor/decay.py).
 ``devices`` spreads the pipelined staging over cards as the streamed
 descent does, and ``obs`` mirrors each sample into the ``monitor.*``
-series (the HTTP exposition waits for ROADMAP Queue 1 item 4).
+series, which :func:`start_metrics_server` serves as Prometheus text
+(``GET /metrics``; the CLI's ``monitor --prometheus-port``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import torch
@@ -30,9 +34,9 @@ from mpi_k_selection_tpu_torch.utils import dtypes as _dt
 
 DEFAULT_QS = (0.5, 0.9, 0.99)
 
-#: The prefix of the monitor's own threads (the JAX package's
-#: ``resource_protocols.MONITOR_THREAD_PREFIX``, its metrics exporter's):
-#: in the ``ksel-`` family the test suite's leaked-thread check covers.
+#: The prefix of the metrics exporter's threads (the JAX package's
+#: ``resource_protocols.MONITOR_THREAD_PREFIX``): in the ``ksel-`` family
+#: the test suite's leaked-thread check covers; ``close()`` joins them all.
 MONITOR_THREAD_PREFIX = "ksel-monitor"
 
 
@@ -115,7 +119,7 @@ class Monitor:
     def __init__(self, *, qs=DEFAULT_QS, window: int = 32, emit_every: int = 1, decay: float | None = None,
                  radix_bits: int = 4, levels: int = 4, pipeline_depth=None, ingest_workers=None, device=None,
                  devices=None, obs=None, **kwargs):
-        reject_later_knobs("Monitor", kwargs)
+        reject_later_knobs("Monitor.__init__", kwargs)
         self.qs = tuple(float(q) for q in qs)
         if not self.qs:
             raise ValueError("monitor needs at least one quantile")
@@ -254,3 +258,92 @@ class Monitor:
             restore()
         if obs is not None and obs.metrics is not None:
             _om.collect_runtime(obs.metrics, staging_pool=_pl.STAGING_POOL, timer=timer)
+
+
+class _MetricsHandler(BaseHTTPRequestHandler):
+    server_version = "ksel-monitor"
+    protocol_version = "HTTP/1.1"
+
+    def log_message(self, format, *args):  # noqa: A002 - the stdlib's signature
+        pass  # the registry is the telemetry channel: no stderr chatter
+
+    def _send(self, status: int, body: bytes, ctype: str) -> None:
+        self.send_response(status)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def do_GET(self):
+        if self.path == "/metrics":
+            self._send(200, self.server.registry.render_prometheus().encode(),
+                       "text/plain; version=0.0.4; charset=utf-8")
+        elif self.path == "/healthz":
+            self._send(200, b'{"status": "ok"}', "application/json")
+        else:
+            self._send(404, b"not found; GET /metrics or /healthz", "text/plain")
+
+
+class MetricsHTTPServer(ThreadingHTTPServer):
+    """The Prometheus text exposition of a MetricsRegistry: ``GET
+    /metrics`` renders the registry live (``GET /healthz`` answers ok).
+    The accept loop runs on ``ksel-monitor-http-*`` and each request on a
+    ``ksel-monitor-req-*`` thread; :meth:`close` (or leaving the ``with``
+    block) stops the loop, closes the socket and joins every thread."""
+
+    daemon_threads = False
+    allow_reuse_address = True
+
+    _ids = itertools.count()
+
+    def __init__(self, address, registry):
+        super().__init__(address, _MetricsHandler)
+        self.registry = registry
+        self._req_lock = threading.Lock()
+        self._req_threads: list[threading.Thread] = []  # ksel: guarded-by[_req_lock]
+        self._serve_thread: threading.Thread | None = None
+
+    @property
+    def port(self) -> int:
+        return self.server_address[1]
+
+    def process_request(self, request, client_address):
+        t = threading.Thread(target=self.process_request_thread, args=(request, client_address),
+                             name=f"{MONITOR_THREAD_PREFIX}-req-{next(self._ids)}", daemon=False)
+        with self._req_lock:
+            self._req_threads = [x for x in self._req_threads if x.is_alive()]
+            self._req_threads.append(t)
+        t.start()
+
+    def server_close(self):
+        super().server_close()
+        with self._req_lock:
+            threads, self._req_threads = self._req_threads, []
+        for t in threads:
+            t.join(timeout=10.0)
+
+    def close(self):
+        """Stop the accept loop, close the socket, join every thread."""
+        self.shutdown()
+        self.server_close()
+        if self._serve_thread is not None:
+            self._serve_thread.join(timeout=10.0)
+            self._serve_thread = None
+
+    def __enter__(self) -> "MetricsHTTPServer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def start_metrics_server(registry, *, host: str = "127.0.0.1", port: int = 0) -> MetricsHTTPServer:
+    """Serve ``registry``'s Prometheus text exposition in the background
+    (``port=0`` binds a free port: read ``handle.port``); ``handle.close()``
+    tears it all down."""
+    httpd = MetricsHTTPServer((host, port), registry)
+    t = threading.Thread(target=httpd.serve_forever, kwargs={"poll_interval": 0.05},
+                         name=f"{MONITOR_THREAD_PREFIX}-http-{next(MetricsHTTPServer._ids)}", daemon=True)
+    httpd._serve_thread = t
+    t.start()
+    return httpd

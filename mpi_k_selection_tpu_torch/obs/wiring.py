@@ -1,8 +1,7 @@
 """The telemetry plumbing the streamed passes share (counterpart of
 ``mpi_k_selection_tpu/obs/wiring.py``): the timer and recorder wiring,
-each chunk's ingest observation, the window-occupancy handle and the
-per-pass gauges. ``fault_event`` comes with the fault harness (ROADMAP
-Queue 1 item 4).
+each chunk's ingest observation, the window-occupancy handle, the
+per-pass gauges, and ``fault_event``, the one FaultEvent emission shape.
 
 Every helper is a host observation and a no-op when ``obs`` (or its
 channel) is None; none reads a device value.
@@ -10,7 +9,23 @@ channel) is None; none reads a device value.
 
 from __future__ import annotations
 
-from mpi_k_selection_tpu_torch.obs.events import ChunkEvent
+from mpi_k_selection_tpu_torch.obs.events import ChunkEvent, FaultEvent
+
+
+def fault_event(obs, site: str, action: str, *, exc=None, fault_kind=None, index=None, attempt: int = 0,
+                counter=None, labels=None):
+    """The one FaultEvent emission shape, shared by the injector
+    (``action="inject"``), the retry policies and the descent's recovery
+    ladder, so the error rendering (``"TypeName: message"``, empty for an
+    injection) and the event / metric pairing cannot drift between call
+    sites. ``counter`` (with ``labels``) names the metric bumped beside the
+    event. A no-op when ``obs`` is None."""
+    if obs is None:
+        return
+    obs.emit(FaultEvent(site=site, action=action, fault_kind=fault_kind, index=index, attempt=attempt,
+                        error="" if exc is None else f"{type(exc).__name__}: {exc}"))
+    if counter is not None and obs.metrics is not None:
+        obs.metrics.counter(counter, labels=labels).inc()
 
 
 def staged_slot(keys, devs=None):
@@ -94,16 +109,36 @@ def ingest_workers_gauge(obs, workers) -> None:
     obs.metrics.gauge("ingest.workers").set(int(workers))
 
 
+class _FanRecorder:
+    """Forwards every finished span to several recorders (the trace
+    recorder and the flight ring observe the same phases)."""
+
+    __slots__ = ("_targets",)
+
+    def __init__(self, targets):
+        self._targets = tuple(targets)
+
+    def record(self, name, t0, t1, args=None) -> None:
+        for r in self._targets:
+            r.record(name, t0, t1, args)
+
+
 def span_recorder(obs):
     """The recorder an instrumented run's PhaseTimer feeds: the trace
-    channel, or None."""
-    return None if obs is None else obs.trace
+    channel, the flight ring, a fan to both, or None when neither is on."""
+    if obs is None:
+        return None
+    targets = [r for r in (obs.trace, obs.flight) if r is not None]
+    if len(targets) < 2:
+        return targets[0] if targets else None
+    return _FanRecorder(targets)
 
 
 def attach_timer(obs, timer):
-    """``(timer, restore)``: with the trace channel on, every phase needs a
-    PhaseTimer to timestamp it, so one is made when the caller passed
-    none, and the recorder is attached to a caller's timer that has none.
+    """``(timer, restore)``: with span recording on (the trace channel, the
+    flight ring or both), every phase needs a PhaseTimer to timestamp it,
+    so one is made when the caller passed none, and the recorder is
+    attached to a caller's timer that has none.
     ``restore()`` detaches a recorder this call attached to the caller's
     timer; run it on every exit, so a timer reused by later calls without
     telemetry stops feeding this run's recorder."""

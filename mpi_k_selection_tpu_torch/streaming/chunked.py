@@ -44,11 +44,23 @@ one-shot source, ``"force"`` always, ``"off"`` never (a one-shot source is
 then refused); a caller-owned :class:`~mpi_k_selection_tpu_torch.
 streaming.spill.SpillStore` keeps its generation 0 for later calls, and a
 store with a committed generation is itself a source. Answers are the same
-bits in every mode. A corrupt record (``SpillRecordError``) is read again
-once, then the pass is rebuilt from the replayable source or a one-shot
-run's generation 0; running out of disk (``ENOSPC``) while teeing a later
-generation degrades ``"auto"`` to replaying the last good generation
-(with a RuntimeWarning) and raises ``SpillCapacityError`` otherwise.
+bits in every mode.
+
+``retry`` arms the resilience policies (faults/policy.py; None = the
+bounded default, ``"off"`` = fail on the first fault): a replayable
+source re-pulls a chunk after a transient error mid-pass
+(``resilient_source``), the staging of a chunk to its slot retries in
+place, and a pass that fails with a transient error runs again whole,
+``max_attempts`` times in all, before ``RetryExhaustedError``. A corrupt
+record (``SpillRecordError``) is read again once, then the pass is rebuilt
+from the replayable source or a one-shot run's generation 0; running out
+of disk (``ENOSPC``) while teeing a later generation degrades ``"auto"`` to
+replaying the last good generation (a ``degrade`` FaultEvent and a
+RuntimeWarning) and raises ``SpillCapacityError`` otherwise. Only the
+transient classes are retried: a CUDA error, a kernel that fails to build
+or launch, or running out of device memory propagates untouched. Every
+recovery emits a FaultEvent, and a terminal failure dumps the flight
+recorder's bundle once (obs/flight.py).
 
 Two knobs cut the descent's bytes, both bit-identical to their ``"off"``
 defaults, which are the historical descent byte for byte.
@@ -84,8 +96,10 @@ import warnings
 import numpy as np
 import torch
 
-from mpi_k_selection_tpu_torch.errors import SpillCapacityError, SpillRecordError
+from mpi_k_selection_tpu_torch.errors import RetryExhaustedError, SpillCapacityError, SpillRecordError
+from mpi_k_selection_tpu_torch.faults import policy as _fp
 from mpi_k_selection_tpu_torch.obs import events as _ev
+from mpi_k_selection_tpu_torch.obs import flight as _fl
 from mpi_k_selection_tpu_torch.obs import ledger as _ldg
 from mpi_k_selection_tpu_torch.obs import metrics as _om
 from mpi_k_selection_tpu_torch.obs import wiring as _wr
@@ -349,18 +363,19 @@ def _iter_staged(src, dtype, device, spill=None):
 
 @contextlib.contextmanager
 def _key_chunk_stream(src, dtype, *, pipeline_depth: int, device, devs=(None,), staged=True, window=1, spill=None,
-                      timer=None):
+                      timer=None, retry=None, obs=None):
     """The pass's ``(StagedKeys, dtype)`` iterator; a pipelined one is
     closed (its thread joined) on every exit. At depth >= 1 the producer
     places chunks by a :class:`~mpi_k_selection_tpu_torch.streaming.
     pipeline.SlotCursor` over ``devs`` (``staged``: round-robin slots),
-    for a consumer window of ``window`` bundles. ``spill`` tees every
-    chunk to a SpillWriter (its records name each chunk's slot)."""
+    for a consumer window of ``window`` bundles, and retries the staging
+    of a chunk under ``retry`` (its events to ``obs``). ``spill`` tees
+    every chunk to a SpillWriter (its records name each chunk's slot)."""
     if pipeline_depth == 0:
         yield _iter_staged(src, dtype, device, spill)
         return
     pipe = _pl.ChunkPipeline(src, dtype, depth=pipeline_depth, cursor=_pl.SlotCursor(device, devs, staged),
-                             window=window, spill=spill, timer=timer)
+                             window=window, spill=spill, timer=timer, retry=retry, obs=obs)
     try:
         yield iter(pipe)
     finally:
@@ -379,7 +394,7 @@ class _Pass:
 
 
 def _stream_pass(src, dtype, make_consumer, *, pipeline_depth: int, device, devs=(None,), staged=True, window=1,
-                 spill=None, obs=None, label=None, timer=None, phase=None, occupancy=None) -> _Pass:
+                 spill=None, obs=None, label=None, timer=None, phase=None, occupancy=None, retry=None) -> _Pass:
     """Stream every chunk of ``src`` through one consumer, built by
     ``make_consumer(dtype)`` at the first chunk. ``spill`` tees every chunk
     to a SpillWriter: on the host (:func:`_key_chunk_stream`) for a
@@ -387,14 +402,17 @@ def _stream_pass(src, dtype, make_consumer, *, pipeline_depth: int, device, devs
     one. ``devs``, ``staged`` and ``window`` place the chunks and size the
     window (:func:`_key_chunk_stream`). With ``obs``, each chunk emits its
     ChunkEvent under pass ``label``; ``phase`` names the pass's span on
-    ``timer``, and ``occupancy`` samples the window."""
+    ``timer``, and ``occupancy`` samples the window. ``retry`` retries the
+    staging of a chunk in place (:func:`_key_chunk_stream`). On a raise the
+    pass unwinds whole: the window's bundles aborted, the chunk in hand
+    released, the producer joined."""
     out = _Pass()
     ex = keys = None
     digit_tee = spill if spill is not None and spill.pack_digit_bits is not None else None
     try:
         with _phase(timer, phase), _key_chunk_stream(
             src, dtype, pipeline_depth=pipeline_depth, device=device, devs=devs, staged=staged, window=window,
-            spill=None if digit_tee is not None else spill, timer=timer,
+            spill=None if digit_tee is not None else spill, timer=timer, retry=retry, obs=obs,
         ) as chunks:
             for keys, dtype in chunks:
                 if out.consumer is None:
@@ -491,41 +509,73 @@ def _collect_survivors(src, dtype, specs, *, run, staged, obs=None, read_from="s
     return collected
 
 
-def _recover_pass(run, *, reading_spill: bool, fallback, on_enospc):
-    """Run ONE streamed pass under the JAX package's recovery ladder (its
-    two rungs that need no retry policy). ``run(src, tee)`` is a pass body
-    that unwinds completely on raise: ``src=None`` reads the pass's own
-    source, ``tee=False`` writes no generation.
+def _emit_fault(obs, site, action, exc=None) -> None:
+    """One recovery observation: a FaultEvent and the
+    ``faults.recovered{site,action}`` counter."""
+    _wr.fault_event(obs, site, action, exc=exc, counter="faults.recovered", labels={"site": site, "action": action})
 
-    - ``SpillRecordError`` while reading a generation: read it again once,
-      then rebuild the pass from ``fallback`` (the replayable source, or a
-      one-shot run's generation 0; the pass's own filters make that wider
-      read give the same bits). No fallback, or a failing one: it raises.
+
+def _recover_pass(run, *, policy, reading_spill: bool, fallback, on_enospc, obs, site: str):
+    """Run ONE streamed pass under the JAX package's recovery ladder.
+    ``run(src, tee)`` is a pass body that unwinds completely on raise (its
+    window aborted, its writer aborted, the chunk in hand released, the
+    producer joined), so every attempt starts clean: ``src=None`` reads the
+    pass's own source, ``tee=False`` writes no generation.
+
+    - ``SpillRecordError`` while reading a generation: read it again once
+      (a ``reread`` event), then rebuild the pass from ``fallback`` (the
+      replayable source, or a one-shot run's generation 0; the pass's own
+      filters make that wider read give the same bits; a ``rebuild``
+      event). No fallback, or a failing one: it raises.
     - ``OSError(ENOSPC)`` while teeing: ``on_enospc`` raises
       SpillCapacityError or allows the pass to run again without its tee.
+    - A transient error (``policy.retryable``): the whole pass runs again
+      from the same source after the policy's backoff (a ``retry`` event
+      under ``site``), ``policy.max_attempts`` times in all, then
+      :class:`~mpi_k_selection_tpu_torch.errors.RetryExhaustedError`.
 
-    Everything else propagates. The transient-retry rung is ROADMAP Queue
-    1 item 4's."""
+    Everything else propagates untouched. A terminal failure (exhaustion,
+    spill damage with no rung left) dumps the flight recorder's bundle
+    once first (obs/flight.py:``auto_dump``)."""
+    transient = 0
     reread = False
     src = None
     tee = True
     while True:
         try:
             return run(src, tee)
-        except SpillRecordError:
+        except SpillRecordError as e:
             if not reading_spill or src is not None:
+                _fl.auto_dump(obs, "spill-unrecoverable", exc=e)
                 raise
             if not reread:
                 reread = True
+                _emit_fault(obs, "spill.read", "reread", e)
                 continue
             if fallback is None:
+                _fl.auto_dump(obs, "spill-unrecoverable", exc=e)
                 raise
+            _emit_fault(obs, "spill.read", "rebuild", e)
             src = fallback
-        except OSError as e:
-            if e.errno != errno.ENOSPC or not tee or on_enospc is None:
+        except BaseException as e:
+            # ENOSPC by its errno: ConnectionError and TimeoutError are
+            # OSErrors too, and go on to the transient rung below
+            if isinstance(e, OSError) and e.errno == errno.ENOSPC and tee and on_enospc is not None:
+                on_enospc(e)  # raises SpillCapacityError unless the downgrade is allowed
+                tee = False
+                continue
+            if policy is None or not policy.is_retryable(e):
                 raise
-            on_enospc(e)
-            tee = False
+            transient += 1
+            if transient >= policy.max_attempts:
+                exhausted = RetryExhaustedError(
+                    f"{site}: still failing after {policy.max_attempts} attempts ({type(e).__name__}: {e})",
+                    site=site, attempts=policy.max_attempts,
+                )
+                _fl.auto_dump(obs, "retry-exhausted", exc=exhausted)
+                raise exhausted from e
+            _emit_fault(obs, site, "retry", e)
+            policy.sleep(transient)
 
 
 def _resolve_spill(source, spill, spill_dir):
@@ -554,7 +604,7 @@ def _resolve_spill(source, spill, spill_dir):
 def streaming_kselect(source, k, *, radix_bits: int = 8, collect_budget: int = DEFAULT_COLLECT_BUDGET,
                       sketch=None, pipeline_depth: int = DEFAULT_PIPELINE_DEPTH, ingest_workers=None,
                       spill=DEFAULT_SPILL, spill_dir=None, width_schedule=DEFAULT_WIDTH_SCHEDULE,
-                      pack_spill=DEFAULT_PACK_SPILL, device=None, devices=None, timer=None, obs=None):
+                      pack_spill=DEFAULT_PACK_SPILL, device=None, devices=None, retry=None, timer=None, obs=None):
     """Exact k-th smallest (1-indexed) over a chunked stream: a host
     scalar of the stream's dtype (numpy; ml_dtypes' bfloat16 for
     bfloat16), bit for bit the JAX package's ``streaming_kselect``.
@@ -570,19 +620,22 @@ def streaming_kselect(source, k, *, radix_bits: int = 8, collect_budget: int = D
     ``"force"`` or a SpillStore), ``spill_dir`` (the root of the stores a
     call makes; default the temp dir), ``width_schedule`` (``"off"``,
     ``"auto"`` or a tuple of widths), ``pack_spill`` (``"off"`` or
-    ``"auto"``), ``device``, ``devices``, ``timer`` and ``obs`` are
+    ``"auto"``), ``device``, ``devices``, ``retry`` (None or
+    ``"default"``, ``"off"``, or a RetryPolicy), ``timer`` and ``obs`` are
     described in the module docstring."""
     return streaming_kselect_many(
         source, [k], radix_bits=radix_bits, collect_budget=collect_budget, sketch=sketch,
         pipeline_depth=pipeline_depth, ingest_workers=ingest_workers, spill=spill, spill_dir=spill_dir,
-        width_schedule=width_schedule, pack_spill=pack_spill, device=device, devices=devices, timer=timer, obs=obs,
+        width_schedule=width_schedule, pack_spill=pack_spill, device=device, devices=devices, retry=retry,
+        timer=timer, obs=obs,
     )[0]
 
 
 def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: int = DEFAULT_COLLECT_BUDGET,
                            sketch=None, pipeline_depth: int = DEFAULT_PIPELINE_DEPTH, ingest_workers=None,
                            spill=DEFAULT_SPILL, spill_dir=None, width_schedule=DEFAULT_WIDTH_SCHEDULE,
-                           pack_spill=DEFAULT_PACK_SPILL, device=None, devices=None, timer=None, obs=None):
+                           pack_spill=DEFAULT_PACK_SPILL, device=None, devices=None, retry=None, timer=None,
+                           obs=None):
     """Exact k-th smallest for EVERY (1-indexed) rank in ``ks``, as a list
     in ``ks`` order, sharing each pass across ranks: the stream is read
     once per radix level plus one collect, not once per rank, with one
@@ -596,6 +649,7 @@ def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: i
     depth = _pl.validate_pipeline_depth(pipeline_depth)
     pool_n = _pl.resolve_ingest_workers(ingest_workers)
     dev, devs = _pl.resolve_ingest(device, devices) if devices is not None else (None, (None,))
+    policy = _fp.resolve_retry(retry)
     if not 1 <= radix_bits <= MAX_BITS:  # the JAX package's MAX_PASS_BITS
         raise ValueError(f"radix_bits={radix_bits} outside [1, {MAX_BITS}]")
     _wr.ingest_workers_gauge(obs, pool_n)
@@ -605,7 +659,7 @@ def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: i
     dev = _pl.resolve_device(device) if dev is None else dev
     # one bundle a slot in flight when the pipelined passes spread over slots
     multi = depth > 0 and devices is not None
-    run = dict(pipeline_depth=depth, device=dev, devs=devs, window=len(devs) if multi else 1)
+    run = dict(pipeline_depth=depth, device=dev, devs=devs, window=len(devs) if multi else 1, retry=policy)
     timer, restore_recorder = _wr.attach_timer(obs, timer)
     run["timer"] = timer
     occupancy = _wr.window_occupancy(obs, phase="descent")
@@ -678,6 +732,7 @@ def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: i
                 "spill_dir elsewhere, or run spill='auto'/'off'"
             ) from e
         spill_disabled = True
+        _emit_fault(obs, "spill.write", "degrade", e)
         warnings.warn(
             "spill store out of disk (ENOSPC); degrading spill='auto' to the replay of the last good "
             "generation — spilling is disabled for the rest of this descent and later passes re-read that "
@@ -694,6 +749,11 @@ def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: i
 
     try:
         src = as_chunk_source(source, one_shot_ok=store is not None)
+        if policy is not None and not one_shot:
+            # a mid-pass re-pull for a transient source error (a consumed
+            # one-shot stream cannot be called again: its recovery is the
+            # spill store's generation 0)
+            src = _fp.resilient_source(src, policy, obs=obs)
 
         # per-rank descent state: [prefix, rebased k, resolved bits, population]
         if sketch is not None:
@@ -743,9 +803,11 @@ def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: i
                 return res, writer.commit() if writer is not None else None
 
             # a one-shot source is consumed as it is teed: its pass 0
-            # cannot run again, and fails typed with the writer aborted
+            # cannot run again (no transient rung), and fails typed with the
+            # writer aborted
             res0, gen0 = _recover_pass(
-                pass0, reading_spill=read_gen is not None, fallback=None, on_enospc=enospc_pass0
+                pass0, policy=None if one_shot else policy, reading_spill=read_gen is not None, fallback=None,
+                on_enospc=enospc_pass0, obs=obs, site="pass 0",
             )
             dtype, n = res0.dtype, res0.n
             kbytes = _dt.key_bits(dtype) // 8
@@ -860,7 +922,8 @@ def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: i
                 return hists, gen, pass_keys, res.chunks, read_from, disk_read
 
             hists, gen, pass_keys, pass_chunks, read_from, disk_read = _recover_pass(
-                run_pass, reading_spill=read_gen is not None, fallback=fallback_src(), on_enospc=on_enospc
+                run_pass, policy=policy, reading_spill=read_gen is not None, fallback=fallback_src(),
+                on_enospc=on_enospc, obs=obs, site=f"pass {label}",
             )
             log_pass(label, gen, keys_read=pass_keys, read=read_from, disk_read=disk_read)
             if gen is not None:
@@ -906,7 +969,8 @@ def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: i
                 return out, read_from, kr, disk
 
             collected, read_from, keys_read, disk_read = _recover_pass(
-                run_collect, reading_spill=read_gen is not None, fallback=fallback_src(), on_enospc=None
+                run_collect, policy=policy, reading_spill=read_gen is not None, fallback=fallback_src(),
+                on_enospc=None, obs=obs, site="collect",
             )
             log_pass("collect", keys_read=keys_read, read=read_from, disk_read=disk_read)
         if obs is not None and obs.metrics is not None:
@@ -937,7 +1001,7 @@ def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: i
 
 def streaming_rank_certificate(source, value, *, pipeline_depth: int = DEFAULT_PIPELINE_DEPTH, ingest_workers=None,
                                width_schedule=DEFAULT_WIDTH_SCHEDULE, pack_spill=DEFAULT_PACK_SPILL, device=None,
-                               devices=None, timer=None, obs=None):
+                               devices=None, retry=None, timer=None, obs=None):
     """``(#elements < value, #elements <= value)`` over a chunked stream,
     as Python ints: an answer for rank k is exact iff ``less < k <= leq``.
     Compared in key space (ties, ``-0.0``/``+0.0`` and NaNs behave exactly
@@ -951,12 +1015,18 @@ def streaming_rank_certificate(source, value, *, pipeline_depth: int = DEFAULT_P
     comparison pass has no digit to widen and writes no generation.
     ``devices`` spreads the pipelined pass over cards (each counts its own
     chunks), and ``obs`` records a ``certificate.pass`` event, as in
-    :func:`streaming_kselect`."""
+    :func:`streaming_kselect`. ``retry`` (None = the bounded default) gives
+    the pass the mid-pass re-pull of a transient source error and the
+    in-place retry of a chunk's staging; the counts are the same bits
+    after a recovery."""
     validate_width_schedule(width_schedule)
     _sp.validate_pack_spill(pack_spill)
     depth = _pl.validate_pipeline_depth(pipeline_depth)
     pool_n = _pl.resolve_ingest_workers(ingest_workers)
+    policy = _fp.resolve_retry(retry)
     src = as_chunk_source(source)
+    if policy is not None:
+        src = _fp.resilient_source(src, policy, obs=obs)
     dev, devs = _pl.resolve_ingest(device, devices)
     timer, restore_recorder = _wr.attach_timer(obs, timer)
     _wr.ingest_workers_gauge(obs, pool_n)
@@ -971,7 +1041,8 @@ def streaming_rank_certificate(source, value, *, pipeline_depth: int = DEFAULT_P
     try:
         res = _stream_pass(src, None, certificate, pipeline_depth=depth, device=dev, devs=devs, staged=staged,
                            window=len(devs) if staged else 1, obs=obs, label="certificate", timer=timer,
-                           phase="certificate.pass", occupancy=_wr.window_occupancy(obs, phase="certificate"))
+                           phase="certificate.pass", occupancy=_wr.window_occupancy(obs, phase="certificate"),
+                           retry=policy)
     finally:
         restore_recorder()
     counter = res.consumer

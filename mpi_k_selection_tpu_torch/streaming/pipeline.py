@@ -54,6 +54,8 @@ import threading
 import numpy as np
 import torch
 
+from mpi_k_selection_tpu_torch.faults import policy as _fpol
+from mpi_k_selection_tpu_torch.faults.inject import maybe_fault as _maybe_fault
 from mpi_k_selection_tpu_torch.obs import ledger as _ledger
 from mpi_k_selection_tpu_torch.utils import dtypes as _dt
 from mpi_k_selection_tpu_torch.utils.profiling import phase as _phase
@@ -342,7 +344,10 @@ class StagedKeys:
     def release(self) -> None:
         with self._lock:
             hook, self.on_release = self.on_release, None
-            self.data = self.data[:0]
+            # an empty tensor of its own, not a view: a released chunk that
+            # something still references (an exception's traceback holds the
+            # frames of a failed pass) must not keep its device memory
+            self.data = self.data.new_empty(0)
         if hook is not None:
             hook()
 
@@ -541,15 +546,23 @@ class ChunkPipeline:
     every chunk's host keys to a spill generation on the producer thread,
     each record naming the chunk's ``tee_slot``. ``timer`` (a PhaseTimer)
     times the producer's ``pipeline.produce`` / ``encode`` / ``spill`` /
-    ``stage`` phases and the consumer's ``pipeline.stall``."""
+    ``stage`` phases and the consumer's ``pipeline.stall``.
+
+    Each chunk staged to a slot (``StagedKeys.staged``, the JAX package's
+    staging rule) passes the ``"stage"`` fault site first, keyed by the
+    pass's count of staged chunks, before any buffer is taken; ``retry`` (a
+    faults/policy.py RetryPolicy, or None) retries a transient failure of
+    it in place, and ``obs`` receives the retry events."""
 
     _ids = itertools.count()
 
     def __init__(self, src, dtype=None, *, depth: int, cursor: SlotCursor, window: int = 1, spill=None,
-                 timer=None):
+                 timer=None, retry=None, obs=None):
         self._src = src
         self._dtype = dtype
         self._spill = spill  # the pass-0 tee's SpillWriter, appended to on this thread
+        self._retry = retry
+        self._obs = obs
         self._depth = validate_pipeline_depth(depth)
         if self._depth == 0:
             raise ValueError("ChunkPipeline requires pipeline_depth >= 1; depth 0 is the synchronous path")
@@ -584,6 +597,7 @@ class ChunkPipeline:
                 torch.cuda.set_device(self._cursor.device)  # this thread stages to the stream's card
             stagers = {d: HostStager(d, s) for d, s in self._compute.items()}
             dtype = self._dtype
+            staged_i = 0  # the stage fault site's stable key: a retry of a chunk shares it
             it = iter(self._src())
             while True:
                 with _phase(timer, "pipeline.produce"):
@@ -597,14 +611,20 @@ class ChunkPipeline:
                 if dtype is None:
                     dtype = _chunk_dtype(c)
                 place = self._cursor.place(c)
-                if self._spill is not None:
-                    with _phase(timer, "pipeline.spill"):
-                        _tee(self._spill, c, dtype, place["tee_slot"])
                 if not self._acquire_slot():
                     return
                 with _phase(timer, "pipeline.stage"):
-                    keys = stage_chunk(c, dtype, stager=stagers.get(place["device"]), on_release=self._slots.release,
-                                       **place)
+                    try:
+                        keys = _fpol.retry_call(
+                            lambda i=staged_i, c=c, dtype=dtype, place=place: self._stage(c, dtype, stagers, place, i),
+                            self._retry, site="stage", obs=self._obs)
+                    except BaseException:
+                        self._slots.release()  # nothing was staged into the slot
+                        raise
+                staged_i += place["staged"]
+                if self._spill is not None:
+                    with _phase(timer, "pipeline.spill"):
+                        _tee(self._spill, c, dtype, place["tee_slot"])
                 self._q.put((keys, dtype))
                 keys = None
             if not self._stop.is_set():
@@ -613,6 +633,15 @@ class ChunkPipeline:
             if keys is not None:
                 keys.release()
             self._q.put(_Raised(e))
+
+    def _stage(self, c, dtype, stagers, place, index):
+        """One staging attempt: the ``"stage"`` fault site (a chunk staged to
+        a slot only, as the JAX package stages), before any buffer is
+        taken, so a retried attempt has nothing to unwind; then the chunk to
+        its card."""
+        if place["staged"]:
+            _maybe_fault("stage", index)
+        return stage_chunk(c, dtype, stager=stagers.get(place["device"]), on_release=self._slots.release, **place)
 
     def _get(self):
         while True:

@@ -46,21 +46,20 @@ from mpi_k_selection_tpu_torch.utils.interop import numpy_dtype
 # sweep kernel's widest sketch
 _MAX_RESOLUTION_BITS = MAX_BITS
 
-#: The JAX package's streaming knobs the port does not take yet: what each
-#: is, and the ROADMAP Queue 1 item that brings it.
+#: The JAX package's streaming knobs the port does not take: why each has
+#: no counterpart.
 LATER_KNOBS = {
-    "retry": "faults, ROADMAP Queue 1 item 4",
     "fused": "no counterpart: the port has one route, the sweep kernel",
     "deferred": "no counterpart: the port has one executor discipline",
 }
 
 
 def reject_later_knobs(where: str, kwargs: dict) -> None:
-    """Raise a TypeError for the first keyword of ``kwargs``, naming the
-    queue item that brings it when it is a knob of the JAX package."""
+    """Raise Python's TypeError for the first keyword of ``kwargs``, saying
+    why the port has no counterpart when it is a knob of the JAX package."""
     for name in kwargs:
         why = LATER_KNOBS.get(name)
-        tail = f": not ported yet ({why})" if why else ""
+        tail = f": {why}" if why else ""
         raise TypeError(f"{where}() got an unexpected keyword argument {name!r}{tail}")
 
 
@@ -151,7 +150,7 @@ class RadixSketch:
         cards (streaming/chunked.py), ``timer`` times its ``sketch.pass``
         and ``obs`` records its chunk events and one ``sketch.pass`` event.
         Returns ``self``."""
-        reject_later_knobs("update_stream", kwargs)
+        reject_later_knobs("RadixSketch.update_stream", kwargs)
         from mpi_k_selection_tpu_torch.streaming import spill as _sp
         from mpi_k_selection_tpu_torch.streaming.chunked import as_chunk_source
 

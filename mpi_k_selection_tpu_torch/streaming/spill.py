@@ -76,6 +76,7 @@ import numpy as np
 import torch
 
 from mpi_k_selection_tpu_torch.errors import SpillError, SpillRecordError
+from mpi_k_selection_tpu_torch.faults.inject import maybe_fault as _maybe_fault
 from mpi_k_selection_tpu_torch.obs import ledger as _ledger
 from mpi_k_selection_tpu_torch.streaming.pipeline import _bucket_elems
 from mpi_k_selection_tpu_torch.utils import dtypes as _dt
@@ -504,9 +505,17 @@ class SpillWriter:
             return prepared_record(lambda: keys, n, keys.dtype, orig_dtype, segments)
 
     def append_prepared(self, prep: PreparedSpillRecord, device_slot=None) -> SpillRecord:
-        """Write one prepared record as the generation's next record."""
+        """Write one prepared record as the generation's next record.
+
+        The ``"spill.write"`` fault site fires first, before anything
+        touches disk, keyed by the record's index in the generation: the
+        in-order write count, never the order records were prepared or
+        packed in. A pass that runs again builds a fresh writer, whose
+        count restarts, so record *i*'s next write advances the site's
+        attempt counter."""
         if self._done:
             raise SpillError("spill generation already committed/aborted")
+        _maybe_fault("spill.write", index=self._count)
         slot = -1 if device_slot is None else int(device_slot)
         rec_path = os.path.join(self.path, f"r{self._count:08d}.kspill")
         bucket = _bucket_elems(prep.n)
@@ -734,6 +743,11 @@ def _read_packed(read_at, nbytes: int, n_valid: int, key_dt: np.dtype, dir_crc: 
 
 
 def _read_record(rec: SpillRecord, mmap: bool = False, filter_specs=None, seg_index=None) -> SpillChunk:
+    # the "spill.read" fault site, keyed by the record's chunk index, before
+    # the open: a transient kind raises here, a persistent one damages the
+    # file and falls through, so the real header, size and CRC checks below
+    # are what the recovery ladder (streaming/chunked.py) meets
+    _maybe_fault("spill.read", index=rec.chunk_index, path=rec.path)
     with HOST_TIMES["read"].timing():
         return _read_record_untimed(rec, mmap, filter_specs, seg_index)
 

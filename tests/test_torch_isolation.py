@@ -80,3 +80,29 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_fault_harness_flight_recorder_and_cli_monitor_load_no_jax(tmp_path):
+    """The fault harness (``faults/*``), the flight recorder
+    (``obs/flight.py``), a chaos run with its debug bundle and the CLI's
+    ``monitor`` path with its Prometheus server run without loading JAX or
+    the JAX package."""
+    files = sorted((PORT / "faults").glob("*.py")) + [PORT / "obs" / "flight.py", PORT / "monitor" / "monitor.py"]
+    assert len(files) == 7 and not [m for f in files for _, m in _imports(f) if _forbidden(m)]
+    code = (
+        "import sys\n"
+        "import mpi_k_selection_tpu_torch.faults, mpi_k_selection_tpu_torch.obs.flight\n"
+        "from mpi_k_selection_tpu_torch import cli\n"
+        f"assert cli.main(['monitor', '--buckets', '2', '--chunk-elems', '512', '--device', 'cpu',"
+        f" '--prometheus-port', '0']) == 0\n"
+        f"assert cli.main(['--streaming', '--n', '20000', '--chunk-elems', '4096', '--device', 'cpu', '--spill',"
+        f" 'force', '--spill-dir', {str(tmp_path)!r}, '--chaos', '7', '--check', '--debug-bundle',"
+        f" {str(tmp_path / 'b.json')!r}]) == 0\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'mpi_k_selection_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["b.json"]

@@ -30,7 +30,7 @@ from mpi_k_selection_tpu_torch.monitor import (
     decay_weight,
     q_label,
 )
-from mpi_k_selection_tpu_torch.monitor.monitor import MONITOR_THREAD_PREFIX
+from mpi_k_selection_tpu_torch.monitor.monitor import MONITOR_THREAD_PREFIX, start_metrics_server
 from mpi_k_selection_tpu_torch.ops.cuda import sweep_ingest as S
 from mpi_k_selection_tpu_torch.streaming import pipeline as pl
 from mpi_k_selection_tpu_torch.streaming.sketch import RadixSketch
@@ -195,9 +195,14 @@ def test_monitor_emit_every_max_samples_and_validation():
     for knob, value in (("devices", 2), ("obs", obs_lib.Observability.collecting())):
         got = kt.Monitor(window=4, emit_every=2, device="cpu", **{knob: value}).run(chunks, np.int32, max_samples=2)
         assert records(got) == records(JaxMonitor(window=4, emit_every=2).run(chunks, np.int32, max_samples=2))
-    for knob, why in (("retry", "item 4"), ("fused", "no counterpart")):
-        with pytest.raises(TypeError, match=f"{knob}.*{why}"):
-            kt.Monitor(**{knob: None})
+    with pytest.raises(TypeError, match="fused.*no counterpart"):
+        kt.Monitor(fused=None)
+    said = []
+    for cls in (kt.Monitor, JaxMonitor):  # retry: the JAX package's own plain TypeError
+        with pytest.raises(TypeError) as ei:
+            cls(retry=None)
+        said.append(str(ei.value))
+    assert said[0] == said[1] == "Monitor.__init__() got an unexpected keyword argument 'retry'"
     with pytest.raises(TypeError, match="requires one dtype per stream"):
         list(kt.Monitor(window=2, device="cpu").run([chunks[0], chunks[1].astype(np.int64)]))
     assert [q_label(q) for q in (0.5, 0.99, 0.999)] == ["p50", "p99", "p99_9"]
@@ -223,6 +228,128 @@ def test_monitor_abandoned_generator_cleans_up(workers):
     gen.close()
     assert len(pulled) < len(chunks)
     assert not [t.name for t in threading.enumerate() if t.name.startswith(("ksel-pipeline", "ksel-ingest"))]
+
+
+# --- the Prometheus exposition and the CLI's monitor ---------------------------
+
+
+def _get(url):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=5) as r:
+        return r.status, r.headers["Content-Type"], r.read().decode()
+
+
+def _monitor_threads() -> list:
+    return [t.name for t in threading.enumerate() if t.name.startswith(MONITOR_THREAD_PREFIX)]
+
+
+def test_metrics_server_serves_the_registry_and_closes():
+    """``GET /metrics`` is the registry's own Prometheus text, live, on
+    ``ksel-monitor-*`` threads that ``close()`` joins; ``/healthz`` answers
+    and any other path is a 404, as the JAX package's server does."""
+    import json
+    import urllib.error
+
+    from mpi_k_selection_tpu.monitor import start_metrics_server as jax_start
+    from mpi_k_selection_tpu.obs import MetricsRegistry as JaxRegistry
+
+    from mpi_k_selection_tpu_torch import obs as obs_lib
+
+    regs = []
+    for make in (obs_lib.MetricsRegistry, JaxRegistry):
+        reg = make()
+        reg.gauge("monitor.window_n").set(42)
+        reg.counter("monitor.samples").inc(3)
+        reg.gauge("monitor.quantile", labels={"q": "p99"}).set(1.5)
+        regs.append(reg)
+    bodies = []
+    for start, reg in ((start_metrics_server, regs[0]), (jax_start, regs[1])):
+        with start(reg) as srv:
+            url = f"http://127.0.0.1:{srv.port}"
+            status, ctype, body = _get(url + "/metrics")
+            assert status == 200 and ctype.startswith("text/plain; version=0.0.4") and body == reg.render_prometheus()
+            reg.gauge("monitor.window_n").set(43)
+            assert "ksel_monitor_window_n 43" in _get(url + "/metrics")[2]  # rendered live
+            assert json.loads(_get(url + "/healthz")[2]) == {"status": "ok"}
+            with pytest.raises(urllib.error.HTTPError) as ei:
+                _get(url + "/nope")
+            assert ei.value.code == 404
+            bodies.append(body)
+        assert _monitor_threads() == []
+    assert bodies[0] == bodies[1]
+    srv = start_metrics_server(regs[0])
+    assert srv.port > 0 and _monitor_threads()
+    srv.close()
+    assert _monitor_threads() == []
+
+
+def test_monitor_run_scraped_mid_run(rng):
+    """A scrape between two samples parses as Prometheus text and carries
+    the first sample's gauges; after the run the body equals the
+    registry's own text."""
+    from mpi_k_selection_tpu_torch import obs as obs_lib
+
+    o = obs_lib.Observability(metrics=obs_lib.MetricsRegistry())
+    chunks = drifting(6, elems=2048)
+    with start_metrics_server(o.metrics) as srv:
+        url = f"http://127.0.0.1:{srv.port}/metrics"
+        gen = kt.Monitor(window=4, emit_every=2, obs=o, device="cpu").run(iter(chunks), np.int32)
+        first = next(gen)
+        mid = _get(url)[2]
+        samples = [first, *gen]
+        lines = [ln for ln in mid.splitlines() if ln and not ln.startswith("#")]
+        assert lines and all(len(ln.split(" ")) == 2 for ln in lines)
+        assert {ln.split(" ")[0] for ln in lines} >= {'ksel_monitor_quantile{q="p50"}', "ksel_monitor_window_n"}
+        assert "ksel_monitor_samples 1" in lines
+        assert _get(url)[2] == o.metrics.render_prometheus()
+    assert len(samples) == 3 and _monitor_threads() == []
+
+
+MONITOR_ARGV = ["monitor", "--buckets", "3", "--window", "4", "--chunk-elems", "1024", "--drift", "50", "--seed", "9"]
+
+
+@pytest.mark.parametrize("extra", [
+    ["--json"],
+    ["--json", "--decay", "0.5", "--emit-every", "2", "--quantiles", "0.5,0.95"],
+    ["--json", "--dtype", "float32", "--gen", "normal"],
+    [],
+])
+def test_cli_monitor_samples_match_the_jax_cli(extra, capsys):
+    """``python -m mpi_k_selection_tpu_torch monitor`` prints the JAX CLI's
+    sample lines for the same seed: JSON records equal field for field,
+    and the human-readable lines equal."""
+    from mpi_k_selection_tpu.cli import main as jax_main
+
+    from mpi_k_selection_tpu_torch import cli
+
+    assert cli.main(MONITOR_ARGV + extra + ["--device", "cpu"]) == 0
+    mine = capsys.readouterr().out.splitlines()
+    assert jax_main(MONITOR_ARGV + extra) == 0
+    theirs = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith(("{", "multirank"))]
+    assert len(mine) == 3 and mine == theirs
+
+
+def test_cli_monitor_metrics_port_and_validation(tmp_path, capsys):
+    """``--metrics-json`` writes the registry, ``--prometheus-port 0``
+    serves it on a free port for the run (written to ``--port-file``) and
+    closes it; bad knobs exit with the JAX CLI's messages."""
+    import json
+
+    from mpi_k_selection_tpu_torch import cli
+
+    mpath, ppath = tmp_path / "mon.json", tmp_path / "port"
+    argv = MONITOR_ARGV + ["--device", "cpu", "--metrics-json", str(mpath), "--prometheus-port", "0",
+                           "--port-file", str(ppath)]
+    assert cli.main(argv) == 0
+    assert len(capsys.readouterr().out.splitlines()) == 3 and int(ppath.read_text()) > 0
+    saved = json.loads(mpath.read_text())
+    assert saved["monitor.samples"]["value"] == 3 and any(k.startswith("monitor.quantile") for k in saved)
+    assert _monitor_threads() == []
+    for bad, match in ((["--chunk-elems", "0"], "chunk-elems"), (["--quantiles", "0.5,zap"], "quantiles"),
+                       (["--decay", "7.5"], "decay")):
+        with pytest.raises(SystemExit, match=match):
+            cli.main(["monitor", "--buckets", "1", "--device", "cpu", *bad])
 
 
 # --- on the card ----------------------------------------------------------------

@@ -17,6 +17,7 @@ the telemetry's bit-identity on the card:
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import threading
@@ -454,12 +455,25 @@ def test_program_ledger_books_and_storms_match_jax():
 
 
 def test_flight_refused_and_profiling_surfaces(tmp_path):
-    """``flight=`` waits for the fault harness and says so; the profiler
-    writes its Chrome trace into the directory; no card, no memory rows."""
-    for make in (lambda: obs_lib.Observability(flight=True), lambda: obs_lib.Observability.collecting(flight=True)):
-        with pytest.raises(TypeError, match="faults, ROADMAP Queue 1 item 4"):
-            make()
-    assert obs_lib.Observability(flight=None).flight is None
+    """``flight=`` is taken in every form the JAX package takes (True, an
+    int ring capacity, a FlightRecorder) and refused in the others with its
+    message; the profiler writes its Chrome trace into the directory; no
+    card, no memory rows."""
+    from mpi_k_selection_tpu import obs as jobs
+
+    for make in (lambda lib, f: lib.Observability(flight=f), lambda lib, f: lib.Observability.collecting(flight=f)):
+        assert isinstance(make(obs_lib, True).flight, obs_lib.FlightRecorder)
+        assert make(obs_lib, 7).flight._events.maxlen == make(jobs, 7).flight._events.maxlen == 7
+        rec = obs_lib.FlightRecorder(dump_dir=tmp_path)
+        assert make(obs_lib, rec).flight is rec
+        said = []
+        for lib in (obs_lib, jobs):
+            with pytest.raises(ValueError) as ei:
+                make(lib, "yes")
+            said.append(str(ei.value))
+        assert said[0] == said[1]
+    assert obs_lib.Observability(flight=None).flight is None and obs_lib.Observability(flight=False).flight is None
+    assert obs_lib.Observability.collecting().flight is None
     from mpi_k_selection_tpu_torch.utils import profiling
 
     with profiling.trace(str(tmp_path / "tr")):
@@ -507,6 +521,97 @@ def test_cli_metrics_json_trace_events_and_profile(tmp_path, capsys):
     assert os.listdir(tmp_path / "prof")
     assert cli.main(["--n", "20000", "--device", "cpu", "--json", "--metrics-json", mpath, "--check"]) == 0
     assert 'phase.seconds{phase="generate"}' in json.load(open(mpath))
+
+
+def _bundle_ok(path, reason):
+    """A bundle on disk parses, carries the five sections, and names its
+    reason (the conftest validates only the JAX package's bundles)."""
+    bundle = json.load(open(path))
+    assert set(obs_lib.flight.BUNDLE_SECTIONS) <= set(bundle) and bundle["reason"] == reason
+    return bundle
+
+
+def test_flight_ring_bundle_sections_match_jax(rng, tmp_path):
+    """The ring keeps the newest ``capacity`` events and spans (from the
+    producer's thread and the consumer's), and a bundle's sections hold the
+    same keys as the JAX package's bundle, its events the same dicts for
+    the same events; the lock-order section is None in the port."""
+    from mpi_k_selection_tpu import obs as jobs
+
+    rec = obs_lib.FlightRecorder(capacity=4, span_capacity=64, dump_dir=tmp_path)
+    o = obs_lib.Observability(events=obs_lib.ListSink(), metrics=obs_lib.MetricsRegistry(), flight=rec)
+    chunks = _chunks(rng)
+    got = kt.kselect_streaming(chunks, 9000, pipeline_depth=2, radix_bits=4, collect_budget=64, obs=o, **CPU)
+    assert got == kt.kselect_streaming(chunks, 9000, pipeline_depth=2, radix_bits=4, collect_budget=64, **CPU)
+    assert rec.events_tail() == o.events.events[-4:]  # the newest four, in order
+    threads = {t for *_, t, _ in rec.spans_tail()}
+    assert len(threads) >= 2 and any(t.startswith("ksel-pipeline") for t in threads)
+    mine = rec.bundle(obs=o, reason="test")
+    jrec = jobs.FlightRecorder(capacity=4)
+    jo = jobs.Observability(metrics=jobs.MetricsRegistry(), flight=jrec)
+    for e in rec.events_tail():
+        jo.emit(getattr(jobs, type(e).__name__)(**{f.name: getattr(e, f.name) for f in dataclasses.fields(e)}))
+    jrec.record("descent.pass", 1.0, 2.0)
+    theirs = jrec.bundle(obs=jo, reason="test")
+    assert set(mine) == set(theirs) and mine["events"] == theirs["events"]
+    assert set(mine["spans"]) == set(theirs["spans"]) and set(mine["spans"]["tail"][0]) == set(
+        theirs["spans"]["tail"][0])
+    assert set(mine["faults"]) == set(theirs["faults"]) and mine["lock_order"] is None
+    assert mine["metrics"] and "ingest.chunks" in json.dumps(mine["metrics"])
+    path = rec.dump(tmp_path / "on-demand.json", obs=o)
+    _bundle_ok(path, "on-demand")
+    assert path in obs_lib.flight.drain_dumped() and obs_lib.flight.drain_dumped() == []
+    os.unlink(path)
+    assert os.listdir(tmp_path) == []
+
+
+def test_flight_auto_dump_once_and_never_raises(tmp_path):
+    """One automatic dump per recorder; a failed write raises from
+    ``maybe_auto_dump`` but does not use the dump up, and the ``auto_dump``
+    hook never raises (and does nothing without a flight channel)."""
+    from mpi_k_selection_tpu_torch.obs.flight import auto_dump
+
+    missing = tmp_path / "missing"
+    rec = obs_lib.FlightRecorder(dump_dir=missing)
+    o = obs_lib.Observability(flight=rec)
+    assert auto_dump(o, "retry-exhausted", exc=RuntimeError("x")) is None  # the dir is missing: swallowed
+    with pytest.raises(OSError):
+        rec.maybe_auto_dump("retry-exhausted")
+    missing.mkdir()
+    first = auto_dump(o, "retry-exhausted", exc=RuntimeError("boom"))
+    assert first is not None and auto_dump(o, "retry-exhausted") is None and rec.auto_dumps == [first]
+    bundle = _bundle_ok(first, "retry-exhausted")
+    assert bundle["error"] == "RuntimeError: boom" and os.path.basename(first).startswith("ksel-flight-")
+    assert auto_dump(None, "x") is None and auto_dump(obs_lib.Observability(), "x") is None
+    obs_lib.flight.drain_dumped()
+    os.unlink(first)
+    assert os.listdir(missing) == []
+
+
+def test_cli_debug_bundle_on_success_and_on_error(tmp_path, capsys):
+    """``--debug-bundle PATH`` writes the bundle at exit, success or
+    failure; a chaos run's bundle holds the injected and recovered faults."""
+    from mpi_k_selection_tpu_torch import cli
+
+    path = str(tmp_path / "b.json")
+    argv = ["--streaming", "--n", "40000", "--chunk-elems", "8192", "--device", "cpu", "--json", "--spill", "force",
+            "--spill-dir", str(tmp_path), "--chaos", "7", "--check", "--debug-bundle", path]
+    assert cli.main(argv) == 0
+    rec = json.loads(capsys.readouterr().out)
+    assert rec["extra"]["debug_bundle"] == path and rec["extra"]["certificate_ok"]
+    bundle = _bundle_ok(path, "cli")
+    actions = [e["action"] for e in bundle["faults"]["events"]]
+    assert actions.count("inject") == len(rec["extra"]["chaos"]["fired"]) and "rebuild" in actions
+    bad = str(tmp_path / "bad.json")
+    with pytest.raises(SystemExit, match="error"):
+        cli.main(["--streaming", "--n", "40000", "--chunk-elems", "8192", "--device", "cpu", "--k", "0",
+                  "--debug-bundle", bad])
+    with pytest.raises(SystemExit, match="injected transient fault"):
+        cli.main(["--streaming", "--n", "40000", "--chunk-elems", "8192", "--device", "cpu", "--chaos", "0",
+                  "--retry", "off", "--debug-bundle", bad])
+    assert _bundle_ok(bad, "cli-error")["error"].startswith("TransientError: injected transient fault")
+    obs_lib.flight.drain_dumped()
+    assert sorted(os.listdir(tmp_path)) == ["b.json", "bad.json"]
 
 
 @pytest.mark.gpu

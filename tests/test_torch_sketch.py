@@ -273,9 +273,16 @@ def test_errors_match_jax():
     for knob, value in (("devices", 2), ("obs", obs_lib.Observability.collecting()), ("timer", PhaseTimer())):
         got = RadixSketch(np.int32, device="cpu").update_stream(three, **{knob: value})
         assert [h.tolist() for h in got.hists] == [h.tolist() for h in want.hists] and got.n == want.n == 8
-    for knob, why in (("fused", "no counterpart"), ("deferred", "no counterpart"), ("retry", "item 4")):
+    for knob, why in (("fused", "no counterpart"), ("deferred", "no counterpart")):
         with pytest.raises(TypeError, match=f"{knob}.*{why}"):
             RadixSketch(np.int32, device="cpu").update_stream([np.arange(3, dtype=np.int32)], **{knob: None})
+    # retry is the JAX package's knob of the descent only: the sketch raises its plain TypeError
+    said = []
+    for make in (lambda: RadixSketch(np.int32, device="cpu"), lambda: JaxSketch(np.int32)):
+        with pytest.raises(TypeError) as ei:
+            make().update_stream([np.arange(3, dtype=np.int32)], retry=None)
+        said.append(str(ei.value))
+    assert said[0] == said[1] == "RadixSketch.update_stream() got an unexpected keyword argument 'retry'"
     with pytest.raises(TypeError, match="unexpected keyword argument 'width_schedule'$"):  # as the JAX package's
         RadixSketch(np.int32, device="cpu").update_stream([np.arange(3, dtype=np.int32)], width_schedule="auto")
     for pack in (None, "off", "auto"):
@@ -285,6 +292,14 @@ def test_errors_match_jax():
     for knob in ("deferred", "fused", "retry"):
         with pytest.raises(TypeError, match=knob):
             kt.StreamingQuantiles(np.int32, **{knob: None})
+    from mpi_k_selection_tpu import api as japi
+
+    said = []
+    for cls in (kt.StreamingQuantiles, japi.StreamingQuantiles):
+        with pytest.raises(TypeError) as ei:
+            cls(np.int32, retry=None)
+        said.append(str(ei.value))
+    assert said[0] == said[1] == "StreamingQuantiles.__init__() got an unexpected keyword argument 'retry'"
     for knob in ("devices", "obs"):
         assert getattr(kt.StreamingQuantiles(np.int32, device="cpu", **{knob: None}), knob) is None
     t = kt.StreamingQuantiles(np.int32, width_schedule=(16, 8, 8), pack_spill="auto")

@@ -107,8 +107,8 @@ def test_prefix_errors_and_knobs_match_jax(tmp_path):
     package's; ``spill`` and ``pack_spill`` are ported (the format-v2
     constants are the JAX package's), and so are ``devices``, ``obs`` and
     ``timer``: a sketch tee with each equals the JAX package's records
-    file for file, while ``retry`` still refuses, naming its ROADMAP
-    item."""
+    file for file, while ``retry``, a knob of the descent only, raises the
+    JAX package's own plain TypeError on the sketch tee."""
     from mpi_k_selection_tpu import errors as jerr
     from mpi_k_selection_tpu.resource_protocols import SPILL_DIR_PREFIX
     from mpi_k_selection_tpu.streaming import spill as jsp
@@ -124,7 +124,7 @@ def test_prefix_errors_and_knobs_match_jax(tmp_path):
                          (SpillCapacityError, jerr.SpillCapacityError)):
         assert mine.__name__ == theirs.__name__
         assert [c.__name__ for c in mine.__mro__] == [c.__name__ for c in theirs.__mro__]
-    assert not {"spill", "pack_spill", "width_schedule"} & set(LATER_KNOBS)
+    assert not {"spill", "pack_spill", "width_schedule", "retry"} & set(LATER_KNOBS)
     a = [np.arange(3, dtype=np.int32)]
     with SpillStore(str(tmp_path)) as store:
         RadixSketch(np.int32, device="cpu").update_stream(a, spill=store, pack_spill="auto")
@@ -142,8 +142,12 @@ def test_prefix_errors_and_knobs_match_jax(tmp_path):
         with SpillStore(str(tmp_path / knob)) as store:
             RadixSketch(np.int32, device="cpu").update_stream(two, spill=store, **{"devices": 2, knob: value})
             assert generation_files(store) == want
-    with pytest.raises(TypeError, match="retry.*item 4"):
-        RadixSketch(np.int32, device="cpu").update_stream(a, retry=None)
+    said = []
+    for sketch in (RadixSketch(np.int32, device="cpu"), JaxSketch(np.int32)):
+        with pytest.raises(TypeError) as ei:
+            sketch.update_stream(a, retry=None)
+        said.append(str(ei.value))
+    assert said[0] == said[1] == "RadixSketch.update_stream() got an unexpected keyword argument 'retry'"
     with pytest.raises(TypeError, match="SpillStore"):
         RadixSketch(np.int32, device="cpu").update_stream(a, spill="force")
     for bad in ("always", True):
