@@ -221,6 +221,26 @@ Phases, each of which must pass (any failure exits non-zero):
    ``monitor --buckets 8``). ``python3 chip_smoke.py --phase11`` runs the
    build, the stream's first quarter and phase 11 alone.
 
+12. The resident-dataset query server (``phase_serve``, run after phase 11
+   and before phase 6): one ``KSelectServer(window=0.002, flight=True)``
+   with telemetry holding the 2^30 int32 array of phase 3 (cloned, warmed),
+   the 2^27 float64 array (warmed) and the int32 stream's first quarter as
+   a stream dataset, served by ``start_http_server(port=0)``: each op alone
+   with the launch counts set to 0 around it (rows 1-6 and 8 launched, no
+   plain version called), then 8 HTTP client threads (exact ranks,
+   ``kselect_many`` of 4 ranks, p50/p90/p99/p99.9 in each tier, ``topk``
+   k=128 largest and smallest, the median's certificate, two exact stream
+   queries), every exact answer NumPy's (the stream's by NumPy's
+   certificate), sketch bounds around the truth, auto answers the exact
+   ones, a coalesced batch wider than 1, no build on the request path
+   after warmup; the latency a tier, the queries a second at window 0 and
+   0.002, one exact rank served beside a direct ``kselect``, the warmup's
+   and the cached sort's time and peak memory, the program cache's
+   counts; nothing left after ``close()`` (threads, allocated bytes); the
+   CLI's ``serve --n 2^28 --warmup --quit-after 4`` in a subprocess
+   against ``datagen`` data. ``python3 chip_smoke.py --phase12`` runs the
+   build and phase 12 alone.
+
 The timed kernel rows of phase 4 also time the nearest torch composition
 of each of rows 1-6 on the same tensor (a ``torch.bincount`` of the digits
 under the prefix mask; a row-wise compare-and-sum), held equal to the
@@ -852,7 +872,10 @@ def phase_main_path(gen):
         fail(f"a kernel of the main paths never launched: {launches}")
     notes = {"kselect_many_k64_extra_peak_bytes": extra_peak, "batched_topk_k8_extra_peak_bytes": batched_peak,
              "batched_rows_rescued": rescued}
-    return data, launches, per_call, notes
+    # phase 12 checks its served answers against the same oracles
+    oracles = {"i32": wants["int32 uniform 2^30"], "f64": wants["float64 normal 2^27"],
+               "f64_tops": tops["float64 normal 2^27"]}
+    return data, launches, per_call, notes, oracles
 
 
 def library_ms(fn, want: torch.Tensor, what: str) -> float:
@@ -2997,6 +3020,460 @@ def phase_faults(chunks, device: str = "cuda", collect_budget: int | None = None
     return launches, per_call, out
 
 
+SERVE_WINDOW = 0.002  # phase 12: the server's coalescing window (seconds)
+SERVE_CLIENTS = 8  # phase 12: HTTP client threads
+SERVE_QPS_QUERIES = 16  # phase 12: exact single-rank queries a client sends at each window of the throughput run
+SERVE_CLI_N = 1 << 28  # phase 12's CLI run: 2^28 int32 uniform (the CLI's seed)
+
+
+def http_json(port: int, method: str, path: str, body=None):
+    """One request to a local HTTP front: ``(status, parsed JSON body or
+    text)``."""
+    import http.client
+
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        c.request(method, path, None if body is None else json.dumps(body), {"Content-Type": "application/json"})
+        r = c.getresponse()
+        raw = r.read()
+        kind = r.getheader("Content-Type", "")
+        return r.status, json.loads(raw) if kind.startswith("application/json") else raw.decode()
+    finally:
+        c.close()
+
+
+def quantile_ms(seconds: list, q: float) -> float:
+    """The nearest-rank ``q`` quantile of ``seconds``, in ms."""
+    s = sorted(seconds)
+    return s[max(0, min(len(s) - 1, int(np.ceil(q * len(s))) - 1))] * 1e3
+
+
+def phase_serve(x30: torch.Tensor, f64: torch.Tensor, chunks, device: str = "cuda", cli_n: int = SERVE_CLI_N,
+                oracles=None):
+    """Phase 12, the resident-dataset query server: one ``KSelectServer(
+    window=0.002, obs=..., flight=True)`` holding ``x30`` (2^30 int32
+    ``uniform``, seed 0, cloned at registration, warmed), ``f64`` (2^27
+    float64 ``normal``, warmed) and ``chunks`` (the int32 stream's first
+    quarter, 16 chunks of 2^26) as a stream dataset, served over HTTP by
+    ``start_http_server(port=0)``:
+
+    - each op alone first, with the launch counts set to 0 just before it
+      and read just after (its kernels launched, no plain version called):
+      the registrations (row 8's sketch part), an exact rank and
+      ``kselect_many`` of 4 ranks of each array (rows 1-5), ``topk`` (row
+      6, on the float64 array), a certificate, an exact stream query (row
+      8), a sketch read (no launch);
+    - 8 client threads over HTTP: single exact ranks, ``kselect_many`` of 4
+      ranks, the p50/p90/p99/p99.9 in each tier, ``topk`` k=128 largest
+      and smallest, the certificate of the median, two exact stream
+      queries; every exact answer equal to NumPy's bit for bit (the
+      stream's by NumPy's certificate over the host chunks), every sketch
+      answer's bounds around the true value, every auto answer the exact
+      one, a coalesced batch wider than 1, no build at ``serve.programs``
+      on the request path after warmup;
+    - the latency a tier (median, p99), the queries a second at window 0
+      and 0.002, the exact single-rank request beside a direct ``kselect``,
+      the warmup's build and the cached sort's time and peak memory, the
+      program cache's hits and misses;
+    - after ``close()`` and dropping the datasets, no ``ksel-serve-*``
+      thread and the card's allocated bytes back at their level;
+    - the CLI in a subprocess: ``serve --n 2^28 --warmup --port 0
+      --port-file ... --quit-after 4``, its answers against ``datagen``
+      data.
+
+    ``oracles`` are phase 3's NumPy answers for the same data (``{"i32":
+    {k: bytes}, "f64": {k: bytes}, "f64_tops": {largest: (values,
+    indices)}}`` at phase 3's ranks); without them the phase computes them.
+    ``device="cpu"`` runs the same steps at a small size with the kernels'
+    plain versions (a rehearsal off the card: the plain calls stand in for
+    the launches)."""
+    import gc
+    import tempfile
+    import threading
+
+    import mpi_k_selection_tpu_torch as kt
+    from mpi_k_selection_tpu_torch import api, config
+    from mpi_k_selection_tpu_torch import obs as obs_lib
+    from mpi_k_selection_tpu_torch.cli import topk_oracle
+    from mpi_k_selection_tpu_torch.ops.cuda import histogram as H
+    from mpi_k_selection_tpu_torch.ops.cuda import sweep_ingest as S
+    from mpi_k_selection_tpu_torch.ops.cuda import topk as T
+    from mpi_k_selection_tpu_torch.serve import KSelectServer, start_http_server
+    from mpi_k_selection_tpu_torch.serve.registry import DatasetRegistry
+    from mpi_k_selection_tpu_torch.utils import datagen
+    from mpi_k_selection_tpu_torch.utils.interop import tensor_to_numpy
+    from mpi_k_selection_tpu_torch.utils.timing import Stopwatch
+
+    on_card = device == "cuda"
+    launches = {kname: 0 for kname in KERNELS}
+    per_call, out = {}, {}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def reset():
+        for m in (H, T, S):
+            m.reset_counts()
+
+    def used():
+        """The kernels launched since the reset (the plain calls off the
+        card), and the plain calls that must not have happened on it."""
+        got = {kname: v for kname, v in {**H.LAUNCHES, **T.LAUNCHES, **S.LAUNCHES}.items() if v}
+        plain = {kname: v for kname, v in {**H.PLAIN_CALLS, **T.PLAIN_CALLS, **S.PLAIN_CALLS}.items() if v}
+        return (got, plain) if on_card else (plain, {})
+
+    def counted(what, fn, want=True):
+        """``fn()`` with every count at 0 just before it: fails if a plain
+        version ran on the card, or if ``want`` and nothing launched."""
+        reset()
+        sw = Stopwatch()
+        with sw.timing():
+            res = fn()
+            sync()
+        got, plain = used()
+        if plain or (want and not got) or (not want and got):
+            fail(f"{what}: launches {got}, plain calls {plain}")
+        for kname, v in got.items():
+            if kname in launches:
+                launches[kname] += v
+        per_call[what] = got
+        print(f"[phase12] {what}: launches {got}, no plain call; {sw.seconds * 1e3:.1f} ms")
+        return res, sw.seconds
+
+    def serve_threads():
+        return sorted(t.name for t in threading.enumerate() if t.name.startswith("ksel-serve"))
+
+    n32, n64 = x30.numel(), f64.numel()
+    ns = sum(c.size for c in chunks)
+    # NumPy's answers (phase 3's, or from host copies): the ranks every client asks for
+    ranks = {"i32": [1, 250, n32 // 2, n32] + api.quantile_ranks(QS, n32),
+             "f64": [1, 250, n64 // 2, n64] + api.quantile_ranks(QS, n64)}
+    sw = Stopwatch()
+    with sw.timing():
+        if oracles is None:
+            f64h = tensor_to_numpy(f64)
+            oracles = {"i32": oracle(tensor_to_numpy(x30), ranks["i32"]), "f64": oracle(f64h, ranks["f64"]),
+                       "f64_tops": {largest: topk_oracle(f64h, TOPK, largest) for largest in (True, False)}}
+            del f64h
+    want = {"i32": oracles["i32"], "f64": oracles["f64"]}
+    tops = oracles["f64_tops"]
+    median32 = np.frombuffer(want["i32"][n32 // 2], np.int32)[0]
+    print(f"[phase12] NumPy oracles of {len(ranks['i32'])} + {len(ranks['f64'])} ranks and 2 top-{TOPK} of the "
+          f"float64 array: {sw.seconds:.1f} s")
+
+    threads_before = serve_threads()
+    gc.collect()
+    sync()
+    mem_before = torch.cuda.memory_allocated() if on_card else 0
+    o = obs_lib.Observability.collecting(flight=True)
+    srv = KSelectServer(window=SERVE_WINDOW, obs=o, flight=True)
+    zero = None
+    try:
+        # registrations: each one's sketch counts its data with row 8's sketch part
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        reg32_s = counted("register int32 2^30 (clone, sketch)",
+                          lambda: srv.add_dataset("i32", x30, device=device))[1]
+        warm32_s = counted("warmup int32 2^30 (cached sort, walk of one rank)",
+                           lambda: srv.registry.warmup(srv.registry.get("i32")))[1]
+        warm_peak = torch.cuda.max_memory_allocated() - mem_before if on_card else 0
+        reg64_s = counted("register float64 2^27 with warmup",
+                          lambda: srv.add_dataset("f64", f64, device=device, warmup=True))[1]
+        regs_s = counted(f"register the int32 stream ({len(chunks)} chunks) with warmup",
+                         lambda: srv.add_dataset("st", source=Replay(chunks), device=device, warmup=True,
+                                                 pipeline_depth=2))[1]
+        ds32 = srv.registry.get("i32")
+        if ds32.data.data_ptr() == x30.data_ptr() or srv.registry.programs.misses != 5:
+            fail(f"phase 12: the dataset was not cloned, or warmup built {srv.registry.programs.misses} programs")
+        # the cached sort again, alone: its time and peak memory above the data
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() if on_card else 0
+        sws = Stopwatch()
+        with sws.timing():
+            s = DatasetRegistry._build_sorted(ds32)
+            sync()
+        sort_peak = torch.cuda.max_memory_allocated() - base if on_card else 0
+        del s
+        del ds32
+        zero = obs_lib.LEDGER.snapshot()
+        out["registration"] = {"i32_s": reg32_s, "i32_warmup_s": warm32_s, "i32_warmup_peak_bytes": warm_peak,
+                               "f64_with_warmup_s": reg64_s, "stream_with_warmup_s": regs_s,
+                               "sort_s": sws.seconds, "sort_peak_bytes": sort_peak}
+        print(f"[phase12] registration: int32 {reg32_s:.3f} s, its warmup {warm32_s:.3f} s (peak {warm_peak} bytes "
+              f"above the data before it); float64 with warmup {reg64_s:.3f} s; the stream with warmup "
+              f"{regs_s:.3f} s; the cached sort of 2^30 int32 alone {sws.seconds * 1e3:.1f} ms, peak "
+              f"{sort_peak} bytes above the data")
+
+        with start_http_server(srv, port=0) as h:
+            port = h.port
+
+            def q(body):
+                status, reply = http_json(port, "POST", "/v1/query", body)
+                if status != 200:
+                    fail(f"phase 12: {body} -> {status} {reply}")
+                return reply
+
+            def values(reply):
+                return [a["value"] for a in reply["answers"]]
+
+            def check_exact(name, reply, dtype):
+                for a in reply["answers"]:
+                    if np.asarray(a["value"], dtype).tobytes() != want[name][a["k"]] or not a["exact"]:
+                        fail(f"phase 12: {name} k={a['k']}: {a} != NumPy's")
+
+            # each op alone, its launches counted
+            k_mid = n32 // 2
+            r, _ = counted("exact rank int32", lambda: q({"dataset": "i32", "op": "kselect", "k": k_mid,
+                                                           "tier": "exact"}))
+            check_exact("i32", r, np.int32)
+            r, _ = counted("kselect_many 4 ranks int32", lambda: q({"dataset": "i32", "op": "kselect",
+                                                                     "ks": ranks["i32"][:4], "tier": "exact"}))
+            check_exact("i32", r, np.int32)
+            r, _ = counted("quantiles exact float64", lambda: q({"dataset": "f64", "op": "quantiles",
+                                                                 "qs": list(QS), "tier": "exact"}))
+            check_exact("f64", r, np.float64)
+            r, _ = counted("exact rank float64", lambda: q({"dataset": "f64", "op": "kselect", "k": 250,
+                                                             "tier": "exact"}))
+            check_exact("f64", r, np.float64)
+            r, _ = counted(f"topk k={TOPK} float64", lambda: q({"dataset": "f64", "op": "topk", "k": TOPK}))
+            if np.asarray(r["indices"]).tolist() != tops[True][1].tolist():
+                fail("phase 12: topk's indices != NumPy's")
+            r, _ = counted("rank certificate int32 (torch compares)", lambda: q(
+                {"dataset": "i32", "op": "rank_certificate", "value": int(median32)}), want=False)
+            if not r["less"] < k_mid <= r["leq"]:
+                fail(f"phase 12: the certificate of the median {r}")
+            r, stream_s = counted("exact stream median", lambda: q({"dataset": "st", "op": "kselect",
+                                                                     "k": ns // 2, "tier": "exact"}))
+            less, leq = np_certificates(chunks, [r["answers"][0]["value"]])[0]
+            if not less < ns // 2 <= leq:
+                fail(f"phase 12: the stream median {r} fails NumPy's certificate ({less}, {leq}]")
+            counted("sketch quantiles int32 (the request thread)", lambda: q(
+                {"dataset": "i32", "op": "quantiles", "qs": list(QS), "tier": "sketch"}), want=False)
+            rows = {"radix_histogram32", "radix_histogram64", "radix_histogram_multi32", "radix_histogram_multi64",
+                    "sweep_ingest32", "sweep_ingest64"}
+            seen = {kname for got in per_call.values() for kname in got}
+            if on_card and (not rows <= seen or not seen & {"match_counts32", "match_counts64"}
+                            or not seen & {"tau_counts32", "tau_counts64"}):
+                fail(f"phase 12: the serve path launched {sorted(seen)}; rows 1-6 and 8 must all launch")
+
+            # 8 clients at once over HTTP
+            lat = {"sketch": [], "exact": []}
+            answers, errors = [], []
+            lock = threading.Lock()
+            barrier = threading.Barrier(SERVE_CLIENTS)
+
+            def client(i):
+                def send(body):
+                    sw = Stopwatch()
+                    with sw.timing():
+                        reply = q(body)
+                    tier = reply["answers"][0]["tier"] if "answers" in reply else "exact"
+                    with lock:
+                        lat[tier].append(sw.seconds)
+                        answers.append((body, reply))
+                    return reply
+
+                try:
+                    barrier.wait(timeout=60)
+                    r32, r64 = ranks["i32"], ranks["f64"]
+                    send({"dataset": "i32", "op": "kselect", "k": r32[i % len(r32)], "tier": "exact"})
+                    send({"dataset": "f64", "op": "kselect", "k": r64[(i + 3) % len(r64)], "tier": "exact"})
+                    send({"dataset": "i32", "op": "kselect", "ks": r32[:4], "tier": "exact"})
+                    for tier in ("sketch", "exact", "auto"):
+                        send({"dataset": "i32", "op": "quantiles", "qs": list(QS), "tier": tier})
+                        send({"dataset": "f64", "op": "quantiles", "qs": list(QS), "tier": tier})
+                    send({"dataset": "f64", "op": "topk", "k": TOPK, "largest": i % 2 == 0})
+                    send({"dataset": "i32", "op": "rank_certificate", "value": int(median32)})
+                    if i < 2:  # two exact stream queries
+                        send({"dataset": "st", "op": "quantiles", "qs": [0.5, 0.99][i:i + 1], "tier": "exact"})
+                except BaseException as e:  # raised below, on the main thread
+                    errors.append(e)
+
+            reset()
+            swc = Stopwatch()
+            with swc.timing():
+                clients = [threading.Thread(target=client, args=(i,), name=f"phase12-client-{i}")
+                           for i in range(SERVE_CLIENTS)]
+                for t in clients:
+                    t.start()
+                for t in clients:
+                    t.join(timeout=600)
+            if errors or any(t.is_alive() for t in clients):
+                fail(f"phase 12: the clients failed: {errors}")
+            got, plain = used()
+            if plain or not got:
+                fail(f"phase 12: 8 clients: launches {got}, plain calls {plain}")
+            for kname, v in got.items():
+                if kname in launches:
+                    launches[kname] += v
+            per_call[f"{SERVE_CLIENTS} HTTP clients"] = got
+            # every answer against NumPy
+            exact_by_q = {}
+            stream_values = []
+            for body, reply in answers:
+                name = body["dataset"]
+                if body["op"] == "topk":
+                    v, idx = tops[body.get("largest", True)]
+                    if reply["indices"] != idx.tolist() or np.asarray(reply["values"], np.float64).tobytes() \
+                            != v.tobytes():
+                        fail(f"phase 12: topk {body} != NumPy's")
+                elif body["op"] == "rank_certificate":
+                    if not reply["less"] < k_mid <= reply["leq"]:
+                        fail(f"phase 12: certificate {reply}")
+                elif name == "st":
+                    stream_values += [(a["k"], a["value"]) for a in reply["answers"]]
+                else:
+                    dtype = np.int32 if name == "i32" else np.float64
+                    for a in reply["answers"]:
+                        truth = want[name][a["k"]]
+                        if a["tier"] == "exact":
+                            if np.asarray(a["value"], dtype).tobytes() != truth:
+                                fail(f"phase 12: {name} {a} != NumPy's")
+                            exact_by_q[(name, a["k"])] = a["value"]
+                        else:
+                            lo, hi = a["rank_bounds"]
+                            v_lo, v_hi = a["value_bounds"]
+                            tv = np.frombuffer(truth, dtype)[0]
+                            if not (lo < a["k"] <= hi and v_lo <= tv <= v_hi):
+                                fail(f"phase 12: sketch answer {a} does not bracket {tv!r}")
+            for body, reply in answers:
+                if body.get("tier") == "auto":
+                    for a in reply["answers"]:
+                        if a["value"] != exact_by_q.get((body["dataset"], a["k"]), a["value"]) or not a["exact"]:
+                            fail(f"phase 12: auto {a} != the exact answer")
+            certs = np_certificates(chunks, [v for _, v in stream_values])
+            for (k, v), (less, leq) in zip(stream_values, certs):
+                if not less < k <= leq:
+                    fail(f"phase 12: stream k={k} {v} fails NumPy's certificate ({less}, {leq}]")
+            widths = [e.width for e in o.events.of_kind("serve.batch")]
+            if max(widths) < 2 or o.metrics.histogram("serve.batch_width").max < 2:
+                fail(f"phase 12: no coalescing: batch widths {widths}")
+            lat_ms = {t: {"n": len(v), "median_ms": quantile_ms(v, 0.5), "p99_ms": quantile_ms(v, 0.99)}
+                      for t, v in lat.items()}
+            print(f"[phase12] {SERVE_CLIENTS} clients, {len(answers)} requests in {swc.seconds:.3f} s: every exact "
+                  f"answer NumPy's, {len(stream_values)} stream answers certified, sketch bounds bracket the truth, "
+                  f"auto == exact; batch widths up to {max(widths)}; latency {lat_ms}")
+            out["clients"] = {"requests": len(answers), "s": swc.seconds, "latency": lat_ms,
+                              "max_batch_width": max(widths), "launches": got}
+
+            # queries a second at window 0 and 0.002: the same registry behind a second front at window 0
+            qps = {}
+            for window in (0.0, SERVE_WINDOW):
+                view = srv if window == SERVE_WINDOW else KSelectServer(window=0.0, registry=srv.registry)
+                try:
+                    with start_http_server(view, port=0) as hv:
+                        def burst(i, hv=hv):
+                            for j in range(SERVE_QPS_QUERIES):
+                                k = ranks["i32"][(i + j) % len(ranks["i32"])]
+                                st, reply = http_json(hv.port, "POST", "/v1/query",
+                                                      {"dataset": "i32", "op": "kselect", "k": k, "tier": "exact"})
+                                if st != 200 or np.asarray(reply["answers"][0]["value"], np.int32).tobytes() \
+                                        != want["i32"][k]:
+                                    errors.append((k, st, reply))
+
+                        swq = Stopwatch()
+                        with swq.timing():
+                            ts = [threading.Thread(target=burst, args=(i,)) for i in range(SERVE_CLIENTS)]
+                            for t in ts:
+                                t.start()
+                            for t in ts:
+                                t.join(timeout=600)
+                finally:
+                    if view is not srv:
+                        view.close()
+                if errors:
+                    fail(f"phase 12: throughput run at window {window}: {errors[:3]}")
+                qps[str(window)] = SERVE_CLIENTS * SERVE_QPS_QUERIES / swq.seconds
+            print(f"[phase12] exact single-rank queries a second over HTTP, {SERVE_CLIENTS} clients x "
+                  f"{SERVE_QPS_QUERIES}: {qps}")
+            out["qps"] = qps
+
+            # the exact single-rank request beside a direct kselect of the same rank
+            times = {"direct kselect": [], "server.kselect (in process)": [], "HTTP request": []}
+            for _ in range(5):
+                for label, fn in (("direct kselect", lambda: kt.kselect(x30, k_mid)),
+                                  ("server.kselect (in process)", lambda: srv.kselect("i32", k_mid, tier="exact")),
+                                  ("HTTP request", lambda: q({"dataset": "i32", "op": "kselect", "k": k_mid,
+                                                              "tier": "exact"}))):
+                    sw1 = Stopwatch()
+                    with sw1.timing():
+                        fn()
+                        sync()
+                    times[label].append(sw1.seconds)
+            single = {label: quantile_ms(v, 0.5) for label, v in times.items()}
+            print(f"[phase12] one exact rank (k=N/2) of 2^30 int32, median of 5: {single} ms")
+            out["single_rank_ms"] = single
+
+        book = obs_lib.snapshot_delta(zero, obs_lib.LEDGER.snapshot())["sites"].get("serve.programs", {})
+        if book.get("compiles", 0) != 0 or not book.get("hits"):
+            fail(f"phase 12: the request path built programs after warmup: {book}")
+        cache = {"hits": srv.registry.programs.hits, "misses": srv.registry.programs.misses}
+        print(f"[phase12] serve.programs on the request path: {book.get('compiles', 0)} builds, {book['hits']} hits; "
+              f"the program cache: {cache}")
+        out["programs"] = {"request_path": book, "cache": cache}
+    finally:
+        for name in srv.registry.list_datasets():
+            srv.drop_dataset(name["dataset"])
+        srv.close()
+    del srv, o
+    gc.collect()
+    sync()
+    mem_after = torch.cuda.memory_allocated() if on_card else 0
+    if serve_threads() != threads_before or mem_after != mem_before:
+        fail(f"phase 12: left behind threads {serve_threads()}, allocated {mem_after} bytes against {mem_before}")
+    print(f"[phase12] after close and drop: no ksel-serve thread, allocated {mem_after} bytes == before")
+
+    # the CLI in a subprocess, with the blocks this process's allocator still
+    # caches (the warmup's sort peaked near 40 GB) given back to the card
+    if on_card:
+        torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip-smoke-phase12-", dir=tempfile.gettempdir())
+    port_file = os.path.join(root, "port")
+    argv = [sys.executable, "-m", "mpi_k_selection_tpu_torch", "serve", "--n", str(cli_n), "--warmup", "--port", "0",
+            "--port-file", port_file, "--quit-after", "4", "--device", device]
+    proc = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        swl = Stopwatch()
+        with swl.timing():
+            for _ in range(6000):
+                if proc.poll() is not None or (os.path.exists(port_file) and open(port_file).read()):
+                    break
+                threading.Event().wait(0.05)
+            if proc.poll() is not None:
+                fail(f"phase 12: the CLI exited {proc.returncode}: {proc.stderr.read()[-2000:]}")
+            port = int(open(port_file).read())
+            xc = datagen.generate(cli_n, pattern="uniform", seed=config.DEFAULT_SEED, dtype=np.int32)
+            ks = [1, cli_n // 2] + api.quantile_ranks(QS, cli_n)
+            wc = oracle(xc, ks)
+            replies = [http_json(port, "GET", "/healthz"),
+                       http_json(port, "POST", "/v1/query", {"dataset": "default", "op": "kselect", "ks": ks[:2],
+                                                             "tier": "exact"}),
+                       http_json(port, "POST", "/v1/query", {"dataset": "default", "op": "quantiles", "qs": list(QS),
+                                                             "tier": "auto"}),
+                       http_json(port, "GET", "/v1/datasets")]
+            stdout, stderr = proc.communicate(timeout=120)
+        if proc.returncode != 0 or any(st != 200 for st, _ in replies):
+            fail(f"phase 12: CLI exit {proc.returncode}, replies {replies}: {stderr[-2000:]}")
+        got = [a for _, r in replies[1:3] for a in r["answers"]]
+        if [np.asarray(a["value"], np.int32).tobytes() for a in got] != [wc[k] for k in ks]:
+            fail(f"phase 12: the CLI's answers {got} != NumPy's over datagen's data")
+        print(f"[phase12] CLI serve --n {cli_n} --warmup --quit-after 4: exit 0 in {swl.seconds:.1f} s, "
+              f"{len(got)} answers NumPy's; {stdout.strip().splitlines()[0][:120]}")
+        out["cli"] = {"s": swl.seconds, "datasets": replies[3][1]}
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        import shutil
+
+        shutil.rmtree(root, ignore_errors=True)
+    return launches, per_call, out
+
+
 DIST_WORLD = 4  # ranks of the distributed phase, all on cuda:0 (one card: gloo)
 DIST_REPS = 3  # timed runs of each distributed path (the median run's counts reported)
 DIST_N64 = 1 << 30  # BASELINE.md's "Multi-chip distributed median: N=1B int64"
@@ -3614,6 +4091,27 @@ def main_phase11(smi: str) -> int:
     return 0
 
 
+def main_phase12(smi: str) -> int:
+    """``python3 chip_smoke.py --phase12``: phase 12 alone (the build, the
+    2^30 int32 and 2^27 float64 arrays of phase 3, the int32 stream's first
+    quarter, then phase 12)."""
+    from mpi_k_selection_tpu_torch.utils import datagen
+    from mpi_k_selection_tpu_torch.utils.interop import tensor_from_numpy
+
+    phase_build()
+    x30 = tensor_from_numpy(datagen.generate(1 << 30, pattern="uniform", seed=0, dtype=np.int32), "cuda")
+    f64 = tensor_from_numpy(datagen.generate(1 << 27, pattern="normal", seed=0, dtype=np.float64), "cuda")
+    chunks = make_chunks(FAULT_CHUNKS, STREAM_CHUNK, "uniform", np.int32)
+    launches, _, notes = phase_serve(x30, f64, chunks)
+    print(json.dumps({"phase12": notes, "launches": launches}, default=str))
+    print(smi)
+    print(json.dumps({
+        "ok": True,
+        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},
+    }))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the card")
@@ -3631,11 +4129,13 @@ def main() -> int:
         return main_phase10(smi)
     if sys.argv[1:] == ["--phase11"]:
         return main_phase11(smi)
+    if sys.argv[1:] == ["--phase12"]:
+        return main_phase12(smi)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     phase_build()
     phase_kernels_vs_plain(gen)
-    data, launches, per_call, notes = phase_main_path(gen)
+    data, launches, per_call, notes, oracles = phase_main_path(gen)
     rows, kern, library = phase_timing(data)
 
     def ms_of(what):
@@ -3693,6 +4193,12 @@ def main() -> int:
     for kname, v in p11_launches.items():
         launches[kname] += v
     per_call.update(p11_per_call)
+    # phase 12: the resident-dataset query server
+    p12_launches, p12_per_call, notes["phase12"] = phase_serve(x30, data["float64 normal 2^27"],
+                                                               ints.chunks[:FAULT_CHUNKS], oracles=oracles)
+    for kname, v in p12_launches.items():
+        launches[kname] += v
+    per_call.update(p12_per_call)
     # phase 6: the host chunks and the resident data go first (the ranks
     # need the card's memory and the host's for the 8 GiB array)
     del ints, f64, data, x30

@@ -26,6 +26,9 @@ selection over a stream of chunks::
     kt.Monitor(window=8).run(chunk_iter, dtype)  # p50/p90/p99 samples, one pass
     kt.kselect_streaming(chunks, k, devices=2)   # chunk j staged on card j % 2
     kt.Observability.collecting()  # telemetry (obs= on the entry points): events, metrics, spans
+    with kt.KSelectServer(window=0.002) as srv:  # the resident-dataset query server (serve/)
+        srv.add_dataset("x", x, warmup=True)      # placed on cuda and built once
+        srv.kselect("x", k, tier="auto")          # a RankAnswer; tier "sketch" carries exact bounds
 
 Distributed selection runs one process per rank over a
 ``torch.distributed`` group (parallel/): every rank calls the entry point
@@ -71,6 +74,7 @@ from mpi_k_selection_tpu_torch.obs import Observability
 from mpi_k_selection_tpu_torch.ops.radix import radix_select, radix_select_many
 from mpi_k_selection_tpu_torch.ops.sort import sort_select
 from mpi_k_selection_tpu_torch.ops.topk import batched_topk, topk
+from mpi_k_selection_tpu_torch.serve import KSelectServer
 from mpi_k_selection_tpu_torch.streaming.sketch import RadixSketch
 from mpi_k_selection_tpu_torch.streaming.spill import SpillStore
 from mpi_k_selection_tpu_torch.parallel import (
@@ -86,7 +90,7 @@ from mpi_k_selection_tpu_torch.parallel import (
 )
 
 __all__ = [
-    "DISTRIBUTED_ALGORITHMS", "DeviceVector", "Monitor", "Observability", "RadixSketch", "SpillStore",
+    "DISTRIBUTED_ALGORITHMS", "DeviceVector", "KSelectServer", "Monitor", "Observability", "RadixSketch", "SpillStore",
     "StreamingQuantiles", "WindowedSketch",
     "as_selection_array", "batched_kselect", "batched_median", "batched_topk", "distributed_cgm_select",
     "distributed_kselect", "distributed_radix_select", "distributed_radix_select_many", "distributed_sketch",

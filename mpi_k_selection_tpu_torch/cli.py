@@ -52,6 +52,11 @@ ranks::
     # continuous p50/p90/p99 over a drifting stream, 8 samples, served as
     # Prometheus text on a free port
     python -m mpi_k_selection_tpu_torch monitor --buckets 8 --drift 1000 --prometheus-port 0 --port-file port.txt
+
+    # the resident-dataset query server: 2^28 int32 on the card, its
+    # programs built at startup, JSON queries over HTTP on port 8080
+    python -m mpi_k_selection_tpu_torch serve --n 268435456 --warmup --device cuda
+    curl -s localhost:8080/v1/query -d '{"dataset": "default", "op": "quantiles", "qs": [0.5, 0.99]}'
 """
 
 from __future__ import annotations
@@ -337,6 +342,153 @@ def monitor_main(argv=None) -> int:
         if obs is not None and args.metrics_json:
             with open(args.metrics_json, "w") as f:
                 f.write(obs.metrics.to_json(indent=2))
+    return 0
+
+
+def build_serve_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m mpi_k_selection_tpu_torch serve",
+        description=(
+            "resident-dataset query server: place a dataset once, answer "
+            "kselect/quantile/top-k/rank-certificate queries from many "
+            "concurrent clients (POST /v1/query, GET /v1/datasets, "
+            "GET /metrics, GET /healthz)"
+        ),
+    )
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8080, help="listen port (0 = ephemeral; see --port-file)")
+    p.add_argument(
+        "--port-file", default=None, metavar="PATH", help="write the bound port here after listen (for --port 0 callers)"
+    )
+    p.add_argument("--dataset-id", default="default", help="id the generated dataset registers under")
+    p.add_argument("--n", type=int, default=1 << 20, help="dataset elements")
+    p.add_argument("--gen", choices=datagen.PATTERNS, default="uniform")
+    p.add_argument("--dtype", choices=DTYPES, default="int32")
+    p.add_argument("--seed", type=int, default=config.DEFAULT_SEED)
+    p.add_argument("--device", default="cuda", help="torch device the dataset lives and counts on (default cuda)")
+    p.add_argument(
+        "--streaming", action="store_true",
+        help="register the dataset as an out-of-core stream (sketched once at startup; exact-tier queries replay "
+        "the generated chunk source, chunk i of seed SEED + i) instead of a resident tensor",
+    )
+    p.add_argument("--chunk-elems", type=int, default=1 << 22, help="chunk size (elements) for --streaming")
+    p.add_argument(
+        "--no-sketch", action="store_true",
+        help="skip the resident sketch (disables the sketch/auto fast tiers; every query runs exact)",
+    )
+    p.add_argument("--sketch-bits", type=int, default=4)
+    p.add_argument("--sketch-levels", type=int, default=4)
+    p.add_argument(
+        "--batch-window", type=float, default=0.002, metavar="SECONDS",
+        help="cross-request coalescing window: after a query arrives the dispatch thread waits this long for more "
+        "against the same dataset and answers them with ONE shared-pass walk (0 = no coalescing; answers "
+        "bit-identical either way)",
+    )
+    p.add_argument("--max-batch", type=int, default=1024, help="coalesced-request ceiling per dispatch")
+    p.add_argument(
+        "--warmup", action="store_true",
+        help="build the dataset's selection programs (cached sort, walk closure and one width-1 query: the kernel "
+        "build and first launches) at registration, so the first client query excludes that wall (the ledger's "
+        "serve.programs book shows it)",
+    )
+    p.add_argument(
+        "--lanes", default="auto", metavar="N|auto",
+        help="dispatch lanes: 'auto' (default) opens one supervised dispatch thread per distinct device; an integer "
+        "folds devices onto N lanes (1 = a single batcher; answers bit-identical at every setting)",
+    )
+    p.add_argument(
+        "--no-fast-path", action="store_true",
+        help="route sketch-tier (and auto-pinned) answers through the dispatch lane instead of answering inline on "
+        "the request thread: the bit-for-bit oracle for the default fast path",
+    )
+    p.add_argument(
+        "--quit-after", type=int, default=None, metavar="N",
+        help="serve N HTTP requests, then exit cleanly (default: serve until interrupted)",
+    )
+    p.add_argument(
+        "--latency-windows", type=int, default=0, metavar="BUCKETS",
+        help="back the per-tier serve.latency_seconds histograms with a BUCKETS-deep sliding-window RadixSketch, so "
+        "/metrics p50/p90/p99 become windowed quantiles with exact rank/value bounds (gauge series "
+        "ksel_serve_latency_seconds_windowed{tier,quantile}; 0 = off, the default)",
+    )
+    p.add_argument(
+        "--latency-advance-every", type=int, default=256, metavar="OBS",
+        help="observations per latency window bucket (with --latency-windows; the window advances on observation "
+        "counts, never clocks)",
+    )
+    p.add_argument(
+        "--debug-bundle", default=None, metavar="PATH",
+        help="arm the server's flight recorder (a bounded ring of recent serve events and request/walk spans; also "
+        "live at GET /debug/bundle) and write the JSON debug bundle to PATH at shutdown; a dispatch-loop crash "
+        "auto-dumps one when the supervisor restarts it",
+    )
+    return p
+
+
+def serve_main(argv=None) -> int:
+    """``python -m mpi_k_selection_tpu_torch serve ...``: build the server,
+    register the generated dataset on ``--device``, run the HTTP front on
+    this thread until interrupted (or ``--quit-after`` requests), then tear
+    everything down (request and dispatch threads joined) and exit 0."""
+    from mpi_k_selection_tpu_torch import obs as obs_lib
+    from mpi_k_selection_tpu_torch.serve import KSelectHTTPServer, KSelectServer
+    from mpi_k_selection_tpu_torch.utils.interop import numpy_dtype
+
+    args = build_serve_parser().parse_args(argv)
+    obs = obs_lib.Observability(metrics=obs_lib.MetricsRegistry())
+    latency_windows = (
+        dict(window=args.latency_windows, advance_every=args.latency_advance_every) if args.latency_windows else None
+    )
+    try:
+        lanes = args.lanes if args.lanes == "auto" else int(args.lanes)
+    except ValueError:
+        raise SystemExit(f"error: --lanes must be 'auto' or an integer, got {args.lanes!r}") from None
+    server = KSelectServer(
+        window=args.batch_window, max_batch=args.max_batch, obs=obs, latency_windows=latency_windows,
+        fast_path=not args.no_fast_path, lanes=lanes, flight=True if args.debug_bundle else None,
+    )
+    sketch_kw = dict(sketch=not args.no_sketch, sketch_bits=args.sketch_bits, sketch_levels=args.sketch_levels,
+                     device=args.device)
+    try:
+        if args.streaming:
+            if args.chunk_elems < 1:
+                raise SystemExit("error: --chunk-elems must be >= 1")
+            server.add_dataset(args.dataset_id, source=chunk_source(args), warmup=args.warmup, **sketch_kw)
+        else:
+            x = datagen.generate(args.n, pattern=args.gen, seed=args.seed, dtype=numpy_dtype(args.dtype))
+            server.add_dataset(args.dataset_id, x, warmup=args.warmup, **sketch_kw)
+        httpd = KSelectHTTPServer((args.host, args.port), server)
+        try:
+            if args.port_file:
+                with open(args.port_file, "w") as f:
+                    f.write(str(httpd.port))
+            ds = server.list_datasets()[0]
+            print(
+                f"serving dataset {args.dataset_id!r} (n={ds['n']}, dtype={ds['dtype']}, "
+                f"residency={ds['residency']}, sketch={ds['sketch']}, device={args.device}) on "
+                f"http://{args.host}:{httpd.port} — POST /v1/query, GET /v1/datasets, GET /metrics, GET /healthz",
+                flush=True,
+            )
+            if args.quit_after is not None:
+                for _ in range(args.quit_after):
+                    httpd.handle_request()
+            else:
+                httpd.serve_forever(poll_interval=0.2)
+        except KeyboardInterrupt:
+            pass
+        finally:
+            httpd.server_close()
+    except (ValueError, RuntimeError) as e:
+        raise SystemExit(f"error: {e}") from e
+    finally:
+        if args.debug_bundle and server.flight is not None:
+            # through the server, so the bundle carries its `server`
+            # section; a failed write must not replace the error in flight
+            try:
+                server.dump_debug_bundle(args.debug_bundle, reason="serve-shutdown")
+            except OSError as write_err:
+                print(f"warning: --debug-bundle {args.debug_bundle}: {write_err}", file=sys.stderr)
+        server.close()
     return 0
 
 
@@ -784,6 +936,8 @@ def _run_topk(args, x: np.ndarray):
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] == "serve":
+        return serve_main(argv[1:])
     if argv and argv[0] == "monitor":
         return monitor_main(argv[1:])
     args = build_parser().parse_args(argv)

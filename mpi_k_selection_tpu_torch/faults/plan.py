@@ -44,9 +44,9 @@ FAULT_KINDS = ("raise", "stall", "corrupt", "corrupt_disk", "truncate", "enospc"
 #:   the *j*-th generation, or re-run, that reaches it);
 #: - ``"spill.read"``: reading the record of chunk index ``index``
 #:   (streaming/spill.py:``_read_record``);
-#: - ``"serve.dispatch"``: the query server's dispatch round ``index``. The
-#:   port has no query server yet (ROADMAP Queue 1 item 6), so this site
-#:   is validated and fires nowhere.
+#: - ``"serve.dispatch"``: the query server's dispatch round ``index``
+#:   (serve/batcher.py, outside the per-group isolation, so a raise takes
+#:   the supervisor's restart path).
 FAULT_SITES = ("source", "stage", "spill.write", "spill.read", "serve.dispatch")
 
 #: The kinds that apply at each site (checked when a spec is built, so a

@@ -184,11 +184,11 @@ def run_ranks(fn, world: int, *args, backend: str | None = None, device="cuda", 
 def _collect(procs, reports, timeout: float):
     """Rank 0's result once every rank has reported; raise on the first
     failure, on a rank that died without a report, or at the deadline."""
-    deadline = Deadline(timeout)
+    deadline = Deadline.after(timeout)
     done = {}
     while len(done) < len(procs):
         left = deadline.remaining()
-        if left <= 0:
+        if deadline.expired:
             missing = sorted(set(range(len(procs))) - set(done))
             raise TimeoutError(f"ranks {missing} did not finish within {timeout} s")
         try:

@@ -51,6 +51,7 @@ _MAX_RESOLUTION_BITS = MAX_BITS
 LATER_KNOBS = {
     "fused": "no counterpart: the port has one route, the sweep kernel",
     "deferred": "no counterpart: the port has one executor discipline",
+    "hist_method": "no counterpart: the histogram method follows the device (ops/histogram.py)",
 }
 
 

@@ -89,13 +89,33 @@ class Stopwatch:
 
 
 class Deadline:
-    """A host-clock deadline ``seconds`` from now."""
+    """A monotonic deadline at the instant ``t1`` (``time.monotonic``
+    seconds). :meth:`after` reads the clock once, here, and everyone
+    downstream asks :meth:`remaining` or :attr:`expired` instead of
+    reading a clock themselves: the serving layer (serve/batcher.py)
+    threads one per request, so a waiter times out and the dispatch
+    thread drops an expired query without touching ``time``."""
 
-    def __init__(self, seconds: float):
-        self._end = time.monotonic() + seconds
+    __slots__ = ("_t1",)
+
+    def __init__(self, t1: float):
+        self._t1 = float(t1)
+
+    @classmethod
+    def after(cls, seconds: float) -> "Deadline":
+        """The deadline ``seconds`` (> 0) from now."""
+        s = float(seconds)
+        if s <= 0:
+            raise ValueError(f"deadline must be > 0 seconds, got {s}")
+        return cls(time.monotonic() + s)
 
     def remaining(self) -> float:
-        return self._end - time.monotonic()
+        """Seconds left, 0.0 once expired."""
+        return max(0.0, self._t1 - time.monotonic())
+
+    @property
+    def expired(self) -> bool:
+        return time.monotonic() >= self._t1
 
 
 @dataclasses.dataclass

@@ -106,3 +106,39 @@ def test_fault_harness_flight_recorder_and_cli_monitor_load_no_jax(tmp_path):
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "ok"
     assert sorted(p.name for p in tmp_path.iterdir()) == ["b.json"]
+
+
+def test_serve_and_cli_serve_load_no_jax(tmp_path):
+    """The query server (``serve/*``) imports no JAX, and the CLI's
+    ``serve --device cpu --port 0 --quit-after 1``, answering one query,
+    runs without loading JAX or the JAX package."""
+    files = sorted((PORT / "serve").glob("*.py"))
+    assert len(files) == 8 and not [m for f in files for _, m in _imports(f) if _forbidden(m)]
+    port_file = tmp_path / "port"
+    code = (
+        "import json, sys, threading, time, urllib.request\n"
+        "from mpi_k_selection_tpu_torch import cli\n"
+        "rc = []\n"
+        f"argv = ['serve', '--device', 'cpu', '--n', '4096', '--port', '0', '--port-file', {str(port_file)!r},"
+        " '--quit-after', '1']\n"
+        "t = threading.Thread(target=lambda: rc.append(cli.main(argv)))\n"
+        "t.start()\n"
+        "import pathlib\n"
+        f"p = pathlib.Path({str(port_file)!r})\n"
+        "for _ in range(1200):\n"
+        "    if p.exists() and p.read_text():\n"
+        "        break\n"
+        "    time.sleep(0.05)\n"
+        "body = json.dumps({'dataset': 'default', 'op': 'kselect', 'k': 1, 'tier': 'exact'}).encode()\n"
+        "req = urllib.request.Request(f'http://127.0.0.1:{p.read_text()}/v1/query', data=body, method='POST')\n"
+        "with urllib.request.urlopen(req, timeout=60) as r:\n"
+        "    answer = json.loads(r.read())['answers'][0]\n"
+        "t.join(60)\n"
+        "assert rc == [0] and answer['exact'] and answer['tier'] == 'exact', (rc, answer)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'mpi_k_selection_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
