@@ -240,6 +240,20 @@ Phases, each of which must pass (any failure exits non-zero):
    CLI's ``serve --n 2^28 --warmup --quit-after 4`` in a subprocess
    against ``datagen`` data. ``python3 chip_smoke.py --phase12`` runs the
    build and phase 12 alone.
+13. The analyzer and the 16-bit repair (``phase_analysis``; after phase 12
+   and before phase 6): the median and quantiles K=4 of the 2^30 int32
+   array at ``radix_bits=16`` beside the default 4 (the 16-bit passes on
+   row 8, every answer NumPy's), the 16-bit route's launch kinds against
+   their bound and ``torch.bincount``; the port's analyzer over its tree
+   (0 findings, 0 stale suppressions); the contracts KSC101-105 on the
+   card; the lock-order sanitizer around a ``KSelectServer(window=0.002)``
+   session (8 clients x 16 exact ranks of 2^26 int32) and a two-slot
+   streamed median of the int32 stream's first quarter: 0 cycles, no
+   conflict with the static lock graph, queries a second with it on and
+   off, a flight bundle carrying the observed graph. Phase 2 holds the
+   16-bit route (the top digit, one prefix, K=4 and 64 prefixes) against
+   the plain version. ``python3 chip_smoke.py --phase13`` runs the build
+   and phase 13 alone.
 
 The timed kernel rows of phase 4 also time the nearest torch composition
 of each of rows 1-6 on the same tensor (a ``torch.bincount`` of the digits
@@ -442,6 +456,21 @@ def phase_kernels_vs_plain(gen):
                         hold(f"radix_histogram_multi{bits}", H.radix_histogram_multi, H.radix_histogram_multi_plain,
                              f"{key_op} rb={rb} shift={shift} K={nq}",
                              words=w, shift=shift, radix_bits=rb, prefixes=p, key_op=key_op, key_xor=key_xor)
+            # the 16-bit route (the sweep kernel's histogram part): the top
+            # digit, one prefix, and K=4 and 64 prefixes of data keys
+            name16 = f"sweep_ingest{bits}"
+            hold(name16, H.radix_histogram, H.radix_histogram_plain, f"{key_op} rb=16 top digit",
+                 words=w, shift=bits - 16, radix_bits=16, key_op=key_op, key_xor=key_xor)
+            p = dt.shift_right_logical(probe, bits - 16, bits).contiguous()
+            hold(name16, H.radix_histogram, H.radix_histogram_plain, f"{key_op} rb=16 one prefix",
+                 words=w, shift=bits - 32, radix_bits=16, prefix=p, key_op=key_op, key_xor=key_xor)
+            for nq in (4, 64):
+                picks = keys[[7 + (n - 8) * i // (nq - 1) for i in range(nq)]]
+                p = dt.shift_right_logical(picks, bits - 16, bits).contiguous()
+                hold(name16, H.radix_histogram_multi, H.radix_histogram_multi_plain, f"{key_op} rb=16 K={nq}",
+                     words=w, shift=bits - 32, radix_bits=16, prefixes=p, key_op=key_op, key_xor=key_xor)
+            print(f"[check] the 16-bit route ({name16}) == plain at 2^27 {key_op} keys: the top digit, one prefix, "
+                  "K=4 and K=64 prefixes")
             for res, nq in ((24, 1), (bits // 2 + 4, 3)):
                 p = dt.shift_right_logical(keys[[7, n // 3, n - 1]][:nq], bits - res, bits).contiguous()
                 hold(f"match_counts{bits}", H.match_counts, H.match_counts_plain, f"{key_op} res={res} K={nq}",
@@ -4047,6 +4076,276 @@ def library_sketch_ms(w: torch.Tensor, got, bits: int, key_op: str, key_xor: int
     return ms
 
 
+ANALYSIS_DATASET = 1 << 26  # phase 13: the sanitized server's int32 dataset
+ANALYSIS_CLIENTS, ANALYSIS_RANKS = 8, 16  # phase 13: client threads x exact ranks each
+
+
+def phase_analysis(x30: torch.Tensor, chunks, want_i32=None, device: str = "cuda"):
+    """Phase 13, the analyzer and the 16-bit repair, all on ``device``:
+
+    - the median and quantiles K=4 of ``x30`` (2^30 int32 uniform) at
+      ``radix_bits=16`` beside the default 4-bit calls: CUDA-event ms, the
+      passes and the launches, every answer NumPy's (``want_i32``: phase
+      3's oracle, made here when None); the 16-bit route's launch kinds (the
+      top digit, and a digit under K=4 prefixes) as the sweep kernel alone
+      (torch.profiler) and the whole wrapper call, beside the bound and
+      ``torch.bincount`` of the same digits;
+    - the analyzer over the port's tree (no contracts): 0 unsuppressed
+      findings and 0 stale suppressions, with its seconds;
+    - the contracts' CUDA halves (KSC101-105) on small tensors: each
+      verdict, the launch-trail lengths and the host-read census;
+    - the lock-order sanitizer around a ``KSelectServer(window=0.002)``
+      session (8 clients x 16 exact ranks on the first 2^26 keys of
+      ``x30``, every answer NumPy's) and around a two-slot streamed median
+      of ``chunks`` (NumPy's certificate): the observed package edges, 0
+      cycles, no direction conflict with the static lock graph
+      (``check_consistency``), the edges the static graph holds too, the
+      session's queries a second with the sanitizer on and off, and a
+      flight bundle whose ``lock_order`` is the observed graph.
+
+    Returns (launches, per_call, notes)."""
+    import pathlib
+    import threading
+
+    import mpi_k_selection_tpu_torch as kt
+    from mpi_k_selection_tpu_torch import api
+    from mpi_k_selection_tpu_torch.analysis import (
+        LockOrderSanitizer,
+        build_concurrency_report,
+        run_analysis,
+        run_contracts,
+    )
+    from mpi_k_selection_tpu_torch.analysis import contracts as C
+    from mpi_k_selection_tpu_torch.obs import Observability
+    from mpi_k_selection_tpu_torch.obs.flight import build_bundle
+    from mpi_k_selection_tpu_torch.ops.cuda import histogram as H
+    from mpi_k_selection_tpu_torch.ops.cuda import sweep_ingest as S
+    from mpi_k_selection_tpu_torch.ops.cuda import topk as T
+    from mpi_k_selection_tpu_torch.ops.radix import resolve_cutover
+    from mpi_k_selection_tpu_torch.serve import KSelectServer
+    from mpi_k_selection_tpu_torch.utils.interop import tensor_to_numpy
+    from mpi_k_selection_tpu_torch.utils.timing import Stopwatch, cuda_ms
+
+    notes = {}
+    launches = {kn: 0 for kn in KERNELS}
+    per_call = {}
+    on_card = torch.device(device).type == "cuda"
+
+    def reset():
+        for mod in (H, S, T):
+            mod.reset_counts()
+
+    def used():
+        got = {k: v for k, v in {**H.LAUNCHES, **T.LAUNCHES, **S.LAUNCHES}.items() if v}
+        plain = {k: v for k, v in {**H.PLAIN_CALLS, **T.PLAIN_CALLS, **S.PLAIN_CALLS}.items() if v}
+        return got, plain
+
+    # -- the 16-bit repair on the 2^30 int32 array --------------------------
+    n = x30.numel()
+    ranks = [n // 2] + api.quantile_ranks(QS, n)
+    if want_i32 is None:
+        want_i32 = oracle(tensor_to_numpy(x30), ranks)
+    calls = {
+        "median": lambda rb: kt.median(x30, radix_bits=rb),
+        "quantiles K=4": lambda rb: kt.quantiles(x30, QS, radix_bits=rb),
+    }
+    rows16 = {}
+    for label, fn in calls.items():
+        for rb in (4, 16):
+            what = f"{label} int32 uniform 2^30, radix_bits={rb}"
+            reset()
+            got = tensor_to_numpy(fn(rb).reshape(-1))
+            kn, plain = used()
+            ks = ranks[:1] if label == "median" else ranks[1:]
+            if got.tobytes() != b"".join(want_i32[k] for k in ks):
+                fail(f"phase 13: {what}: {got} != NumPy's")
+            if on_card and (plain or not kn or (rb == 16 and not any(k.startswith("sweep_ingest") for k in kn))):
+                fail(f"phase 13: {what}: launches {kn}, plain calls {plain}")
+            for k, v in kn.items():
+                launches[k] += v
+            per_call[what] = kn
+            ms = cuda_ms(lambda: fn(rb), iters=5, warmup=1)
+            ncut = resolve_cutover("auto", n, 32, rb, 8192)
+            rows16[what] = {"ms": ms, "passes": 32 // rb, "cutover_passes": ncut, "launches": kn}
+            print(f"[phase13] {what}: {ms:.3f} ms; {32 // rb} passes (cutover after {ncut}); launches {kn}; NumPy's")
+    notes["radix16"] = rows16
+
+    w = x30.reshape(-1)
+    kinds = {}
+    top = dict(shift=16, radix_bits=16)
+    hist = H.radix_histogram(w, **top)
+    digits = ((w >> 16) & 0xFFFF).long()
+    lib = lambda: torch.bincount(digits, minlength=1 << 16)  # noqa: E731
+    if not torch.equal(lib(), hist):
+        fail("phase 13: the 16-bit top digit != torch.bincount")
+    kinds["top digit, no prefix"] = (lambda: H.radix_histogram(w, **top), lib)
+    keys = w
+    picks = [int(v) for v in (keys[[7, n // 3, 2 * n // 3, n - 1]] >> 16) & 0xFFFF]
+    low = dict(shift=0, radix_bits=16)
+    pre = torch.tensor(picks, dtype=torch.int32, device=w.device)
+    hist4 = H.radix_histogram_multi(w, prefixes=pre, **low)
+    above = ((w >> 16) & 0xFFFF).long()
+    table = torch.tensor(sorted(set(picks)), dtype=torch.int64, device=w.device)
+    row = torch.searchsorted(table, above).clamp(max=table.numel() - 1)
+    index = torch.where(table[row] == above, row * (1 << 16) + (w & 0xFFFF).long(), table.numel() << 16)
+    del above, row
+    lib4 = lambda: torch.bincount(index, minlength=(table.numel() << 16) + 1)  # noqa: E731
+    counts = lib4()[: table.numel() << 16].view(-1, 1 << 16)
+    if not all(torch.equal(counts[sorted(set(picks)).index(p)], hist4[i]) for i, p in enumerate(picks)):
+        fail("phase 13: the 16-bit digit under 4 prefixes != torch.bincount")
+    kinds["digit under K=4 prefixes"] = (lambda: H.radix_histogram_multi(w, prefixes=pre, **low), lib4)
+    b, by = bound(n * 4 + 4 * (1 << 16), n)
+    for label, (fn, lfn) in kinds.items():
+        kms = kernel_device_ms(fn, "sweep_ingest_kernel", reps=5)
+        ms = cuda_ms(fn, iters=5, warmup=1)
+        lms = cuda_ms(lfn, iters=3, warmup=1)
+        alone = "not measured" if kms is None else f"{kms:.4f} ms ({b / kms:.0%} of bound)"
+        print(f"[phase13] 16-bit route, {label}, 2^30 int32: kernel alone {alone}; call {ms:.4f} ms; bound "
+              f"{b:.4f} ms ({by}); torch.bincount {lms:.4f} ms")
+        kinds[label] = {"kernel_ms": kms, "call_ms": ms, "bound_ms": b, "bound_by": by, "bincount_ms": lms}
+    notes["radix16_kinds"] = kinds
+    del digits, index, hist, hist4, counts
+    torch.cuda.empty_cache()
+
+    # -- the analyzer over the port's tree, on a machine without JAX ------------
+    pkg = pathlib.Path(kt.__file__).resolve().parent
+    sw = Stopwatch()
+    with sw.timing():
+        report = run_analysis([pkg], root=pkg.parent, contracts=False)
+    if report.unsuppressed or report.dead_suppressions:
+        fail(f"phase 13: analyzer: {[f.render() for f in report.unsuppressed]} stale {report.dead_suppressions}")
+    notes["analyzer"] = {"files": len(report.files), "findings": 0, "suppressed": len(report.findings),
+                         "stale": 0, "seconds": sw.seconds, "checks": report.checks_run}
+    print(f"[phase13] analyzer over {len(report.files)} files of the port: 0 findings ({len(report.findings)} "
+          f"suppressed), 0 stale suppressions, {sw.seconds:.2f} s")
+
+    # -- the contracts' CUDA halves -----------------------------------------------
+    sw = Stopwatch()
+    reset()
+    with sw.timing():
+        verdicts = run_contracts(device)
+    bad = {cid: [f.message for f in fs] for cid, fs in verdicts.items() if fs}
+    if bad:
+        fail(f"phase 13: contracts on {device}: {bad}")
+    kn, plain = used()
+    if on_card and plain:
+        fail(f"phase 13: the contracts called plain versions on the card: {plain}")
+    for k, v in kn.items():
+        launches[k] += v
+    per_call["contracts KSC101-105 on the card"] = kn
+    notes["contracts"] = {"verdicts": {cid: "pass" for cid in verdicts}, "seconds": sw.seconds,
+                          "details": {cid: C.DETAILS.get(cid) for cid in verdicts}, "launches": kn}
+    print(f"[phase13] contracts KSC101-105 on {device}: all pass in {sw.seconds:.2f} s; trail lengths "
+          f"{C.DETAILS['KSC103']['trail_lengths']}; launches {kn}")
+
+    # -- the lock-order sanitizer around a server session and a two-slot median ----
+    x26 = x30.reshape(-1)[:ANALYSIS_DATASET].clone()
+    n26 = x26.numel()
+    ks26 = [1 + (i * 7919 * 131) % n26 for i in range(ANALYSIS_CLIENTS * ANALYSIS_RANKS)]
+    want26 = oracle(tensor_to_numpy(x26), ks26)
+
+    def session(obs=None):
+        srv = KSelectServer(window=SERVE_WINDOW, obs=obs)
+        errors = []
+        try:
+            srv.add_dataset("x", x26, device=device)
+            srv.kselect("x", 1, tier="exact")  # builds the dataset's programs before the clock
+
+            def client(i):
+                try:
+                    for j in range(ANALYSIS_RANKS):
+                        k = ks26[i * ANALYSIS_RANKS + j]
+                        a = srv.kselect("x", k, tier="exact")
+                        if np.asarray(a.value, np.int32).tobytes() != want26[k]:
+                            errors.append((k, a.value))
+                except BaseException as e:  # raised below, on the main thread
+                    errors.append(e)
+
+            sw = Stopwatch()
+            with sw.timing():
+                ts = [threading.Thread(target=client, args=(i,)) for i in range(ANALYSIS_CLIENTS)]
+                for t in ts:
+                    t.start()
+                for t in ts:
+                    t.join(timeout=600)
+        finally:
+            srv.close()
+        if errors or any(t.is_alive() for t in ts):
+            fail(f"phase 13: server session: {errors[:3]}")
+        return ANALYSIS_CLIENTS * ANALYSIS_RANKS / sw.seconds
+
+    qps_off = session()
+    obs = Observability.collecting(flight=True)
+    k_mid = sum(c.size for c in chunks) // 2
+    with LockOrderSanitizer() as san:
+        san.patch_package_locks()
+        qps_on = session(obs)
+        reset()
+        slots = (device, device) if on_card else 2  # two slots of one card
+        v = kt.kselect_streaming(chunks, k_mid, devices=slots, device=device, pipeline_depth=2, obs=obs)
+        kn, plain = used()
+    less, leq = np_certificates(chunks, [v])[0]
+    if not less < k_mid <= leq or (on_card and plain):
+        fail(f"phase 13: sanitized two-slot median {v!r}: NumPy certificate ({less}, {leq}], plain {plain}")
+    for k, c in kn.items():
+        launches[k] += c
+    per_call["sanitized two-slot streamed median"] = kn
+    cycles = san.find_cycles(package_only=True)
+    static = build_concurrency_report([pkg], root=pkg.parent)["lock_graph"]
+    conflicts = san.check_consistency(static)
+    edges = san.package_edges()
+    site_to_key = {nd["site"]: key for key, nd in static["nodes"].items()}
+    site_to_key.update({key: key for key in static["nodes"]})
+    static_edges = {(e["src"], e["dst"]) for e in static["edges"]}
+    joined = [(a, b) for a, b, _ in edges if a in site_to_key and b in site_to_key]
+    in_static = [(a, b) for a, b in joined if (site_to_key[a], site_to_key[b]) in static_edges]
+    if cycles or conflicts:
+        fail(f"phase 13: lock order: cycles {cycles}, conflicts {conflicts}")
+    bundle = build_bundle(obs, reason="phase 13")
+    if not bundle.get("lock_order") or bundle["lock_order"]["package_edges"] != san.to_dict()["package_edges"]:
+        fail("phase 13: the flight bundle does not carry the observed lock order")
+    notes["lock_order"] = {
+        "labels": len(san.labels), "threads": len(san.threads_seen), "package_edges": [list(e) for e in edges],
+        "cycles": 0, "conflicts": 0, "edges_joined_to_static_nodes": len(joined),
+        "edges_in_static_graph": len(in_static), "static_nodes": len(static["nodes"]),
+        "static_edges": len(static_edges), "qps_sanitizer_off": qps_off, "qps_sanitizer_on": qps_on,
+        "median": repr(v), "bundle_lock_order_edges": len(bundle["lock_order"]["edges"]),
+    }
+    print(f"[phase13] lock-order sanitizer: {len(edges)} package edges over {len(san.threads_seen)} threads, 0 "
+          f"cycles, 0 conflicts with the static graph ({len(static['nodes'])} nodes, {len(static_edges)} edges; "
+          f"{len(joined)} observed edges join its nodes, {len(in_static)} are its edges); server session "
+          f"{qps_off:.1f} queries/s off, {qps_on:.1f} on; two-slot median {v!r} certified; bundle lock_order "
+          f"has {len(bundle['lock_order']['edges'])} edges")
+    del x26
+    torch.cuda.empty_cache()
+    return launches, per_call, notes
+
+
+def main_phase13(smi: str) -> int:
+    """``python3 chip_smoke.py --phase13``: phase 13 alone (the build, the
+    2^30 int32 array of phase 3, the int32 stream's first quarter, then
+    phase 13)."""
+    from mpi_k_selection_tpu_torch.utils import datagen
+    from mpi_k_selection_tpu_torch.utils.interop import tensor_from_numpy
+    from mpi_k_selection_tpu_torch.utils.timing import Stopwatch
+
+    phase_build()
+    x30 = tensor_from_numpy(datagen.generate(1 << 30, pattern="uniform", seed=0, dtype=np.int32), "cuda")
+    chunks = make_chunks(FAULT_CHUNKS, STREAM_CHUNK, "uniform", np.int32)
+    clock = Stopwatch()
+    with clock.timing():
+        launches, _, notes = phase_analysis(x30, chunks)
+    notes["seconds"] = clock.seconds  # NumPy's oracle of the 2^30 array included (the full run reuses phase 3's)
+    print(f"[phase13] {clock.seconds:.1f} s")
+    print(json.dumps({"phase13": notes, "launches": launches}, default=str))
+    print(smi)
+    print(json.dumps({
+        "ok": True,
+        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},
+    }))
+    return 0
+
+
 def main_phase10(smi: str) -> int:
     """``python3 chip_smoke.py --phase10``: phase 10 alone (the build, the
     streams, their answers certified by NumPy as phase 3 certifies them,
@@ -4116,6 +4415,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the card")
     import mpi_k_selection_tpu_torch as kt  # fails here, before any output, outside the repo
+    from mpi_k_selection_tpu_torch.utils.timing import Stopwatch
 
     torch.cuda.init()
     name = torch.cuda.get_device_name(0)
@@ -4131,6 +4431,8 @@ def main() -> int:
         return main_phase11(smi)
     if sys.argv[1:] == ["--phase12"]:
         return main_phase12(smi)
+    if sys.argv[1:] == ["--phase13"]:
+        return main_phase13(smi)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     phase_build()
@@ -4199,6 +4501,15 @@ def main() -> int:
     for kname, v in p12_launches.items():
         launches[kname] += v
     per_call.update(p12_per_call)
+    # phase 13: the analyzer, its contracts on the card, the lock-order sanitizer and 16-bit digits
+    p13_clock = Stopwatch()
+    with p13_clock.timing():
+        p13_launches, p13_per_call, notes["phase13"] = phase_analysis(x30, ints.chunks[:FAULT_CHUNKS], oracles["i32"])
+    notes["phase13"]["seconds"] = p13_clock.seconds
+    print(f"[phase13] {p13_clock.seconds:.1f} s")
+    for kname, v in p13_launches.items():
+        launches[kname] += v
+    per_call.update(p13_per_call)
     # phase 6: the host chunks and the resident data go first (the ranks
     # need the card's memory and the host's for the 8 GiB array)
     del ints, f64, data, x30

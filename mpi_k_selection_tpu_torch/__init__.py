@@ -54,6 +54,7 @@ monitor), built with ``nvcc`` at first use; a CPU tensor
 (or ``device="cpu"``) runs their plain PyTorch versions.
 """
 
+from mpi_k_selection_tpu_torch.version import __version__
 from mpi_k_selection_tpu_torch.api import (
     StreamingQuantiles,
     as_selection_array,
@@ -90,6 +91,7 @@ from mpi_k_selection_tpu_torch.parallel import (
 )
 
 __all__ = [
+    "__version__",
     "DISTRIBUTED_ALGORITHMS", "DeviceVector", "KSelectServer", "Monitor", "Observability", "RadixSketch", "SpillStore",
     "StreamingQuantiles", "WindowedSketch",
     "as_selection_array", "batched_kselect", "batched_median", "batched_topk", "distributed_cgm_select",

@@ -26,6 +26,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
+from mpi_k_selection_tpu_torch import resource_protocols as _rp
 from mpi_k_selection_tpu_torch.monitor.decay import DecayedWindowedSketch
 from mpi_k_selection_tpu_torch.monitor.windows import WindowedSketch
 from mpi_k_selection_tpu_torch.streaming import pipeline as _pl
@@ -34,10 +35,10 @@ from mpi_k_selection_tpu_torch.utils import dtypes as _dt
 
 DEFAULT_QS = (0.5, 0.9, 0.99)
 
-#: The prefix of the metrics exporter's threads (the JAX package's
-#: ``resource_protocols.MONITOR_THREAD_PREFIX``): in the ``ksel-`` family
-#: the test suite's leaked-thread check covers; ``close()`` joins them all.
-MONITOR_THREAD_PREFIX = "ksel-monitor"
+#: The prefix of the metrics exporter's threads (resource_protocols.py): in
+#: the ``ksel-`` family the test suite's leaked-thread check covers;
+#: ``close()`` joins them all.
+MONITOR_THREAD_PREFIX = _rp.MONITOR_THREAD_PREFIX
 
 
 def q_label(q: float) -> str:

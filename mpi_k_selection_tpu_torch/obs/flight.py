@@ -23,10 +23,10 @@ one JSON bundle with five sections that are always there
 - ``faults``: the FaultEvent tail, and the armed plan when an injector
   is armed;
 
-plus ``lock_order``, which is None in the port: the JAX package fills it
-from its lock-order sanitizer (``analysis/lockorder.py``), and the port's
-analysis is ROADMAP Queue 1 item 7; and ``reason``, with an ``error`` where
-a failure triggered the dump. An automatic dump's file name starts with
+plus ``lock_order``, the observed graph of the last lock-order sanitizer
+window in this process (``analysis/lockorder.py``, ``LAST_OBSERVED``), or
+None when none ran; and ``reason``, with an ``error`` where a failure
+triggered the dump. An automatic dump's file name starts with
 :data:`FLIGHT_FILE_PREFIX`, and every dump is registered
 (:func:`drain_dumped`) so a test suite can validate each bundle. The
 recorder only observes the host: it never changes an answer bit.
@@ -40,10 +40,11 @@ import os
 import tempfile
 import threading
 
-#: Prefix of an automatic dump's file (the JAX package's
-#: ``resource_protocols.FLIGHT_FILE_PREFIX``, so one leak check covers
-#: both packages' bundles).
-FLIGHT_FILE_PREFIX = "ksel-flight-"
+from mpi_k_selection_tpu_torch import resource_protocols as _rp
+
+#: Prefix of an automatic dump's file (resource_protocols.py, the JAX
+#: package's too, so one leak check covers both packages' bundles).
+FLIGHT_FILE_PREFIX = _rp.FLIGHT_FILE_PREFIX
 
 #: Default ring capacity (events, and spans unless given): a streamed
 #: pass emits one event a chunk, so 512 holds several recent passes.
@@ -201,11 +202,19 @@ def build_bundle(obs, *, reason: str = "on-demand", flight=None, extra=None) -> 
         "ledger": LEDGER.snapshot(),
         "spans": {"tail": span_rows, "thread_tracks": len({r["thread_id"] for r in span_rows})},
         "faults": _faults_section(events),
-        "lock_order": None,  # the lock-order sanitizer is the port's analysis (ROADMAP Queue 1 item 7)
+        "lock_order": _lock_order_section(),
     }
     if extra:
         bundle.update(extra)
     return bundle
+
+
+def _lock_order_section():
+    """The last LockOrderSanitizer window's observed graph, or None when
+    none ran in this process (analysis/lockorder.py publishes it on exit)."""
+    from mpi_k_selection_tpu_torch.analysis import lockorder
+
+    return lockorder.LAST_OBSERVED
 
 
 def auto_dump(obs, reason: str, *, exc=None) -> str | None:

@@ -18,6 +18,12 @@ functions, each a CUDA kernel (``csrc/histogram.cu``) behind a wrapper:
   the keys strictly beyond one full-width key tau and of those equal to it.
   It replaces ``pallas_tau_counts``.
 
+Digits of up to 8 bits count on ``csrc/histogram.cu``; digits of 9 to 16
+bits (the JAX package takes any width that divides the key bits) count on
+the sweep kernel's histogram part (ops/cuda/sweep_ingest.py:
+:func:`~mpi_k_selection_tpu_torch.ops.cuda.sweep_ingest.wide_histogram`),
+which holds 2^16 counters.
+
 All read RAW words — the input's own bits, viewed as int32 or int64 — and
 apply the sortable-key transform on the fly (``key_op``: ``"none"``,
 ``"xor"`` with ``key_xor``, or ``"float"``; utils/dtypes.py:key_fold).
@@ -37,12 +43,15 @@ import ctypes
 
 import torch
 
+from mpi_k_selection_tpu_torch.ops.cuda.books import Book
 from mpi_k_selection_tpu_torch.utils import dtypes as _dt
 
 ROW = 128  # elements per row of match_counts (the collect's gather unit)
+NARROW_BITS = 8  # the widest digit csrc/histogram.cu counts
+WIDE_BITS = 16  # the widest digit of the histogram wrappers (the sweep kernel above NARROW_BITS)
 KEY_OPS = ("none", "xor", "float")
 
-LAUNCHES = {
+LAUNCHES = Book({
     "radix_histogram32": 0,
     "radix_histogram64": 0,
     "match_counts32": 0,
@@ -51,8 +60,8 @@ LAUNCHES = {
     "radix_histogram_multi64": 0,
     "tau_counts32": 0,
     "tau_counts64": 0,
-}
-PLAIN_CALLS = {"radix_histogram": 0, "match_counts": 0, "radix_histogram_multi": 0, "tau_counts": 0}
+})
+PLAIN_CALLS = Book({"radix_histogram": 0, "match_counts": 0, "radix_histogram_multi": 0, "tau_counts": 0})
 
 _THREADS = 256  # kThreads in csrc/histogram.cu
 _BLOCKS_PER_SM = 8  # 2048 resident threads per SM
@@ -100,6 +109,11 @@ def _signed_words(words: torch.Tensor) -> torch.Tensor:
 def _check_key_op(key_op: str) -> None:
     if key_op not in KEY_OPS:
         raise ValueError(f"unknown key_op {key_op!r}; choose from {KEY_OPS}")
+
+
+def _check_width(radix_bits: int) -> None:
+    if not 1 <= radix_bits <= WIDE_BITS:
+        raise ValueError(f"radix_bits={radix_bits} outside [1, {WIDE_BITS}]")
 
 
 def _check_keys_like(t: torch.Tensor, w: torch.Tensor, what: str) -> None:
@@ -214,17 +228,28 @@ def radix_histogram(words, *, shift, radix_bits, prefix=None, key_op="none", key
     w = _signed_words(words)
     bits = w.element_size() * 8
     _check_key_op(key_op)
-    if not 1 <= radix_bits <= 8 or shift < 0 or shift + radix_bits > bits:
+    _check_width(radix_bits)
+    if shift < 0 or shift + radix_bits > bits:
         raise ValueError(f"digit at shift={shift}, radix_bits={radix_bits} outside a {bits}-bit key")
     if prefix is not None:
         _check_keys_like(prefix, w, "prefix")
         if prefix.numel() != 1 or shift + radix_bits == bits:
             raise ValueError("prefix must be one key with prefix bits above the digit")
+    elif radix_bits > NARROW_BITS and shift + radix_bits < bits:
+        raise ValueError(
+            f"a digit of {radix_bits} bits below the key's top (shift={shift} in a {bits}-bit key) "
+            "counts under a prefix"
+        )
     if resolve_hist_method(w.device) == "plain":
         PLAIN_CALLS["radix_histogram"] += 1
         return radix_histogram_plain(
             w, shift=shift, radix_bits=radix_bits, prefix=prefix, key_op=key_op, key_xor=key_xor
         )
+    if radix_bits > NARROW_BITS:  # the sweep kernel's histogram part
+        from mpi_k_selection_tpu_torch.ops.cuda.sweep_ingest import wide_histogram
+
+        return wide_histogram(w, shift=shift, radix_bits=radix_bits, prefixes=[0] if prefix is None else prefix,
+                              key_op=key_op, key_xor=key_xor)[0]
     lib, cap, stream, is_float, xor = _launch_args(w, key_op, key_xor)
     n = w.numel()
     out = torch.zeros(1 << radix_bits, dtype=torch.int64, device=w.device)
@@ -316,7 +341,8 @@ def radix_histogram_multi(words, *, shift, radix_bits, prefixes, key_op="none", 
     w = _signed_words(words)
     bits = w.element_size() * 8
     _check_key_op(key_op)
-    if not 1 <= radix_bits <= 8 or shift < 0 or shift + radix_bits >= bits:
+    _check_width(radix_bits)
+    if shift < 0 or shift + radix_bits >= bits:
         raise ValueError(
             f"digit at shift={shift}, radix_bits={radix_bits} leaves no prefix bits in a {bits}-bit key"
         )
@@ -328,6 +354,10 @@ def radix_histogram_multi(words, *, shift, radix_bits, prefixes, key_op="none", 
         return radix_histogram_multi_plain(
             w, shift=shift, radix_bits=radix_bits, prefixes=prefixes, key_op=key_op, key_xor=key_xor
         )
+    if radix_bits > NARROW_BITS:  # the sweep kernel's histogram part
+        from mpi_k_selection_tpu_torch.ops.cuda.sweep_ingest import wide_histogram
+
+        return wide_histogram(w, shift=shift, radix_bits=radix_bits, prefixes=prefixes, key_op=key_op, key_xor=key_xor)
     lib, cap, stream, is_float, xor = _launch_args(w, key_op, key_xor)
     n = w.numel()
     nq = prefixes.numel()

@@ -39,6 +39,10 @@ a 15- or 16-bit sketch or histogram of one prefix). One launch serves a bucket, 
 it holds more than ``MAX_TABLE_PREFIXES`` distinct histogram prefixes.
 The outputs are views of one zeroed arena of counters, and each survivor
 buffer is written whole by the kernel.
+
+:func:`wide_histogram` is the resident select's route for digits of 9 to
+16 bits (ops/cuda/histogram.py takes up to 8): the histogram part alone,
+over a resident array cut into buckets of ``WIDE_BUCKET`` words.
 """
 
 from __future__ import annotations
@@ -49,13 +53,14 @@ from typing import NamedTuple
 
 import torch
 
+from mpi_k_selection_tpu_torch.ops.cuda.books import Book
 from mpi_k_selection_tpu_torch.ops.cuda.histogram import KEY_OPS, resolve_hist_method
 from mpi_k_selection_tpu_torch.utils import dtypes as _dt
 
 MAX_BITS = 20  # the widest histogram, a digit or the sketch: 2^20 int32 counters
 
-LAUNCHES = {"sweep_ingest32": 0, "sweep_ingest64": 0}
-PLAIN_CALLS = {"sweep_ingest": 0}
+LAUNCHES = Book({"sweep_ingest32": 0, "sweep_ingest64": 0})
+PLAIN_CALLS = Book({"sweep_ingest": 0})
 
 # The kernel's geometry (csrc/sweep_ingest.cu mirrors each number). The
 # order-free route (no survivor buffer) streams with THREADS-thread blocks
@@ -85,6 +90,10 @@ MAX_THREADS_PER_SM = 2048
 HIST_SMEM = 64 * 1024
 COPIES_SMEM = SMEM_PER_SM // 8
 PACKED_BITS = (15, 16)
+
+# wide_histogram's bucket: a launch counts in int32 and takes fewer than
+# 2^31 words, so a longer array is read as several buckets
+WIDE_BUCKET = 1 << 30
 
 _SMS: dict[int, int] = {}  # SM count per CUDA device index
 
@@ -502,3 +511,24 @@ def sweep_ingest(data, n_valid, *, key_op="none", key_xor=0, shift=0, radix_bits
         (cert[0], cert[1]) if cert is not None else None,
         sketch,
     )
+
+
+def wide_histogram(words, *, shift, radix_bits, prefixes, key_op="none", key_xor=0):
+    """``(K, 2^radix_bits)`` int64 counts of the digit at ``shift`` over
+    the keys of the contiguous 1-D CUDA tensor ``words`` whose bits above
+    the digit equal each of the K ``prefixes`` (ints, or a (K,) tensor of
+    key-space values, read to the host: the launch lays out its prefix
+    table there): :func:`sweep_ingest`'s histogram part over buckets of at
+    most ``WIDE_BUCKET`` words, every word valid, summed. One prefix counts
+    in 16-bit shared counters; more take one launch per
+    ``MAX_TABLE_PREFIXES`` distinct prefixes a bucket."""
+    bits = words.element_size() * 8
+    if torch.is_tensor(prefixes):
+        prefixes = prefixes.tolist()
+    pv = [int(p) & ((1 << bits) - 1) for p in prefixes]
+    out = torch.zeros((len(pv), 1 << radix_bits), dtype=torch.int64, device=words.device)
+    for s in range(0, words.numel(), WIDE_BUCKET):
+        part = words[s:s + WIDE_BUCKET]
+        out += sweep_ingest(part, part.numel(), key_op=key_op, key_xor=key_xor, shift=shift,
+                            radix_bits=radix_bits, hist_prefixes=pv)[0]
+    return out

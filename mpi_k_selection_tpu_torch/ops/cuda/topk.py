@@ -20,11 +20,12 @@ import ctypes
 
 import torch
 
+from mpi_k_selection_tpu_torch.ops.cuda.books import Book
 from mpi_k_selection_tpu_torch.ops.cuda.histogram import resolve_hist_method
 from mpi_k_selection_tpu_torch.utils import dtypes as _dt
 
-LAUNCHES = {"batched_topk_values32": 0, "batched_topk_values16": 0}
-PLAIN_CALLS = {"batched_topk_values": 0}
+LAUNCHES = Book({"batched_topk_values32": 0, "batched_topk_values16": 0})
+PLAIN_CALLS = Book({"batched_topk_values": 0})
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -83,7 +84,9 @@ def batched_topk_values(x: torch.Tensor, k: int) -> torch.Tensor:
     order: ``-0.0 < +0.0``, NaNs ordered by sign). ``x``'s shape, dtype and
     k must lie in :func:`batched_topk_supported`."""
     if not batched_topk_supported(tuple(x.shape), x.dtype, k):
-        raise ValueError(f"unsupported batched-topk shape {tuple(x.shape)} dtype {x.dtype} k={k}")
+        from mpi_k_selection_tpu_torch.api import _dtype_name
+
+        raise ValueError(f"unsupported batched-topk shape {tuple(x.shape)} dtype {_dtype_name(x)} k={k}")
     if resolve_hist_method(x.device) == "plain":
         PLAIN_CALLS["batched_topk_values"] += 1
         return batched_topk_values_plain(x, k)

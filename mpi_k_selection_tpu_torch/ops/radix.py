@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from mpi_k_selection_tpu_torch.ops.cuda.histogram import ROW, match_counts
+from mpi_k_selection_tpu_torch.ops.cuda.histogram import NARROW_BITS, ROW, match_counts
 from mpi_k_selection_tpu_torch.ops.histogram import (
     masked_radix_histogram,
     multi_masked_radix_histogram,
@@ -168,6 +168,12 @@ class _Descent:
             self.words = _dt.to_sortable_bits(x.reshape(-1))
             self.key_op, self.key_xor = "none", 0
         self.word_bits = self.words.element_size() * 8
+        # the prefix of the first pass: none (every key), except for a digit
+        # wider than the histogram kernel's under widened keys, which counts
+        # under a prefix: their words' bits above the key are zero
+        self.top_prefix = None
+        if radix_bits > NARROW_BITS and self.word_bits > total_bits:
+            self.top_prefix = torch.zeros(1, dtype=self.words.dtype, device=self.words.device)
 
     def key_of(self, words: torch.Tensor) -> torch.Tensor:
         return _dt.keys_from_raw(words, self.key_op, self.key_xor)
@@ -178,7 +184,7 @@ class _Descent:
             self.words,
             shift=shift,
             radix_bits=self.radix_bits,
-            prefix=prefix if p else None,
+            prefix=prefix if p else self.top_prefix,
             key_op=self.key_op,
             key_xor=self.key_xor,
         )
@@ -201,7 +207,7 @@ class _Descent:
         every query."""
         hist = masked_radix_histogram(
             self.words, shift=self.total_bits - self.radix_bits, radix_bits=self.radix_bits,
-            key_op=self.key_op, key_xor=self.key_xor,
+            prefix=self.top_prefix, key_op=self.key_op, key_xor=self.key_xor,
         )
         return bucket_walk_step_multi(self.reduce(hist), kk, None, self.kdt, self.radix_bits)
 

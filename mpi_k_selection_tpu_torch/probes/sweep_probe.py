@@ -1,4 +1,5 @@
 #!/usr/bin/env python3
+# ksel-torch: noqa-file[KSL009] -- a command-line probe: its printed lines are its report
 """Probe of the sweep kernel's order-free route (``csrc/sweep_ingest.cu``)
 on one CUDA card: ``python3 mpi_k_selection_tpu_torch/probes/sweep_probe.py
 [loads] [copies] [sketch] [kinds] [placement] [context] [--package DIR]`` from the root of the

@@ -48,6 +48,7 @@ import itertools
 import queue
 import threading
 
+from mpi_k_selection_tpu_torch import resource_protocols as _rp
 from mpi_k_selection_tpu_torch.faults.inject import maybe_fault as _maybe_fault
 from mpi_k_selection_tpu_torch.serve.errors import (
     DeadlineExceededError,
@@ -57,9 +58,9 @@ from mpi_k_selection_tpu_torch.serve.errors import (
 )
 
 #: The name prefix of every serving-layer thread (dispatch lanes, the HTTP
-#: serve loop, HTTP request handlers), the JAX package's: no such thread
-#: outlives its server.
-SERVE_THREAD_PREFIX = "ksel-serve"
+#: serve loop, HTTP request handlers; resource_protocols.py): no such
+#: thread outlives its server.
+SERVE_THREAD_PREFIX = _rp.SERVE_THREAD_PREFIX
 
 #: Coalescing-window ceiling (seconds) — a minute-long window is a
 #: misconfiguration, not a batching strategy.

@@ -908,16 +908,16 @@ def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: i
                                 f"counted {expected[p]}. The source callable must yield identical "
                                 "data on every invocation."
                             )
+                    if disk_gen is None:
+                        disk_read = pass_keys * kbytes
+                    elif src_override is None:  # the scheduled read, pruned to the tee's segments
+                        disk_read = disk_gen.read_nbytes(tee_specs)
+                    else:
+                        disk_read = disk_gen.nbytes
                 except BaseException:
                     if writer is not None:
                         writer.abort()
                     raise
-                if disk_gen is None:
-                    disk_read = pass_keys * kbytes
-                elif src_override is None:  # the scheduled read, pruned to the tee's segments
-                    disk_read = disk_gen.read_nbytes(tee_specs)
-                else:
-                    disk_read = disk_gen.nbytes
                 gen = writer.commit() if writer is not None else None
                 return hists, gen, pass_keys, res.chunks, read_from, disk_read
 

@@ -54,6 +54,7 @@ import threading
 import numpy as np
 import torch
 
+from mpi_k_selection_tpu_torch import resource_protocols as _rp
 from mpi_k_selection_tpu_torch.faults import policy as _fpol
 from mpi_k_selection_tpu_torch.faults.inject import maybe_fault as _maybe_fault
 from mpi_k_selection_tpu_torch.obs import ledger as _ledger
@@ -76,10 +77,9 @@ MAX_INGEST_WORKERS = 64
 #: ``ingest_workers="auto"`` resolves to ``min(this, cpu count)``.
 INGEST_WORKERS_AUTO_CAP = 4
 
-#: Producer threads carry this prefix (the JAX package's
-#: ``resource_protocols.PIPELINE_THREAD_PREFIX``), so the test suite's
-#: leaked-thread check covers them.
-THREAD_NAME_PREFIX = "ksel-pipeline"
+#: Producer threads carry this prefix (resource_protocols.py), so the test
+#: suite's leaked-thread check covers them.
+THREAD_NAME_PREFIX = _rp.PIPELINE_THREAD_PREFIX
 
 #: Host seconds and count of the host copies into pinned buffers, summed
 #: over every stager (``reset()`` before a measured pass).

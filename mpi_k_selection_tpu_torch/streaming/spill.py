@@ -77,16 +77,16 @@ import torch
 
 from mpi_k_selection_tpu_torch.errors import SpillError, SpillRecordError
 from mpi_k_selection_tpu_torch.faults.inject import maybe_fault as _maybe_fault
+from mpi_k_selection_tpu_torch import resource_protocols as _rp
 from mpi_k_selection_tpu_torch.obs import ledger as _ledger
 from mpi_k_selection_tpu_torch.streaming.pipeline import _bucket_elems
 from mpi_k_selection_tpu_torch.utils import dtypes as _dt
 from mpi_k_selection_tpu_torch.utils.interop import numpy_dtype
 from mpi_k_selection_tpu_torch.utils.timing import Stopwatch
 
-#: Directory prefix of every store (the JAX package's
-#: ``resource_protocols.SPILL_DIR_PREFIX``, so the test suite's
-#: leaked-directory check covers the port's stores).
-SPILL_DIR_PREFIX = "ksel-spill-"
+#: Directory prefix of every store (resource_protocols.py), so the test
+#: suite's leaked-directory check covers the port's stores.
+SPILL_DIR_PREFIX = _rp.SPILL_DIR_PREFIX
 
 #: The ``spill=`` knob's string modes (a SpillStore is also accepted).
 SPILL_MODES = ("auto", "off", "force")

@@ -246,17 +246,26 @@ def test_batched_topk_block_matches_numpy(dtype, k):
 
 
 def test_topk_block_rejects():
+    """Each refusal's whole message equals the JAX package's."""
+    import jax.numpy as jnp
+
+    from mpi_k_selection_tpu.ops.topk import topk as ref_topk
+    from mpi_k_selection_tpu.utils.x64 import enable_x64
+
     x = np.zeros((64, D), np.float32)
-    with pytest.raises(ValueError, match="2-D inputs, largest=True"):
-        kt.topk(x, 8, method="block", largest=False, device="cpu")
-    with pytest.raises(ValueError, match="2-D inputs, largest=True"):
-        kt.topk(x.reshape(2, 32, D), 8, method="block", device="cpu")
-    with pytest.raises(ValueError, match="unsupported batched-topk shape"):
-        kt.topk(x, 17, method="block", device="cpu")
-    with pytest.raises(ValueError, match="unsupported batched-topk shape"):
-        kt.topk(x[:, :2048], 8, method="block", device="cpu")
-    with pytest.raises(ValueError, match="unsupported batched-topk shape"):
-        kt.topk(x.astype(np.float64), 8, method="block", device="cpu")
+    cases = [
+        (x, 8, dict(largest=False)),
+        (x.reshape(2, 32, D), 8, {}),
+        (x, 17, {}),
+        (x[:, :2048], 8, {}),
+        (x.astype(np.float64), 8, {}),
+    ]
+    for a, k, kw in cases:
+        with enable_x64(), pytest.raises(ValueError) as want:
+            ref_topk(jnp.asarray(a), k, method="block", **kw)
+        with pytest.raises(ValueError) as got:
+            kt.topk(a, k, method="block", device="cpu", **kw)
+        assert str(got.value) == str(want.value)
 
 
 SUPPORTED = [

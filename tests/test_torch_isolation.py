@@ -142,3 +142,27 @@ def test_serve_and_cli_serve_load_no_jax(tmp_path):
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_the_analyzer_loads_no_jax():
+    """The port's analyzer, imported and run as ``python -m
+    mpi_k_selection_tpu_torch.analysis --help``, loads neither JAX nor the
+    JAX package (its analyzer included)."""
+    files = sorted((PORT / "analysis").glob("*.py")) + [PORT / "resource_protocols.py", PORT / "version.py"]
+    assert len(files) >= 12 and not [m for f in files for _, m in _imports(f) if _forbidden(m)]
+    code = (
+        "import sys, runpy\n"
+        "import mpi_k_selection_tpu_torch.analysis\n"
+        "from mpi_k_selection_tpu_torch.analysis import contracts, lockorder, placement\n"
+        "sys.argv = ['analysis', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('mpi_k_selection_tpu_torch.analysis', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'mpi_k_selection_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok") and "--no-contracts" in out.stdout
