@@ -8,7 +8,7 @@ Phases, each of which must pass (any failure exits non-zero):
    (one process per source, all at once) and print ``ptxas`` registers,
    shared memory and spills.
 2. Hold each kernel against its plain PyTorch version, exactly (integer
-   counts, no tolerance; top-k values as bit patterns), on 2^27 seeded
+   counts, no tolerance; top-k values as bit patterns), on 2^26 seeded
    random words, 32- and 64-bit and every ``key_op``: the histogram with
    and without a prefix, ``match_counts``, the multi-prefix histogram at K
    in {1, 3, 64} with a repeated prefix and radix widths 4 and 8 and on
@@ -17,11 +17,13 @@ Phases, each of which must pass (any failure exits non-zero):
    width 8, a misaligned view), and
    ``tau_counts`` in both directions against a key of the data and one
    absent from it; and the batched top-k kernel at (4096, 32768) float32
-   for k in {1, 8, 9, 16} and bfloat16 for k in {8, 16}, on normal rows and
-   on adversarial rows (a top-16 inside one lane, ascending and descending
-   rows, -inf rows, heavy ties, +-0.0 at the k boundary, NaNs of both
-   signs); and the sweep kernel (``sweep_ingest``) on a 2^26-word bucket
-   of random words, 32- and 64-bit, ``n_valid`` below the bucket, two key
+   for k in {1, 8, 9, 16} and bfloat16 for k in {8, 16}, values and
+   positions (and its values-only launch), on normal rows, on adversarial
+   rows (a top-16 inside one lane, ascending and descending rows, -inf
+   rows, heavy ties, +-0.0 at the k boundary, NaNs of both signs) and on
+   rows of equal keys that straddle lanes and loads; and the sweep kernel
+   (``sweep_ingest``) on a 2^26-word bucket of random words, 32- and
+   64-bit, ``n_valid`` below the bucket, two key
    transforms, exactly: each part alone and all five together, K in {1, 4}
    histogram prefixes at radix widths 4 and 8 and K=70 (35 prefixes twice,
    more than go by value), a sparse collect spec, one every key matches,
@@ -43,12 +45,11 @@ Phases, each of which must pass (any failure exits non-zero):
    spaced ranks of 2^27 int32 (its peak memory printed); ``topk`` (k=128,
    largest and smallest, indices and value bits) of 2^26 float32
    ``normal`` and of the 2^27 float64 array; ``batched_topk`` through
-   ``auto`` (the block kernel, then the index recovery) of (4096, 32768)
-   float32 ``normal`` (BASELINE.md's batched top-k) for k in {1, 8, 9, 16},
-   of its bfloat16 cast for k in {8, 16}, and of the adversarial rows of
-   phase 2, against a per-row oracle (indices and value bits; the index
-   recovery's own indices, before its rescue, on every row it resolved;
-   the rows it rescued, at most its budget, and its peak memory printed);
+   ``auto`` (one launch of the block kernel: values and positions) of
+   (4096, 32768) float32 ``normal`` (BASELINE.md's batched top-k) for k in
+   {1, 8, 9, 16}, of its bfloat16 cast for k in {8, 16}, and of the
+   adversarial rows of phase 2, against a per-row oracle on every row
+   (indices and value bits; its peak memory printed);
    ``batched_median`` of
    the float32 array against ``np.sort``. Then the streamed paths (the
    launch counts, per call, of the sweep kernel only: once per chunk per
@@ -73,11 +74,12 @@ Phases, each of which must pass (any failure exits non-zero):
    1 and K=64 at a deep pass of 2^27 int32, K=64 at pass 1 of 2^27 float64,
    each with its share of the bound;
    ``topk`` against ``torch.topk`` and a full ``torch.sort`` (yardsticks
-   only: the port calls neither for top-k); the batched top-k kernel, the
-   index recovery alone, ``batched_topk`` end to end and
-   ``batched_median``, with ``torch.topk`` / ``torch.kthvalue`` along the
-   rows as yardsticks; each kernel at its main-path shape beside its plain
-   version, held exactly against it on the same tensor first (the kernels
+   only: the port calls neither for top-k); the batched top-k kernel
+   (values and positions, and its values-only launch), ``batched_topk``
+   end to end and ``batched_median``, with ``torch.topk`` /
+   ``torch.kthvalue`` along the rows as yardsticks; each kernel at its
+   main-path shape beside its plain version, held exactly against it on
+   the same tensor first (the kernels
    line reports that comparison's error); the streaming median and
    quantiles of the 2^32 int32 stream at depth 2 and 0 (best of two
    calls each) beside their bound
@@ -296,8 +298,8 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "radix_histogram_multi64": (HIST_CU, HIST_SRC + ":861"),  # pallas_radix_histogram64_multi
     "tau_counts32": (HIST_CU, HIST_SRC + ":1142"),  # pallas_tau_counts
     "tau_counts64": (HIST_CU, HIST_SRC + ":1142"),  # pallas_tau_counts (64-bit keys)
-    "batched_topk_values32": (TOPK_CU, "mpi_k_selection_tpu/ops/pallas/topk.py:183"),  # float32
-    "batched_topk_values16": (TOPK_CU, "mpi_k_selection_tpu/ops/pallas/topk.py:183"),  # bfloat16
+    "batched_topk32": (TOPK_CU, "mpi_k_selection_tpu/ops/pallas/topk.py:183"),  # float32, values and positions
+    "batched_topk16": (TOPK_CU, "mpi_k_selection_tpu/ops/pallas/topk.py:183"),  # bfloat16
     "sweep_ingest32": (SWEEP_CU, SWEEP_SRC),  # sweep_ingest_core, 32-bit key words
     "sweep_ingest64": (SWEEP_CU, SWEEP_SRC),  # 64-bit key words (the JAX package's XLA tier there)
 }
@@ -306,6 +308,8 @@ TOPK = 128
 BATCH, WIDTH = 4096, 32768  # BASELINE.md's batched top-k: (B, D) float32, k=8
 BATCH_KS = {torch.float32: (1, 8, 9, 16), torch.bfloat16: (8, 16)}
 SWEEP_BUCKET = 1 << 26  # the sweep kernel's checks and timings: one streamed chunk
+CHECK_WORDS = 1 << 26  # phase 2's random words (phase 4 holds each kernel at its main-path shape)
+BUDGET_S = 1200  # the whole script's time budget, the build included
 STREAM_CHUNK, STREAM_CHUNKS = 1 << 26, 64  # 2^32 int32 uniform, chunk i of seed i (16 GiB on the host)
 F64_CHUNK, F64_CHUNKS = 1 << 25, 32  # 2^30 float64 normal (8 GiB)
 SKETCH_BITS = 16  # the sketches' default resolution: 4-bit digits x 4 levels
@@ -366,9 +370,8 @@ def adversarial_rows(x: torch.Tensor, gen) -> torch.Tensor:
     256 (one lane of 32 x 8 bfloat16), ascending and descending rows, -inf
     rows, heavy ties, +-0.0 at the boundary of k in {1, 8, 9, 16} in either
     position order and in one lane, and NaNs of both signs. The fixtures
-    that put a NaN among a row's top k take every 512th row only: their 32
-    rows stay inside the index recovery's rescue budget, so its rescue runs
-    and not its full fallback."""
+    that put a NaN among a row's top k take every 512th row only (32 rows
+    each)."""
     a = x.clone()
     b, d = a.shape
     dev = a.device
@@ -416,6 +419,24 @@ def adversarial_rows(x: torch.Tensor, gen) -> torch.Tensor:
     return a
 
 
+def tie_rows(x: torch.Tensor, gen) -> torch.Tensor:
+    """A copy of the (B, D) float32 ``x`` whose rows hold equal keys across
+    lanes and loads: in each row, 50.0 at 24 positions and then 60.0 at 3 of
+    them, drawn from the first 256 elements of blocks 0, 1, 5 and 40 of 256
+    (float32 loads 0-1, 2-3, 10-11 and 80-81 of all 32 lanes; bfloat16
+    loads 0, 1, 5 and 40), so a row's top k <= 16 takes the 60s and then
+    the earliest 50s, which lie in several lanes: a merge that broke ties
+    by lane and not by position would differ."""
+    a = x.clone()
+    dev = a.device
+    span = (256 * torch.tensor([0, 1, 5, 40], device=dev)[:, None] + torch.arange(256, device=dev)).reshape(-1)
+    pick = torch.rand((a.shape[0], span.numel()), device=dev, generator=gen).topk(24, dim=1).indices
+    cols = span[pick]
+    a.scatter_(1, cols, 50.0)
+    a.scatter_(1, cols[:, :3], 60.0)
+    return a
+
+
 def bf16_truncated(a: torch.Tensor) -> torch.Tensor:
     """float32 ``a`` cut to bfloat16 by dropping the low 16 bits of each
     word: exact for the adversarial fixtures (both NaN signs kept, which a
@@ -427,7 +448,7 @@ def phase_kernels_vs_plain(gen):
     from mpi_k_selection_tpu_torch.ops.cuda import histogram as H
     from mpi_k_selection_tpu_torch.utils import dtypes as dt
 
-    n = 1 << 27
+    n = CHECK_WORDS
     err = {name: 0 for name in KERNELS}
 
     def hold(name, kernel, plain, what, **kw):
@@ -469,7 +490,7 @@ def phase_kernels_vs_plain(gen):
                 p = dt.shift_right_logical(picks, bits - 16, bits).contiguous()
                 hold(name16, H.radix_histogram_multi, H.radix_histogram_multi_plain, f"{key_op} rb=16 K={nq}",
                      words=w, shift=bits - 32, radix_bits=16, prefixes=p, key_op=key_op, key_xor=key_xor)
-            print(f"[check] the 16-bit route ({name16}) == plain at 2^27 {key_op} keys: the top digit, one prefix, "
+            print(f"[check] the 16-bit route ({name16}) == plain at {n} {key_op} keys: the top digit, one prefix, "
                   "K=4 and K=64 prefixes")
             for res, nq in ((24, 1), (bits // 2 + 4, 3)):
                 p = dt.shift_right_logical(keys[[7, n // 3, n - 1]][:nq], bits - res, bits).contiguous()
@@ -492,18 +513,25 @@ def phase_kernels_vs_plain(gen):
     from mpi_k_selection_tpu_torch.ops.cuda import topk as T
 
     x = torch.randn((BATCH, WIDTH), device="cuda", generator=gen)
-    for label, data in (("normal", x), ("adversarial", adversarial_rows(x, gen))):
+    for label, data in (("normal", x), ("adversarial", adversarial_rows(x, gen)), ("tie", tie_rows(x, gen))):
         for dtype, ks in BATCH_KS.items():
-            xd = data if dtype == torch.float32 else data.to(dtype) if label == "normal" else bf16_truncated(data)
+            xd = data if dtype == torch.float32 else bf16_truncated(data) if label == "adversarial" else data.to(dtype)
+            want_v, want_i = T.batched_topk_plain(xd, 16)  # every smaller k's answer is its prefix
+            name = f"batched_topk{8 * xd.element_size()}"
             for k in ks:
-                err[f"batched_topk_values{8 * xd.element_size()}"] = batched_err(
-                    T.batched_topk_values(xd, k), T.batched_topk_values_plain(xd, k),
-                    f"batched_topk_values {dtype} k={k} on {label} rows")
-    del x, data, xd
+                what = f"batched_topk {dtype} k={k} on {label} rows"
+                v, i = T.batched_topk(xd, k)
+                err[name] = max(err[name], batched_err(v, want_v[:, :k].contiguous(), what))
+                if not torch.equal(i, want_i[:, :k]):
+                    fail(f"{what}: kernel positions != plain")
+                batched_err(T.batched_topk_values(xd, k), want_v[:, :k].contiguous(), what + " (values only)")
+            print(f"[check] {name} == plain on {label} rows, {dtype}, k in {ks}: values, positions and the "
+                  "values-only launch")
+    del x, data, xd, want_v, want_i, v, i
     torch.cuda.synchronize()
     sweep_vs_plain(gen, err)
     for name, e in err.items():
-        print(f"[check] {name} vs plain at n=2^27 / ({BATCH}, {WIDTH}) / a {SWEEP_BUCKET}-word bucket: max_abs_err={e}")
+        print(f"[check] {name} vs plain at n={n} / ({BATCH}, {WIDTH}) / a {SWEEP_BUCKET}-word bucket: max_abs_err={e}")
 
 
 def multi_prefix_sets(w: torch.Tensor, bits: int, gen):
@@ -745,7 +773,6 @@ def phase_main_path(gen):
     import mpi_k_selection_tpu_torch as kt
     from mpi_k_selection_tpu_torch import api
     from mpi_k_selection_tpu_torch.cli import batched_topk_oracle, topk_oracle
-    from mpi_k_selection_tpu_torch.ops import topk as topk_ops
     from mpi_k_selection_tpu_torch.ops.cuda import histogram as H
     from mpi_k_selection_tpu_torch.ops.cuda import topk as T
     from mpi_k_selection_tpu_torch.utils import datagen
@@ -784,7 +811,7 @@ def phase_main_path(gen):
     batch_tops = {label: batched_topk_oracle(tensor_to_numpy(data[label]), 16) for label in batched}
     torch.cuda.synchronize()
 
-    launches = {kn: 0 for kn in {**H.LAUNCHES, **T.LAUNCHES}}  # summed over every path below
+    launches = {kn: 0 for kn in {**H.LAUNCHES, **T.LAUNCHES} if kn in KERNELS}  # summed over every path below
     answers, many, per_call = {}, {}, {}
 
     def counted(what, fn, bits, kinds):
@@ -800,7 +827,7 @@ def phase_main_path(gen):
         missing = [f"{kind}{bits}" for kind in kinds if not got[f"{kind}{bits}"]]
         if missing or any(plain.values()):
             fail(f"{what}: kernels {missing} never launched; plain calls {plain}")
-        for kn, v in got.items():
+        for kn, v in per_call[what].items():
             launches[kn] += v
         return out
 
@@ -837,21 +864,18 @@ def phase_main_path(gen):
     for label in batched:
         x = data[label]
         for k in BATCH_KS[x.dtype]:
-            batched_out[(label, k)] = counted(f"batched_topk k={k}, {label}", lambda: kt.batched_topk(x, k),
-                                              8 * x.element_size(), ("batched_topk_values",))
+            what = f"batched_topk k={k}, {label}"
+            batched_out[(label, k)] = counted(what, lambda: kt.batched_topk(x, k), 8 * x.element_size(),
+                                              ("batched_topk",))
+            if per_call[what] != {f"batched_topk{8 * x.element_size()}": 1}:
+                fail(f"{what}: launches {per_call[what]}, not one of the block kernel")
     x = data["batched float32 normal"]
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    counted("batched_topk k=8, batched float32 normal", lambda: kt.batched_topk(x, 8), 32, ("batched_topk_values",))
+    counted("batched_topk k=8, batched float32 normal", lambda: kt.batched_topk(x, 8), 32, ("batched_topk",))
     batched_peak = torch.cuda.max_memory_allocated() - base
     bmedian = counted("batched_median, batched float32 normal", lambda: kt.batched_median(x), 32, ())
-    recovered, rescued = {}, {}  # the recovery's own (idx, ok), before its rescue
-    for label in batched:
-        for k in BATCH_KS[data[label].dtype]:
-            idx, ok = topk_ops._block_topk_indices_from_values(data[label], batched_out[(label, k)][0], k)
-            recovered[(label, k)] = (idx.cpu().numpy(), ok.cpu().numpy())
-            rescued[f"{label} k={k}"] = int((~ok).sum())
 
     for (label, k), ans in answers.items():
         got = tensor_to_numpy(ans.reshape(1))
@@ -873,15 +897,8 @@ def phase_main_path(gen):
         wv, wi = batch_tops[label]
         if not np.array_equal(i.cpu().numpy(), wi[:, :k]) or tensor_to_numpy(v).tobytes() != wv[:, :k].tobytes():
             fail(f"batched_topk k={k} {label} != per-row oracle")
-        ridx, rok = recovered[(label, k)]
-        nbad = rescued[f"{label} k={k}"]
-        if not np.array_equal(ridx[rok], wi[rok, :k]):
-            fail(f"batched_topk k={k} {label}: the index recovery != per-row oracle on the rows it resolved")
-        if nbad > topk_ops.RESCUE_ROWS:
-            fail(f"batched_topk k={k} {label}: {nbad} rows over the rescue budget; the full fallback answered")
-        print(f"[main] batched_topk k={k} {label} ({BATCH}, {WIDTH}): indices and value bits == per-row oracle; "
-              f"the index recovery's own indices == oracle on the {BATCH - nbad} rows it resolved; "
-              f"rows it rescued: {nbad}")
+        print(f"[main] batched_topk k={k} {label} ({BATCH}, {WIDTH}): indices and value bits == per-row oracle "
+              "on every row")
     if tensor_to_numpy(bmedian).tobytes() != median_want.tobytes():
         fail("batched_median != np.sort per row")
     print(f"[main] batched_median ({BATCH}, {WIDTH}) float32 normal == np.sort per row")
@@ -899,8 +916,7 @@ def phase_main_path(gen):
     print(f"[main] launches over every path {launches}; plain calls 0 on each path")
     if any(v == 0 for v in launches.values()):
         fail(f"a kernel of the main paths never launched: {launches}")
-    notes = {"kselect_many_k64_extra_peak_bytes": extra_peak, "batched_topk_k8_extra_peak_bytes": batched_peak,
-             "batched_rows_rescued": rescued}
+    notes = {"kselect_many_k64_extra_peak_bytes": extra_peak, "batched_topk_k8_extra_peak_bytes": batched_peak}
     # phase 12 checks its served answers against the same oracles
     oracles = {"i32": wants["int32 uniform 2^30"], "f64": wants["float64 normal 2^27"],
                "f64_tops": tops["float64 normal 2^27"]}
@@ -1142,11 +1158,10 @@ def phase_timing(data):
         library[f"tau_counts{bits}"] = lms
         torch.cuda.empty_cache()
 
-    # the batched top-k at (4096, 32768): the block kernel (values) beside
-    # its plain version and torch.topk along the rows (a yardstick: it
-    # orders NaNs otherwise), the index recovery alone, batched_topk end to
-    # end, and batched_median beside torch.kthvalue along the rows
-    from mpi_k_selection_tpu_torch.ops import topk as topk_ops
+    # the batched top-k at (4096, 32768): the block kernel (values and
+    # positions; and its values-only launch) beside its plain version and
+    # torch.topk along the rows (a yardstick: it orders NaNs otherwise),
+    # batched_topk end to end, and batched_median beside torch.kthvalue
     from mpi_k_selection_tpu_torch.ops.cuda import topk as T
 
     xbf = data["batched float32 normal"]
@@ -1154,23 +1169,28 @@ def phase_timing(data):
     for label, x, k in (("float32 k=8", xbf, 8), ("float32 k=16", xbf, 16),
                         ("bfloat16 k=8", data["batched bfloat16 normal"], 8)):
         esz = x.element_size()
-        out_bytes = BATCH * k * esz
-        vals = T.batched_topk_values(x, k)
-        err = batched_err(vals, T.batched_topk_values_plain(x, k), f"batched_topk_values {label}")
-        ms = cuda_ms(lambda: T.batched_topk_values(x, k))
-        pms = cuda_ms(lambda: T.batched_topk_values_plain(x, k), iters=3, warmup=1)
-        b, by = row(f"batched_topk_values {label}", n, esz, ms, f"   plain {pms:.4f} ms",
-                    nbytes=n * esz + out_bytes)
+        nbytes = n * esz + BATCH * k * (esz + 8)  # the read, the values and the int64 positions
+        v, i = T.batched_topk(x, k)
+        want_v, want_i = T.batched_topk_plain(x, k)
+        err = batched_err(v, want_v, f"batched_topk {label}")
+        if not torch.equal(i, want_i):
+            fail(f"batched_topk {label}: kernel positions != plain")
+        ms = cuda_ms(lambda: T.batched_topk(x, k))
+        pms = cuda_ms(lambda: T.batched_topk_plain(x, k), iters=3, warmup=1)
+        b, by = bound(nbytes, n)
+        row(f"batched_topk kernel {label} (values and positions)", n, esz, ms,
+            f"   {b / ms:.0%} of bound; plain {pms:.4f} ms", nbytes=nbytes)
+        vms = cuda_ms(lambda: T.batched_topk_values(x, k))
+        row(f"batched_topk kernel {label} (values only)", n, esz, vms, nbytes=n * esz + BATCH * k * esz)
         tms = cuda_ms(lambda: torch.topk(x, k, dim=-1))
-        row(f"torch.topk(dim=-1) {label}", n, esz, tms, nbytes=n * esz + out_bytes + BATCH * k * 8)
-        print(f"[check] batched_topk_values {label} == plain: max_abs_err {err}")
+        row(f"torch.topk(dim=-1) {label}", n, esz, tms, nbytes=nbytes)
+        print(f"[check] batched_topk {label} == plain: max_abs_err {err}, positions equal")
         if k == 8:
-            kern[f"batched_topk_values{8 * esz}"] = (ms, pms, b, by, err)
-            library[f"batched_topk_values{8 * esz}"] = tms
-        rms = cuda_ms(lambda: topk_ops._block_topk_indices(x, vals, k), iters=5)
-        row(f"index recovery {label}", n, esz, rms, nbytes=n * esz + out_bytes + BATCH * k * 8)
-        ems = cuda_ms(lambda: kt.batched_topk(x, k), iters=5)
-        row(f"batched_topk {label} (values and indices)", n, esz, ems, nbytes=n * esz + out_bytes + BATCH * k * 8)
+            kern[f"batched_topk{8 * esz}"] = (ms, pms, b, by, err)
+            library[f"batched_topk{8 * esz}"] = tms
+        ems = cuda_ms(lambda: kt.batched_topk(x, k), iters=20)
+        row(f"batched_topk {label} (values and indices)", n, esz, ems, nbytes=nbytes)
+        del v, i, want_v, want_i
         torch.cuda.empty_cache()
     mms = cuda_ms(lambda: kt.batched_median(xbf), iters=3)
     row("batched_median float32", n, 4, mms, nbytes=n * 4 + BATCH * 4)
@@ -1189,18 +1209,21 @@ def phase_profile(fn, label: str, call_ms: float, reps: int = 3):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    # device-side events only (kernels, copies): the host ops that launch
-    # them report the same time again
-    dev = [
-        (e.key, e.count // reps, e.self_device_time_total / 1e3 / reps)
-        for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA
-    ]
-    dev = sorted((d for d in dev if d[2] > 0), key=lambda d: -d[2])
+    for _ in range(3):  # a window that recorded no device event is taken again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        # device-side events only (kernels, copies): the host ops that launch
+        # them report the same time again
+        dev = [
+            (e.key, e.count // reps, e.self_device_time_total / 1e3 / reps)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+        ]
+        dev = sorted((d for d in dev if d[2] > 0), key=lambda d: -d[2])
+        if dev:
+            break
     busy = sum(d[2] for d in dev)
     if not dev:
         print(f"[profile] {label}: the profiler saw no device time; breakdown not measured")
@@ -4415,7 +4438,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the card")
     import mpi_k_selection_tpu_torch as kt  # fails here, before any output, outside the repo
-    from mpi_k_selection_tpu_torch.utils.timing import Stopwatch
+    from mpi_k_selection_tpu_torch.utils.timing import Deadline, Stopwatch
 
     torch.cuda.init()
     name = torch.cuda.get_device_name(0)
@@ -4435,10 +4458,21 @@ def main() -> int:
         return main_phase13(smi)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    budget = Deadline.after(BUDGET_S)
+    clock = {}
+
+    def lap(label):  # seconds since the build started, at the end of each phase
+        clock[label] = round(BUDGET_S - budget.remaining(), 1)
+        print(f"[clock] {label}: {clock[label]} s of the {BUDGET_S} s budget")
+
     phase_build()
+    lap("phase 1")
     phase_kernels_vs_plain(gen)
+    lap("phase 2")
     data, launches, per_call, notes, oracles = phase_main_path(gen)
+    lap("phase 3, resident paths")
     rows, kern, library = phase_timing(data)
+    lap("phase 4, resident timings")
 
     def ms_of(what):
         return next(r["ms"] for r in rows if r["what"] == what)
@@ -4446,10 +4480,12 @@ def main() -> int:
     x30 = data["int32 uniform 2^30"]
     del data["batched float32 adversarial"], data["batched bfloat16 adversarial"]
     ints, f64, stream_launches, stream_per_call, stream_notes, certified = phase_streaming()
+    lap("phase 3, streamed paths")
     launches.update(stream_launches)
     per_call.update(stream_per_call)
     notes.update(stream_notes)
     srows, skern, slibrary, stream_ms, resident_fault, sweep_kinds_ms = phase_streaming_timing(ints, f64)
+    lap("phase 4, streamed timings")
     notes["sweep_kinds"] = sweep_kinds_ms
     rows += srows
     kern.update(skern)
@@ -4469,38 +4505,45 @@ def main() -> int:
                       "streaming median depth=2, int32 uniform 2^32",
                       stream_ms["streaming median depth=2, int32 uniform 2^32"], reps=1),
     ]
+    lap("phase 5")
     notes["resident_fault"] = resident_fault
     # phase 7: the ingest pool, the sketches and the monitor on the streams
     p7_launches, p7_per_call, notes["phase7"] = phase_sketch_staging(ints, f64, certified)
     for kname, v in p7_launches.items():
         launches[kname] += v
     per_call.update(p7_per_call)
+    lap("phase 7")
     # phase 8: the spill descent on the int32 stream
     p8_launches, p8_per_call, notes["phase8"] = phase_spill(ints, f64, certified)
     for kname, v in p8_launches.items():
         launches[kname] += v
     per_call.update(p8_per_call)
+    lap("phase 8")
     # phase 9: the width schedule and packed spill records
     p9_launches, p9_per_call, notes["phase9"] = phase_width_pack(ints, f64, certified, notes["phase8"])
     for kname, v in p9_launches.items():
         launches[kname] += v
     per_call.update(p9_per_call)
+    lap("phase 9")
     # phase 10: multi-device staging and the telemetry
     p10_launches, p10_per_call, notes["phase10"] = phase_multidevice_obs(ints, f64, certified, x30)
     for kname, v in p10_launches.items():
         launches[kname] += v
     per_call.update(p10_per_call)
+    lap("phase 10")
     # phase 11: the fault harness and the recovery policies on the spilled descent
     p11_launches, p11_per_call, notes["phase11"] = phase_faults(ints.chunks[:FAULT_CHUNKS])
     for kname, v in p11_launches.items():
         launches[kname] += v
     per_call.update(p11_per_call)
+    lap("phase 11")
     # phase 12: the resident-dataset query server
     p12_launches, p12_per_call, notes["phase12"] = phase_serve(x30, data["float64 normal 2^27"],
                                                                ints.chunks[:FAULT_CHUNKS], oracles=oracles)
     for kname, v in p12_launches.items():
         launches[kname] += v
     per_call.update(p12_per_call)
+    lap("phase 12")
     # phase 13: the analyzer, its contracts on the card, the lock-order sanitizer and 16-bit digits
     p13_clock = Stopwatch()
     with p13_clock.timing():
@@ -4510,11 +4553,14 @@ def main() -> int:
     for kname, v in p13_launches.items():
         launches[kname] += v
     per_call.update(p13_per_call)
+    lap("phase 13")
     # phase 6: the host chunks and the resident data go first (the ranks
     # need the card's memory and the host's for the 8 GiB array)
     del ints, f64, data, x30
     torch.cuda.empty_cache()
     notes["distributed"] = phase_distributed()
+    lap("phase 6")
+    notes["clock_s"] = clock
     for srow in notes["distributed"]["sketches"]:  # rank 0's launches of distributed_sketch
         kname = "sweep_ingest32" if "int32" in srow["what"] else "sweep_ingest64"
         launches[kname] += srow["sweep_launches_per_rank"][0]

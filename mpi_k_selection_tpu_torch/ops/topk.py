@@ -24,12 +24,11 @@ Methods:
 - ``flat``: one top-k over the last axis.
 - ``block`` (2-D ``(B, D)``, largest only, inside
   :func:`~mpi_k_selection_tpu_torch.ops.cuda.topk.batched_topk_supported`):
-  the values from the batched top-k kernel (``csrc/topk.cu``), exact by
-  construction, then the indices by the streaming recovery
-  (:func:`_block_topk_indices`): one pass of per-(row, 128-block) counts
-  beyond and equal to the row's k-th key, rank searches over the blocks,
-  a gather of the <= k blocks per row that hold winners, and a bounded
-  rescue of the rows it cannot resolve.
+  values and positions from one launch of the batched top-k kernel
+  (``csrc/topk.cu``), exact by construction, ties by position. The JAX
+  package recovers the positions after its values kernel, with an ``ok``
+  flag per row and a rescue of the rows it cannot resolve; here nothing
+  is recovered or rescued, so no such flag exists.
 
 Indices are int64, torch's index dtype.
 """
@@ -39,13 +38,12 @@ from __future__ import annotations
 import torch
 
 from mpi_k_selection_tpu_torch.api import as_selection_array
+from mpi_k_selection_tpu_torch.ops.cuda import topk as _block
 from mpi_k_selection_tpu_torch.ops.cuda.histogram import ROW, tau_counts
-from mpi_k_selection_tpu_torch.ops.cuda.topk import batched_topk_supported, batched_topk_values
 from mpi_k_selection_tpu_torch.ops.radix import _Descent, _select_key_on_prep, row_cumsum
 from mpi_k_selection_tpu_torch.utils import dtypes as _dt
 
 METHODS = ("auto", "threshold", "tournament", "chunked", "flat", "block")
-RESCUE_ROWS = 64  # rows the block recovery re-solves one by one; more take a full sort
 
 
 def _signed_keys(x: torch.Tensor, largest: bool) -> torch.Tensor:
@@ -86,7 +84,7 @@ def resolve_topk_method(method: str, shape, k: int, dtype=torch.float32, device=
         raise ValueError(f"unknown topk method {method!r}; choose from {METHODS}")
     if method != "auto":
         return method
-    if torch.device(device).type == "cuda" and largest and batched_topk_supported(shape, dtype, k):
+    if torch.device(device).type == "cuda" and largest and _block.batched_topk_supported(shape, dtype, k):
         return "block"
     d = shape[-1]
     if len(shape) == 1 and d >= 1 << 18 and d >= 64 * k and d < 2**31:
@@ -112,9 +110,7 @@ def topk(x, k: int, *, largest: bool = True, method: str = "auto", num_chunks: i
     if method == "block":
         if x.dim() != 2 or not largest:
             raise ValueError("block method applies to 2-D inputs, largest=True")
-        x = x.contiguous()
-        values = batched_topk_values(x, k)
-        return values, _block_topk_indices(x, values, k)
+        return _block.batched_topk(x.contiguous(), k)
     if method in ("threshold", "tournament"):
         if x.dim() != 1:
             raise ValueError(f"{method} method applies to 1-D inputs")
@@ -136,82 +132,6 @@ def topk(x, k: int, *, largest: bool = True, method: str = "auto", num_chunks: i
         kv, pos = _sorted_topk(subvals.reshape(*keys.shape[:-1], -1), k)
         idx = cand_idx.gather(-1, pos)
     return _decode_keys(kv, x.dtype, largest), idx
-
-
-def _block_topk_indices_from_values(x: torch.Tensor, values: torch.Tensor, k: int):
-    """Per-row indices pairing the block kernel's sorted ``values`` (B, k)
-    with their positions in ``x`` (B, D): ``(idx (B, k) int64, ok (B,)
-    bool)``.
-
-    With the row's k-th key ``tau`` known, one pass over ``x`` gives the
-    per-(row, 128-block) counts of keys beyond and equal to tau; running
-    sums over the ``D / 128`` blocks route output slot j to its block (strict
-    winners fill the slots ``j < g``, ties of tau the rest, each by
-    position) and to its rank within that block; one ``(B, k, 128)``
-    gather of raw blocks finds each slot's element. All comparisons are in
-    key space (``-0.0 < +0.0``). The slots are then ordered by (key
-    descending, position ascending), ``lax.top_k``'s rule, by pairwise
-    ranks and a scatter over the k axis.
-
-    ``ok`` requires every slot found, no NaN among ``values`` and a strict
-    count g <= k-1, the JAX package's guards; rows failing them take the
-    caller's rescue. Peak memory is about two (B, D) key tensors: the key
-    transform and its comparisons are separate passes here."""
-    b, d = x.shape
-    nb = d // ROW
-    bits = _dt.key_bits(x.dtype)
-    dev = x.device
-    tb = _dt.order_bias(_dt.to_sortable_bits(values[:, k - 1]), bits)[:, None, None]
-    kb = _dt.order_bias(_dt.to_sortable_bits(x.reshape(b, nb, ROW)), bits)
-    ogt = row_cumsum((kb > tb).sum(2, dtype=torch.int32))  # (B, nb) running counts
-    oeq = row_cumsum((kb == tb).sum(2, dtype=torch.int32))
-    del kb
-    g = ogt[:, -1:]  # strict winners; <= k-1 for an exact tau
-    j = torch.arange(k, device=dev)
-    strict = j < g  # (B, k): slot j takes a strict winner, else a tie of tau
-    target = torch.where(strict, j + 1, j - g + 1)  # 1-based rank sought
-    blk = torch.where(strict, torch.searchsorted(ogt, target), torch.searchsorted(oeq, target))
-    blk = blk.clamp_(0, nb - 1)
-    bm1 = (blk - 1).clamp(min=0)
-    prev = torch.where(blk > 0, torch.where(strict, ogt.gather(1, bm1), oeq.gather(1, bm1)), 0)
-    r = target - prev  # 1-based rank within the block (<= k)
-    raw = _dt.bit_view(x).reshape(b, nb, ROW).gather(1, blk[..., None].expand(b, k, ROW))
-    ub = _dt.order_bias(_dt.to_sortable_bits(raw.view(x.dtype)), bits)  # (B, k, 128)
-    m = torch.where(strict[..., None], ub > tb, ub == tb)
-    hit = m & (torch.cumsum(m, 2) == r[..., None])  # one-hot along the block, or empty
-    found = hit.any(2)
-    local = hit.to(torch.int32).argmax(2)  # the first hit, 0 when none
-    idx = blk * ROW + local  # strict winners, then ties, each by position
-    # each slot's key, the minimum (unsigned 0) where nothing was found
-    least = torch.iinfo(ub.dtype).min if bits >= 32 else 0
-    wk = torch.where(found, ub.gather(2, local[..., None])[..., 0], least)
-    wi, wj = wk[:, :, None], wk[:, None, :]
-    ti = j[:, None]
-    beats = (wj > wi) | ((wj == wi) & (ti > j))  # [b, i, j]: slot j outranks slot i
-    rank = beats.sum(2)  # a permutation of 0..k-1 per row
-    idx = torch.empty_like(idx).scatter_(1, rank, idx)
-    # the JAX package's guards, kept so ``ok`` equals its: on this kernel's
-    # values (the input's own bits) only the NaN guard can fire
-    ok = found.all(1) & ~torch.isnan(values).any(1) & (g[:, 0] <= k - 1)
-    return idx, ok
-
-
-def _block_topk_indices(x: torch.Tensor, values: torch.Tensor, k: int) -> torch.Tensor:
-    """Index half of ``method="block"``: :func:`_block_topk_indices_from_values`,
-    then the rows it could not resolve re-solved exactly by a stable sort
-    of their signed keys. One host read of the bad-row count decides: no
-    row, up to :data:`RESCUE_ROWS` gathered rows, or every row (the JAX
-    package's ``lax.cond`` full fallback)."""
-    idx, ok = _block_topk_indices_from_values(x, values, k)
-    bad = ~ok
-    nbad = int(bad.sum())
-    if nbad == 0:
-        return idx
-    if nbad > RESCUE_ROWS:
-        return _sorted_topk(_signed_keys(x, True), k)[1]
-    rows = bad.nonzero()[:, 0]
-    idx[rows] = _sorted_topk(_signed_keys(x[rows], True), k)[1]
-    return idx
 
 
 def _threshold_topk_indices(x: torch.Tensor, k: int, largest: bool) -> torch.Tensor:

@@ -163,7 +163,7 @@ DISPATCH_CALLS = frozenset(
         "match_counts",
         "tau_counts",
         "sweep_ingest",
-        "batched_topk_values",
+        "batched_topk",
     }
 )
 #: Calls that take the resolved device tuple via ``devices=`` and thread it

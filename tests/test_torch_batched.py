@@ -2,12 +2,11 @@
 (``batched_kselect`` / ``batched_median``) against the JAX package and
 NumPy.
 
-Values are compared as bit patterns and indices (and the recovery's ``ok``
-flags) exactly: no tolerance. The JAX package's
-``pallas_batched_topk_values`` runs in interpret mode at ``(128, 4096)``,
-the smallest shapes inside its envelope; each distinct call compiles for
-seconds, so the fixtures share a few arrays. The ``gpu`` tests hold the
-kernel against its plain version on the card:
+Values are compared as bit patterns and indices exactly: no tolerance.
+The JAX package's ``pallas_batched_topk_values`` runs in interpret mode at
+``(128, 4096)``, the smallest shapes inside its envelope; each distinct
+call compiles for seconds, so the fixtures share a few arrays. The ``gpu``
+tests hold the kernel against its plain version on the card:
 
     python -m pytest --noconftest tests/test_torch_*.py -m gpu
 """
@@ -142,13 +141,32 @@ def test_plain_values_match_jax_kernel_fallback():
     np.testing.assert_array_equal(bits(want), bits(np.sort(x, axis=1)[:, ::-1][:, :8]))
 
 
-# --- the index recovery against the JAX package's ----------------------------
+# --- values and positions against the JAX package's --------------------------
+
+
+def tie_bank(k, rows=64, seed=7):
+    """``(rows, 4096)`` float32 normal rows whose equal keys straddle the
+    CUDA kernel's lanes and loads: in each row 50.0 at 24 positions, then
+    60.0 at ``k // 3`` of them, drawn from the first 256 elements of blocks
+    0, 1, 5 and 12 of 256 (float32: 4 elements a lane, loads 0-1, 2-3, 10-11
+    and 24-25 of all 32 lanes; bfloat16: 8 a lane, loads 0, 1, 5 and 12).
+    The top k takes the 60s and then the earliest 50s, spread over lanes:
+    a merge that broke ties by lane, not position, would differ."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((rows, D)).astype(np.float32)
+    span = (256 * np.array([0, 1, 5, 12])[:, None] + np.arange(256)).ravel()
+    for r in range(rows):
+        cols = rng.choice(span, size=24, replace=False)
+        x[r, cols] = 50.0
+        x[r, cols[: k // 3]] = 60.0
+    x[0, span[:24]] = 50.0  # one row of 24 consecutive ties: lanes 0-5 of load 0
+    return x
 
 
 def recovery_cases():
     """The cases of the JAX package's recovery tests
-    (``tests/test_pallas_topk.py``), each ``(x, k)`` at (64, 4096), and
-    the fixture bank."""
+    (``tests/test_pallas_topk.py``), each ``(x, k)`` at (64, 4096), the
+    fixture bank, and ties across lanes and loads (:func:`tie_bank`)."""
     rng = np.random.default_rng(5)
     b = 64
     c = {"random": (rng.standard_normal((b, D)).astype(np.float32), 8)}
@@ -182,6 +200,9 @@ def recovery_cases():
     c["nan-all"] = (xall, 8)
     c["bank"] = (bank(16), 16)
     c["bank-bf16"] = (bank(8).astype(numpy_dtype("bfloat16")), 8)
+    c["ties-lanes"] = (tie_bank(16), 16)
+    c["ties-lanes-k8"] = (tie_bank(8, seed=8), 8)
+    c["ties-lanes-bf16"] = (tie_bank(16, seed=9).astype(numpy_dtype("bfloat16")), 16)
     return c
 
 
@@ -189,30 +210,31 @@ RECOVERY = recovery_cases()
 
 
 @pytest.mark.parametrize("name", list(RECOVERY))
-def test_block_recovery_matches_jax(name, monkeypatch):
+def test_block_topk_matches_jax(name):
+    """``batched_topk_plain`` and ``topk(method="block")`` (on the CPU,
+    through the plain version) against ``lax.top_k`` and the JAX package's
+    index recovery on ``lax.top_k``'s values: indices exactly, values as
+    bits. The port has no recovery: its kernel returns the positions."""
     import jax
     import jax.numpy as jnp
 
     from mpi_k_selection_tpu.ops.topk import _block_topk_indices as ref_indices
-    from mpi_k_selection_tpu.ops.topk import _block_topk_indices_from_values as ref_from_values
 
     x, k = RECOVERY[name]
     xj = jnp.asarray(x)
-    v, refidx = jax.lax.top_k(xj, k)
-    ridx, rok = ref_from_values(xj, v, k)
+    rv, ri = jax.lax.top_k(xj, k)
+    rv, ri, rec = np.asarray(rv), np.asarray(ri), np.asarray(ref_indices(xj, rv, k))
+    np.testing.assert_array_equal(rec, ri)
     xt = tensor_from_numpy(x, "cpu")
-    vt = tensor_from_numpy(np.array(v), "cpu")
-    idx, ok = T._block_topk_indices_from_values(xt, vt, k)
-    np.testing.assert_array_equal(idx.numpy(), np.asarray(ridx))
-    np.testing.assert_array_equal(ok.numpy(), np.asarray(rok))
-    full = T._block_topk_indices(xt, vt, k).numpy()
-    np.testing.assert_array_equal(full, np.asarray(refidx))
-    np.testing.assert_array_equal(full, np.asarray(ref_indices(xj, v, k)))
-    np.testing.assert_array_equal(full, batched_topk_oracle(x, k)[1])
-    if name == "nan-all":  # every row bad, over a budget of 4: the full fallback
-        assert not ok.any()
-        monkeypatch.setattr(T, "RESCUE_ROWS", 4)
-        np.testing.assert_array_equal(T._block_topk_indices(xt, vt, k).numpy(), np.asarray(refidx))
+    K.reset_counts()
+    pv, pi = K.batched_topk_plain(xt, k)
+    v, i = kt.topk(xt, k, method="block")
+    assert K.PLAIN_CALLS["batched_topk"] == 1 and not any(K.LAUNCHES.values())
+    for gv, gi in ((pv, pi), (v, i)):
+        assert gi.dtype == torch.int64 and gv.dtype == xt.dtype
+        np.testing.assert_array_equal(gi.numpy(), ri)
+        np.testing.assert_array_equal(bits(tensor_to_numpy(gv)), bits(rv))
+    np.testing.assert_array_equal(i.numpy(), batched_topk_oracle(x, k)[1])
 
 
 # --- topk(method="block") --------------------------------------------------------
@@ -227,7 +249,7 @@ def test_topk_block_matches_jax_topk_block():
     rv, ri = ref_topk(jnp.asarray(x), 8, method="block")
     K.reset_counts()
     v, i = kt.topk(tensor_from_numpy(x, "cpu"), 8, method="block")
-    assert K.PLAIN_CALLS["batched_topk_values"] == 1
+    assert K.PLAIN_CALLS["batched_topk"] == 1
     assert i.dtype == torch.int64
     np.testing.assert_array_equal(i.numpy(), np.asarray(ri))
     np.testing.assert_array_equal(bits(tensor_to_numpy(v)), bits(np.asarray(rv)))
@@ -470,13 +492,19 @@ def test_cli_batch_needs_topk():
 @pytest.mark.parametrize("dtype,k", [("float32", 1), ("float32", 8), ("float32", 9), ("float32", 16),
                                      ("bfloat16", 8), ("bfloat16", 16)])
 def test_block_kernel_matches_plain_on_card(cuda_device, dtype, k):
-    for x in (bank(k), np.random.default_rng(k).standard_normal((1024, 8192)).astype(np.float32)):
+    """The kernel's pair launch and its values-only launch against the
+    plain version: values as bits, positions exactly."""
+    bits_ = 16 if dtype == "bfloat16" else 32
+    iv = torch.int16 if dtype == "bfloat16" else torch.int32
+    for x in (bank(k), np.random.default_rng(k).standard_normal((1024, 8192)).astype(np.float32), tie_bank(k)):
         xd = tensor_from_numpy(x.astype(numpy_dtype(dtype)), cuda_device)
+        want_v, want_i = K.batched_topk_plain(xd, k)
         K.reset_counts()
-        got = K.batched_topk_values(xd, k)
-        assert K.LAUNCHES[f"batched_topk_values{8 * xd.element_size()}"] == 1
-        iv = torch.int16 if dtype == "bfloat16" else torch.int32
-        assert torch.equal(got.view(iv), K.batched_topk_values_plain(xd, k).view(iv))
+        v, i = K.batched_topk(xd, k)
+        vo = K.batched_topk_values(xd, k)
+        assert {n: c for n, c in K.LAUNCHES.items() if c} == {f"batched_topk{bits_}": 1, f"batched_topk_values{bits_}": 1}
+        assert i.dtype == torch.int64 and torch.equal(i, want_i)
+        assert torch.equal(v.view(iv), want_v.view(iv)) and torch.equal(vo.view(iv), want_v.view(iv))
 
 
 @pytest.mark.gpu
@@ -485,7 +513,7 @@ def test_block_topk_on_card_matches_numpy(cuda_device, dtype, k):
     x = bank(k).astype(numpy_dtype(dtype))
     K.reset_counts()
     v, i = kt.batched_topk(tensor_from_numpy(x, cuda_device), k)  # auto: block
-    assert K.LAUNCHES[f"batched_topk_values{16 if dtype == 'bfloat16' else 32}"] == 1
+    assert {n: c for n, c in K.LAUNCHES.items() if c} == {f"batched_topk{16 if dtype == 'bfloat16' else 32}": 1}
     assert not any(K.PLAIN_CALLS.values())
     wv, wi = batched_topk_oracle(x, k)
     np.testing.assert_array_equal(i.cpu().numpy(), wi)
