@@ -58,10 +58,12 @@ Phases, each of which must pass (any failure exits non-zero):
    halved when the host has less than 48 GiB free) at k in {1, 250, N/2,
    N}, at depth 2 and 0; ``kselect_streaming_many`` at the p50/p90/p99/
    p99.9 ranks; the median of 2^30 float64 ``normal`` (32 chunks of 2^25);
-   ``streaming_rank_certificate`` of each answer. Each answer passes
-   NumPy's certificate over the host chunks (sum of #(key < v) < k <= sum
-   of #(key <= v), in key space) and each streamed certificate equals it;
-   the device's peak stays within depth + 1 staged chunks plus the collect
+   ``streaming_rank_certificate`` of each answer; the int32 median again
+   with ``ingest_workers=4`` (the pooled host data plane), the same bits.
+   Each answer passes NumPy's certificate over the host chunks (sum of
+   #(key < v) < k <= sum of #(key <= v), in key space) and each streamed
+   certificate equals it; the device's peak stays within depth + 1 staged
+   chunks (depth + 1 + W with W > 1 ingest workers) plus the collect
    buffers. Every kernel must have launched over the paths.
 4. Time on the card with CUDA events (warm), each time beside its bound
    (the larger of the bytes the work must move at 3.35 TB/s and its
@@ -256,6 +258,18 @@ Phases, each of which must pass (any failure exits non-zero):
    16-bit route (the top digit, one prefix, K=4 and 64 prefixes) against
    the plain version. ``python3 chip_smoke.py --phase13`` runs the build
    and phase 13 alone.
+14. The pooled host data plane and spill decode (``phase_ingest_pool``;
+   after phase 13 and before phase 6), on the int32 stream's first quarter
+   (phase 11's 16 chunks of 2^26), at ``ingest_workers`` 1 and 4: the
+   one-shot spilled median with ``pack_spill="auto"`` into a store of the
+   script's, then ``streaming_rank_certificate`` from the packed store it
+   keeps, each under the profiler with a PhaseTimer: the answers the same
+   bits at both widths and NumPy's certificate, every generation's files
+   byte-identical across the widths, the sweep kernel alone launched, no
+   ``ksel-ingest-*`` thread left; wall ms, ``pass_host_ms``, ``HOST_COPY``,
+   the idle share, ``ingest_hidden_frac``, ``encode_hidden_frac`` and the
+   peak device memory of each. ``python3 chip_smoke.py --phase14`` runs the
+   build, the stream's first quarter and phase 14 alone.
 
 The timed kernel rows of phase 4 also time the nearest torch composition
 of each of rows 1-6 on the same tensor (a ``torch.bincount`` of the digits
@@ -1248,6 +1262,15 @@ class Replay:
         return iter(self.chunks)
 
 
+POOL_WIDTHS = (1, 4)  # phases 3 and 14: the one producer, and the pooled host data plane's width
+
+
+def staged_bound(depth: int, window: int, workers: int) -> int:
+    """Staged chunks a pipelined pass holds at most (streaming/pipeline.py):
+    ``depth + window``, and one more a worker of a pooled plane."""
+    return depth + window + (workers if workers > 1 else 0)
+
+
 def free_host_gib() -> int:
     """The host's available memory, GiB (``free -g``)."""
     out = subprocess.run(["free", "-g"], capture_output=True, text=True, timeout=60, check=True).stdout
@@ -1304,6 +1327,7 @@ def phase_streaming():
     from mpi_k_selection_tpu_torch.ops.cuda import histogram as H
     from mpi_k_selection_tpu_torch.ops.cuda import sweep_ingest as S
     from mpi_k_selection_tpu_torch.ops.cuda import topk as T
+    from mpi_k_selection_tpu_torch.utils.timing import time_fn
 
     free = free_host_gib()
     scale = 1 if free >= HOST_GIB_NEEDED else 2
@@ -1318,13 +1342,13 @@ def phase_streaming():
     launches = {"sweep_ingest32": 0, "sweep_ingest64": 0}
     per_call, peaks = {}, {}
 
-    def counted(what, fn, src, bits, depth, buffers):
+    def counted(what, fn, src, bits, depth, buffers, workers=1):
         """Drives one streamed call with every count at 0 just before it;
         fails unless the sweep kernel launched once per chunk per pass (the
         passes counted at the source), nothing else launched, no plain
         version ran, and the device's peak above the resident data stays
-        within depth + 1 staged chunks plus ``buffers`` chunk-sized collect
-        buffers and 64 MiB."""
+        within the staged chunks of :func:`staged_bound` plus ``buffers``
+        chunk-sized collect buffers and 64 MiB."""
         for m in (H, T, S):
             m.reset_counts()
         src.passes = 0
@@ -1342,12 +1366,13 @@ def phase_streaming():
             fail(f"{what}: launches {got} for {src.passes} passes of {len(src.chunks)} chunks; "
                  f"other kernels {others}; plain calls {plain}")
         chunk_bytes = src.chunks[0].nbytes
-        limit = (depth + 1 + buffers) * chunk_bytes + (64 << 20)
+        staged = staged_bound(depth, 1, workers)
+        limit = (staged + buffers) * chunk_bytes + (64 << 20)
         if peak > limit:
             fail(f"{what}: peak device memory {peak} bytes over the staging window {limit}")
         print(f"[stream] {what}: {src.passes} passes x {len(src.chunks)} chunks = {want} launches of "
               f"sweep_ingest{bits}, no plain call; peak device memory {peak / 2**20:.1f} MiB "
-              f"(limit {limit / 2**20:.1f} MiB: {depth} + 1 staged chunks and {buffers} collect buffers "
+              f"(limit {limit / 2**20:.1f} MiB: {staged} staged chunks and {buffers} collect buffers "
               f"of {chunk_bytes / 2**20:.0f} MiB, and 64 MiB)")
         for kn in launches:
             launches[kn] += got[kn]
@@ -1365,6 +1390,13 @@ def phase_streaming():
     for k in ranks:
         if answers[(k, 2)].tobytes() != answers[(k, 0)].tobytes():
             fail(f"kselect_streaming k={k}: depth 2 {answers[(k, 2)]!r} != depth 0 {answers[(k, 0)]!r}")
+    what = f"kselect_streaming k={n32 // 2} depth=2 ingest_workers={POOL_WIDTHS[-1]}, int32 uniform 2^32"
+    secs, pooled = time_fn(lambda: counted(what, lambda: kt.kselect_streaming(
+        ints, n32 // 2, pipeline_depth=2, ingest_workers=POOL_WIDTHS[-1]), ints, 32, 2, 1, workers=POOL_WIDTHS[-1]))
+    if pooled.tobytes() != answers[(n32 // 2, 2)].tobytes():
+        fail(f"kselect_streaming median: ingest_workers={POOL_WIDTHS[-1]} {pooled!r} != one producer "
+             f"{answers[(n32 // 2, 2)]!r}")
+    print(f"[stream] {what}: {secs * 1e3:.1f} ms (one call; phase 4 times the one producer's)")
     qranks = api.quantile_ranks(QS, n32)
     qans = counted("kselect_streaming_many p50/p90/p99/p99.9 depth=2, int32 uniform 2^32",
                    lambda: kt.kselect_streaming_many(ints, qranks, pipeline_depth=2), ints, 32, 2, len(QS))
@@ -1388,7 +1420,7 @@ def phase_streaming():
     if launches["sweep_ingest32"] == 0 or launches["sweep_ingest64"] == 0:
         fail(f"a sweep kernel never launched on the streamed paths: {launches}")
     notes = {"stream_peaks": {k: {"peak_bytes": p, "limit_bytes": lim} for k, (p, lim) in peaks.items()},
-             "stream_answers": {str(k): repr(v) for k, v in answers.items()}}
+             "stream_answers": {str(k): repr(v) for k, v in answers.items()}, "stream_pooled_median_ms": secs * 1e3}
     certified = {"median32": answers[(n32 // 2, 2)], "qranks": qranks, "quantiles32": qans, "median64": fmed,
                  "median32_certificate": np_certs[(32, n32 // 2)],
                  "median_passes": per_call[f"kselect_streaming k={n32 // 2} depth=2, int32 uniform 2^32"]
@@ -1552,8 +1584,8 @@ def host_copy_probe(chunks) -> list:
     host-to-card link idle, then with it busy (a thread copying a pinned
     chunk to the card back to back on a stream of its own, as the staging
     does). Per-copy ms, the aggregate host-copy rate, and the link's rate
-    while the copies ran: what a pool of ingest workers (not ported) could
-    gain on this host."""
+    while the copies ran: what the pooled host data plane's workers
+    (``ingest_workers`` > 1, phase 14) can gain on this host's copies."""
     import threading
     from concurrent.futures import ThreadPoolExecutor
 
@@ -4344,6 +4376,165 @@ def phase_analysis(x30: torch.Tensor, chunks, want_i32=None, device: str = "cuda
     return launches, per_call, notes
 
 
+def generation_digests(root: str) -> dict:
+    """``{gen dir/record file: blake2b digest}`` of every generation file of
+    the store at ``root``, read on 8 threads (hashlib releases the GIL)."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    paths = sorted(glob.glob(os.path.join(root, "gen-*", "*")))
+
+    def digest(path):
+        with open(path, "rb") as f:
+            return hashlib.blake2b(f.read(), digest_size=16).hexdigest()
+
+    with ThreadPoolExecutor(8) as pool:
+        return {os.path.relpath(p, root): d for p, d in zip(paths, pool.map(digest, paths))}
+
+
+def phase_ingest_pool(chunks, device: str = "cuda"):
+    """Phase 14, the pooled host data plane and spill decode (this slice's
+    paths), on ``chunks`` (the int32 stream's first quarter), at each
+    ``ingest_workers`` of :data:`POOL_WIDTHS`, each call driven with the
+    launch counts set to 0 just before it and read just after:
+
+    - the one-shot spilled median (a generator of the chunks, ``spill=`` a
+      store of the script's that keeps every generation, ``pack_spill=
+      "auto"``);
+    - ``streaming_rank_certificate`` of that answer from the packed store
+      (its generation 0, the later ones dropped once hashed; decoded on
+      the pool at width > 1).
+
+    Each call runs under the profiler with a PhaseTimer: wall ms, the
+    device's idle share, ``pass_host_ms`` (the certificate's record work),
+    ``HOST_COPY``, ``ingest_hidden_frac``, ``encode_hidden_frac``, the
+    phases and the peak device memory. Fails unless the sweep kernel alone
+    launched (at least once a pass; once a record for the certificate), no
+    plain version ran, the widths' answers and certificates are the same
+    bits and NumPy's certificate, every generation file is byte-identical
+    across the widths, and no ``ksel-ingest-*`` thread or staged chunk is
+    left."""
+    import shutil
+    import tempfile
+    import threading
+
+    import mpi_k_selection_tpu_torch as kt
+    from mpi_k_selection_tpu_torch.ops.cuda import histogram as H
+    from mpi_k_selection_tpu_torch.ops.cuda import sweep_ingest as S
+    from mpi_k_selection_tpu_torch.ops.cuda import topk as T
+    from mpi_k_selection_tpu_torch.streaming import pipeline as pl
+    from mpi_k_selection_tpu_torch.streaming import spill as sp
+    from mpi_k_selection_tpu_torch.utils.profiling import PhaseTimer
+
+    on_card = device == "cuda"
+    n = len(chunks) * chunks[0].size
+    k = n // 2
+    launches = {"sweep_ingest32": 0, "sweep_ingest64": 0}
+    per_call, out = {}, {"calls": {}, "widths": list(POOL_WIDTHS)}
+    root = tempfile.mkdtemp(prefix="chip-smoke-pool-root-", dir=tempfile.gettempdir())
+    answers, certs, digests = {}, {}, {}
+    staged = pl.live_staged_keys()  # chunks earlier phases staged by hand and still hold
+
+    def counted(what, fn, passes_fn, exact=None):
+        """One call with every count at 0 just before it; fails unless the
+        int32 sweep kernel launched (at least once a pass ``passes_fn()``
+        counts, or ``exact`` times) and nothing else ran."""
+        for m in (H, T, S):
+            m.reset_counts()
+        pl.HOST_COPY.reset()
+        if on_card:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        res = profiled_call(fn) if on_card else (fn(), None, None, None, [])
+        peak = torch.cuda.max_memory_allocated() - base if on_card else None
+        got = S.LAUNCHES["sweep_ingest32"] if on_card else S.PLAIN_CALLS["sweep_ingest"]
+        passes = passes_fn()
+        others = {kn: v for kn, v in {**H.LAUNCHES, **T.LAUNCHES, "sweep_ingest64": S.LAUNCHES["sweep_ingest64"]}.items()
+                  if v}
+        plain = {kn: v for kn, v in {**H.PLAIN_CALLS, **T.PLAIN_CALLS, **S.PLAIN_CALLS}.items() if v}
+        if (got != exact if exact is not None else got < max(1, passes)) or others or (on_card and plain):
+            fail(f"{what}: {got} launches of sweep_ingest32 over {passes} passes (want {exact or 'one a pass'}); "
+                 f"other kernels {others}; plain calls {plain}")
+        if on_card:
+            launches["sweep_ingest32"] += got
+            per_call[what] = {"sweep_ingest32": got}
+        return (*res, peak, got)
+
+    try:
+        for w in POOL_WIDTHS:
+            store = kt.SpillStore(root)
+            store.drop_generation = lambda gen: None  # every generation stays, to be compared across widths
+            timer = PhaseTimer()
+            what = f"streaming median one-shot spill=store pack_spill=auto ingest_workers={w}, int32 uniform {n}"
+            got, ms, busy, idle, top, peak, nl = counted(what, lambda: kt.kselect_streaming(
+                (c for c in chunks), k, spill=store, pack_spill="auto", ingest_workers=w, timer=timer,
+                device=device), lambda: len(store.pass_log))
+            answers[w] = got
+            digests[w] = generation_digests(store.root)
+            for idx in sorted(store.generations)[1:]:  # the store keeps generation 0, as a caller's store does
+                kt.SpillStore.drop_generation(store, store.generations[idx])
+            rec = {"ms": ms, "busy_ms": busy, "idle_share": idle, "answer": repr(got), "launches": nl,
+                   "pass_host_ms": list(store.pass_host_ms), "host_copy_s": pl.HOST_COPY.seconds,
+                   "host_copy_count": pl.HOST_COPY.count, "ingest_hidden_frac": pl.ingest_hidden_frac(timer),
+                   "encode_hidden_frac": pl.encode_hidden_frac(timer), "phases": timer.as_dict(),
+                   "peak_device_bytes": peak, "generation0_bytes": store.generations[0].nbytes}
+            out["calls"][what] = rec
+            print(f"[pool] {what}: {got!r}; {'not measured' if ms is None else f'{ms:.1f} ms'}; idle share "
+                  + ("not measured" if idle is None else f"{idle:.3f}")
+                  + f"; host copy {rec['host_copy_s'] * 1e3:.1f} ms in {rec['host_copy_count']} copies; "
+                  f"ingest_hidden_frac {rec['ingest_hidden_frac']}, encode_hidden_frac {rec['encode_hidden_frac']}; "
+                  f"peak device memory {peak if peak is None else f'{peak / 2**20:.1f} MiB'}")
+            for h in store.pass_host_ms:
+                print(f"[pool]   pass {h['pass']}: host ms " + ", ".join(
+                    f"{key[:-3]} {h[key]:.1f}" for key in ("prepare_ms", "write_ms", "read_ms")))
+            print(f"[pool]   phases (summed over threads): " + ", ".join(
+                f"{name} {d['seconds'] * 1e3:.1f} ms ({d['calls']}x)" for name, d in sorted(timer.as_dict().items())))
+            timer = PhaseTimer()
+            marks = {name: sw.seconds for name, sw in sp.HOST_TIMES.items()}
+            what = f"streaming_rank_certificate(packed store) ingest_workers={w}, int32 uniform {n}"
+            records = len(store.generations[0].records)
+            cert, ms, busy, idle, top, peak, nl = counted(what, lambda: kt.streaming_rank_certificate(
+                store, got, ingest_workers=w, timer=timer, device=device), lambda: 1, exact=records)
+            certs[w] = tuple(cert)
+            host = {f"{name}_ms": (sw.seconds - marks[name]) * 1e3 for name, sw in sp.HOST_TIMES.items()}
+            out["calls"][what] = {"ms": ms, "busy_ms": busy, "idle_share": idle, "certificate": list(cert),
+                                  "launches": nl, "host_ms": host, "host_copy_s": pl.HOST_COPY.seconds,
+                                  "host_copy_count": pl.HOST_COPY.count,
+                                  "ingest_hidden_frac": pl.ingest_hidden_frac(timer),
+                                  "encode_hidden_frac": pl.encode_hidden_frac(timer), "phases": timer.as_dict(),
+                                  "peak_device_bytes": peak}
+            print(f"[pool] {what}: {cert}; {'not measured' if ms is None else f'{ms:.1f} ms'}; idle share "
+                  + ("not measured" if idle is None else f"{idle:.3f}")
+                  + f"; host ms {({kk: round(v, 1) for kk, v in host.items()})}; host copy "
+                  f"{pl.HOST_COPY.seconds * 1e3:.1f} ms in {pl.HOST_COPY.count} copies; ingest_hidden_frac "
+                  f"{out['calls'][what]['ingest_hidden_frac']}, encode_hidden_frac "
+                  f"{out['calls'][what]['encode_hidden_frac']}")
+            store.close()
+            left = [t.name for t in threading.enumerate() if t.name.startswith(pl.INGEST_THREAD_PREFIX)]
+            if left or pl.live_staged_keys() != staged:
+                fail(f"ingest_workers={w}: threads {left} and {pl.live_staged_keys() - staged} staged chunks left")
+        first, last = POOL_WIDTHS[0], POOL_WIDTHS[-1]
+        if answers[first].tobytes() != answers[last].tobytes() or certs[first] != certs[last]:
+            fail(f"ingest_workers {first} and {last}: answers {answers[first]!r} / {answers[last]!r}, "
+                 f"certificates {certs[first]} / {certs[last]}")
+        want = np_certificates(chunks, [answers[first]])[0]
+        if certs[first] != want or not want[0] < k <= want[1]:
+            fail(f"the pooled phase's certificate {certs[first]} != NumPy's {want} (k = {k})")
+        if not digests[first] or digests[first] != digests[last]:
+            diff = sorted(set(digests[first].items()) ^ set(digests[last].items()))[:4]
+            fail(f"generation files differ across ingest_workers {first} and {last}: {diff}")
+        out["generation_files"] = len(digests[first])
+        out["numpy_certificate"] = list(want)
+        print(f"[pool] answers and certificates the same bits at ingest_workers {list(POOL_WIDTHS)}, NumPy's "
+              f"certificate {want}; {len(digests[first])} generation files byte-identical across the widths")
+        if glob.glob(os.path.join(root, "ksel-spill-*")):
+            fail(f"a spill store outlived phase 14: {os.listdir(root)}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches, per_call, out
+
+
 def main_phase13(smi: str) -> int:
     """``python3 chip_smoke.py --phase13``: phase 13 alone (the build, the
     2^30 int32 array of phase 3, the int32 stream's first quarter, then
@@ -4434,6 +4625,27 @@ def main_phase12(smi: str) -> int:
     return 0
 
 
+def main_phase14(smi: str) -> int:
+    """``python3 chip_smoke.py --phase14``: phase 14 alone (the build, the
+    int32 stream's first quarter, then phase 14)."""
+    from mpi_k_selection_tpu_torch.utils.timing import Stopwatch
+
+    phase_build()
+    chunks = make_chunks(FAULT_CHUNKS, STREAM_CHUNK, "uniform", np.int32)
+    clock = Stopwatch()
+    with clock.timing():
+        launches, _, notes = phase_ingest_pool(chunks)
+    notes["seconds"] = clock.seconds
+    print(f"[phase14] {clock.seconds:.1f} s")
+    print(json.dumps({"phase14": notes, "launches": launches}, default=str))
+    print(smi)
+    print(json.dumps({
+        "ok": True,
+        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},
+    }))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the card")
@@ -4456,6 +4668,8 @@ def main() -> int:
         return main_phase12(smi)
     if sys.argv[1:] == ["--phase13"]:
         return main_phase13(smi)
+    if sys.argv[1:] == ["--phase14"]:
+        return main_phase14(smi)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     budget = Deadline.after(BUDGET_S)
@@ -4554,6 +4768,16 @@ def main() -> int:
         launches[kname] += v
     per_call.update(p13_per_call)
     lap("phase 13")
+    # phase 14: the pooled host data plane and spill decode, W = 1 beside W = 4
+    p14_clock = Stopwatch()
+    with p14_clock.timing():
+        p14_launches, p14_per_call, notes["phase14"] = phase_ingest_pool(ints.chunks[:FAULT_CHUNKS])
+    notes["phase14"]["seconds"] = p14_clock.seconds
+    print(f"[phase14] {p14_clock.seconds:.1f} s")
+    for kname, v in p14_launches.items():
+        launches[kname] += v
+    per_call.update(p14_per_call)
+    lap("phase 14")
     # phase 6: the host chunks and the resident data go first (the ranks
     # need the card's memory and the host's for the 8 GiB array)
     del ints, f64, data, x30

@@ -217,8 +217,8 @@ class StreamingQuantiles:
     answers (``refine_quantiles``).
 
     ``pipeline_depth`` governs the staging of ``update_stream`` and of
-    the refinement passes (streaming/pipeline.py; ``ingest_workers`` is
-    checked only), and ``device`` where they count (default
+    the refinement passes (streaming/pipeline.py; ``ingest_workers`` > 1
+    runs their pooled host data plane), and ``device`` where they count (default
     ``"cuda"``; ``"cpu"`` runs the kernel's plain version); ``devices``
     spreads that ingest over cards (streaming/chunked.py) and ``obs``
     records it (checked now, kept for every pass).

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch.distributed as dist
 
 from mpi_k_selection_tpu_torch import api, config
-from mpi_k_selection_tpu_torch.ops import topk as _topk
+from mpi_k_selection_tpu_torch.ops.topk import topk as _ops_topk
 
 NAME = "cuda"
 
@@ -160,4 +160,4 @@ def kselect_streaming(source, k: int, **kwargs):
 
 def topk(x, k: int, *, device=None, **kwargs):
     """Top-k along the last axis (values, int64 indices) on one device."""
-    return _topk.topk(x, k, device=device, **kwargs)
+    return _ops_topk(x, k, device=device, **kwargs)

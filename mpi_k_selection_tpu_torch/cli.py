@@ -158,8 +158,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--ingest-workers", default=None, metavar="auto|N",
-        help="--streaming: the JAX CLI's ingest-pool width (auto = min(4, cores)), checked as it "
-        "checks it; every width runs the one producer thread, as the pool is not ported",
+        help="--streaming: host data-plane workers (auto = min(4, cores); 1 = the one producer thread): above 1 "
+        "a puller, N staging workers and a reorder sequencer, and the spill records decoded on N threads; "
+        "answers are the same at every width",
     )
     p.add_argument(
         "--spill", choices=("auto", "off", "force"), default="auto",
@@ -850,6 +851,10 @@ def _run_streaming(args, obs=None):
                 name: {"seconds": d["seconds"] / reps, "calls": max(1, d["calls"] // reps)}
                 for name, d in ptimer.as_dict().items()
             }
+            # a ratio of sums over the same runs: --repeats leaves it as it is
+            hidden = _pl.ingest_hidden_frac(ptimer)
+            if hidden is not None:
+                record.extra["ingest_hidden_frac"] = round(hidden, 4)
         ok = True
         if args.verify or args.check:
             # the certificate shares only the trace channel: its spans belong
@@ -1054,6 +1059,9 @@ def _finish(args, record, ok: bool, timer, obs=None) -> int:
                 print("streaming phases (producer concurrent with solve, per repeat):")
                 for name, d in sorted(phases.items(), key=lambda kv: -kv[1]["seconds"]):
                     print(f"  {name:<24} {d['seconds'] * 1e3:10.3f} ms  ({d['calls']}x)")
+                hidden = record.extra.get("ingest_hidden_frac")
+                if hidden is not None:
+                    print(f"  ingest_hidden_frac       {hidden:10.4f}")
     return 0 if ok else 1
 
 

@@ -111,7 +111,8 @@ class Monitor:
     (None: the exact sliding window; a float in (0, 1]: the fixed-point
     decay of monitor/decay.py), and the staging knobs ``pipeline_depth``,
     ``ingest_workers``, ``device`` (where the buckets count, default
-    ``"cuda"``; ``ingest_workers`` is checked only, streaming/pipeline.py)
+    ``"cuda"``; ``ingest_workers`` > 1 stages on the pooled host data
+    plane, streaming/pipeline.py)
     and ``devices``. Samples are the same at every depth and slot count.
     ``obs`` mirrors each sample into ``monitor.quantile{q=}``,
     ``monitor.window_n``, ``monitor.epoch`` and ``monitor.samples``, and
@@ -208,7 +209,7 @@ class Monitor:
                     "replay the stream to probe its dtype"
                 )
         depth = _pl.validate_pipeline_depth(self.pipeline_depth)
-        _pl.resolve_ingest_workers(self.ingest_workers)
+        pool_n = _pl.resolve_ingest_workers(self.ingest_workers)
         dev, devs = _pl.resolve_ingest(self.device, self.devices)
         # staging to slots is gated on the knobs as given, as the JAX package's
         staged = depth > 0 and self.devices is not None
@@ -225,7 +226,7 @@ class Monitor:
         try:
             with _phase(timer, "monitor.pass"), _chunked._key_chunk_stream(
                 src, _dt.torch_dtype(self.ws.dtype), pipeline_depth=depth, device=dev, devs=devs, staged=staged,
-                window=len(devs) if staged else 1, timer=timer,
+                window=len(devs) if staged else 1, timer=timer, workers=pool_n,
             ) as chunks:
                 for keys, _ in chunks:
                     if obs is not None:

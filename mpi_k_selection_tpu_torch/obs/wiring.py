@@ -101,8 +101,8 @@ def resolved_bits_gauge(obs, pass_label, bits) -> None:
 
 
 def ingest_workers_gauge(obs, workers) -> None:
-    """``ingest.workers``: the resolved ``ingest_workers`` of a run (every
-    width runs the one producer in the port, streaming/pipeline.py).
+    """``ingest.workers``: the resolved ``ingest_workers`` of a run (1: the
+    one producer; more: the pooled host data plane, streaming/pipeline.py).
     No-op when metrics are off."""
     if obs is None or obs.metrics is None:
         return

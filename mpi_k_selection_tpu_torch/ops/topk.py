@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import torch
 
-from mpi_k_selection_tpu_torch.api import as_selection_array
+from mpi_k_selection_tpu_torch import api as _api  # a module: api imports ops, which exports this module
 from mpi_k_selection_tpu_torch.ops.cuda import topk as _block
 from mpi_k_selection_tpu_torch.ops.cuda.histogram import ROW, tau_counts
 from mpi_k_selection_tpu_torch.ops.radix import _Descent, _select_key_on_prep, row_cumsum
@@ -100,7 +100,7 @@ def topk(x, k: int, *, largest: bool = True, method: str = "auto", num_chunks: i
     position). Leading axes batch, except for the 1-D-only ``threshold``
     and ``tournament`` methods. Runs on ``x``'s device (a non-tensor input
     goes to ``device``, default ``"cuda"``)."""
-    x = as_selection_array(x, device)
+    x = _api.as_selection_array(x, device)
     if x.dim() == 0:
         raise ValueError("topk needs at least one axis")
     d = x.shape[-1]

@@ -25,9 +25,10 @@ KSEL_PREFIX = "ksel-"
 
 #: streaming/pipeline.py ChunkPipeline producer threads.
 PIPELINE_THREAD_PREFIX = "ksel-pipeline"
-#: The JAX package's parallel ingest and decode pools; the port's
-#: ``ingest_workers`` runs one producer (ROADMAP Queue 1 item 3a), so no
-#: port thread carries it yet.
+#: The pooled host data plane's workers (streaming/pipeline.py,
+#: ``ksel-ingest-*``), the digit tee's pool (streaming/executor.py,
+#: ``ksel-ingest-tee-*``) and the pooled spill decode (streaming/spill.py,
+#: ``ksel-ingest-decode-*``).
 INGEST_THREAD_PREFIX = "ksel-ingest"
 #: serve/ threads: the dispatch lanes' batcher threads, the HTTP serve
 #: loop and its request handlers.
@@ -105,8 +106,8 @@ THREAD_OWNER_CALLS = frozenset()
 #: ChunkPipeline._thread, QueryBatcher._thread, the HTTP servers'
 #: _serve_thread and _req_threads (serve/http.py, monitor/monitor.py) and
 #: the LaneDispatcher's _lanes (serve/lanes.py: each lane is a batcher
-#: whose close() joins its own thread); ``_workers`` is kept for the pooled
-#: ingest plane.
+#: whose close() joins its own thread); ``_workers``, the pooled ingest
+#: plane's and the digit tee pool's workers.
 THREAD_OWNER_ATTRS = frozenset({"_thread", "_serve_thread", "_req_threads", "_lanes", "_workers"})
 THREAD_TYPES = frozenset({"Thread"})
 

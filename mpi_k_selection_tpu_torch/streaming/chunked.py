@@ -22,9 +22,11 @@ last), as the JAX package's streamed answers are.
 Every chunk is staged on the device (``device``, default ``"cuda"``), at
 ``pipeline_depth`` 0 on the caller's thread, else on a producer thread
 that stages chunk *i+1* while chunk *i* is consumed; answers are the same
-at every depth. ``ingest_workers`` is checked as the JAX package checks
-it, and every width runs that one producer (streaming/pipeline.py). A CPU
-``device`` runs the kernel's plain version.
+at every depth. ``ingest_workers`` > 1 splits that producer into a
+puller, a pool of staging workers and a reorder sequencer, and decodes
+spill records on a pool too (streaming/pipeline.py, streaming/spill.py);
+answers and generations are the same at every width. A CPU ``device``
+runs the kernel's plain version.
 
 A :class:`~mpi_k_selection_tpu_torch.streaming.sketch.RadixSketch` built
 over the same stream (``sketch=``) seeds the descent: its deepest level
@@ -240,17 +242,18 @@ class _OneShotSource:
         return self._it
 
 
-def as_chunk_source(source, *, one_shot_ok: bool = False):
+def as_chunk_source(source, *, one_shot_ok: bool = False, workers: int = 1):
     """``source`` as a zero-arg callable returning a fresh chunk iterator,
     the replayable form every pass needs: a list or tuple of chunks (numpy
     arrays or torch tensors), one array (one chunk), such a callable, or a
     :class:`~mpi_k_selection_tpu_torch.streaming.spill.SpillStore` with a
-    committed generation (its newest, read from disk). A one-shot iterator is accepted
+    committed generation (its newest, read from disk, decoded on
+    ``workers`` threads). A one-shot iterator is accepted
     only under ``one_shot_ok`` (the spill descent's pass 0, or a reader of
     one pass such as the monitor); otherwise it is refused: exact
     selection re-reads the stream once per radix pass."""
     if isinstance(source, _sp.SpillStore):
-        return source.latest_generation().as_source()
+        return source.latest_generation().as_source(workers=workers)
     if callable(source):
         return source
     if isinstance(source, (list, tuple)):
@@ -329,16 +332,19 @@ def _key_np(dtype) -> np.dtype:
     return np.dtype(f"uint{_dt.key_bits(dtype)}")
 
 
+def _tee_keys(c, dtype) -> np.ndarray:
+    """One normalized chunk's keys, encoded on the host."""
+    if isinstance(c, _sp.SpillChunk):
+        return c.keys
+    if isinstance(c, torch.Tensor):
+        return _dt.np_to_sortable_bits(_dt.bit_view(c).cpu().numpy().view(_np_dtype(dtype)))
+    return _dt.np_to_sortable_bits(c)
+
+
 def _tee(writer, c, dtype, slot) -> None:
     """Append one normalized chunk's keys, encoded on the host, to the
     pass-0 generation ``writer``, naming ``slot``."""
-    if isinstance(c, _sp.SpillChunk):
-        keys = c.keys
-    elif isinstance(c, torch.Tensor):
-        keys = _dt.np_to_sortable_bits(_dt.bit_view(c).cpu().numpy().view(_np_dtype(dtype)))
-    else:
-        keys = _dt.np_to_sortable_bits(c)
-    writer.append(keys, _np_dtype(dtype), device_slot=slot)
+    writer.append(_tee_keys(c, dtype), _np_dtype(dtype), device_slot=slot)
 
 
 def _iter_staged(src, dtype, device, spill=None):
@@ -363,19 +369,25 @@ def _iter_staged(src, dtype, device, spill=None):
 
 @contextlib.contextmanager
 def _key_chunk_stream(src, dtype, *, pipeline_depth: int, device, devs=(None,), staged=True, window=1, spill=None,
-                      timer=None, retry=None, obs=None):
+                      timer=None, retry=None, obs=None, workers=1):
     """The pass's ``(StagedKeys, dtype)`` iterator; a pipelined one is
     closed (its thread joined) on every exit. At depth >= 1 the producer
     places chunks by a :class:`~mpi_k_selection_tpu_torch.streaming.
     pipeline.SlotCursor` over ``devs`` (``staged``: round-robin slots),
     for a consumer window of ``window`` bundles, and retries the staging
     of a chunk under ``retry`` (its events to ``obs``). ``spill`` tees
-    every chunk to a SpillWriter (its records name each chunk's slot)."""
+    every chunk to a SpillWriter (its records name each chunk's slot).
+    ``workers`` > 1 runs the pooled plane at depth >= 1 (depth 0 has no
+    thread to pool)."""
     if pipeline_depth == 0:
-        yield _iter_staged(src, dtype, device, spill)
+        it = _iter_staged(src, dtype, device, spill)
+        try:
+            yield it
+        finally:
+            it.close()  # a pooled spill decode joins its threads as its generator closes
         return
     pipe = _pl.ChunkPipeline(src, dtype, depth=pipeline_depth, cursor=_pl.SlotCursor(device, devs, staged),
-                             window=window, spill=spill, timer=timer, retry=retry, obs=obs)
+                             window=window, spill=spill, timer=timer, retry=retry, obs=obs, workers=workers)
     try:
         yield iter(pipe)
     finally:
@@ -394,7 +406,8 @@ class _Pass:
 
 
 def _stream_pass(src, dtype, make_consumer, *, pipeline_depth: int, device, devs=(None,), staged=True, window=1,
-                 spill=None, obs=None, label=None, timer=None, phase=None, occupancy=None, retry=None) -> _Pass:
+                 spill=None, obs=None, label=None, timer=None, phase=None, occupancy=None, retry=None,
+                 workers=1) -> _Pass:
     """Stream every chunk of ``src`` through one consumer, built by
     ``make_consumer(dtype)`` at the first chunk. ``spill`` tees every chunk
     to a SpillWriter: on the host (:func:`_key_chunk_stream`) for a
@@ -403,7 +416,8 @@ def _stream_pass(src, dtype, make_consumer, *, pipeline_depth: int, device, devs
     window (:func:`_key_chunk_stream`). With ``obs``, each chunk emits its
     ChunkEvent under pass ``label``; ``phase`` names the pass's span on
     ``timer``, and ``occupancy`` samples the window. ``retry`` retries the
-    staging of a chunk in place (:func:`_key_chunk_stream`). On a raise the
+    staging of a chunk in place (:func:`_key_chunk_stream`). ``workers``
+    sizes the pooled plane and the digit tee's pool. On a raise the
     pass unwinds whole: the window's bundles aborted, the chunk in hand
     released, the producer joined."""
     out = _Pass()
@@ -412,14 +426,15 @@ def _stream_pass(src, dtype, make_consumer, *, pipeline_depth: int, device, devs
     try:
         with _phase(timer, phase), _key_chunk_stream(
             src, dtype, pipeline_depth=pipeline_depth, device=device, devs=devs, staged=staged, window=window,
-            spill=None if digit_tee is not None else spill, timer=timer, retry=retry, obs=obs,
+            spill=None if digit_tee is not None else spill, timer=timer, retry=retry, obs=obs, workers=workers,
         ) as chunks:
             for keys, dtype in chunks:
                 if out.consumer is None:
                     out.consumer = make_consumer(dtype)
                     out.dtype, kdt = dtype, _key_np(dtype)
                     tees = [] if digit_tee is None else [
-                        _ex.DigitTeeConsumer(digit_tee, _dt.key_bits(dtype), _np_dtype(dtype))]
+                        _ex.DigitTeeConsumer(digit_tee, _dt.key_bits(dtype), _np_dtype(dtype), workers=workers,
+                                             timer=timer)]
                     ex = _ex.StreamExecutor([*tees, out.consumer], window=window, occupancy=occupancy)
                 if obs is not None:
                     _wr.chunk_event(obs, label, out.chunks, keys, kdt, devs)
@@ -615,8 +630,9 @@ def streaming_kselect(source, k, *, radix_bits: int = 8, collect_budget: int = D
     prefix, under ``width_schedule="off"``); ``collect_budget`` bounds the
     survivors a rank collects to the host, and so the passes; ``sketch``
     (a RadixSketch of the same stream) seeds the descent;
-    ``pipeline_depth`` (0 = synchronous), ``ingest_workers`` (None,
-    ``"auto"`` or an int; checked only), ``spill`` (``"auto"``, ``"off"``,
+    ``pipeline_depth`` (0 = synchronous), ``ingest_workers`` (None = 1,
+    ``"auto"`` or an int: the pooled host data plane and spill decode
+    above 1), ``spill`` (``"auto"``, ``"off"``,
     ``"force"`` or a SpillStore), ``spill_dir`` (the root of the stores a
     call makes; default the temp dir), ``width_schedule`` (``"off"``,
     ``"auto"`` or a tuple of widths), ``pack_spill`` (``"off"`` or
@@ -659,7 +675,8 @@ def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: i
     dev = _pl.resolve_device(device) if dev is None else dev
     # one bundle a slot in flight when the pipelined passes spread over slots
     multi = depth > 0 and devices is not None
-    run = dict(pipeline_depth=depth, device=dev, devs=devs, window=len(devs) if multi else 1, retry=policy)
+    run = dict(pipeline_depth=depth, device=dev, devs=devs, window=len(devs) if multi else 1, retry=policy,
+               workers=pool_n)
     timer, restore_recorder = _wr.attach_timer(obs, timer)
     run["timer"] = timer
     occupancy = _wr.window_occupancy(obs, phase="descent")
@@ -679,7 +696,7 @@ def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: i
     def gen_src(filter_specs=None):
         # filter_specs prune the read of a v2 generation to the segments
         # that may hold matching keys (the consumers' own filters select)
-        return read_gen.as_source(filter_specs=filter_specs) if read_gen is not None else src
+        return read_gen.as_source(filter_specs=filter_specs, workers=pool_n) if read_gen is not None else src
 
     def fallback_src():
         """The rebuild source when the generation being read is corrupt:
@@ -687,7 +704,7 @@ def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: i
         if not one_shot:
             return src
         if protected is not None and not protected.dropped:
-            return protected.as_source()
+            return protected.as_source(workers=pool_n)
         return None
 
     host_mark = {name: sw.seconds for name, sw in _sp.HOST_TIMES.items()}
@@ -748,7 +765,7 @@ def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: i
         ) from e
 
     try:
-        src = as_chunk_source(source, one_shot_ok=store is not None)
+        src = as_chunk_source(source, one_shot_ok=store is not None, workers=pool_n)
         if policy is not None and not one_shot:
             # a mid-pass re-pull for a transient source error (a consumed
             # one-shot stream cannot be called again: its recovery is the
@@ -894,7 +911,7 @@ def streaming_kselect_many(source, ks, *, radix_bits: int = 8, collect_budget: i
                         lambda _: _ex.FusedIngestConsumer(
                             total_bits=total_bits, hist=(shift, width, prefixes),
                             tee_specs=tee_specs if writer is not None else (), writer=writer, orig_dtype=np_dtype,
-                            obs=obs,
+                            obs=obs, workers=pool_n, timer=timer,
                         ),
                         obs=obs, label=label, phase="descent.pass", occupancy=occupancy, **run,
                     )
@@ -1024,7 +1041,7 @@ def streaming_rank_certificate(source, value, *, pipeline_depth: int = DEFAULT_P
     depth = _pl.validate_pipeline_depth(pipeline_depth)
     pool_n = _pl.resolve_ingest_workers(ingest_workers)
     policy = _fp.resolve_retry(retry)
-    src = as_chunk_source(source)
+    src = as_chunk_source(source, workers=pool_n)
     if policy is not None:
         src = _fp.resilient_source(src, policy, obs=obs)
     dev, devs = _pl.resolve_ingest(device, devices)
@@ -1042,7 +1059,7 @@ def streaming_rank_certificate(source, value, *, pipeline_depth: int = DEFAULT_P
         res = _stream_pass(src, None, certificate, pipeline_depth=depth, device=dev, devs=devs, staged=staged,
                            window=len(devs) if staged else 1, obs=obs, label="certificate", timer=timer,
                            phase="certificate.pass", occupancy=_wr.window_occupancy(obs, phase="certificate"),
-                           retry=policy)
+                           retry=policy, workers=pool_n)
     finally:
         restore_recorder()
     counter = res.consumer

@@ -33,13 +33,26 @@ A replayed spill record goes back to the slot it was written from. The
 slot of each chunk is recorded at staging (``StagedKeys.device_slot``):
 telemetry and spill records name it, never a tensor's device.
 
-``ingest_workers`` (:func:`resolve_ingest_workers`) is taken and checked
-as the JAX package takes it, but every width runs the one producer above:
-the JAX package's pool of ingest workers is not ported. On an H100 host a
-pool of 2 and 4 workers moved neither the streamed median's wall time nor
-the card's idle share, and the host copy into pinned memory ran at one
-rate from one thread or two (PERF.md §6); the pool waits for a workload
-that shows it winning (ROADMAP Queue 1 item 3a).
+``ingest_workers`` (:func:`resolve_ingest_workers`) picks the host data
+plane of a pipelined pass. At 1 (the default) the one producer above does
+everything. Above 1 the work of a chunk is split three ways, as the JAX
+package splits it: ONE ``ksel-pipeline-*`` puller pulls and checks the
+chunks in source order (a one-shot source is read once, a drifting dtype
+raises at its chunk) and fixes each chunk's slot, ``tee_slot`` and
+``"stage"`` fault index in pull order; ``W`` ``ksel-ingest-*`` workers
+stage the chunks (each on its own copy stream a card) and run the v1
+tee's host encode and checksum (``SpillWriter.prepare``); a reorder
+sequencer hands the staged chunks to the consumer strictly in chunk order
+and writes each tee record (``append_prepared``) in that same turn, so
+records, chunk indices and ``spill.write`` fault keys are those of one
+producer. A worker's error reaches the consumer at its chunk, after every
+earlier one, and the chunks after it are dropped. At most ``depth +
+window + W`` staged chunks exist at once: the puller takes a staging slot
+for each chunk in pull order before a worker sees it, so the chunk whose
+turn it is always holds one. The phases ``pipeline.pack`` (the tee's
+prepare on a worker) and ``pipeline.seq_wait`` (a staged chunk waiting
+for its turn) join the producer's; :func:`ingest_hidden_frac` and
+:func:`encode_hidden_frac` read them.
 """
 
 from __future__ import annotations
@@ -68,7 +81,7 @@ DEFAULT_PIPELINE_DEPTH = 2
 #: Queue-depth ceiling: deeper rings only add memory, never overlap.
 MAX_PIPELINE_DEPTH = 64
 
-#: ``ingest_workers`` default (every width runs the one producer).
+#: ``ingest_workers`` default: the one producer.
 DEFAULT_INGEST_WORKERS = 1
 
 #: Ceiling on ``ingest_workers``: a larger ask is a typo, not a bigger host.
@@ -81,6 +94,21 @@ INGEST_WORKERS_AUTO_CAP = 4
 #: suite's leaked-thread check covers them.
 THREAD_NAME_PREFIX = _rp.PIPELINE_THREAD_PREFIX
 
+#: The pooled plane's workers carry this prefix (``ksel-ingest-{pipe}-{w}``).
+INGEST_THREAD_PREFIX = _rp.INGEST_THREAD_PREFIX
+
+#: The producer side's phases on the pass's PhaseTimer, summed over its
+#: threads: the pull, the chunk checks, the tee's prepare on a worker
+#: (pooled plane), the staging and the tee's record write.
+INGEST_PHASES = ("pipeline.produce", "pipeline.encode", "pipeline.pack", "pipeline.stage", "pipeline.spill")
+
+#: The consumer's phase: time it waited for a staged chunk.
+STALL_PHASE = "pipeline.stall"
+
+#: A pooled worker's wait, with its chunk staged, for the chunk's turn in
+#: order. Not ingest work (only the order waits), so not in INGEST_PHASES.
+SEQ_WAIT_PHASE = "pipeline.seq_wait"
+
 #: Host seconds and count of the host copies into pinned buffers, summed
 #: over every stager (``reset()`` before a measured pass).
 HOST_COPY = Stopwatch()
@@ -91,8 +119,8 @@ _NP_SIGNED = {1: np.int8, 2: np.int16, 4: np.int32, 8: np.int64}
 def resolve_ingest_workers(workers) -> int:
     """The ``ingest_workers`` knob checked and resolved as the JAX
     package's: None -> 1, ``"auto"`` -> ``min(INGEST_WORKERS_AUTO_CAP,
-    os.cpu_count())``, or an int in [1, MAX_INGEST_WORKERS]. Every width
-    runs the one producer (see the module docstring)."""
+    os.cpu_count())``, or an int in [1, MAX_INGEST_WORKERS]: 1 is the one
+    producer, more the pooled plane (see the module docstring)."""
     if workers is None:
         return DEFAULT_INGEST_WORKERS
     if workers == "auto":
@@ -305,6 +333,22 @@ class StagingPool:
 #: held between passes, until ``STAGING_POOL.clear()``.
 STAGING_POOL = StagingPool()
 
+_LIVE_LOCK = threading.Lock()
+_LIVE_STAGED = 0  # ksel: guarded-by[_LIVE_LOCK]
+
+
+def _live_add(delta: int) -> None:
+    global _LIVE_STAGED
+    with _LIVE_LOCK:
+        _LIVE_STAGED += delta
+
+
+def live_staged_keys() -> int:
+    """The :class:`StagedKeys` staged and not yet released: 0 between
+    passes (a chunk held past its pass is a leaked staging slot)."""
+    with _LIVE_LOCK:
+        return _LIVE_STAGED
+
 
 @dataclasses.dataclass
 class StagedKeys:
@@ -452,7 +496,11 @@ def stage_chunk(c, dtype: torch.dtype, device: torch.device, stager=None, on_rel
         keys, op, xor = raw, fold[0], fold[1] if fold[0] == "xor" else 0
     label, nbytes = str(device), keys.numel() * keys.element_size()
     _ledger.LEDGER.adjust_bytes("staging", label, nbytes)
-    unbook = lambda: _ledger.LEDGER.adjust_bytes("staging", label, -nbytes)  # noqa: E731
+    _live_add(1)
+
+    def unbook():
+        _ledger.LEDGER.adjust_bytes("staging", label, -nbytes)
+        _live_add(-1)
     return StagedKeys(keys, raw.numel(), op, xor, _chain([give_back, unbook, on_release]), tee_slot=tee_slot,
                       device_slot=device_slot, staged=staged)
 
@@ -534,6 +582,21 @@ class SlotCursor:
         return list(dict.fromkeys(d for d in devs if d.type == "cuda"))
 
 
+@dataclasses.dataclass
+class _IngestTask:
+    """One chunk of the pooled plane, as the puller hands it to a worker:
+    its turn ``seq``, the normalized chunk, the stream dtype, its placement
+    (:meth:`SlotCursor.place`) and its ``"stage"`` fault index, all fixed in
+    pull order; or the puller's ``error``, which takes the next turn."""
+
+    seq: int
+    chunk: object = None
+    dtype: object = None
+    place: dict | None = None
+    fault_index: int = 0
+    error: BaseException | None = None
+
+
 class ChunkPipeline:
     """Background producer of ``(StagedKeys, dtype)`` pairs: the pipelined
     twin of the synchronous chunk iterator (streaming/chunked.py:
@@ -542,11 +605,18 @@ class ChunkPipeline:
     chunk's). ``cursor`` (a :class:`SlotCursor`) places each chunk; each
     card it names gets a :class:`HostStager` of its own. ``window`` is the
     consumer's in-flight bundles: at most ``depth + window`` staged chunks
-    exist at once. ``spill`` (a streaming/spill.py ``SpillWriter``) tees
-    every chunk's host keys to a spill generation on the producer thread,
-    each record naming the chunk's ``tee_slot``. ``timer`` (a PhaseTimer)
-    times the producer's ``pipeline.produce`` / ``encode`` / ``spill`` /
-    ``stage`` phases and the consumer's ``pipeline.stall``.
+    exist at once (``depth + window + workers`` in the pooled plane).
+    ``spill`` (a streaming/spill.py ``SpillWriter``) tees every chunk's
+    host keys to a spill generation, each record naming the chunk's
+    ``tee_slot``: on the producer thread, or prepared on a worker and
+    written in the sequencer's turn. ``timer`` (a PhaseTimer) times the
+    producer's ``pipeline.produce`` / ``encode`` / ``spill`` / ``stage``
+    phases (with ``pack`` and ``seq_wait`` in the pooled plane) and the
+    consumer's ``pipeline.stall``.
+
+    ``workers`` (resolved by :func:`resolve_ingest_workers`) picks the
+    data plane: 1 is the one producer, more the puller, the workers and
+    the reorder sequencer of the module docstring.
 
     Each chunk staged to a slot (``StagedKeys.staged``, the JAX package's
     staging rule) passes the ``"stage"`` fault site first, keyed by the
@@ -557,35 +627,70 @@ class ChunkPipeline:
     _ids = itertools.count()
 
     def __init__(self, src, dtype=None, *, depth: int, cursor: SlotCursor, window: int = 1, spill=None,
-                 timer=None, retry=None, obs=None):
+                 timer=None, retry=None, obs=None, workers=1):
         self._src = src
         self._dtype = dtype
-        self._spill = spill  # the pass-0 tee's SpillWriter, appended to on this thread
+        self._spill = spill  # the pass-0 tee's SpillWriter, appended to in chunk order
         self._retry = retry
         self._obs = obs
         self._depth = validate_pipeline_depth(depth)
         if self._depth == 0:
             raise ValueError("ChunkPipeline requires pipeline_depth >= 1; depth 0 is the synchronous path")
+        self._pool_n = resolve_ingest_workers(workers)
         self._cursor = cursor
         self._timer = timer
         # the staged chunks queued, in the consumer's window and in its hand
+        # (and, pooled, one a worker: staged and waiting for its turn)
         self._q: queue.Queue = queue.Queue()
-        self._slots = threading.Semaphore(self._depth + max(1, int(window)))
+        pooled = self._pool_n > 1
+        self._slots = threading.Semaphore(self._depth + max(1, int(window)) + (self._pool_n if pooled else 0))
         self._stop = threading.Event()
+        self._abort = threading.Event()  # pooled: an error has reached the consumer
         # the streams the consumer's kernels run on, captured on its thread
         self._compute = {d: torch.cuda.current_stream(d) for d in cursor.cuda_devices()}
-        self._thread = threading.Thread(
-            target=self._produce, name=f"{THREAD_NAME_PREFIX}-{next(self._ids)}", daemon=True
-        )
+        self._workers: list = []
+        pipe_id = next(self._ids)
+        if pooled:
+            # raw chunks waiting for a worker (each already holds its slot)
+            self._tasks: queue.Queue = queue.Queue(maxsize=self._pool_n)
+            self._cond = threading.Condition()
+            self._next_seq = 0  # ksel: guarded-by[_cond] (the turn being handed out)
+            self._total = None  # ksel: guarded-by[_cond] (the task count, once the source ends)
+            self._done_sent = False  # ksel: guarded-by[_cond]
+            self._thread = threading.Thread(
+                target=self._pull, name=f"{THREAD_NAME_PREFIX}-{pipe_id}", daemon=True
+            )
+            for w in range(self._pool_n):
+                t = threading.Thread(
+                    target=self._ingest_worker, name=f"{INGEST_THREAD_PREFIX}-{pipe_id}-{w}", daemon=True
+                )
+                self._workers.append(t)
+                t.start()
+        else:
+            self._thread = threading.Thread(
+                target=self._produce, name=f"{THREAD_NAME_PREFIX}-{pipe_id}", daemon=True
+            )
         self._thread.start()
+
+    def _halted(self) -> bool:
+        """True once no further chunk may reach the consumer: it closed the
+        pipeline, or an error already reached it (pooled plane)."""
+        return self._stop.is_set() or self._abort.is_set()
 
     def _acquire_slot(self) -> bool:
         """Wait for a staging slot, yielding every 50 ms to honour a
         consumer-side close."""
-        while not self._stop.is_set():
+        while not self._halted():
             if self._slots.acquire(timeout=0.05):
                 return True
         return False
+
+    def _stagers(self) -> dict:
+        """This thread's :class:`HostStager` a card (its own copy stream),
+        with the stream's card made this thread's current device."""
+        if self._compute:
+            torch.cuda.set_device(self._cursor.device)  # this thread stages to the stream's card
+        return {d: HostStager(d, s) for d, s in self._compute.items()}
 
     def _produce(self) -> None:
         from mpi_k_selection_tpu_torch.streaming.chunked import _chunk_dtype, _normalize_chunk, _tee
@@ -593,9 +698,7 @@ class ChunkPipeline:
         keys = None  # the staged chunk in hand; None once the consumer owns it
         timer = self._timer
         try:
-            if self._compute:
-                torch.cuda.set_device(self._cursor.device)  # this thread stages to the stream's card
-            stagers = {d: HostStager(d, s) for d, s in self._compute.items()}
+            stagers = self._stagers()
             dtype = self._dtype
             staged_i = 0  # the stage fault site's stable key: a retry of a chunk shares it
             it = iter(self._src())
@@ -643,17 +746,176 @@ class ChunkPipeline:
             _maybe_fault("stage", index)
         return stage_chunk(c, dtype, stager=stagers.get(place["device"]), on_release=self._slots.release, **place)
 
+    # -- the pooled plane (workers > 1) -----------------------------------
+
+    def _submit(self, task) -> bool:
+        """Hand a task (or a worker's stop sentinel, None) to the workers,
+        yielding every 50 ms to honour a close or an error released."""
+        while not self._halted():
+            try:
+                self._tasks.put(task, timeout=0.05)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _pull(self) -> None:
+        """The puller: the chunks in source order, their checks, and each
+        chunk's slot, placement and fault index, before any worker sees
+        it. A chunk takes its staging slot here, in pull order."""
+        from mpi_k_selection_tpu_torch.streaming.chunked import _chunk_dtype, _normalize_chunk
+
+        timer = self._timer
+        dtype = self._dtype
+        staged_i = 0
+        seq = 0
+        it = None
+        try:
+            it = iter(self._src())
+            while not self._halted():
+                with _phase(timer, "pipeline.produce"):
+                    chunk = next(it, _DONE)
+                if chunk is _DONE:
+                    break
+                with _phase(timer, "pipeline.encode"):
+                    c = _normalize_chunk(chunk, dtype)
+                if c is None:
+                    continue
+                if dtype is None:
+                    dtype = _chunk_dtype(c)
+                place = self._cursor.place(c)
+                if not self._acquire_slot():
+                    return
+                if not self._submit(_IngestTask(seq, c, dtype, place, staged_i)):
+                    self._slots.release()
+                    return
+                staged_i += place["staged"]
+                seq += 1
+            if not self._halted():
+                self._finish_stream(seq)
+        except BaseException as e:
+            # the error takes the next turn: it reaches the consumer after
+            # every earlier chunk, as the one producer's does
+            if self._submit(_IngestTask(seq, error=e)):
+                self._finish_stream(seq + 1)
+        finally:
+            # a pooled spill decode joins its threads when its generator closes
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()
+            for _ in self._workers:  # one sentinel a worker, after every task
+                if not self._submit(None):
+                    break
+
+    def _finish_stream(self, total: int) -> None:
+        """Publish the task count; whoever sees the sequencer reach it (the
+        last chunk's worker, or this puller) sends the one ``_DONE``."""
+        with self._cond:
+            self._total = total
+            send = self._next_seq >= total and not self._done_sent
+            self._done_sent |= send
+        if send:
+            self._q.put(_DONE)
+
+    def _advance_seq(self) -> None:
+        """Pass the turn on, once this turn's chunk or error is queued."""
+        with self._cond:
+            self._next_seq += 1
+            send = self._total is not None and self._next_seq >= self._total and not self._done_sent
+            self._done_sent |= send
+            self._cond.notify_all()
+        if send:
+            self._q.put(_DONE)
+
+    def _ingest_worker(self) -> None:
+        stagers = setup_error = None
+        try:
+            stagers = self._stagers()
+        except BaseException as e:  # reaches the consumer at this worker's first chunk
+            setup_error = e
+        while not self._stop.is_set():
+            try:
+                task = self._tasks.get(timeout=0.05)
+            except queue.Empty:
+                if self._abort.is_set():
+                    return
+                continue
+            if task is None:
+                return
+            if setup_error is not None and task.error is None:
+                self._slots.release()
+                task.error = setup_error
+            self._run_task(task, stagers)
+
+    def _run_task(self, task: _IngestTask, stagers) -> None:
+        """One chunk on a worker: its staging (and the v1 tee's prepare),
+        order-free; then its turn, in which the tee record is written and
+        the chunk (or the error) is handed to the consumer."""
+        from mpi_k_selection_tpu_torch.streaming.chunked import _np_dtype, _tee_keys
+
+        timer = self._timer
+        keys = prep = None
+        error = task.error
+        if error is None and self._halted():
+            self._slots.release()  # nothing was staged into the slot
+            return
+        if error is None:
+            try:
+                with _phase(timer, "pipeline.stage"):
+                    keys = _fpol.retry_call(
+                        lambda: self._stage(task.chunk, task.dtype, stagers, task.place, task.fault_index),
+                        self._retry, site="stage", obs=self._obs)
+            except BaseException as e:
+                self._slots.release()  # nothing was staged into the slot
+                error = e
+        if error is None and self._spill is not None:
+            try:
+                with _phase(timer, "pipeline.pack"):
+                    prep = self._spill.prepare(_tee_keys(task.chunk, task.dtype), _np_dtype(task.dtype))
+            except BaseException as e:
+                keys.release()
+                keys, error = None, e
+        with _phase(timer, SEQ_WAIT_PHASE), self._cond:
+            while self._next_seq != task.seq and not self._halted():
+                self._cond.wait(0.05)
+            my_turn = self._next_seq == task.seq and not self._halted()
+        if not my_turn:  # the consumer closed, or an earlier error reached it
+            if keys is not None:
+                keys.release()
+            return
+        try:
+            if prep is not None:
+                try:
+                    with _phase(timer, "pipeline.spill"):
+                        self._spill.append_prepared(prep, device_slot=task.place["tee_slot"])
+                except BaseException as e:
+                    keys.release()
+                    keys, error = None, e
+            if error is None:
+                self._q.put((keys, task.dtype))
+                keys = None
+            else:
+                self._q.put(_Raised(error))
+                self._abort.set()  # every chunk after this one is dropped
+        finally:
+            self._advance_seq()
+
+    # -- the consumer's side ----------------------------------------------
+
+    def _alive(self) -> bool:
+        return self._thread.is_alive() or any(t.is_alive() for t in self._workers)
+
     def _get(self):
         while True:
             try:
                 return self._q.get(timeout=0.1)
             except queue.Empty:
-                if not self._thread.is_alive() and self._q.empty():
+                if not self._alive() and self._q.empty():
                     raise RuntimeError("streaming pipeline producer died without a result") from None
 
     def __iter__(self):
         while True:
-            with _phase(self._timer, "pipeline.stall"):
+            with _phase(self._timer, STALL_PHASE):
                 item = self._get()
             if item is _DONE:
                 return
@@ -662,8 +924,9 @@ class ChunkPipeline:
             yield item
 
     def close(self) -> None:
-        """Stop the producer, release the chunks it staged that the
-        consumer never took, and join the thread. Idempotent."""
+        """Stop the producer (or the puller and the workers), release the
+        chunks staged that the consumer never took (queued, or held by a
+        worker waiting for its turn), and join every thread. Idempotent."""
         self._stop.set()
 
         def drain():
@@ -677,13 +940,47 @@ class ChunkPipeline:
 
         drain()
         self._thread.join(timeout=10.0)
-        drain()  # a put that landed while the producer saw the stop flag
-        if self._thread.is_alive():
-            import warnings
+        for t in self._workers:
+            t.join(timeout=10.0)
+        drain()  # a put that landed while a thread saw the stop flag
+        if self._workers:
+            while True:  # chunks no worker took hold no buffer
+                try:
+                    self._tasks.get_nowait()
+                except queue.Empty:
+                    break
+        import warnings
 
-            warnings.warn(
-                f"streaming pipeline producer {self._thread.name} did not stop within 10 s of close(); "
-                "its chunk source is blocked mid-read and the thread has been abandoned (daemon)",
-                RuntimeWarning,
-                stacklevel=2,
-            )
+        for t in [self._thread, *self._workers]:
+            if t.is_alive():
+                warnings.warn(
+                    f"streaming pipeline thread {t.name} did not stop within 10 s of close(); "
+                    + ("its chunk source is blocked mid-read and " if t is self._thread else "")
+                    + "the thread has been abandoned (daemon)",
+                    RuntimeWarning,
+                    stacklevel=2,
+                )
+
+
+def ingest_hidden_frac(timer) -> float | None:
+    """The share of the producer side's time (:data:`INGEST_PHASES`) the
+    consumer did not wait for: ``1 - stall / ingest``, clamped to [0, 1]
+    (the JAX package's formula). None when the timer holds no ingest
+    phase (a depth-0 run)."""
+    ingest = sum(timer.phases.get(p, 0.0) for p in INGEST_PHASES)
+    if ingest <= 0.0:
+        return None
+    stall = timer.phases.get(STALL_PHASE, 0.0)
+    return max(0.0, min(1.0, 1.0 - stall / ingest))
+
+
+def encode_hidden_frac(timer) -> float | None:
+    """The pooled plane's cut of :func:`ingest_hidden_frac`: the share of
+    the work a pool can divide (``pipeline.encode``, ``pack`` and
+    ``stage``) the consumer did not wait for, ``1 - stall / work`` clamped
+    to [0, 1] (the JAX package's formula). None without such phases."""
+    work = sum(timer.phases.get(p, 0.0) for p in ("pipeline.encode", "pipeline.pack", "pipeline.stage"))
+    if work <= 0.0:
+        return None
+    stall = timer.phases.get(STALL_PHASE, 0.0)
+    return max(0.0, min(1.0, 1.0 - stall / work))

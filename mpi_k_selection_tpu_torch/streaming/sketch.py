@@ -135,7 +135,8 @@ class RadixSketch:
         chunks or a zero-arg callable, streaming/chunked.py:
         ``as_chunk_source``): chunks are staged to the sketch's device as
         the streamed descent stages them (``pipeline_depth``, None = 2;
-        ``ingest_workers`` is checked only) and each is counted with one
+        ``ingest_workers`` > 1 stages on the pooled host data plane and
+        decodes a store source on a pool) and each is counted with one
         launch of the sweep kernel's sketch part, folded into the host
         int64 pyramid in chunk order. The same sketch, bit for bit, as
         :meth:`update` of each chunk in turn, at every depth.
@@ -171,12 +172,13 @@ class RadixSketch:
                 "update_stream's spill must be a SpillStore (the caller owns its lifecycle), "
                 f"got {type(spill).__name__!r}"
             )
-        src = as_chunk_source(source, one_shot_ok=spill is not None)
+        src = as_chunk_source(source, one_shot_ok=spill is not None, workers=pool_n)
         _wr.ingest_workers_gauge(obs, pool_n)
         writer = (spill.new_generation(pack_digit_bits=_sp.GEN0_SEGMENT_BITS if pack_spill == "auto" else None)
                   if spill is not None else None)
         try:
-            res = self._fold_stream(src, depth, dev, spill=writer, devs=devs, staged=staged, obs=obs, timer=timer)
+            res = self._fold_stream(src, depth, dev, spill=writer, devs=devs, staged=staged, obs=obs, timer=timer,
+                                    workers=pool_n)
             if writer is not None:
                 writer.commit()
         except BaseException:
@@ -192,7 +194,8 @@ class RadixSketch:
                 _om.collect_runtime(obs.metrics, staging_pool=_pl.STAGING_POOL, spill_store=spill, timer=timer)
         return self
 
-    def _fold_stream(self, src, depth: int, device, spill=None, devs=(None,), staged=False, obs=None, timer=None):
+    def _fold_stream(self, src, depth: int, device, spill=None, devs=(None,), staged=False, obs=None, timer=None,
+                     workers=1):
         """One pass of ``src`` folded in on ``device`` (or the slots
         ``devs``); the pass's record (streaming/chunked.py:``_Pass``)."""
         from mpi_k_selection_tpu_torch.obs import wiring as _wr
@@ -203,7 +206,7 @@ class RadixSketch:
             src, _dt.torch_dtype(self.dtype), lambda _: SketchFoldConsumer(self, obs=obs),
             pipeline_depth=depth, device=_pl.resolve_device(device), devs=devs, staged=staged,
             window=len(devs) if staged else 1, spill=spill, obs=obs, label="sketch", timer=timer,
-            phase="sketch.pass", occupancy=_wr.window_occupancy(obs, phase="sketch"),
+            phase="sketch.pass", occupancy=_wr.window_occupancy(obs, phase="sketch"), workers=workers,
         )
 
     def _fold_counts(self, deep: np.ndarray, kmin: int, kmax: int, n: int) -> None:

@@ -35,9 +35,9 @@ hoists its records' directories into one in-memory index, so a pruned
 read seeks straight to its segments. Any mismatch between a record and
 its writer's metadata, a directory or a segment raises
 :class:`~mpi_k_selection_tpu_torch.errors.SpillRecordError` before a key
-reaches a histogram. The pooled decode (``iter_chunks(workers=)``) waits
-on ROADMAP Queue 1 item 3a: one thread decodes here, timed in
-:data:`HOST_TIMES`.
+reaches a histogram. ``iter_chunks(workers=W)`` decodes records (file
+read, CRCs, v2 unpack) on ``W`` ``ksel-ingest-decode-*`` threads and still
+yields them in record order; the decode is timed in :data:`HOST_TIMES`.
 
 The pack writes the JAX package's bytes by cheaper means: each segment's
 keys are grouped by a stable sort of a small segment index (NumPy's radix
@@ -66,10 +66,13 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import os
+import queue
 import shutil
 import struct
 import tempfile
+import threading
 import zlib
 
 import numpy as np
@@ -123,6 +126,9 @@ _BFLOAT16_TAG = "<V2"
 #: decode). The descent snapshots them per pass into
 #: ``SpillStore.pass_host_ms``.
 HOST_TIMES = {"prepare": Stopwatch(), "write": Stopwatch(), "read": Stopwatch()}
+
+# the pooled decodes' ids, in their threads' names
+_DECODE_IDS = itertools.count()
 
 
 def validate_pack_spill(pack_spill):
@@ -458,10 +464,10 @@ def prepared_record(keys_fn, n: int, key_dtype, orig_dtype, segments=None) -> Pr
 
 
 class SpillWriter:
-    """Append-only writer of ONE generation, called from one thread per
-    pass (the producer or the digit tee's consumer for the pass-0 tee, the
-    consumer for the filtered survivor writes); ``commit`` or ``abort``
-    runs after the pass.
+    """Append-only writer of ONE generation, appended to by one thread at
+    a time, in chunk order (the producer, the consumer, or in its turn a
+    worker of the pooled plane or of a tee pool; ``prepare`` may run on
+    any thread); ``commit`` or ``abort`` runs after the pass.
 
     ``pack_specs`` (the pass's ``(resolved_bits, prefix)`` filter union)
     with ``total_bits`` writes every record in format v2 segmented by the
@@ -624,7 +630,7 @@ class SpillGeneration:
     def keys(self) -> int:
         return sum(r.n_valid for r in self.records)
 
-    def iter_chunks(self, mmap: bool = False, filter_specs=None):
+    def iter_chunks(self, mmap: bool = False, filter_specs=None, workers: int = 1):
         """Yield every record as a :class:`SpillChunk`, validating headers,
         sizes and checksums (a mismatch raises SpillRecordError). ``mmap``
         serves a v1 payload as a read-only ``np.memmap`` view (checksummed
@@ -632,12 +638,23 @@ class SpillGeneration:
         ``(resolved_bits, prefix)`` union) prunes v2 records to the
         segments that may hold matching keys (a superset of them: the
         consumers' own filters select the keys); v1 records are read
-        whole, and records left with no key are skipped."""
+        whole, and records left with no key are skipped.
+
+        ``workers`` > 1 decodes the records on ``min(workers, records)``
+        ``ksel-ingest-decode-*`` threads, at most ``workers + 2`` records
+        ahead of the consumer, and yields them in record order: the same
+        chunks as one thread, each through the ``spill.read`` fault site
+        keyed by its chunk index, a corrupt record raising at its own turn.
+        The threads are joined when the generator ends or is closed."""
         if self.dropped:
             raise SpillError(
                 f"spill generation {self.index} was dropped (or its store closed); "
                 "it can no longer serve as a chunk source"
             )
+        pool_n = min(int(workers), len(self.records))
+        if pool_n > 1:
+            yield from self._iter_chunks_pooled(pool_n, mmap, filter_specs)
+            return
         for rec in self.records:
             chunk = _read_record(rec, mmap=mmap, filter_specs=filter_specs,
                                  seg_index=self._seg_index.get(rec.chunk_index))
@@ -645,13 +662,75 @@ class SpillGeneration:
                 continue
             yield chunk
 
-    def as_source(self, mmap: bool = False, filter_specs=None):
+    def _iter_chunks_pooled(self, pool_n: int, mmap, filter_specs):
+        """The pooled decode: each thread takes the next record index, reads
+        it outside any lock and parks the chunk (or its error) for this
+        generator, which hands them out in index order."""
+        gen_id = next(_DECODE_IDS)
+        ahead = pool_n + 2  # records decoded ahead of the consumer, at most
+        tasks: queue.Queue = queue.Queue()
+        for i in range(len(self.records)):
+            tasks.put(i)
+        stop = threading.Event()
+        cond = threading.Condition()
+        results = {}  # ksel: guarded-by[cond] (record index -> chunk or error)
+        turn = [0]  # ksel: guarded-by[cond] (the next index handed out)
+
+        def decode():
+            while not stop.is_set():
+                try:
+                    i = tasks.get_nowait()
+                except queue.Empty:
+                    return
+                with cond:
+                    while i >= turn[0] + ahead and not stop.is_set():
+                        cond.wait(0.05)
+                if stop.is_set():
+                    return
+                rec = self.records[i]
+                try:
+                    out = _read_record(rec, mmap=mmap, filter_specs=filter_specs,
+                                       seg_index=self._seg_index.get(rec.chunk_index))
+                except BaseException as e:  # raised at its turn
+                    out = e
+                with cond:
+                    results[i] = out
+                    cond.notify_all()
+
+        threads = [
+            threading.Thread(target=decode, name=f"{_rp.INGEST_THREAD_PREFIX}-decode-{gen_id}-{w}", daemon=True)
+            for w in range(pool_n)
+        ]
+        for t in threads:
+            t.start()
+        try:
+            for i in range(len(self.records)):
+                with cond:
+                    while i not in results:
+                        cond.wait(0.05)
+                    chunk = results.pop(i)
+                    turn[0] = i + 1
+                    cond.notify_all()
+                if isinstance(chunk, BaseException):
+                    raise chunk
+                if filter_specs is not None and chunk.keys.shape[0] == 0:
+                    continue
+                yield chunk
+        finally:
+            stop.set()
+            with cond:
+                cond.notify_all()
+            for t in threads:
+                t.join(timeout=10.0)
+
+    def as_source(self, mmap: bool = False, filter_specs=None, workers: int = 1):
         """Zero-arg callable returning a fresh record iterator: the
-        replayable chunk-source form of streaming/chunked.py."""
-        if not mmap and filter_specs is None:
+        replayable chunk-source form of streaming/chunked.py (``workers``
+        as :meth:`iter_chunks`)."""
+        if not mmap and filter_specs is None and workers <= 1:
             return self.iter_chunks
         specs = None if filter_specs is None else tuple((int(r), int(p)) for r, p in filter_specs)
-        return functools.partial(self.iter_chunks, mmap=mmap, filter_specs=specs)
+        return functools.partial(self.iter_chunks, mmap=mmap, filter_specs=specs, workers=int(workers))
 
     def read_nbytes(self, filter_specs=None) -> int:
         """Bytes a (filtered) read of this generation touches on disk:

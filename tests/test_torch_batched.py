@@ -11,6 +11,7 @@ tests hold the kernel against its plain version on the card:
     python -m pytest --noconftest tests/test_torch_*.py -m gpu
 """
 
+import importlib
 import json
 import subprocess
 import sys
@@ -22,10 +23,12 @@ import torch
 import mpi_k_selection_tpu_torch as kt
 from mpi_k_selection_tpu_torch.backends import cuda as cuda_backend
 from mpi_k_selection_tpu_torch.cli import batched_topk_oracle
-from mpi_k_selection_tpu_torch.ops import topk as T
 from mpi_k_selection_tpu_torch.ops.cuda import topk as K
 from mpi_k_selection_tpu_torch.utils import datagen
 from mpi_k_selection_tpu_torch.utils.interop import numpy_dtype, tensor_from_numpy, tensor_to_numpy
+
+# the module (the package ``ops`` exports its function ``topk`` under the same name)
+T = importlib.import_module("mpi_k_selection_tpu_torch.ops.topk")
 
 # one intra-op thread: in a parallel test run each worker's torch thread pool
 # oversubscribes the cores, and small CPU ops stall on its barriers

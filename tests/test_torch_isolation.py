@@ -166,3 +166,63 @@ def test_the_analyzer_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok") and "--no-contracts" in out.stdout
+
+
+#: Names of the JAX subpackages' ``__all__`` that the port does not export,
+#: each with the reason: they name the JAX package's XLA / Pallas machinery.
+TPU_ONLY_NAMES = {
+    "streaming": {
+        "DEFAULT_DEFERRED": "the eager / deferred choice of XLA dispatch; the port always defers on CUDA events",
+        "resolve_deferred": "the same XLA dispatch choice",
+        "DEFAULT_FUSED": "the Pallas / XLA-fusion ingest tiers; the port runs one sweep kernel a chunk",
+        "FUSED_MODES": "the same ingest tiers",
+        "FUSED_TIERS": "the same ingest tiers",
+        "validate_fused": "the same ingest tiers",
+        "resolve_fused": "the same ingest tiers",
+        "kernel_tier_available": "whether the Pallas tier compiles on this backend",
+        "stage_device_keys": "pads a chunk already on a device to a power-of-two bucket, as XLA compiles a "
+                             "program per shape; the port stages every chunk at its own length",
+    },
+    "ops": {},
+    "utils": {},
+}
+
+
+def _jax_all(sub: str) -> list:
+    """The ``__all__`` of ``mpi_k_selection_tpu/<sub>/__init__.py``, read
+    with ast (nothing of the JAX package is imported)."""
+    tree = ast.parse((REPO / "mpi_k_selection_tpu" / sub / "__init__.py").read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(getattr(t, "id", None) == "__all__" for t in node.targets):
+            return [ast.literal_eval(e) for e in node.value.elts]
+    raise AssertionError(f"no __all__ in mpi_k_selection_tpu/{sub}/__init__.py")
+
+
+def test_subpackages_export_the_jax_names():
+    """``streaming``, ``ops`` and ``utils`` export every name of the JAX
+    subpackage's ``__all__`` (``ops.topk`` the function, as there), or the
+    name is in ``TPU_ONLY_NAMES`` with its reason; importing them loads no
+    JAX and builds no kernel."""
+    listed = {}
+    for sub, skip in TPU_ONLY_NAMES.items():
+        names = _jax_all(sub)
+        assert len(names) == {"streaming": 29, "ops": 5, "utils": 3}[sub]
+        assert set(skip) <= set(names) and all(skip.values())
+        listed[sub] = [n for n in names if n not in skip]
+    code = (
+        "import importlib, sys\n"
+        f"listed = {listed!r}\n"
+        "for sub, names in listed.items():\n"
+        "    mod = importlib.import_module('mpi_k_selection_tpu_torch.' + sub)\n"
+        "    missing = [n for n in names if n not in mod.__all__ or not hasattr(mod, n)]\n"
+        "    assert not missing, (sub, missing)\n"
+        "from mpi_k_selection_tpu_torch import ops\n"
+        "from mpi_k_selection_tpu_torch.ops.cuda import build\n"
+        "assert callable(ops.topk) and ops.topk.__name__ == 'topk' and not build._libs\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'mpi_k_selection_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -649,25 +649,42 @@ def test_ingest_pool_answers_bit_identical(name):
 
 
 def test_ingest_workers_run_the_one_producer(monkeypatch):
-    """Every ``ingest_workers`` width stages each chunk of a pass once, in
-    source order, on the one ``ksel-pipeline-*`` producer thread (the JAX
-    package's pool of ingest workers is not ported)."""
+    """``ingest_workers`` 1 stages each chunk of a pass once, in source
+    order, on the one ``ksel-pipeline-*`` producer; above 1 each chunk is
+    staged once on the ``ksel-ingest-*`` workers of the pooled plane (in
+    whatever order they finish), and the consumer still gets the chunks in
+    source order."""
     chunks = [np.arange(n, dtype=np.int32) for n in (5000, 10, 20, 30, 40, 50)]
     x = np.concatenate(chunks)
     stage = pl.stage_chunk
-    staged = []
+    staged, consumed = [], []
 
     def recording_stage(c, *args, **kw):
         staged.append((threading.current_thread().name, len(c)))
         return stage(c, *args, **kw)
 
+    push = ex.StreamExecutor.push
+
+    def recording_push(self, keys):
+        consumed.append(keys.n_valid)
+        return push(self, keys)
+
     monkeypatch.setattr(pl, "stage_chunk", recording_stage)
+    monkeypatch.setattr(ex.StreamExecutor, "push", recording_push)
+    sizes = [len(c) for c in chunks]
     for workers in (1, 2, 4, "auto"):
         staged.clear()
+        consumed.clear()
         got = kt.streaming_rank_certificate(chunks, 25, pipeline_depth=2, ingest_workers=workers, device="cpu")
         assert got == (int(np.count_nonzero(x < 25)), int(np.count_nonzero(x <= 25)))
-        assert [n for _, n in staged] == [len(c) for c in chunks]
-        assert len({name for name, _ in staged}) == 1 and staged[0][0].startswith(pl.THREAD_NAME_PREFIX)
+        assert consumed == sizes
+        names = {name for name, _ in staged}
+        if pl.resolve_ingest_workers(workers) == 1:
+            assert [n for _, n in staged] == sizes
+            assert len(names) == 1 and staged[0][0].startswith(pl.THREAD_NAME_PREFIX)
+        else:
+            assert sorted(n for _, n in staged) == sorted(sizes)
+            assert names and all(name.startswith(pl.INGEST_THREAD_PREFIX + "-") for name in names)
 
 
 def test_ingest_pool_errors_reach_the_caller_in_order():
@@ -969,7 +986,8 @@ def test_ingest_pool_on_card(cuda_device):
     """``ingest_workers`` 1, 2 and 4 on the card: the same answers, one
     launch per chunk per pass and no plain call, every host chunk copied
     once a pass into a pinned buffer of the pool, at most ``depth + 1`` of
-    them in use at once, all back after the pass."""
+    them in use at once (``depth + 1 + W`` on the pooled plane of ``W``
+    workers), all back after the pass."""
     rng = np.random.default_rng(21)
     chunks = [rng.integers(0, 10**8, size=1 << 20).astype(np.int32) for _ in range(12)]
     x = np.concatenate(chunks)
@@ -991,5 +1009,6 @@ def test_ingest_pool_on_card(cuda_device):
         assert bits(got, x.dtype) == key_oracle(x, ks)
         assert S.LAUNCHES["sweep_ingest32"] == len(passes) * len(chunks) and not S.PLAIN_CALLS["sweep_ingest"]
         assert pl.HOST_COPY.count == len(passes) * len(chunks)
-        assert 0 < pl.STAGING_POOL.peak_live_bytes <= (2 + 1) * chunks[0].nbytes
+        # depth + 1 staged chunks, and one more a worker of the pooled plane
+        assert 0 < pl.STAGING_POOL.peak_live_bytes <= (2 + 1 + (workers if workers > 1 else 0)) * chunks[0].nbytes
         assert pl.STAGING_POOL.live_bytes == 0
