@@ -53,8 +53,8 @@ Phases, each of which must pass (any failure exits non-zero):
    ``batched_median`` of
    the float32 array against ``np.sort``. Then the streamed paths (the
    launch counts, per call, of the sweep kernel only: once per chunk per
-   pass, counted at the source): ``kselect_streaming`` of 2^32 int32
-   ``uniform`` held on the host as 64 chunks of 2^26 (chunk i of seed i;
+   pass, counted at the source): ``kselect_streaming`` of 2^31 int32
+   ``uniform`` held on the host as 32 chunks of 2^26 (chunk i of seed i;
    halved when the host has less than 48 GiB free) at k in {1, 250, N/2,
    N}, at depth 2 and 0; ``kselect_streaming_many`` at the p50/p90/p99/
    p99.9 ranks; the median of 2^30 float64 ``normal`` (32 chunks of 2^25);
@@ -83,12 +83,12 @@ Phases, each of which must pass (any failure exits non-zero):
    main-path shape beside its plain version, held exactly against it on
    the same tensor first (the kernels
    line reports that comparison's error); the streaming median and
-   quantiles of the 2^32 int32 stream at depth 2 and 0 (best of two
+   quantiles of the 2^31 int32 stream at depth 2 and 0 (best of two
    calls each) beside their bound
    (passes x bytes over the host-to-card rate of a pinned 2^26-word copy
    timed in the same run) and beside the resident median of the same data
    whole on the card (a fault there is printed and the resident median
-   timed at 2^31); the sweep kernel at each launch kind the streamed paths
+   timed at half the size); the sweep kernel at each launch kind the streamed paths
    issue, on the int32 stream's chunk 0 and the float64 stream's chunk 0
    (a first pass, one and 4 prefixes, the collect of one and of 4 specs, a
    certificate, the sketch alone at 16 bits), on a one-hot 2^26-word int32
@@ -105,7 +105,7 @@ Phases, each of which must pass (any failure exits non-zero):
    ``torch.bincount`` + ``torch.masked_select`` on the same tensor.
 5. Profile two medians, one K=4 ``quantiles`` of 2^30 int32, one
    ``topk`` of 2^26 float32, one ``batched_topk`` k=8 of (4096, 32768)
-   float32 and one streaming median of the 2^32 int32 stream with
+   float32 and one streaming median of the 2^31 int32 stream with
    ``torch.profiler``: device time by kernel and copy, and the device's
    idle share.
 6. The distributed paths on 4 ranks spawned by
@@ -150,7 +150,7 @@ Phases, each of which must pass (any failure exits non-zero):
    certificate, wall ms, its ``pass_log``, the bytes over the link
    against the replay's, the peak bytes on disk sampled after each
    commit, the sweep kernel's device time and the idle share); on the
-   first quarter (2^30 keys; the run's time), the p50/p90/p99/p99.9 with
+   first quarter (2^29 keys; the run's time), the p50/p90/p99/p99.9 with
    ``spill="force"`` (against NumPy's
    certificates, with its ``pass_log``),
    ``StreamingQuantiles.update_stream(one_shot, spill=store)``, then
@@ -205,7 +205,7 @@ Phases, each of which must pass (any failure exits non-zero):
    measurement for a host of several cards.
 
 11. The fault harness and the recovery policies (``phase_faults``, run
-   after phase 10 and before phase 6) on the int32 stream's first quarter
+   after phase 10 and before phase 6) on the int32 stream's first half
    (2^30 keys, 16 chunks of 2^26): the spilled median with no injector
    (the twin, against NumPy's certificate), then under a plan that strikes
    every streamed site and kind once (source raise and stall, stage raise
@@ -223,12 +223,12 @@ Phases, each of which must pass (any failure exits non-zero):
    mid-run scrape parsed, the last equal to the registry's text); and the
    CLI in subprocesses (``--chaos 7 --check --debug-bundle`` on 2^28 keys,
    ``monitor --buckets 8``). ``python3 chip_smoke.py --phase11`` runs the
-   build, the stream's first quarter and phase 11 alone.
+   build, the stream's first half and phase 11 alone.
 
 12. The resident-dataset query server (``phase_serve``, run after phase 11
    and before phase 6): one ``KSelectServer(window=0.002, flight=True)``
    with telemetry holding the 2^30 int32 array of phase 3 (cloned, warmed),
-   the 2^27 float64 array (warmed) and the int32 stream's first quarter as
+   the 2^27 float64 array (warmed) and the int32 stream's first half as
    a stream dataset, served by ``start_http_server(port=0)``: each op alone
    with the launch counts set to 0 around it (rows 1-6 and 8 launched, no
    plain version called), then 8 HTTP client threads (exact ranks,
@@ -252,14 +252,14 @@ Phases, each of which must pass (any failure exits non-zero):
    (0 findings, 0 stale suppressions); the contracts KSC101-105 on the
    card; the lock-order sanitizer around a ``KSelectServer(window=0.002)``
    session (8 clients x 16 exact ranks of 2^26 int32) and a two-slot
-   streamed median of the int32 stream's first quarter: 0 cycles, no
+   streamed median of the int32 stream's first half: 0 cycles, no
    conflict with the static lock graph, queries a second with it on and
    off, a flight bundle carrying the observed graph. Phase 2 holds the
    16-bit route (the top digit, one prefix, K=4 and 64 prefixes) against
    the plain version. ``python3 chip_smoke.py --phase13`` runs the build
    and phase 13 alone.
 14. The pooled host data plane and spill decode (``phase_ingest_pool``;
-   after phase 13 and before phase 6), on the int32 stream's first quarter
+   after phase 13 and before phase 6), on the int32 stream's first half
    (phase 11's 16 chunks of 2^26), at ``ingest_workers`` 1 and 4: the
    one-shot spilled median with ``pack_spill="auto"`` into a store of the
    script's, then ``streaming_rank_certificate`` from the packed store it
@@ -269,7 +269,18 @@ Phases, each of which must pass (any failure exits non-zero):
    ``ksel-ingest-*`` thread left; wall ms, ``pass_host_ms``, ``HOST_COPY``,
    the idle share, ``ingest_hidden_frac``, ``encode_hidden_frac`` and the
    peak device memory of each. ``python3 chip_smoke.py --phase14`` runs the
-   build, the stream's first quarter and phase 14 alone.
+   build, the stream's first half and phase 14 alone.
+15. ``early_exit_budget`` (``phase_early_exit``; after phase 14 and before
+   phase 6), on phase 3's resident arrays: the median and k in {1, N} of
+   2^30 int32 ``uniform`` and the medians of 2^27 float64 ``normal``, 2^26
+   float32 ``normal`` and 2^27 int32 ``equal``, at budgets 8192 and 4096
+   beside ``cutover="auto"`` and ``cutover=None``: each answer NumPy's bits,
+   the histogram kernel once a pass and ``match_counts`` once a collect as
+   the data predicts, no plain call, the host syncs counted; each
+   configuration timed warm with CUDA events (10 interleaved calls), the
+   medians' peak device memory, the int32 medians profiled.
+   ``python3 chip_smoke.py --phase15`` runs the build, those arrays and
+   phase 15 alone.
 
 The timed kernel rows of phase 4 also time the nearest torch composition
 of each of rows 1-6 on the same tensor (a ``torch.bincount`` of the digits
@@ -324,7 +335,8 @@ BATCH_KS = {torch.float32: (1, 8, 9, 16), torch.bfloat16: (8, 16)}
 SWEEP_BUCKET = 1 << 26  # the sweep kernel's checks and timings: one streamed chunk
 CHECK_WORDS = 1 << 26  # phase 2's random words (phase 4 holds each kernel at its main-path shape)
 BUDGET_S = 1200  # the whole script's time budget, the build included
-STREAM_CHUNK, STREAM_CHUNKS = 1 << 26, 64  # 2^32 int32 uniform, chunk i of seed i (16 GiB on the host)
+# 2^31 int32 uniform, chunk i of seed i (8 GiB on the host): past one int32 count, and half of 2^32 for the run's time
+STREAM_CHUNK, STREAM_CHUNKS = 1 << 26, 32
 F64_CHUNK, F64_CHUNKS = 1 << 25, 32  # 2^30 float64 normal (8 GiB)
 SKETCH_BITS = 16  # the sketches' default resolution: 4-bit digits x 4 levels
 HOST_GIB_NEEDED = 48  # below this much free host memory the streams are halved
@@ -506,7 +518,10 @@ def phase_kernels_vs_plain(gen):
                      words=w, shift=bits - 32, radix_bits=16, prefixes=p, key_op=key_op, key_xor=key_xor)
             print(f"[check] the 16-bit route ({name16}) == plain at {n} {key_op} keys: the top digit, one prefix, "
                   "K=4 and K=64 prefixes")
-            for res, nq in ((24, 1), (bits // 2 + 4, 3)):
+            # the cutover's widths at K=3, and at K=1 every width the early
+            # exit collects at with 4-bit digits (phase 15; 64-bit: 20-60)
+            early = range(4, 32, 4) if bits == 32 else (20, 36, 44, 52, 60)
+            for res, nq in ((24, 1), (bits // 2 + 4, 3), *((r, 1) for r in early)):
                 p = dt.shift_right_logical(keys[[7, n // 3, n - 1]][:nq], bits - res, bits).contiguous()
                 hold(f"match_counts{bits}", H.match_counts, H.match_counts_plain, f"{key_op} res={res} K={nq}",
                      words=w, resolved_bits=res, prefixes=p, key_op=key_op, key_xor=key_xor)
@@ -523,6 +538,21 @@ def phase_kernels_vs_plain(gen):
             if not torch.equal(H.radix_histogram_multi(words, **kw), H.radix_histogram_multi_plain(words, **kw)):
                 fail(f"radix_histogram_multi{bits} != plain on {label}")
             print(f"[check] radix_histogram_multi{bits} == plain on {label}")
+        del w
+    # widened 8- and 16-bit keys (the key in a word's low bits, key_op
+    # "none"): the early exit's collect at r key bits reads r + 32 - key
+    # bits of the word, every width a digit of 1, 2, 4 or 8 bits reaches
+    for dtype in (torch.int8, torch.int16):
+        kb = dt.key_bits(dtype)
+        w = dt.to_sortable_bits(torch.randint(-(1 << (kb - 1)), 1 << (kb - 1), (n,), dtype=torch.int32,
+                                              device="cuda", generator=gen).to(dtype))
+        for res in range(1, kb):
+            wres = res + 32 - kb
+            p = dt.shift_right_logical(w[n // 3 : n // 3 + 1], 32 - wres, 32).contiguous()
+            hold("match_counts32", H.match_counts, H.match_counts_plain, f"widened {dtype} res={res}",
+                 words=w, resolved_bits=wres, prefixes=p)
+        print(f"[check] match_counts32 == plain on {n} widened {dtype} keys at K=1, key bits 1-{kb - 1} "
+              f"(word bits {33 - kb}-31)")
         del w
     from mpi_k_selection_tpu_torch.ops.cuda import topk as T
 
@@ -546,6 +576,7 @@ def phase_kernels_vs_plain(gen):
     sweep_vs_plain(gen, err)
     for name, e in err.items():
         print(f"[check] {name} vs plain at n={n} / ({BATCH}, {WIDTH}) / a {SWEEP_BUCKET}-word bucket: max_abs_err={e}")
+    return err
 
 
 def multi_prefix_sets(w: torch.Tensor, bits: int, gen):
@@ -806,6 +837,8 @@ def phase_main_path(gen):
         x = datagen.generate(n, pattern=pattern, seed=0, dtype=dtype)
         if n > 1 << 26:  # the selects' arrays
             wants[label] = oracle(x, [1, 250, n // 2, n] + api.quantile_ranks(QS, n))
+        else:  # phase 15's median of the float32 array
+            wants[label] = oracle(x, [n // 2])
         if dtype != np.int32:
             tops[label] = {largest: topk_oracle(x, TOPK, largest) for largest in (True, False)}
         if n == 1 << 30:
@@ -931,9 +964,10 @@ def phase_main_path(gen):
     if any(v == 0 for v in launches.values()):
         fail(f"a kernel of the main paths never launched: {launches}")
     notes = {"kselect_many_k64_extra_peak_bytes": extra_peak, "batched_topk_k8_extra_peak_bytes": batched_peak}
-    # phase 12 checks its served answers against the same oracles
+    # phases 12 and 15 check their answers against the same oracles
     oracles = {"i32": wants["int32 uniform 2^30"], "f64": wants["float64 normal 2^27"],
-               "f64_tops": tops["float64 normal 2^27"]}
+               "f64_tops": tops["float64 normal 2^27"], "i32_equal": wants["int32 equal 2^27"],
+               "f32": wants["float32 normal 2^26"]}
     return data, launches, per_call, notes, oracles
 
 
@@ -1313,8 +1347,8 @@ def np_certificates(chunks, values) -> list:
 
 
 def phase_streaming():
-    """Phase 3 for the streamed paths: ``kselect_streaming`` of 2^32 int32
-    ``uniform`` (64 host chunks of 2^26, chunk i of seed i) at k in {1,
+    """Phase 3 for the streamed paths: ``kselect_streaming`` of 2^31 int32
+    ``uniform`` (32 host chunks of 2^26, chunk i of seed i) at k in {1,
     250, N/2, N} at depth 2 and 0, ``kselect_streaming_many`` at the
     p50/p90/p99/p99.9 ranks, the median of 2^30 float64 ``normal`` (32
     chunks of 2^25), and ``streaming_rank_certificate`` of each answer.
@@ -1384,13 +1418,13 @@ def phase_streaming():
     answers = {}
     for depth in (2, 0):
         for k in ranks:
-            answers[(k, depth)] = counted(f"kselect_streaming k={k} depth={depth}, int32 uniform 2^32",
+            answers[(k, depth)] = counted(f"kselect_streaming k={k} depth={depth}, int32 uniform 2^31",
                                           lambda: kt.kselect_streaming(ints, k, pipeline_depth=depth),
                                           ints, 32, depth, 1)
     for k in ranks:
         if answers[(k, 2)].tobytes() != answers[(k, 0)].tobytes():
             fail(f"kselect_streaming k={k}: depth 2 {answers[(k, 2)]!r} != depth 0 {answers[(k, 0)]!r}")
-    what = f"kselect_streaming k={n32 // 2} depth=2 ingest_workers={POOL_WIDTHS[-1]}, int32 uniform 2^32"
+    what = f"kselect_streaming k={n32 // 2} depth=2 ingest_workers={POOL_WIDTHS[-1]}, int32 uniform 2^31"
     secs, pooled = time_fn(lambda: counted(what, lambda: kt.kselect_streaming(
         ints, n32 // 2, pipeline_depth=2, ingest_workers=POOL_WIDTHS[-1]), ints, 32, 2, 1, workers=POOL_WIDTHS[-1]))
     if pooled.tobytes() != answers[(n32 // 2, 2)].tobytes():
@@ -1398,14 +1432,14 @@ def phase_streaming():
              f"{answers[(n32 // 2, 2)]!r}")
     print(f"[stream] {what}: {secs * 1e3:.1f} ms (one call; phase 4 times the one producer's)")
     qranks = api.quantile_ranks(QS, n32)
-    qans = counted("kselect_streaming_many p50/p90/p99/p99.9 depth=2, int32 uniform 2^32",
+    qans = counted("kselect_streaming_many p50/p90/p99/p99.9 depth=2, int32 uniform 2^31",
                    lambda: kt.kselect_streaming_many(ints, qranks, pipeline_depth=2), ints, 32, 2, len(QS))
     fmed = counted("kselect_streaming median depth=2, float64 normal 2^30",
                    lambda: kt.kselect_streaming(f64, n64 // 2, pipeline_depth=2), f64, 64, 2, 1)
     checks = [(ints, 32, k, answers[(k, 2)]) for k in ranks] + [(ints, 32, k, v) for k, v in zip(qranks, qans)]
     checks.append((f64, 64, n64 // 2, fmed))
     np_certs = {}
-    for src, bits, label in ((ints, 32, "int32 uniform 2^32"), (f64, 64, "float64 normal 2^30")):
+    for src, bits, label in ((ints, 32, "int32 uniform 2^31"), (f64, 64, "float64 normal 2^30")):
         mine = [(k, v) for s, _, k, v in checks if s is src]
         want = np_certificates(src.chunks, [v for _, v in mine])
         for (k, v), (less, leq) in zip(mine, want):
@@ -1423,9 +1457,9 @@ def phase_streaming():
              "stream_answers": {str(k): repr(v) for k, v in answers.items()}, "stream_pooled_median_ms": secs * 1e3}
     certified = {"median32": answers[(n32 // 2, 2)], "qranks": qranks, "quantiles32": qans, "median64": fmed,
                  "median32_certificate": np_certs[(32, n32 // 2)],
-                 "median_passes": per_call[f"kselect_streaming k={n32 // 2} depth=2, int32 uniform 2^32"]
+                 "median_passes": per_call[f"kselect_streaming k={n32 // 2} depth=2, int32 uniform 2^31"]
                  ["sweep_ingest32"] // len(ints.chunks),
-                 "quantile_passes": per_call["kselect_streaming_many p50/p90/p99/p99.9 depth=2, int32 uniform 2^32"]
+                 "quantile_passes": per_call["kselect_streaming_many p50/p90/p99/p99.9 depth=2, int32 uniform 2^31"]
                  ["sweep_ingest32"] // len(ints.chunks)}
     return ints, f64, launches, per_call, notes, certified
 
@@ -1433,7 +1467,7 @@ def phase_streaming():
 def phase_streaming_timing(ints, f64):
     """Phase 4 for the streamed paths: the sweep kernel at each launch kind
     of the streamed paths (:func:`sweep_kind_rows`); the streaming median
-    and quantiles of the 2^32 int32 stream at depth 2 and 0, each beside
+    and quantiles of the 2^31 int32 stream at depth 2 and 0, each beside
     its bound (the passes it read times the stream's bytes over the
     host-to-card rate of a pinned 2^26-word copy timed here) and beside
     the resident ``median`` of the same data placed whole on the card; then
@@ -1497,7 +1531,7 @@ def phase_streaming_timing(ints, f64):
             ints.passes = 0
             secs, _ = time_fn(lambda: fn(depth), repeats=2, device="cuda")  # best of two: the host is noisy
             b = ints.passes // 2 * n32 * 4 / link_rate * 1e3
-            what = f"streaming {label} depth={depth}, int32 uniform 2^32"
+            what = f"streaming {label} depth={depth}, int32 uniform 2^31"
             stream_ms[what] = secs * 1e3
             row(what, secs * 1e3, b, "bytes", f"   ({ints.passes // 2} passes over the host-to-card link)")
     # the resident yardstick: the same data whole on the card
@@ -1711,7 +1745,7 @@ def phase_sketch_staging(ints, f64, certified):
 
     - the staging: :func:`host_copy_probe` (the host copies alone, at
       1, 2 and 4 threads, the link idle and busy); the streamed median of
-      the 2^32 int32 stream and of the 2^30 float64 stream at depth 2,
+      the 2^31 int32 stream and of the 2^30 float64 stream at depth 2,
       each one call under the profiler: its answer against phase 3's
       certified answer, wall ms, the device's idle share, the host copy
       into a pinned buffer per chunk, the most pinned bytes in use and
@@ -1765,7 +1799,7 @@ def phase_sketch_staging(ints, f64, certified):
     n32, n64 = len(ints.chunks) * STREAM_CHUNK, len(f64.chunks) * F64_CHUNK
     runs = [(ints, 32, n32 // 2, certified["median32"]), (f64, 64, n64 // 2, certified["median64"])]
     for src, bits, k, want in runs:
-        what = f"streaming median depth=2, {'int32 uniform 2^32' if bits == 32 else 'float64 normal 2^30'}"
+        what = f"streaming median depth=2, {'int32 uniform 2^31' if bits == 32 else 'float64 normal 2^30'}"
         pl.STAGING_POOL.clear()
         pl.STAGING_POOL.reset_peaks()
         pl.HOST_COPY.reset()
@@ -1803,7 +1837,7 @@ def phase_sketch_staging(ints, f64, certified):
 
     # the sketch: update_stream, against NumPy
     parts32 = np_chunk_sketches(ints.chunks)
-    what = "StreamingQuantiles(int32).update_stream, int32 uniform 2^32"
+    what = "StreamingQuantiles(int32).update_stream, int32 uniform 2^31"
     sq = kt.StreamingQuantiles(np.int32)
     secs, _ = time_fn(lambda: counted(what, lambda: sq.update_stream(ints), ints, 32), device="cuda")
     check_sketch(sq.sketch, np_sketch(parts32), what)
@@ -1827,7 +1861,7 @@ def phase_sketch_staging(ints, f64, certified):
             fail(f"k={k}: rank bounds ({lo}, {hi}] or value bounds [{vlo!r}, {vhi!r}] miss the answer {v!r}")
         print(f"[phase7] k={k}: rank bounds ({lo}, {hi}] (error bound {hi - lo}), values [{vlo!r}, {vhi!r}] "
               f"hold the certified {v!r}")
-    what = "refine_quantiles p50/p90/p99/p99.9, int32 uniform 2^32"
+    what = "refine_quantiles p50/p90/p99/p99.9, int32 uniform 2^31"
     secs, refined = time_fn(lambda: counted(what, lambda: sq.refine_quantiles(QS, ints), ints, 32), device="cuda")
     if np.array(refined).tobytes() != np.array(certified["quantiles32"]).tobytes():
         fail(f"{what}: {refined!r} != phase 3's {certified['quantiles32']!r}")
@@ -1851,7 +1885,7 @@ def phase_sketch_staging(ints, f64, certified):
 
     # the monitor over a one-shot generator, exact and decayed
     for decay in (None, MONITOR_DECAY):
-        what = f"Monitor window={MONITOR_WINDOW} emit_every={MONITOR_EVERY} decay={decay}, int32 uniform 2^32"
+        what = f"Monitor window={MONITOR_WINDOW} emit_every={MONITOR_EVERY} decay={decay}, int32 uniform 2^31"
         mon = kt.Monitor(window=MONITOR_WINDOW, emit_every=MONITOR_EVERY, decay=decay)
         windows = []
 
@@ -1953,7 +1987,7 @@ def print_pass_log(what: str, log, predicted=None) -> None:
 
 
 def phase_spill(ints, f64, certified):
-    """Phase 8, the spill descent (this slice's path), on the 2^32 int32
+    """Phase 8, the spill descent (this slice's path), on the 2^31 int32
     stream of phase 3, each call driven with the launch counts set to 0
     just before it and read just after (the sweep kernel once per chunk
     read in each pass, counted from the generations' records; no other
@@ -1961,16 +1995,16 @@ def phase_spill(ints, f64, certified):
 
     - the free disk under the spill root (``shutil.disk_usage``): below
       1.5x the stream's bytes the stream is halved, and the cut printed;
-    - the median of the first half of the stream (the run's time: 2^31
-      keys, 8 GiB; since PR 13, when phase 10 joined the run) read as a
+    - the median of the first half of the stream (the run's time: 2^30
+      keys, 4 GiB) read as a
       ONE-SHOT generator, ``spill="auto"``, one call under the profiler:
       its answer against NumPy's certificate (phase 3's certified median
       when the whole stream is read), wall ms, its ``pass_log`` (beside
       the arithmetic above on the whole stream), the bytes over the link
       against the replay's, the peak bytes on disk (sampled after each
       commit), the sweep kernel's device time and the idle share;
-    - on the first quarter of the stream (2^30 keys, BASELINE.md's 1B
-      int32; the run's time; phase 9 runs the format-v2 twins on the same
+    - on the first quarter of the stream (2^29 keys; the run's time;
+      phase 9 runs the format-v2 twins on the same
       quarter): the p50/p90/p99/p99.9 with
       ``spill="force"``, against NumPy's certificates, with its
       ``pass_log``; ``StreamingQuantiles.update_stream(one_shot,
@@ -2660,7 +2694,7 @@ def phase_multidevice_obs(ints, f64, certified, x30):
 
     # the int32 and float64 replay medians, bare and with telemetry
     n32, n64 = len(ints.chunks) * STREAM_CHUNK, len(f64.chunks) * F64_CHUNK
-    runs = ((ints, 32, n32 // 2, certified["median32"], "int32 uniform 2^32", True),
+    runs = ((ints, 32, n32 // 2, certified["median32"], "int32 uniform 2^31", True),
             (f64, 64, n64 // 2, certified["median64"], "float64 normal 2^30", False))
     for src, bits, k, want, label, with_bare_slots in runs:
         replay(f"median depth=2 devices=None obs=None, {label}", src, k, want, bits)
@@ -2755,7 +2789,7 @@ def phase_multidevice_obs(ints, f64, certified, x30):
 
     # one slot a card
     p = torch.cuda.device_count()
-    what = f"median depth=2 devices={p} (one slot a card), int32 uniform 2^32"
+    what = f"median depth=2 devices={p} (one slot a card), int32 uniform 2^31"
     if p < 2:
         print(f"[phase10] {what}: needs two cards or more ({p} here): not run")
         out["multi_card"] = {"run": False, "cards": p}
@@ -2778,7 +2812,7 @@ def phase_multidevice_obs(ints, f64, certified, x30):
             or any(v > each for v in sweeps.values()) or seen < 0.95 * p * each:
         fail(f"{what}: ingest.chunks {chunks_by} and the profiler's sweep launches by card {sweeps}, expected {each} "
              f"on each of {p} cards")
-    one = out["calls"]["median depth=2 devices=None obs=None, int32 uniform 2^32"]["ms"]
+    one = out["calls"]["median depth=2 devices=None obs=None, int32 uniform 2^31"]["ms"]
     print(f"[phase10] {what}: {got!r} == phase 3; {ms:.1f} ms against {one:.1f} ms on one slot; ingest.chunks "
           f"{chunks_by}; sweep kernels by card (profiler) {dict(sorted(sweeps.items()))}, {p * each - seen} of "
           f"{p * each} records not seen, none on a card its chunk was not staged to; busy ms by card "
@@ -2789,7 +2823,7 @@ def phase_multidevice_obs(ints, f64, certified, x30):
     return launches, per_call, out
 
 
-FAULT_CHUNKS = 16  # phase 11: the int32 stream's first quarter, 2^30 keys (BASELINE's "1B int32")
+FAULT_CHUNKS = 16  # phase 11: the int32 stream's first half, 2^30 keys (BASELINE's "1B int32")
 FAULT_CLI_CHUNKS = 4  # phase 11's CLI run: 2^28 keys in chunks of 2^26
 HARD_SEED = 3  # phase 11's hard form: FaultPlan.seeded(3, sites=("stage",), recoverable=False) holds a raise
 
@@ -2825,7 +2859,7 @@ def prometheus_lines(text: str) -> dict:
 
 def phase_faults(chunks, device: str = "cuda", collect_budget: int | None = None):
     """Phase 11, the fault harness and the recovery policies on the spilled
-    descent, on ``chunks`` (the int32 stream's first quarter, 16 chunks of
+    descent, on ``chunks`` (the int32 stream's first half, 16 chunks of
     2^26), each call driven with the launch counts set to 0 just before it
     and read just after (the sweep kernel once per chunk each pass read,
     failed attempts included, nothing else, no plain version), and every
@@ -3138,7 +3172,7 @@ def phase_serve(x30: torch.Tensor, f64: torch.Tensor, chunks, device: str = "cud
     window=0.002, obs=..., flight=True)`` holding ``x30`` (2^30 int32
     ``uniform``, seed 0, cloned at registration, warmed), ``f64`` (2^27
     float64 ``normal``, warmed) and ``chunks`` (the int32 stream's first
-    quarter, 16 chunks of 2^26) as a stream dataset, served over HTTP by
+    half, 16 chunks of 2^26) as a stream dataset, served over HTTP by
     ``start_http_server(port=0)``:
 
     - each op alone first, with the launch counts set to 0 just before it
@@ -4394,7 +4428,7 @@ def generation_digests(root: str) -> dict:
 
 def phase_ingest_pool(chunks, device: str = "cuda"):
     """Phase 14, the pooled host data plane and spill decode (this slice's
-    paths), on ``chunks`` (the int32 stream's first quarter), at each
+    paths), on ``chunks`` (the int32 stream's first half), at each
     ``ingest_workers`` of :data:`POOL_WIDTHS`, each call driven with the
     launch counts set to 0 just before it and read just after:
 
@@ -4535,9 +4569,203 @@ def phase_ingest_pool(chunks, device: str = "cuda"):
     return launches, per_call, out
 
 
+EARLY_BUDGETS = (8192, 4096)  # phase 15: the cutover's default budget, and tests/test_radix.py's
+EARLY_REPS = 10  # phase 15: interleaved timed calls of each configuration
+EARLY_CONFIGS = (  # phase 15: label, radix_select options
+    *((f"early {b}", {"early_exit_budget": b}) for b in EARLY_BUDGETS),
+    ("cutover auto", {}),
+    ("cutover None", {"cutover": None}),
+)
+
+
+def prefix_counts(x: torch.Tensor, ans: torch.Tensor, radix_bits: int = 4) -> list:
+    """For p = 1 .. passes - 1, the keys of ``x`` sharing the answer's top
+    ``p * radix_bits`` key bits: plain torch compares on ``x``'s device."""
+    from mpi_k_selection_tpu_torch.utils import dtypes as dt
+
+    keys = dt.to_sortable_bits(x.reshape(-1))
+    a = dt.to_sortable_bits(ans.reshape(1))
+    carrier, total = keys.element_size() * 8, dt.key_bits(x.dtype)
+    out = []
+    for p in range(1, total // radix_bits):
+        s = total - p * radix_bits
+        out.append(int((dt.shift_right_logical(keys, s, carrier) == dt.shift_right_logical(a, s, carrier)).sum()))
+    return out
+
+
+def predicted_early(counts: list, budget: int) -> tuple[int, int]:
+    """(passes, collects) of the early exit from :func:`prefix_counts`: the
+    least p >= 1 whose count fits ``budget`` and one collect, else every
+    pass and none (tests/test_torch_early_exit.py:predicted, NumPy's rule)."""
+    for p, c in enumerate(counts, 1):
+        if c <= budget:
+            return p, 1
+    return len(counts) + 1, 0
+
+
+def phase_early_exit(data, oracles, device: str = "cuda"):
+    """Phase 15, ``early_exit_budget`` (this slice's path) beside the
+    cutover on phase 3's resident arrays: the median and k in {1, n} of
+    2^30 int32 ``uniform``, the medians of 2^27 float64 ``normal``, 2^26
+    float32 ``normal`` and 2^27 int32 ``equal`` (one hot bin: the
+    population never fits), each at the budgets of :data:`EARLY_BUDGETS`
+    and under ``cutover="auto"`` and ``cutover=None``.
+
+    Each call runs once with the launch counts set to 0 just before it and
+    read just after, and the host syncs it makes counted
+    (``torch.cuda.set_sync_debug_mode("warn")``: the upload of k, and one a
+    population read); its answer must be phase 3's NumPy oracle bit for
+    bit, no plain version may run, and an early call's passes and collects
+    must be those :func:`predicted_early` finds in the data. Then every
+    configuration is timed warm with CUDA events, :data:`EARLY_REPS`
+    calls each, interleaved; the medians' peak device memory above the
+    data is read, and the 2^30 int32 and equal medians are profiled."""
+    import statistics
+    import warnings
+
+    import mpi_k_selection_tpu_torch as kt
+    from mpi_k_selection_tpu_torch.ops.cuda import histogram as H
+    from mpi_k_selection_tpu_torch.ops.cuda import sweep_ingest as S
+    from mpi_k_selection_tpu_torch.ops.cuda import topk as T
+    from mpi_k_selection_tpu_torch.utils.interop import tensor_to_numpy
+
+    on_card = torch.device(device).type == "cuda"
+    x30 = data["int32 uniform 2^30"]
+    n30 = x30.numel()
+    cases = (  # label, array, ranks, oracle bytes by rank
+        ("int32 uniform 2^30", x30, (n30 // 2, 1, n30), oracles["i32"]),
+        ("float64 normal 2^27", data["float64 normal 2^27"], None, oracles["f64"]),
+        ("float32 normal 2^26", data["float32 normal 2^26"], None, oracles["f32"]),
+        ("int32 equal 2^27", data["int32 equal 2^27"], None, oracles["i32_equal"]),
+    )
+    books = (H, S, T)
+    launches = {"radix_histogram32": 0, "radix_histogram64": 0, "match_counts32": 0, "match_counts64": 0}
+    per_call, out = {}, {"calls": [], "profiles": []}
+
+    def call(x, k, kw):
+        return kt.median(x, **kw) if k == x.numel() // 2 else kt.kselect(x, k, **kw)
+
+    def counted(what, x, k, kw):
+        """One call with every count at 0 just before it: its answer, its
+        (passes, collects) (the kernels' launches on the card, the plain
+        versions' calls on the CPU) and its host syncs."""
+        bits = 8 * x.element_size()
+        for book in books:
+            book.reset_counts()
+        if on_card:
+            torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if on_card:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                ans = call(x, k, kw)
+            finally:
+                if on_card:
+                    torch.cuda.set_sync_debug_mode("default")
+        if on_card:
+            torch.cuda.synchronize()
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        got = {kn: v for book in books for kn, v in book.LAUNCHES.items()}
+        if on_card:
+            pc = (got[f"radix_histogram{bits}"], got[f"match_counts{bits}"])
+        else:
+            pc = (H.PLAIN_CALLS["radix_histogram"], H.PLAIN_CALLS["match_counts"])
+        plain = {kn: v for book in books for kn, v in book.PLAIN_CALLS.items() if v}
+        if on_card and plain:
+            fail(f"phase 15: {what}: plain calls {plain}")
+        per_call[what] = {kn: v for kn, v in got.items() if v}
+        for kn, v in per_call[what].items():
+            if kn not in launches:
+                fail(f"phase 15: {what} launched {kn}")
+            launches[kn] += v
+        return ans, pc, syncs
+
+    def timed(fn):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1)
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    medians = {}
+    for label, x, ranks, want in cases:
+        n = x.numel()
+        for k in ranks or (n // 2,):
+            what = f"{'median' if k == n // 2 else f'kselect k={k}'}, {label}"
+            counts = None
+            results = {}
+            for cname, kw in EARLY_CONFIGS:
+                ans, (passes, collects), syncs = counted(f"{what}, {cname}", x, k, kw)
+                if tensor_to_numpy(ans.reshape(1)).tobytes() != want[k]:
+                    fail(f"phase 15: {what}, {cname}: {ans!r} != the NumPy oracle")
+                row = {"what": what, "config": cname, "passes": passes, "collects": collects, "host_syncs": syncs}
+                if "early_exit_budget" in kw:
+                    if counts is None:
+                        counts = prefix_counts(x, ans)
+                    want_pc = predicted_early(counts, kw["early_exit_budget"])
+                    if (passes, collects) != want_pc:
+                        fail(f"phase 15: {what}, {cname}: {passes} passes and {collects} collects, the data "
+                             f"predicts {want_pc} (prefix counts {counts})")
+                    row["predicted"] = list(want_pc)
+                results[cname] = row
+            print(f"[phase15] {what}: == NumPy under every configuration; population by resolved digits {counts}")
+            if not on_card:
+                out["calls"] += list(results.values())
+                continue
+            for cname, kw in EARLY_CONFIGS:  # warm
+                call(x, k, kw)
+            ms = {cname: [] for cname, _ in EARLY_CONFIGS}
+            for _ in range(EARLY_REPS):
+                for cname, kw in EARLY_CONFIGS:
+                    ms[cname].append(timed(lambda: call(x, k, kw)))
+            for cname, kw in EARLY_CONFIGS:
+                row = results[cname]
+                row.update(ms_median=statistics.median(ms[cname]), ms_min=min(ms[cname]), ms_max=max(ms[cname]))
+                if k == n // 2:
+                    row["extra_peak_bytes"] = peak(lambda: call(x, k, kw))
+                print(f"[phase15] {what}, {cname:<12}: {row['ms_median']:9.4f} ms median of {EARLY_REPS} "
+                      f"({row['ms_min']:.4f}-{row['ms_max']:.4f}); {row['passes']} passes, {row['collects']} "
+                      f"collects, {row['host_syncs']} host syncs"
+                      + (f", peak {row['extra_peak_bytes'] / 2**20:.1f} MiB above the data"
+                         if "extra_peak_bytes" in row else ""))
+                out["calls"].append(row)
+            if k == n // 2:
+                medians[label] = (x, results)
+    if on_card:
+        if not any(r["host_syncs"] for r in out["calls"]):
+            print("[phase15] the sync debug mode reported no host sync: host reads not measured")
+            for r in out["calls"]:
+                r["host_syncs"] = None
+        for label in ("int32 uniform 2^30", "int32 equal 2^27"):
+            x, results = medians[label]
+            for cname in (f"early {EARLY_BUDGETS[0]}", "cutover auto", "cutover None"):
+                kw = dict(EARLY_CONFIGS)[cname]
+                prof = phase_profile(lambda: kt.median(x, **kw), f"phase 15 median {label}, {cname}",
+                                     results[cname]["ms_median"])
+                if prof is not None:
+                    results[cname]["idle_share"] = prof["idle_share"]
+                    out["profiles"].append(prof)
+    print(f"[phase15] launches {launches}; plain calls 0 on each call")
+    if on_card and not all(launches.values()):
+        fail(f"phase 15: a kernel of the path never launched: {launches}")
+    return launches, per_call, out
+
+
 def main_phase13(smi: str) -> int:
     """``python3 chip_smoke.py --phase13``: phase 13 alone (the build, the
-    2^30 int32 array of phase 3, the int32 stream's first quarter, then
+    2^30 int32 array of phase 3, the int32 stream's first half, then
     phase 13)."""
     from mpi_k_selection_tpu_torch.utils import datagen
     from mpi_k_selection_tpu_torch.utils.interop import tensor_from_numpy
@@ -4591,7 +4819,7 @@ def main_phase10(smi: str) -> int:
 
 def main_phase11(smi: str) -> int:
     """``python3 chip_smoke.py --phase11``: phase 11 alone (the build, the
-    int32 stream's first quarter, then phase 11)."""
+    int32 stream's first half, then phase 11)."""
     phase_build()
     chunks = make_chunks(FAULT_CHUNKS, STREAM_CHUNK, "uniform", np.int32)
     launches, _, notes = phase_faults(chunks)
@@ -4607,7 +4835,7 @@ def main_phase11(smi: str) -> int:
 def main_phase12(smi: str) -> int:
     """``python3 chip_smoke.py --phase12``: phase 12 alone (the build, the
     2^30 int32 and 2^27 float64 arrays of phase 3, the int32 stream's first
-    quarter, then phase 12)."""
+    half, then phase 12)."""
     from mpi_k_selection_tpu_torch.utils import datagen
     from mpi_k_selection_tpu_torch.utils.interop import tensor_from_numpy
 
@@ -4627,7 +4855,7 @@ def main_phase12(smi: str) -> int:
 
 def main_phase14(smi: str) -> int:
     """``python3 chip_smoke.py --phase14``: phase 14 alone (the build, the
-    int32 stream's first quarter, then phase 14)."""
+    int32 stream's first half, then phase 14)."""
     from mpi_k_selection_tpu_torch.utils.timing import Stopwatch
 
     phase_build()
@@ -4638,6 +4866,40 @@ def main_phase14(smi: str) -> int:
     notes["seconds"] = clock.seconds
     print(f"[phase14] {clock.seconds:.1f} s")
     print(json.dumps({"phase14": notes, "launches": launches}, default=str))
+    print(smi)
+    print(json.dumps({
+        "ok": True,
+        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},
+    }))
+    return 0
+
+
+def main_phase15(smi: str) -> int:
+    """``python3 chip_smoke.py --phase15``: phase 15 alone (the build, the
+    resident arrays of phase 3 it reads and their NumPy oracles, then
+    phase 15)."""
+    from mpi_k_selection_tpu_torch.utils import datagen
+    from mpi_k_selection_tpu_torch.utils.interop import tensor_from_numpy
+    from mpi_k_selection_tpu_torch.utils.timing import Stopwatch
+
+    phase_build()
+    data, oracles = {}, {}
+    for label, key, n, pattern, dtype, ks in (
+        ("int32 uniform 2^30", "i32", 1 << 30, "uniform", np.int32, (1, 1 << 29, 1 << 30)),
+        ("float64 normal 2^27", "f64", 1 << 27, "normal", np.float64, (1 << 26,)),
+        ("float32 normal 2^26", "f32", 1 << 26, "normal", np.float32, (1 << 25,)),
+        ("int32 equal 2^27", "i32_equal", 1 << 27, "equal", np.int32, (1 << 26,)),
+    ):
+        x = datagen.generate(n, pattern=pattern, seed=0, dtype=dtype)
+        oracles[key] = oracle(x, list(ks))
+        data[label] = tensor_from_numpy(x, "cuda")
+        del x
+    clock = Stopwatch()
+    with clock.timing():
+        launches, _, notes = phase_early_exit(data, oracles)
+    notes["seconds"] = clock.seconds
+    print(f"[phase15] {clock.seconds:.1f} s")
+    print(json.dumps({"phase15": notes, "launches": launches}, default=str))
     print(smi)
     print(json.dumps({
         "ok": True,
@@ -4670,6 +4932,8 @@ def main() -> int:
         return main_phase13(smi)
     if sys.argv[1:] == ["--phase14"]:
         return main_phase14(smi)
+    if sys.argv[1:] == ["--phase15"]:
+        return main_phase15(smi)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     budget = Deadline.after(BUDGET_S)
@@ -4681,7 +4945,7 @@ def main() -> int:
 
     phase_build()
     lap("phase 1")
-    phase_kernels_vs_plain(gen)
+    check_err = phase_kernels_vs_plain(gen)
     lap("phase 2")
     data, launches, per_call, notes, oracles = phase_main_path(gen)
     lap("phase 3, resident paths")
@@ -4704,6 +4968,8 @@ def main() -> int:
     rows += srows
     kern.update(skern)
     library.update(slibrary)
+    for kname, e in check_err.items():  # phase 2's exhaustive checks join the kernels' errors
+        kern[kname] = (*kern[kname][:4], max(kern[kname][4], e))
     profiles = [
         phase_profile(lambda: kt.median(x30), "median int32 uniform 2^30", ms_of("median int32 uniform 2^30")),
         phase_profile(lambda: kt.median(data["float64 normal 2^27"]), "median float64 normal 2^27",
@@ -4716,8 +4982,8 @@ def main() -> int:
                       f"batched_topk k=8 float32 ({BATCH}, {WIDTH})",
                       ms_of("batched_topk float32 k=8 (values and indices)")),
         phase_profile(lambda: kt.kselect_streaming(ints, len(ints.chunks) * STREAM_CHUNK // 2),
-                      "streaming median depth=2, int32 uniform 2^32",
-                      stream_ms["streaming median depth=2, int32 uniform 2^32"], reps=1),
+                      "streaming median depth=2, int32 uniform 2^31",
+                      stream_ms["streaming median depth=2, int32 uniform 2^31"], reps=1),
     ]
     lap("phase 5")
     notes["resident_fault"] = resident_fault
@@ -4778,6 +5044,16 @@ def main() -> int:
         launches[kname] += v
     per_call.update(p14_per_call)
     lap("phase 14")
+    # phase 15: early_exit_budget beside the cutover on phase 3's resident arrays
+    p15_clock = Stopwatch()
+    with p15_clock.timing():
+        p15_launches, p15_per_call, notes["phase15"] = phase_early_exit(data, oracles)
+    notes["phase15"]["seconds"] = p15_clock.seconds
+    print(f"[phase15] {p15_clock.seconds:.1f} s")
+    for kname, v in p15_launches.items():
+        launches[kname] += v
+    per_call.update(p15_per_call)
+    lap("phase 15")
     # phase 6: the host chunks and the resident data go first (the ranks
     # need the card's memory and the host's for the 8 GiB array)
     del ints, f64, data, x30

@@ -78,7 +78,9 @@ def kselect(x, k, *, algorithm: str = "auto", device=None, obs=None, **kwargs) -
     ``lax.sort``'s order and the radix path in the sortable keys' order
     (ops/sort.py). ``obs`` records the dispatch (see the module
     docstring). ``kwargs`` go to
-    :func:`~mpi_k_selection_tpu_torch.ops.radix.radix_select`."""
+    :func:`~mpi_k_selection_tpu_torch.ops.radix.radix_select`
+    (``radix_bits``, ``early_exit_budget``, ``cutover``,
+    ``cutover_budget``); the sort path ignores them."""
     x = as_selection_array(x, device)
     if x.numel() == 0:
         raise ValueError("kselect requires a non-empty input")

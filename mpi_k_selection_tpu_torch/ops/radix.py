@@ -13,6 +13,12 @@ sort them instead of running the remaining passes; otherwise run one more
 pass and try again; only then finish the fixed schedule
 (:func:`run_cutover_ladder`).
 
+The early exit (``early_exit_budget``, the JAX package's per-pass scheme,
+off by default): pass 0 always runs, and each later pass only while the
+chosen bucket's population exceeds the budget; once it fits, the
+survivors are collected at the resolved width and sorted
+(:func:`_early_exit`).
+
 Many ranks (:func:`radix_select_many`, the p50/p90/p99 telemetry shape):
 the prefix-free first pass is one histogram shared by every query, and
 each later pass runs all K queries through one read of the data
@@ -25,6 +31,8 @@ Device discipline: ``prefix``, ``kk`` and every count stay on the device,
 and the histogram kernel reads the prefix through a device pointer, so
 the passes before the cutover queue without a host sync. Each rung of the
 ladder reads one population to the host (the JAX package's ``lax.cond``).
+The early exit reads one population a pass, after pass 0, until one fits
+the budget: each read drains the launch queue before the next pass.
 """
 
 from __future__ import annotations
@@ -284,13 +292,35 @@ def _collect_and_pick(prep: _Descent, resolved_passes: int, prefixes, kk, budget
     return _sorted_pick(prep, prep.gather(cand), kk)
 
 
-def _select_key_on_prep(prep: _Descent, k, *, cutover="auto", cutover_budget: int = 8192):
+def _early_exit(prep: _Descent, prefix, kk, budget: int):
+    """The per-pass early exit: pass 0, then pass p only while the chosen
+    bucket's population (one host read a pass) exceeds ``budget`` (the
+    JAX package's ``lax.cond(pop > budget)``: a population equal to the
+    budget fits). The first population that fits is collected at the
+    resolved width and its ``kk``-th taken. A population that fits only
+    after the last pass needs no collect: every key bit is resolved, so
+    every match equals the prefix (the JAX package collects there and
+    picks the same bits)."""
+    prefix, kk, pop = prep.one_pass(0, prefix, kk)
+    for p in range(1, prep.npasses):
+        if int(pop) <= budget:
+            return _collect_and_pick(prep, p, prefix, kk, budget)
+        prefix, kk, pop = prep.one_pass(p, prefix, kk)
+    return prefix
+
+
+def _select_key_on_prep(prep: _Descent, k, *, early_exit_budget: int | None = None, cutover="auto",
+                        cutover_budget: int = 8192):
     """The radix descent on a prebuilt :class:`_Descent`, returning the
-    answer in key space, shape (1,)."""
+    answer in key space, shape (1,). With ``early_exit_budget`` below the
+    element count the early exit runs and ``cutover`` is neither resolved
+    nor checked, as in the JAX package."""
     n, rb, npasses, kdt = prep.n_total, prep.radix_bits, prep.npasses, prep.kdt
     dev = prep.words.device
     kk = torch.as_tensor(k, dtype=torch.int64, device=dev).reshape(1).clamp(1, n)
     prefix = torch.zeros(1, dtype=kdt, device=dev)
+    if early_exit_budget is not None and n > early_exit_budget:
+        return _early_exit(prep, prefix, kk, early_exit_budget)
     ncut = resolve_cutover(cutover, n, prep.total_bits, rb, cutover_budget)
     if ncut is None:
         for p in range(npasses):
@@ -331,6 +361,7 @@ def radix_select(
     k,
     *,
     radix_bits: int | None = None,
+    early_exit_budget: int | None = None,
     cutover: int | str | None = "auto",
     cutover_budget: int = 8192,
 ) -> torch.Tensor:
@@ -338,14 +369,22 @@ def radix_select(
     clamped to [1, n]) as a 0-d tensor of ``x``'s dtype on its device.
 
     ``cutover``: ``"auto"`` resolves via :func:`cutover_passes`; an int
-    forces that pass count; None runs the fixed schedule."""
+    forces that pass count; None runs the fixed schedule.
+
+    ``early_exit_budget`` (None by default): when it is below n, the
+    per-pass early exit (:func:`_early_exit`) replaces the cutover, which
+    is then ignored; at or above n the cutover path runs."""
     if cutover_budget < 1:
         raise ValueError(f"cutover_budget={cutover_budget} must be >= 1")
+    if early_exit_budget is not None and early_exit_budget < 1:
+        raise ValueError(f"early_exit_budget={early_exit_budget} must be >= 1")
     x = x.reshape(-1)
     # CUDA float64 bitcasts are exact, so the port has no f64 approximation
     # to warn about: the reference's f64 shells have no counterpart here
     prep = _Descent(x, radix_bits)  # ksel: noqa[KSL003] -- no f64 approximation exists in the port (native f64 bitcasts)
-    ans = _select_key_on_prep(prep, k, cutover=cutover, cutover_budget=cutover_budget)
+    ans = _select_key_on_prep(
+        prep, k, early_exit_budget=early_exit_budget, cutover=cutover, cutover_budget=cutover_budget
+    )
     return _dt.from_sortable_bits(ans, x.dtype).reshape(())
 
 
