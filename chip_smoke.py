@@ -674,6 +674,57 @@ def sweep_cases(bits: int, keys: torch.Tensor):
     ]
 
 
+TEE_CHECK_SHARES = (0.01, 0.17, 0.5, 1.0)  # phase 2: the tee's survivor shares under its one 8-bit prefix
+TEE_SHARES = TEE_CHECK_SHARES[:-1]  # the tee kinds' shares below pass 0's every key (phase 8)
+
+
+def tee_checks(bits: int, gen):
+    """Yields (label, words, n_valid, parts, key_op, key_xor) of phase 2's
+    checks of the spill passes' histogram + tee launch on 2^26-word buckets of
+    random keys, under the xor and the float key ops, pads present: the
+    histogram of the 8 bits below one 8-bit prefix beside the tee of that
+    prefix, on keys of which about 1%, 17%, 50% and 100% hold it (the 17%
+    bucket also with a base not 16-byte aligned, with ``n_valid`` 100 words
+    short of its end, and cut below one tile); 4 such 16-bit prefixes, each
+    on a tenth of the keys, beside the tee of their union and of a parked
+    rank's 12-bit spec (on 1%); and pass 0's every-key tee beside the
+    prefix-free first pass."""
+    from mpi_k_selection_tpu_torch.utils import dtypes as dt
+
+    n = SWEEP_BUCKET
+    base = rand_words(n, bits, gen)
+    u = [v & ((1 << bits) - 1) for v in base[:16].tolist()]
+
+    def holding(keys, share, width, prefix):  # a share of the keys moved under the prefix
+        low = (1 << (bits - width)) - 1
+        moved = (keys & low) | dt.signed_const(prefix << (bits - width), bits)
+        return torch.where(torch.rand(n, device="cuda", generator=gen) < share, moved, keys)
+
+    def raw_of(keys, key_op):  # the words whose keys under key_op are keys
+        msb = dt.signed_const(1 << (bits - 1), bits)
+        return keys ^ msb if key_op == "xor" else torch.where(keys < 0, keys ^ msb, ~keys)
+
+    p8 = u[0] >> (bits - 8)
+    one = dict(hist_prefixes=[p8], shift=bits - 16, radix_bits=8, tee=[(bits - 8, p8)])
+    cases = [(f"one 8-bit prefix, {s:.0%} of keys", holding(base, s, 8, p8), one) for s in TEE_CHECK_SHARES]
+    q16 = sorted({v >> (bits - 16) for v in u[1:9]})[:4]
+    keys = base
+    for q in q16:
+        keys = holding(keys, 0.1, 16, q)
+    p12 = u[9] >> (bits - 12)
+    cases.append(("4 16-bit prefixes and a parked 12-bit spec", holding(keys, 0.01, 12, p12), dict(
+        hist_prefixes=q16, shift=bits - 24, radix_bits=8, tee=[(bits - 16, q) for q in q16] + [(bits - 12, p12)])))
+    cases.append(("every key (pass 0)", base, dict(hist_prefixes=[0], shift=bits - 8, radix_bits=8, tee=[(bits, 0)])))
+    for key_op, key_xor in (("xor", 1 << (bits - 1)), ("float", 0)):
+        for i, (label, keys, parts) in enumerate(cases):
+            w = raw_of(keys, key_op)
+            yield label, w, n - 12345, parts, key_op, key_xor
+            if i == 1:  # the spill pass's share at the edge shapes
+                yield f"{label}, a base not 16-byte aligned", w[1:], n - 12346, parts, key_op, key_xor
+                yield f"{label}, n_valid 100 words short", w, n - 100, parts, key_op, key_xor
+                yield f"{label}, below one tile", w[:5000], 4990, parts, key_op, key_xor
+
+
 def sweep_outputs(out):
     """The tensors of a sweep_ingest result, in order."""
     flat = []
@@ -727,6 +778,14 @@ def sweep_vs_plain(gen, err):
                 err[f"sweep_ingest{bits}"] = max(err[f"sweep_ingest{bits}"], e)
             del keys
         del w
+        torch.cuda.empty_cache()
+        for label, w, n_valid, parts, key_op, key_xor in tee_checks(bits, gen):
+            kw = dict(key_op=key_op, key_xor=key_xor, **parts)
+            e = sweep_err(S.sweep_ingest(w, n_valid, **kw), S.sweep_ingest_plain(w, n_valid, **kw),
+                          f"sweep_ingest{bits} {key_op} histogram + tee, {label}")
+            err[f"sweep_ingest{bits}"] = max(err[f"sweep_ingest{bits}"], e)
+        print(f"[check] sweep_ingest{bits} histogram + tee == plain: one 8-bit prefix at 1-100% of keys (and edge "
+              f"shapes), 4 teed prefixes and a parked spec, pass 0's every key; xor and float keys")
         torch.cuda.empty_cache()
         for sketch_bits in SKEWED_SKETCH_BITS:
             for label, w, n_valid in skewed_sketch_buckets(bits, sketch_bits, gen):
@@ -2186,7 +2245,7 @@ def phase_spill(ints, f64, certified):
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    # row 8's tee launch kind on chunk 0 of each stream
+    # row 8's tee launch kinds on chunk 0 of each stream
     rows = []
 
     def row(what, ms, b, by, extra=""):
@@ -2196,11 +2255,8 @@ def phase_spill(ints, f64, certified):
     kinds = {}
     for bits, src, key_op, key_xor in ((32, ints, "xor", 1 << 31), (64, f64, "float", 0)):
         c = src.chunks[0]
-        keys = host_keys(c)
-        p8 = int(np.partition(keys, keys.size // 2)[keys.size // 2]) >> (bits - 8)
         w = torch.from_numpy(c.view(np.int32 if bits == 32 else np.int64)).cuda()
-        kinds[f"sweep_ingest{bits}"] = sweep_kind_rows(row, bits, w, [("hist 1 prefix + tee 1 spec (spill pass)", dict(
-            hist_prefixes=[p8], shift=bits - 16, radix_bits=8, tee=[(bits - 8, p8)]))], key_op, key_xor)
+        kinds[f"sweep_ingest{bits}"] = sweep_kind_rows(row, bits, w, tee_kinds(bits, c), key_op, key_xor)
         del w
         torch.cuda.empty_cache()
     out["tee_kind"] = kinds
@@ -2213,8 +2269,9 @@ def auto_kinds(bits: int, chunk: np.ndarray):
     "auto"`` adds on one chunk of a stream, with the prefixes its own
     median and quantile keys give: the 16-bit first pass; for 32-bit keys
     an 8-bit digit under the median's 16-bit prefix (pass 1), under the
-    4 quantile keys' 16-bit prefixes, and beside the tee of that prefix
-    (a spill pass 1), and the last 16 bits under one and under the 4
+    4 quantile keys' 16-bit prefixes, beside the tee of that prefix (a
+    spill pass 1) and of the 4 (the spilled quantiles' pass 1), and the
+    last 16 bits under one and under the 4
     prefixes (the refinement of a 16-bit sketch); for 64-bit keys a 16-bit digit under one and under
     the 4 quantile keys' 16-bit prefixes (pass 1), and an 8-bit digit
     under a 32-bit prefix (pass 2)."""
@@ -2232,6 +2289,8 @@ def auto_kinds(bits: int, chunk: np.ndarray):
             (f"hist 8 bits under {len(q16)} 16-bit prefixes (auto quantiles pass 1)",
              dict(hist_prefixes=q16, shift=8, radix_bits=8)),
             ("hist 8 bits under a 16-bit prefix + its tee (auto spill pass 1)", dict(one, tee=[(16, med >> 16)])),
+            (f"hist 8 bits under {len(q16)} 16-bit prefixes + their tee (auto spilled quantiles pass 1)",
+             dict(hist_prefixes=q16, shift=8, radix_bits=8, tee=[(16, q) for q in q16])),
             ("hist 16 bits under a 16-bit prefix (auto refine of a 16-bit sketch)",
              dict(hist_prefixes=[med >> 16], shift=0, radix_bits=16)),
             (f"hist 16 bits under {len(q16)} 16-bit prefixes (auto refine_quantiles)",
@@ -4010,6 +4069,52 @@ def sweep_kinds(bits: int, chunk: np.ndarray):
     ]
 
 
+def tee_kinds(bits: int, chunk: np.ndarray):
+    """(label, sweep_ingest parts) of the spill passes' histogram + tee
+    launch on one chunk of a stream: the histogram of the 8 bits below the
+    prefixes the tee takes whole, for the median's 8-bit prefix (a spill
+    pass of the median) and for survivor shares of about 1%, 17% and 50%
+    (the one prefix of 8, 12 or 16 bits, or the union of the largest 8-bit
+    prefixes, whose share is nearest; none that repeats an earlier kind);
+    pass 0's every-key tee beside the prefix-free first pass; and the union
+    of the 4 quantile keys' 16-bit prefixes (the spilled quantiles K=4),
+    alone and with a parked rank's spec of another width (the largest
+    key's 12-bit prefix)."""
+    keys = host_keys(chunk)
+    n = keys.size
+    ranks = [n // 2] + [max(0, int(np.ceil(q * n)) - 1) for q in QS]
+    part = np.partition(keys, ranks)
+    med = int(part[ranks[0]])
+    q16 = sorted({int(part[r]) >> (bits - 16) for r in ranks[1:]})
+    top = int(keys.max())
+
+    def launch(width, prefixes):
+        return dict(hist_prefixes=list(prefixes), shift=bits - width - 8, radix_bits=8,
+                    tee=[(bits - width, p) for p in prefixes])
+
+    cands = []  # (share, width, prefixes)
+    for width in (8, 12, 16):
+        counts = np.bincount((keys >> (bits - width)).astype(np.int64), minlength=1 << width)
+        cands += [(int(counts[v]) / n, width, [int(v)]) for v in np.flatnonzero(counts)]
+        if width == 8:
+            big = np.argsort(-counts, kind="stable")
+            cands += [(int(counts[big[:k]].sum()) / n, 8, sorted(int(v) for v in big[:k])) for k in range(2, 9)]
+    kinds = [("hist 1 prefix + tee 1 spec (spill pass)", launch(8, [med >> (bits - 8)]))]
+    for share in TEE_SHARES:
+        got, width, prefixes = min(cands, key=lambda c: (abs(c[0] - share), c[1], c[2]))
+        parts = launch(width, prefixes)
+        if all(parts != k for _, k in kinds):
+            what = f"{len(prefixes)} {width}-bit prefixes" if len(prefixes) > 1 else f"a {width}-bit prefix"
+            kinds.append((f"hist under {what} + its tee, {got:.1%} of keys", parts))
+    kinds.append(("hist, no prefix + the every-key tee (pass 0)",
+                  dict(hist_prefixes=[0], shift=bits - 8, radix_bits=8, tee=[(bits, 0)])))
+    k4 = dict(hist_prefixes=q16, shift=bits - 24, radix_bits=8, tee=[(bits - 16, q) for q in q16])
+    kinds.append((f"hist under {len(q16)} 16-bit prefixes + their tee (spilled quantiles)", k4))
+    kinds.append((f"hist under {len(q16)} 16-bit prefixes + their tee + a parked 12-bit spec",
+                  dict(k4, tee=k4["tee"] + [(bits - 12, top >> (bits - 12))])))
+    return kinds
+
+
 def sweep_kind_rows(row, bits: int, w: torch.Tensor, kinds, key_op: str, key_xor: int, library_hist=False) -> dict:
     """Phase 4 for the sweep kernel at each launch kind of ``kinds``
     (:func:`sweep_kinds`: (label, parts)) on the words ``w`` on the card:
@@ -4073,32 +4178,42 @@ def sweep_kind_rows(row, bits: int, w: torch.Tensor, kinds, key_op: str, key_xor
 
 
 def library_tee_ms(w: torch.Tensor, got, bits: int, key_op: str, key_xor: int, parts) -> float:
-    """The sweep kernel's tee launch (a histogram under one prefix and a
-    one-spec tee, a later spill pass's launch) as library calls on the same
-    words: ``torch.bincount`` of the digits under the prefix and
-    ``torch.masked_select`` of the keys under the tee's mask, held equal to
-    the kernel's output ``got`` first; digits and masks are made untimed.
-    CUDA-event milliseconds of the two calls."""
+    """The sweep kernel's tee launch (a histogram under the prefixes a
+    spill pass tees and the tee union, a later spill pass's launch) as
+    library calls on the same words: ``torch.bincount`` of (prefix row,
+    digit) over the keys under any of the prefixes (the rest in one spare
+    bin) and ``torch.masked_select`` of the keys under the union's mask,
+    held equal to the kernel's output ``got`` first; the bin indices and
+    the mask are made untimed. CUDA-event milliseconds of the two calls."""
+    from mpi_k_selection_tpu_torch.ops.cuda import sweep_ingest as S
     from mpi_k_selection_tpu_torch.utils import dtypes as dt
     from mpi_k_selection_tpu_torch.utils.timing import cuda_ms
 
     keys = dt.keys_from_raw(w, key_op, key_xor)
-    shift, width = parts["shift"], parts["radix_bits"]
-    [prefix] = parts["hist_prefixes"]
-    [(tshift, tprefix)] = parts["tee"]
-    hmask = dt.shift_right_logical(keys, shift + width, bits) == dt.signed_const(prefix, bits)
-    digit = torch.where(hmask, dt.shift_right_logical(keys, shift, bits) & ((1 << width) - 1), 1 << width).long()
-    tmask = dt.shift_right_logical(keys, tshift, bits) == dt.signed_const(tprefix, bits)
+    shift, width, prefixes = parts["shift"], parts["radix_bits"], parts["hist_prefixes"]
+    distinct = sorted(set(prefixes))
+    above = dt.shift_right_logical(keys, shift + width, bits).long()  # non-negative: a logical shift
+    table = torch.tensor(distinct, dtype=torch.int64, device=w.device)
+    row_of = torch.searchsorted(table, above).clamp(max=len(distinct) - 1)
+    hit = table[row_of] == above
+    digit = (dt.shift_right_logical(keys, shift, bits) & ((1 << width) - 1)).long()
+    index = torch.where(hit, row_of * (1 << width) + digit, len(distinct) << width)
+    tmask = torch.zeros_like(hit)
+    for s, p in parts["tee"]:
+        tmask |= S._spec_match(keys, s, p, bits)
+    del above, row_of, hit, digit
 
     def fn():
-        return torch.bincount(digit, minlength=(1 << width) + 1), torch.masked_select(keys, tmask)
+        return torch.bincount(index, minlength=(len(distinct) << width) + 1), torch.masked_select(keys, tmask)
 
     counts, surv = fn()
+    counts = counts[: len(distinct) << width].view(len(distinct), 1 << width).to(torch.int32)
     buf, cnt = got[2]
-    if not (torch.equal(counts[:-1].to(torch.int32), got[0][0]) and torch.equal(surv, buf[: int(cnt)])):
+    if not (all(torch.equal(counts[distinct.index(p)], got[0][i]) for i, p in enumerate(prefixes))
+            and torch.equal(surv, buf[: int(cnt)])):
         fail(f"sweep_ingest{bits} {parts}: library calls != kernel")
     ms = cuda_ms(fn)
-    del keys, hmask, digit, tmask, counts, surv
+    del keys, index, tmask, counts, surv
     return ms
 
 

@@ -34,26 +34,39 @@
 //     no look-back, no barrier inside the loop, and no shared memory for
 //     staging, which the sub-histogram copies and the prefix table need
 //     (../probes/sweep_probe.py weighs this against a cp.async.bulk ring).
-//   - ordered (collect or tee). Blocks of 512 threads, one an SM, take
+//   - ordered (collect or tee). Blocks of 1024 threads, one an SM, take
 //     64 KB tiles in chunk order from an atomic ticket into a ring of three
-//     shared-memory stages (cp.async): one tile being written, one counted,
-//     one loading. The next tile's ticket is taken during the count of the
-//     current one (never earlier: a look-back then only waits on tiles that
-//     other blocks are counting) and its loads are issued before the
-//     current tile's look-back. The work goes in items, a group of up to
-//     kGroup buffers of one tile (the tee buffer last in the last group):
-//     one block scan serves a group, its counts packed as 16-bit fields of
-//     one 64-bit word. A step counts one item and publishes its aggregate
-//     while one warp per buffer of the item before looks back: 32
-//     predecessor status words per probe, a ballot finds the nearest
+//     shared-memory stages: one tile being written, one counted, one
+//     loading. At a tile's first item the last warp takes the next tile's
+//     ticket while the step waits for its tile, then loads the next tile
+//     with one bulk copy (TMA) counted on the stage's mbarrier, so the
+//     loads are in flight through the whole step. A tile is counted one
+//     step after its ticket, as every tile is (never two: a look-back
+//     would then wait on a tile its holder counts a step later, and the
+//     steps of the blocks would chain). The work goes in items, a group of
+//     up to kGroup buffers of one tile (the tee buffer last in the last
+//     group): one block scan serves a group, its counts packed as 16-bit
+//     fields of one 64-bit word. A step counts one item and publishes its
+//     aggregate while one warp per buffer of the item before looks back:
+//     32 predecessor status words per probe, a ballot finds the nearest
 //     inclusive prefix and a warp sum adds the aggregates up to it. Those
 //     predecessors had a whole step to publish, and a tile's predecessors
-//     already hold tickets, so every look-back ends. The step then writes
-//     the item before: each warp compacts a 512-byte row's survivors in
-//     shared memory and writes them as one coalesced run, and the tile also
-//     zeroes its non-survivors' share of the buffer's tail (counted from
-//     the end), so every output word is written once and no separate clear
-//     runs.
+//     already hold tickets, so every look-back ends. The count keeps, per
+//     lane and buffer, one bit a key of the warp's rows (kRows x V bits),
+//     so the step then writes the item before without matching a key
+//     again: each warp reloads only the rows that hold a survivor,
+//     compacts each row's survivors in shared memory and writes them as
+//     one coalesced run, and the tile also zeroes its non-survivors' share
+//     of the buffer's tail (counted from the end), so every output word is
+//     written once and no separate clear runs. A tee spec that is one of
+//     the histogram's prefixes (a spill pass tees its active prefixes)
+//     joins on the histogram's lookup, which the key makes anyway: the
+//     wrapper places those prefixes first, as rows 0 .. n_teed - 1, so a
+//     key is teed when its row is below n_teed. The tee's other specs (a
+//     parked rank's prefix of another width, pass 0's every key) are
+//     compared as a collect spec is, the first in registers. 32 warps hide
+//     the count's and the writes' latency better than 16 with twice the
+//     registers (../probes/sweep_probe.py variants).
 //   Counting, both routes: with one prefix a range test on registers
 //   decides; with more, a shared table of 2^tbits 16-bit entries maps a
 //   prefix to its row (tbits = prefix bits up to kTableBits, no compare;
@@ -97,7 +110,7 @@ namespace {
 constexpr int kThreads = 256;       // order-free route
 constexpr int kWideThreads = 1024;  // order-free route with 16-bit counters: one block an SM
 constexpr int kUnroll = 4;          // order-free: 16-byte loads in flight per thread
-constexpr int kOrdThreads = 512;  // ordered route
+constexpr int kOrdThreads = 1024;  // ordered route
 constexpr int kOrdWarps = kOrdThreads / 32;
 constexpr int kTileBytes = 64 * 1024;
 constexpr int kStages = 3;      // ordered: a tile written, a tile counted, a tile loading
@@ -113,8 +126,9 @@ constexpr unsigned long long kValueMask = (1ull << 62) - 1;
 static_assert(kRows * kOrdWarps * kRowBytes == kTileBytes, "tile rows");
 // a tile's count of one buffer fits a 16-bit field
 static_assert(kTileBytes / 4 < (1 << 16), "tile counts");
-static_assert(kGroup * kRows <= 64 && kGroup == 4 && kGroup <= kOrdWarps,
+static_assert(kGroup * kRows <= 32 && kGroup == 4 && kGroup <= kOrdWarps,
               "a group's row bits; its buffers unrolled by hand; a warp per buffer");
+static_assert(kRows * 4 <= 32, "a lane's keys of its rows in one tile: one bit each in 32");
 
 template <int N> struct Int {  // a loop index known at compile time
   static constexpr int value = N;
@@ -148,8 +162,10 @@ struct Params {
   W lo, hi;           // the smallest and largest prefix
   const W* pref_dev;  // the nd prefixes, when nd > kParamPrefixes
   W pref[kParamPrefixes];
-  // survivor specs: nc collect specs, then nt tee specs; key & mask == want
-  int nc, nt;
+  // survivor specs: nc collect specs, then the tee's nt specs outside the
+  // histogram's lookup; key & mask == want. tee: a tee buffer; its union
+  // also holds the keys of histogram rows 0 .. n_teed - 1
+  int nc, nt, tee, n_teed;
   const W* spec_dev;  // nc + nt masks, then nc + nt wants, when nc + nt > kParamSpecs
   W smask[kParamSpecs];
   W swant[kParamSpecs];
@@ -158,14 +174,14 @@ struct Params {
   W vkey;
   // outputs and scratch
   unsigned* hist;    // nd x 2^rb
-  unsigned* counts;  // nc + (nt > 0)
+  unsigned* counts;  // nc + tee
   unsigned* cert_out;
   unsigned* deep;    // 2^sketch_bits
   W* ext;            // ~min, then max; the last block leaves min, max
   unsigned* done;    // blocks finished (the sketch's last block)
   unsigned* ticket;
   unsigned long long* status;  // (buffer, tile) look-back words
-  W* surv;           // (nc + (nt > 0)) x L
+  W* surv;           // (nc + tee) x L
 };
 
 template <typename W>
@@ -232,19 +248,51 @@ __device__ __forceinline__ unsigned long long peek(const unsigned long long* p) 
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) { return (unsigned)__cvta_generic_to_shared(p); }
 
-// cp.async of 16 bytes (the bytes past src_bytes zero-filled) or of one
-// word, global to shared; their commit and wait
-__device__ __forceinline__ void cp_async16(unsigned dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
-}
+// cp.async of one word, global to shared (zero-filled past src_bytes)
 template <int N>
 __device__ __forceinline__ void cp_async_word(unsigned dst, const void* src, int src_bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src), "n"(N), "r"(src_bytes)
                : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+
+// An mbarrier in shared memory: its set-up (one arrival a phase), an
+// arrival that also expects `bytes` of bulk copies, a plain arrival, an
+// arrival when this thread's earlier cp.async copies land, and the wait
+// for the phase of the given parity to complete
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_on_copies(unsigned long long* bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+// One bulk copy (TMA) of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from global to shared memory, counted on `bar`; the fences
+// that order the set-up of the barriers, and earlier ordinary accesses
+// to shared memory, before the copies
+__device__ __forceinline__ void bulk_copy(unsigned dst, const void* src, unsigned bytes, unsigned long long* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+               "l"(src), "r"(bytes), "r"(smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ void fence_barrier_init() { asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory"); }
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
 
 // The exclusive prefix of tile t in one buffer's chain of status words,
 // found by the calling warp: each probe reads the 32 newest predecessors
@@ -341,12 +389,12 @@ __device__ void zero_run(W* out, long long z0, long long z1, int nthreads) {
 // kernel compiles only the parts it names, so the streamed passes'
 // histogram-only, certificate-only and collect-only launches carry no code
 // of the others. kPartsChecked compiles all three and tests each at run
-// time (the ordered route's launches with any of them).
+// time (the ordered route's launches with a certificate or a sketch).
 constexpr int kPartHist = 1, kPartCert = 2, kPartSketch = 4, kPartsChecked = 8;
 
-// Launch bounds: the ordered route's one block an SM may use 128
-// registers a thread; an order-free block leaves room for 6 on an SM (42);
-// the wide order-free block (kWide: 16-bit counters), one an SM, 64.
+// Launch bounds: the ordered route's block, one an SM, and the wide
+// order-free block (kWide: 16-bit counters), one an SM, may use 64
+// registers a thread; an order-free block leaves room for 6 on an SM (42).
 template <typename W, bool kOrdered, int kParts, bool kWide>
 __global__ void __launch_bounds__(kOrdered ? kOrdThreads : (kWide ? kWideThreads : kThreads),
                                   kOrdered || kWide ? 1 : 6)
@@ -417,16 +465,64 @@ sweep_ingest_kernel(const __grid_constant__ Params<W> p) {
   unsigned d_all = 0, d_top = 0;  // an order-free 1-bit sketch, in registers: keys counted, keys with the top bit
   W kmin = ~(W)0, kmax = 0;
 
-  // every part but the survivors, for one word of the bucket; pads
-  // (present, not valid) arrive as key 0. The whole warp calls it together
-  // (warp_count): lanes past the bucket come as not present. hot: an
-  // Int<1> when the step looks hot (hot_of), else an Int<0>.
+  // the histogram's row of a present key (the index of the prefix above
+  // its digit), or -1, for the ordered route. how: an Int<0> with one
+  // prefix (one compare on registers, no branch), an Int<1> with an exact
+  // table (a range test, then one entry), an Int<2> with a hashed one (a
+  // range test, then the probes).
+  auto lookup = [&](W key, bool present, auto how) -> int {
+    constexpr int kHow = decltype(how)::value;
+    const W top = (key >> shift) >> rb;  // two shifts: shift + rb may equal the word width
+    if constexpr (kHow == 0) {
+      return present && top == lo ? 0 : -1;  // one prefix: lo == hi
+    } else if constexpr (kHow == 1) {
+      return present && top >= lo && top <= hi ? (int)table[(unsigned)top] - 1 : -1;  // 0: no prefix
+    } else {
+      if (!present || top < lo || top > hi) return -1;
+      unsigned e;
+      for (unsigned h = table_home(top, false, tbits); (e = table[h]) != 0; h = (h + 1) & tmask)
+        if (pref[e - 1] == top) return (int)e - 1;
+      return -1;
+    }
+  };
+
+  // every part but the histogram and the survivors (the certificate and
+  // the sketch), for one word of the bucket; see count
+  auto count_rest = [&](W key, bool present, bool valid, auto hot) {
+    constexpr bool kHot = decltype(hot)::value != 0;
+    if (!kOrdered && kSketch && sketch_bits == 1) {  // the extremes' launch of sub-32-bit keys: one hot counter
+      d_all += present;
+      d_top += present && (key >> (B - 1));
+    } else if (kSketch && (!kChecked || sketch_bits)) {
+      const unsigned bin = (unsigned)(key >> dshift);
+      if (deep_packed)
+        warp_count<kHot>(present, bin, lane, [&](unsigned b, unsigned c) { add_packed(sdeep, p.deep, b, c); });
+      else
+        warp_count<kHot>(present, bin, lane, [&](unsigned b, unsigned c) { atomicAdd(dacc + b, c); });
+    }
+    if ((kCert || kSketch) && valid) {
+      if (kCert && (!kChecked || cert)) {
+        lt += key < vkey;
+        le += key <= vkey;
+      }
+      if (kSketch && (!kChecked || sketch_bits)) {
+        kmin = key < kmin ? key : kmin;
+        kmax = key > kmax ? key : kmax;
+      }
+    }
+  };
+
+  // every part but the survivors, for one word of the bucket (the
+  // order-free route); pads (present, not valid) arrive as key 0. The
+  // whole warp calls it together (warp_count): lanes past the bucket come
+  // as not present. hot: an Int<1> when the step looks hot (hot_of), else
+  // an Int<0>.
   auto count = [&](W key, bool present, bool valid, auto hot) {
     constexpr bool kHot = decltype(hot)::value != 0;
     if (kHist && (!kChecked || nd)) {
       if (hist_packed) {  // one prefix: a range test
         const W s = key >> shift;
-        const W top = s >> rb;  // two shifts: shift + rb may equal the word width
+        const W top = s >> rb;
         warp_count<kHot>(present && top >= lo && top <= hi, (unsigned)(s & dmask), lane,
                          [&](unsigned b, unsigned c) { add_packed(shist, p.hist, b, c); });
       } else if (present) {
@@ -450,26 +546,7 @@ sweep_ingest_kernel(const __grid_constant__ Params<W> p) {
         }
       }
     }
-    if (!kOrdered && kSketch && sketch_bits == 1) {  // the extremes' launch of sub-32-bit keys: one hot counter
-      d_all += present;
-      d_top += present && (key >> (B - 1));
-    } else if (kSketch && (!kChecked || sketch_bits)) {
-      const unsigned bin = (unsigned)(key >> dshift);
-      if (deep_packed)
-        warp_count<kHot>(present, bin, lane, [&](unsigned b, unsigned c) { add_packed(sdeep, p.deep, b, c); });
-      else
-        warp_count<kHot>(present, bin, lane, [&](unsigned b, unsigned c) { atomicAdd(dacc + b, c); });
-    }
-    if ((kCert || kSketch) && valid) {
-      if (kCert && (!kChecked || cert)) {
-        lt += key < vkey;
-        le += key <= vkey;
-      }
-      if (kSketch && (!kChecked || sketch_bits)) {
-        kmin = key < kmin ? key : kmin;
-        kmax = key > kmax ? key : kmax;
-      }
-    }
+    count_rest(key, present, valid, hot);
   };
 
   // whether an order-free step whose first key is k looks hot, in the
@@ -541,11 +618,15 @@ sweep_ingest_kernel(const __grid_constant__ Params<W> p) {
   } else {
     constexpr long long kTile = kTileBytes / sizeof(W);  // words per tile
     constexpr int kRowWords = kRowBytes / sizeof(W);
+    constexpr unsigned kKeyMask = (1u << V) - 1u;  // a row's keys of one lane
+    constexpr int kBatch = 4;                      // rows loaded ahead of their count
+    static_assert(kRows % kBatch == 0, "rows in batches");
     // The work comes as items: a group of up to kGroup buffers of one tile,
-    // the tee buffer last in the last group. A step counts the
-    // current item and publishes its aggregate, while the previous item's
-    // warps look back (its predecessors had a whole step to publish), then
-    // writes the previous item's survivors and zeros.
+    // the tee buffer last in the last group. A step counts the current
+    // item and publishes its aggregate, while the previous item's warps
+    // look back (its predecessors had a whole step to publish), then writes
+    // the previous item's survivors and zeros. Tile i of a block lies in
+    // stage i % kStages.
     struct Item {
       long long t;  // the tile (n_tiles or more: none)
       int gb, gn;   // the group's first buffer and its buffers
@@ -556,82 +637,130 @@ sweep_ingest_kernel(const __grid_constant__ Params<W> p) {
     __shared__ unsigned long long s_wsum[2][kOrdWarps];   // per item parity: a warp's counts, then its prefix
     __shared__ unsigned long long s_agg[2];               // per item parity: the item's counts
     __shared__ long long s_excl[kGroup];                  // the previous item's output offsets
-    const int n_surv = p.nc + (p.nt ? 1 : 0);
+    __shared__ unsigned long long s_full[kStages];        // per stage: its tile's loads have landed
+    const int n_surv = p.nc + p.tee;
+    const int n_teed = p.n_teed;
     const long long n_tiles = p.n_tiles;
     W* staging = reinterpret_cast<W*>(smem + lay.staging) + warp * kRowWords;
     const unsigned lt_mask = (1u << lane) - 1u;
     const unsigned stage0 = smem_u32(smem + lay.stage);
     auto group = [&](long long t, int gb, int st) -> Item {
       const int gn = min(kGroup, n_surv - gb);
-      return Item{t, gb, gn, st, p.nt && gb + gn - 1 == p.nc ? gn - 1 : -1};
+      return Item{t, gb, gn, st, p.tee && gb + gn - 1 == p.nc ? gn - 1 : -1};
     };
 
-    // cp.async of tile t into stage st: 16-byte copies (zero-filled past
-    // L), or word copies when the base is not 16-byte aligned
-    auto issue = [&](long long t, int st) {
-      const unsigned dst = stage0 + st * kTileBytes;
+    // the loads of tile t into stage st, by the calling warp (the last),
+    // counted on the stage's barrier: one bulk copy of the tile's whole
+    // 16-byte vectors, and the few words after them (the bucket's last) by
+    // hand, from lane 0; or, when the base is not 16-byte aligned, a
+    // cp.async a word from every lane. Words past L are not loaded: a key
+    // there is not present.
+    auto load_tile = [&](long long t, int st) {
       const long long base = t * kTile;
+      const long long words = min(kTile, L - base);
+      unsigned long long* bar = s_full + st;
+      const unsigned dst = stage0 + st * kTileBytes;
       if (vec) {
-        for (int i = threadIdx.x; i < kTile / V; i += nthreads) {
-          const long long left = L - (base + (long long)i * V);
-          const int bytes = left >= V ? 16 : (left <= 0 ? 0 : (int)left * (int)sizeof(W));
-          cp_async16(dst + 16 * i, p.data + (bytes ? base + (long long)i * V : 0), bytes);
+        if (lane == 0) {
+          const long long whole = words / V * V;
+          W* sw = reinterpret_cast<W*>(smem + lay.stage + (long long)st * kTileBytes);
+          for (long long i = whole; i < words; ++i) sw[i] = p.data[base + i];
+          fence_proxy_async();  // the stage's earlier reads, before the copy's writes
+          mbar_expect(bar, (unsigned)(whole * sizeof(W)));
+          if (whole) bulk_copy(dst, p.data + base, (unsigned)(whole * sizeof(W)), bar);
         }
       } else {
-        for (int i = threadIdx.x; i < kTile; i += nthreads) {
-          const bool in = base + i < L;
-          cp_async_word<sizeof(W)>(dst + sizeof(W) * i, p.data + (in ? base + i : 0), in ? (int)sizeof(W) : 0);
-        }
+        for (long long i = lane; i < words; i += 32)
+          cp_async_word<sizeof(W)>(dst + (unsigned)(i * sizeof(W)), p.data + base + i, (int)sizeof(W));
+        mbar_arrive_on_copies(bar);  // counted up now, down when this lane's copies land
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar);
       }
     };
-    // one row of a tile: lane's V keys (pads as key 0) and a mask of the
-    // valid ones
-    auto load_row = [&](const Item& it, int row, W* k) -> unsigned {
+    // one row of a tile: lane's V raw words
+    auto raw_row = [&](const Item& it, int row) -> uint4 {
       const W* tile = reinterpret_cast<const W*>(smem + lay.stage + (long long)it.st * kTileBytes);
-      unpack(*reinterpret_cast<const uint4*>(tile + (row * 32 + lane) * V), k);
+      return *reinterpret_cast<const uint4*>(tile + (row * 32 + lane) * V);
+    };
+    // lane's keys of a row (pads as key 0) from its raw words, and the mask
+    // of the valid ones
+    auto keys_of = [&](const Item& it, int row, const uint4& raw, W* k) -> unsigned {
+      unpack(raw, k);
       const long long rem = n_valid - (it.t * kTile + (long long)(row * 32 + lane) * V);
-      const unsigned vm = rem >= V ? (1u << V) - 1u : (rem <= 0 ? 0u : (1u << rem) - 1u);
+      const unsigned vm = rem >= V ? kKeyMask : (rem <= 0 ? 0u : (1u << rem) - 1u);
 #pragma unroll
       for (int j = 0; j < V; ++j) k[j] = (vm >> j) & 1u ? to_key(k[j], fl, key_xor) : (W)0;
       return vm;
     };
-    // the V-bit mask of lane's valid keys that buffer gb + q takes
-    auto match = [&](const W* k, unsigned vm, int tee, const W* gmask, const W* gwant, auto q) -> unsigned {
+    // the V-bit mask of lane's valid keys k that buffer gb + q takes: its
+    // spec in registers (the tee's first spec outside the lookup, if it
+    // has one), and for the tee the keys the histogram's lookup put in it
+    // (looked) and its other specs, in shared memory
+    auto match = [&](const W* k, unsigned vm, unsigned looked, int tee, const W* gmask, const W* gwant,
+                     auto q) -> unsigned {
       unsigned bits = 0;
+      if (q.value != tee || p.nt > 0) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) bits |= (unsigned)((k[j] & gmask[q.value]) == gwant[q.value]) << j;
+      }
       if (q.value == tee) {
-        for (int u = p.nc; u < n_specs; ++u) {
+        bits |= looked;
+        for (int u = p.nc + 1; u < n_specs; ++u) {
           const W m = sspec[u], w = sspec[n_specs + u];
 #pragma unroll
           for (int j = 0; j < V; ++j) bits |= (unsigned)((k[j] & m) == w) << j;
         }
-      } else {
-#pragma unroll
-        for (int j = 0; j < V; ++j) bits |= (unsigned)((k[j] & gmask[q.value]) == gwant[q.value]) << j;
       }
       return bits & vm;
     };
     auto specs_of = [&](const Item& it, W* gmask, W* gwant) {  // a missing spec never matches
 #pragma unroll
       for (int q = 0; q < kGroup; ++q) {
-        const bool on = q < it.gn && q != it.tee;
-        gmask[q] = on ? sspec[it.gb + q] : (W)0;
-        gwant[q] = on ? sspec[n_specs + it.gb + q] : (W)1;
+        const int u = q == it.tee ? p.nc : it.gb + q;  // the tee's first spec outside the lookup
+        const bool on = q < it.gn && (q != it.tee || p.nt > 0);
+        gmask[q] = on ? sspec[u] : (W)0;
+        gwant[q] = on ? sspec[n_specs + u] : (W)1;
       }
     };
 
-    if (threadIdx.x == 0) s_ticket[0] = atomicAdd(p.ticket, 1u);
+    // the stages' barriers, then the block's first tile, by the last warp
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < kStages; ++s) mbar_init(s_full + s);
+      fence_barrier_init();
+    }
+    __syncthreads();
+    if (warp == kOrdWarps - 1) {
+      const long long t0 = __shfl_sync(0xffffffffu, lane == 0 ? (long long)atomicAdd(p.ticket, 1u) : 0ll, 0);
+      if (lane == 0) s_ticket[0] = t0;
+      if (t0 < n_tiles) load_tile(t0, 0);
+    }
     __syncthreads();
     Item cur = group(s_ticket[0], 0, 0), prev{};
     bool have_prev = false;
-    if (cur.t < n_tiles) issue(cur.t, 0);
-    cp_async_commit();
-    W pmask[kGroup], pwant[kGroup];  // the previous item's specs
-    unsigned long long prows = 0;     // the previous item's rows with a survivor, this warp's
+    unsigned phase = 0;  // bit s: the parity of stage s's next load
+    unsigned pkeep[kGroup] = {};  // the previous item's keep (below)
+    unsigned prows = 0;           // the previous item's rows with a survivor, this warp's
     for (int par = 0;; par ^= 1) {
       const bool have_cur = cur.t < n_tiles;
       if (!have_cur && !have_prev) break;
-      if (have_cur && cur.gb == 0) cp_async_wait<0>();  // this thread's copies of the tile have landed
-      __syncthreads();                                  // and every thread's
+      // at a tile's first item, the last warp (it does no look-back) takes
+      // the next tile's ticket while the step waits for this tile, then
+      // issues that tile's loads into the stage of the tile two back,
+      // written in the step before: they land while this step counts and
+      // writes
+      const bool takes = have_cur && cur.gb == 0 && warp == kOrdWarps - 1;
+      const unsigned ticket = takes && lane == 0 ? atomicAdd(p.ticket, 1u) : 0u;
+      if (have_cur && cur.gb == 0) {  // a tile's first item: its loads have landed
+        mbar_wait(s_full + cur.st, (phase >> cur.st) & 1u);
+        phase ^= 1u << cur.st;
+      }
+      __syncthreads();
+      if (takes) {
+        const int nst = (cur.st + 1) % kStages;
+        const long long t = __shfl_sync(0xffffffffu, (long long)ticket, 0);
+        if (lane == 0) s_ticket[nst] = t;
+        if (t < n_tiles) load_tile(t, nst);
+      }
 
       // the previous item's look-back, one warp per buffer
       if (have_prev && warp < prev.gn) {
@@ -644,47 +773,70 @@ sweep_ingest_kernel(const __grid_constant__ Params<W> p) {
           if (prev.t == n_tiles - 1) p.counts[prev.gb + warp] = (unsigned)(excl + agg);
         }
       }
-      // the current item's count: per lane and buffer the survivors, per
-      // buffer the rows of this warp that hold one
-      W cmask[kGroup], cwant[kGroup];
-      unsigned long long crows = 0;  // bit q * kRows + r
+      // the current item's count: the histogram (and the other parts) at
+      // a tile's first item, and per lane and buffer the keys it takes,
+      // bit r * V + j for key j of the warp's row r (keep)
+      unsigned keep[kGroup] = {};
+      unsigned crows = 0;  // bit q * kRows + r: the warp's row r holds a survivor of buffer gb + q
       if (have_cur) {
+        W cmask[kGroup], cwant[kGroup];
         specs_of(cur, cmask, cwant);
-        // the next tile's ticket, taken by a warp that does no look-back
-        // and stored after the rows, so its latency hides
-        const bool ticket_lane = cur.gb == 0 && threadIdx.x == nthreads - 32;
-        const unsigned next_ticket = ticket_lane ? atomicAdd(p.ticket, 1u) : 0u;
-        unsigned c[kGroup] = {};
-#pragma unroll 2
-        for (int r = 0; r < kRows; ++r) {
-          const int row = warp * kRows + r;
-          W k[V];
-          const unsigned vm = load_row(cur, row, k);
-          if (cur.gb == 0) {
-            const long long pos0 = cur.t * kTile + (long long)(row * 32 + lane) * V;
+        const bool first = cur.gb == 0;
+        const bool looks = kHist && nd > 0 && (first || (cur.tee >= 0 && n_teed > 0));
+        // the rows, compiled for each way of looking a prefix up (lookup)
+        auto count_rows = [&](auto how) {
 #pragma unroll
-            for (int j = 0; j < V; ++j) count(k[j], pos0 + j < L, (vm >> j) & 1u, Int<0>{});
-          }
-          unsigned bits[kGroup];
-          bits[0] = match(k, vm, cur.tee, cmask, cwant, Int<0>{});
-          bits[1] = cur.gn > 1 ? match(k, vm, cur.tee, cmask, cwant, Int<1>{}) : 0u;
-          bits[2] = cur.gn > 2 ? match(k, vm, cur.tee, cmask, cwant, Int<2>{}) : 0u;
-          bits[3] = cur.gn > 3 ? match(k, vm, cur.tee, cmask, cwant, Int<3>{}) : 0u;
+          for (int r0 = 0; r0 < kRows; r0 += kBatch) {
+            uint4 raw[kBatch];
 #pragma unroll
-          for (int q = 0; q < kGroup; ++q) {
-            c[q] += __popc(bits[q]);
-            if (bits[q]) crows |= 1ull << (q * kRows + r);
+            for (int b = 0; b < kBatch; ++b) raw[b] = raw_row(cur, warp * kRows + r0 + b);
+#pragma unroll
+            for (int b = 0; b < kBatch; ++b) {
+              const int r = r0 + b;
+              const int row = warp * kRows + r;
+              W k[V];
+              const unsigned vm = keys_of(cur, row, raw[b], k);
+              // the lane's words of the row that lie in the bucket
+              const int left = (int)max(0ll, min((long long)V, L - (cur.t * kTile + (long long)(row * 32 + lane) * V)));
+              unsigned looked = 0;
+              if (looks) {
+#pragma unroll
+                for (int j = 0; j < V; ++j) {
+                  const int hrow = lookup(k[j], j < left, how);
+                  if (first && hrow >= 0) atomicAdd(hacc + hrow * nb + (int)((k[j] >> shift) & dmask), 1u);
+                  looked |= (unsigned)(hrow >= 0 && hrow < n_teed) << j;
+                }
+              }
+              if (kChecked && first) {
+#pragma unroll
+                for (int j = 0; j < V; ++j) count_rest(k[j], j < left, (vm >> j) & 1u, Int<0>{});
+              }
+              keep[0] |= match(k, vm, looked, cur.tee, cmask, cwant, Int<0>{}) << (r * V);
+              if (cur.gn > 1) keep[1] |= match(k, vm, looked, cur.tee, cmask, cwant, Int<1>{}) << (r * V);
+              if (cur.gn > 2) keep[2] |= match(k, vm, looked, cur.tee, cmask, cwant, Int<2>{}) << (r * V);
+              if (cur.gn > 3) keep[3] |= match(k, vm, looked, cur.tee, cmask, cwant, Int<3>{}) << (r * V);
+            }
           }
+        };
+        if (!kHist || nd <= 1)
+          count_rows(Int<0>{});
+        else if constexpr (kHist) {
+          if (exact)
+            count_rows(Int<1>{});
+          else
+            count_rows(Int<2>{});
         }
-        if (ticket_lane) s_ticket[(cur.st + 1) % kStages] = next_ticket;
+        unsigned lrows = 0;
+#pragma unroll
+        for (int q = 0; q < kGroup; ++q)
+#pragma unroll
+          for (int r = 0; r < kRows; ++r)
+            if ((keep[q] >> (r * V)) & kKeyMask) lrows |= 1u << (q * kRows + r);
+        crows = __reduce_or_sync(0xffffffffu, lrows);
         unsigned long long cnt = 0;  // 16-bit fields
 #pragma unroll
-        for (int q = 0; q < kGroup; ++q) cnt |= (unsigned long long)c[q] << (16 * q);
-#pragma unroll
-        for (int d = 16; d > 0; d >>= 1) {
-          cnt += __shfl_xor_sync(0xffffffffu, cnt, d);
-          crows |= __shfl_xor_sync(0xffffffffu, crows, d);
-        }
+        for (int q = 0; q < kGroup; ++q)
+          cnt |= (unsigned long long)__reduce_add_sync(0xffffffffu, (unsigned)__popc(keep[q])) << (16 * q);
         if (lane == 0) s_wsum[par][warp] = cnt;
       }
       __syncthreads();
@@ -700,21 +852,15 @@ sweep_ingest_kernel(const __grid_constant__ Params<W> p) {
         if (lane == kOrdWarps - 1) s_agg[par] = incl;
       }
       __syncthreads();
-      if (have_cur) {
-        if (warp < cur.gn && lane == 0) {  // the aggregate, or tile 0's inclusive prefix
-          const unsigned long long agg = (s_agg[par] >> (16 * warp)) & 0xffffull;
-          atomicExch(p.status + (long long)(cur.gb + warp) * n_tiles + cur.t, (cur.t ? kFlagAgg : kFlagIncl) | agg);
-        }
-        if (cur.gb == 0) {  // the next tile's loads, into the stage of the tile two back
-          const int nst = (cur.st + 1) % kStages;
-          if (s_ticket[nst] < n_tiles) issue(s_ticket[nst], nst);
-          cp_async_commit();
-        }
+      if (have_cur && warp < cur.gn && lane == 0) {  // the aggregate, or tile 0's inclusive prefix
+        const unsigned long long agg = (s_agg[par] >> (16 * warp)) & 0xffffull;
+        atomicExch(p.status + (long long)(cur.gb + warp) * n_tiles + cur.t, (cur.t ? kFlagAgg : kFlagIncl) | agg);
       }
 
-      // the previous item's writes: each row's survivors, compacted in the
-      // warp's staging row, as one coalesced run; then the tile's share of
-      // the zeros, counted from the end of the buffer
+      // the previous item's writes: each row's survivors (its bits kept
+      // from the count), compacted in the warp's staging row, as one
+      // coalesced run; then the tile's share of the zeros, counted from the
+      // end of the buffer
       if (have_prev) {
         const unsigned long long wexcl = s_wsum[par ^ 1][warp];
         const long long tile0 = prev.t * kTile;
@@ -723,11 +869,11 @@ sweep_ingest_kernel(const __grid_constant__ Params<W> p) {
           if (q.value >= prev.gn) return;
           W* out = p.surv + (long long)(prev.gb + q.value) * L;
           long long pos = s_excl[q.value] + (long long)((wexcl >> (16 * q.value)) & 0xffffull);
-          for (unsigned long long rows = (prows >> (q.value * kRows)) & ((1ull << kRows) - 1ull); rows;
-               rows &= rows - 1) {
-            const int row = warp * kRows + __ffsll((long long)rows) - 1;
+          for (unsigned rows = (prows >> (q.value * kRows)) & ((1u << kRows) - 1u); rows; rows &= rows - 1) {
+            const int r = __ffs(rows) - 1;
             W k[V];
-            const unsigned bits = match(k, load_row(prev, row, k), prev.tee, pmask, pwant, q);
+            keys_of(prev, warp * kRows + r, raw_row(prev, warp * kRows + r), k);
+            const unsigned bits = (pkeep[q.value] >> (r * V)) & kKeyMask;
             unsigned below = 0, total = 0;
 #pragma unroll
             for (int j = 0; j < V; ++j) {
@@ -758,10 +904,7 @@ sweep_ingest_kernel(const __grid_constant__ Params<W> p) {
       have_prev = have_cur;
       prows = crows;
 #pragma unroll
-      for (int q = 0; q < kGroup; ++q) {
-        pmask[q] = cmask[q];
-        pwant[q] = cwant[q];
-      }
+      for (int q = 0; q < kGroup; ++q) pkeep[q] = keep[q];
       if (have_cur) {
         const int nst = (cur.st + 1) % kStages;
         cur = cur.gb + cur.gn < n_surv ? group(cur.t, cur.gb + cur.gn, cur.st) : group(s_ticket[nst], 0, nst);
@@ -870,17 +1013,19 @@ cudaError_t resident_blocks(K kernel, int threads, int smem, int* per_sm) {
 template <typename W>
 int launch(const W* data, long long L, long long n_valid, int is_float, W key_xor,
            int nd, const W* pref_host, const W* pref_dev, int shift, int rb, int pbits,
-           int tbits, int copies, int hist_smem, int nc, int nt, const W* spec_host,
-           const W* spec_dev, int cert, W vkey, int sketch_bits, int deep_smem,
+           int tbits, int copies, int hist_smem, int nc, int nt, int tee, int n_teed,
+           const W* spec_host, const W* spec_dev, int cert, W vkey, int sketch_bits, int deep_smem,
            unsigned* hist, unsigned* counts, unsigned* cert_out, unsigned* deep, W* ext,
            unsigned* done, unsigned* ticket, unsigned long long* status, W* surv,
            void* arena, long long arena_bytes, int blocks, int sms, cudaStream_t stream) {
   // a prefix table at most half full (the build and the lookup end);
   // counters of 4 or 2 bytes in shared memory, or none; 16-bit counters
-  // only in the wide order-free block, and of a histogram of one row and copy
-  const bool ordered = nc + nt > 0;
+  // only in the wide order-free block, and of a histogram of one row and
+  // copy; tee specs and teed rows only with a tee buffer
+  const bool ordered = nc + tee > 0;
   const bool wide = hist_smem == 2 || deep_smem == 2;
   if (nd < 0 || nd > 1 << (kTableBits - 1) || tbits > kTableBits || nc < 0 || nt < 0 || copies < 1 ||
+      (tee != 0 && tee != 1) || n_teed < 0 || n_teed > nd || ((nt || n_teed) && !tee) ||
       blocks < 1 || (hist_smem != 0 && hist_smem != 2 && hist_smem != 4) ||
       (deep_smem != 0 && deep_smem != 2 && deep_smem != 4) || (wide && ordered) ||
       (hist_smem == 2 && (nd != 1 || copies != 1)))
@@ -910,6 +1055,8 @@ int launch(const W* data, long long L, long long n_valid, int is_float, W key_xo
   const int n_specs = nc + nt;
   p.nc = nc;
   p.nt = nt;
+  p.tee = tee;
+  p.n_teed = n_teed;
   for (int i = 0; i < n_specs && i < kParamSpecs; ++i) {
     p.smask[i] = spec_host[i];
     p.swant[i] = spec_host[n_specs + i];
@@ -946,10 +1093,13 @@ int launch(const W* data, long long L, long long n_valid, int is_float, W key_xo
     return (int)cudaGetLastError();
   };
   // the kernel of exactly the parts asked for; the ordered route has one
-  // without other parts (the streamed collect) and one that checks them
+  // without other parts (the streamed collect), one with the histogram
+  // (the spill passes) and one that checks the others at run time
   const int parts = (nd ? kPartHist : 0) | (cert ? kPartCert : 0) | (sketch_bits ? kPartSketch : 0);
   if (ordered)
-    return go(parts ? sweep_ingest_kernel<W, true, kPartsChecked, false> : sweep_ingest_kernel<W, true, 0, false>,
+    return go(parts == 0           ? sweep_ingest_kernel<W, true, 0, false>
+              : parts == kPartHist ? sweep_ingest_kernel<W, true, kPartHist, false>
+                                   : sweep_ingest_kernel<W, true, kPartsChecked, false>,
               kOrdThreads,
               layout<W, true>(nd, tbits, copies, rb, hist_smem, n_specs, sketch_bits, deep_smem));
   using Kernel = void (*)(Params<W>);
@@ -976,14 +1126,15 @@ int launch(const W* data, long long L, long long n_valid, int is_float, W key_xo
   extern "C" int ksel_sweep_ingest##BITS(                                                  \
       const void* data, long long L, long long n_valid, int is_float, W key_xor, int nd,   \
       const void* pref_host, const void* pref_dev, int shift, int rb, int pbits, int tbits, \
-      int copies, int hist_smem, int nc, int nt, const void* spec_host,                    \
-      const void* spec_dev, int cert, W vkey, int sketch_bits, int deep_smem, void* hist,  \
+      int copies, int hist_smem, int nc, int nt, int tee, int n_teed,                      \
+      const void* spec_host, const void* spec_dev, int cert, W vkey, int sketch_bits,      \
+      int deep_smem, void* hist,                                                           \
       void* counts, void* cert_out, void* deep, void* ext, void* done, void* ticket,       \
       void* status, void* surv, void* arena, long long arena_bytes, int blocks, int sms,   \
       void* stream) {                                                                      \
     return launch<W>(static_cast<const W*>(data), L, n_valid, is_float, key_xor, nd,       \
                      static_cast<const W*>(pref_host), static_cast<const W*>(pref_dev),    \
-                     shift, rb, pbits, tbits, copies, hist_smem, nc, nt,                   \
+                     shift, rb, pbits, tbits, copies, hist_smem, nc, nt, tee, n_teed,      \
                      static_cast<const W*>(spec_host), static_cast<const W*>(spec_dev),    \
                      cert, vkey, sketch_bits, deep_smem, static_cast<unsigned*>(hist),     \
                      static_cast<unsigned*>(counts), static_cast<unsigned*>(cert_out),     \

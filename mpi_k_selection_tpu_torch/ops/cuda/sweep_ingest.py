@@ -37,6 +37,9 @@ launch: its route (order-free without survivor buffers, ordered with
 them), tiles, grid and shared memory (int32 counters, or 16-bit ones for
 a 15- or 16-bit sketch or histogram of one prefix). One launch serves a bucket, unless
 it holds more than ``MAX_TABLE_PREFIXES`` distinct histogram prefixes.
+A tee spec that is one of the histogram's prefixes (:func:`teed_prefixes`)
+travels as that prefix's row, placed among the first: the kernel tees a
+key on the row it looks up, and compares only the tee's other specs.
 The outputs are views of one zeroed arena of counters, and each survivor
 buffer is written whole by the kernel.
 
@@ -70,7 +73,7 @@ PLAIN_CALLS = Book({"sweep_ingest": 0})
 # ORD_THREADS-thread blocks and a ROW_BYTES staging row per warp.
 ORDER_FREE, ORDERED = "order-free", "ordered"
 THREADS, UNROLL, WIDE_THREADS = 256, 4, 1024
-ORD_THREADS, TILE_BYTES, STAGES, ROW_BYTES = 512, 64 * 1024, 3, 512
+ORD_THREADS, TILE_BYTES, STAGES, ROW_BYTES = 1024, 64 * 1024, 3, 512
 # Parameters travel by value up to PARAM_PREFIXES distinct prefixes and
 # PARAM_SPECS specs, in device arrays above. The prefix table holds up to
 # 2^TABLE_BITS entries, at most half used: more distinct prefixes than
@@ -89,6 +92,10 @@ SMEM_PER_SM, SMEM_RESERVED, SMEM_PER_BLOCK = 228 * 1024, 1024, 226 * 1024
 MAX_THREADS_PER_SM = 2048
 HIST_SMEM = 64 * 1024
 COPIES_SMEM = SMEM_PER_SM // 8
+# the sub-histogram copies a launch may take, most first: warp w counts
+# into copy w % copies (on the ordered route two of its 32 warps a copy at
+# most, on the order-free one a warp a copy)
+ORDERED_COPIES, ORDER_FREE_COPIES = (16, 8, 4, 2), (8, 4, 2)
 PACKED_BITS = (15, 16)
 
 # wide_histogram's bucket: a launch counts in int32 and takes fewer than
@@ -235,18 +242,21 @@ def _smem_bytes(route, bits, nd, tbits, copies, radix_bits, hist_smem, n_specs, 
 
 
 def sweep_plan(bits: int, n: int, *, nd: int, shift: int = 0, radix_bits: int = 1, n_collect: int = 0,
-               n_tee: int = 0, sketch_bits: int = 0, sms: int) -> SweepPlan:
+               n_tee: int = 0, n_teed: int = 0, sketch_bits: int = 0, sms: int) -> SweepPlan:
     """The launch of the sweep kernel over an ``n``-word bucket of
     ``bits``-wide words with ``nd`` distinct histogram prefixes (at most
-    ``MAX_TABLE_PREFIXES``), ``n_collect`` collect and ``n_tee`` tee specs
-    and a sketch of ``sketch_bits``, on a card of ``sms`` SMs.
+    ``MAX_TABLE_PREFIXES``), ``n_collect`` collect and ``n_tee`` tee specs,
+    ``n_teed`` of those the histogram's own prefixes (they join its lookup
+    and take no spec), and a sketch of ``sketch_bits``, on a card of
+    ``sms`` SMs.
 
     The route: ordered when any survivor buffer is asked for, else
     order-free. Shared memory, in order of need within the block's 227 KB:
     the fixed parts of the route; the histogram's int32 counters when one
-    copy fits ``HIST_SMEM``, in the most of 8, 4, 2 copies within
-    ``COPIES_SMEM`` (the rest of an SM's shared memory is L1, which holds
-    the loads in flight), else one; the sketch's int32 counters when they
+    copy fits ``HIST_SMEM``, in the most copies within ``COPIES_SMEM`` (the
+    rest of an SM's shared memory is L1, which holds the loads in flight)
+    of ``ORDERED_COPIES`` on the ordered route and
+    of ``ORDER_FREE_COPIES`` on the other, else one; the sketch's int32 counters when they
     fit ``HIST_SMEM`` and the block (an order-free 1-bit sketch, the
     extremes' launch of sub-32-bit keys, counts in registers). On the order-free route, a histogram
     of one prefix or a sketch at ``PACKED_BITS`` that has no room as int32
@@ -257,8 +267,10 @@ def sweep_plan(bits: int, n: int, *, nd: int, shift: int = 0, radix_bits: int = 
     and no more blocks than work."""
     if not 0 <= nd <= MAX_TABLE_PREFIXES:
         raise ValueError(f"{nd} distinct prefixes in one launch; at most {MAX_TABLE_PREFIXES}")
-    n_specs = n_collect + n_tee
-    route = ORDERED if n_specs else ORDER_FREE
+    if not 0 <= n_teed <= min(nd, n_tee):
+        raise ValueError(f"{n_teed} teed prefixes of {nd} prefixes and {n_tee} tee specs")
+    n_specs = n_collect + n_tee - n_teed  # the specs the kernel compares
+    route = ORDERED if n_collect or n_tee else ORDER_FREE
     tile_words = TILE_BYTES // (bits // 8) if route == ORDERED else 0
     n_tiles = -(-n // tile_words) if tile_words else 0
     pbits = bits - shift - radix_bits
@@ -276,7 +288,8 @@ def sweep_plan(bits: int, n: int, *, nd: int, shift: int = 0, radix_bits: int = 
         hist_smem = 2
     copies = 1
     if hist_smem == 4:
-        fits = [c for c in (8, 4, 2) if c * copy <= COPIES_SMEM and smem(c, 4, 0) <= SMEM_PER_BLOCK]
+        fits = [c for c in (ORDERED_COPIES if route == ORDERED else ORDER_FREE_COPIES)
+                if c * copy <= COPIES_SMEM and smem(c, 4, 0) <= SMEM_PER_BLOCK]
         copies = (fits + [1])[0]
     deep_smem = 0
     in_registers = sketch_bits == 1 and route == ORDER_FREE
@@ -345,7 +358,7 @@ def _lib():
             f.argtypes = [
                 p, ll, ll, i, xt,  # data, L, n_valid, is_float, key_xor
                 i, p, p, i, i, i, i, i, i,  # nd, prefixes (host, device), shift, rb, pbits, tbits, copies, hist_smem
-                i, i, p, p,  # nc, nt, specs (host, device)
+                i, i, i, i, p, p,  # nc, the tee's other specs, a tee buffer, its teed rows, specs (host, device)
                 i, xt, i, i,  # cert, vkey, sketch_bits, deep_smem
                 p, p, p, p, p, p, p, p, p,  # hist, counts, cert, deep, ext, done, ticket, status, surv
                 p, ll, i, i, p,  # arena, its bytes (cleared by the launch), blocks, sms, stream
@@ -379,8 +392,10 @@ class _Layout(NamedTuple):
     groups: tuple  # (distinct prefixes, their host array, plan) per launch
     rows: tuple  # each query's row (``nd``: the zero row)
     identity: bool  # rows == 0 .. nq - 1
-    specs: object  # masks then wants, a host array
+    specs: object  # masks then wants of the collect specs and the tee's other specs, a host array
     spec_words: tuple
+    n_other: int  # the tee's specs outside the histogram's lookup
+    n_teed: int  # the first launch's rows that are teed
     n_surv: int
     hist_words: int
     off_counts: int
@@ -392,21 +407,42 @@ class _Layout(NamedTuple):
     total: int
 
 
+def teed_prefixes(shift: int, radix_bits: int, distinct, tee) -> tuple[list[int], list]:
+    """(the histogram's distinct prefixes that the tee union takes whole, at
+    most ``MAX_TABLE_PREFIXES`` of them, in ``distinct``'s order; the tee's
+    other specs). A ``(shift, prefix)`` spec at the histogram's prefix width
+    (``shift + radix_bits``) whose prefix is one of ``distinct`` holds
+    exactly the keys the histogram counts in that prefix's row, so the
+    kernel tees them on the row it looks up."""
+    width = shift + radix_bits
+    wanted = {p for s, p in tee if s == width}
+    teed = [d for d in distinct if d in wanted][:MAX_TABLE_PREFIXES]
+    taken = set(teed)
+    return teed, [(s, p) for s, p in tee if not (s == width and p in taken)]
+
+
 @functools.lru_cache(maxsize=256)
 def _layout(bits, n, shift, radix_bits, prefixes, collect, tee, sketch_bits, sms) -> _Layout:
     distinct, rows = distinct_prefixes(bits, shift, radix_bits, prefixes or ())
+    teed, other = teed_prefixes(shift, radix_bits, distinct, tee)
+    if teed:  # the teed prefixes first: rows 0 .. n_teed - 1 of the first launch
+        order = teed + [d for d in distinct if d not in set(teed)]
+        moved = {d: i for i, d in enumerate(order)}
+        rows = [moved[distinct[r]] if r < len(distinct) else r for r in rows]
+        distinct = order
     nd = len(distinct)
     nb = 1 << radix_bits
-    nc, nt = len(collect), len(tee)
+    nc, n_other = len(collect), len(other)
     n_surv = nc + (1 if tee else 0)
     groups = []
     for g0 in range(0, max(nd, 1), MAX_TABLE_PREFIXES):
         group = distinct[g0:g0 + MAX_TABLE_PREFIXES]
         first = g0 == 0
         plan = sweep_plan(bits, n, nd=len(group), shift=shift, radix_bits=radix_bits, n_collect=nc if first else 0,
-                          n_tee=nt if first else 0, sketch_bits=sketch_bits if first else 0, sms=sms)
+                          n_tee=n_other + len(teed) if first else 0, n_teed=len(teed) if first else 0,
+                          sketch_bits=sketch_bits if first else 0, sms=sms)
         groups.append((tuple(group), _host_words(group, bits), plan))
-    masks, wants = spec_masks(bits, list(collect) + list(tee))
+    masks, wants = spec_masks(bits, list(collect) + other)
     # the arena: the histogram rows (one more, kept zero, for prefixes no
     # key holds), the collect counts, the certificate, the done and ticket
     # counters, the sketch counters, the extremes, the look-back words
@@ -420,7 +456,8 @@ def _layout(bits, n, shift, radix_bits, prefixes, collect, tee, sketch_bits, sms
     off_status = off_ext + bits // 16
     return _Layout(
         groups=tuple(groups), rows=tuple(rows), identity=rows == list(range(len(rows))),
-        specs=_host_words(masks + wants, bits), spec_words=tuple(masks + wants), n_surv=n_surv,
+        specs=_host_words(masks + wants, bits), spec_words=tuple(masks + wants), n_other=n_other,
+        n_teed=len(teed), n_surv=n_surv,
         hist_words=hist_words, off_counts=off_counts, off_cert=off_cert, off_done=off_done,
         off_deep=off_deep, off_ext=off_ext, off_status=off_status,
         total=off_status + 2 * n_surv * groups[0][2].n_tiles,
@@ -473,7 +510,8 @@ def sweep_ingest(data, n_valid, *, key_op="none", key_xor=0, shift=0, radix_bits
                     w.data_ptr(), n, n_valid, int(key_op == "float"), xor,
                     len(group), ctypes.cast(host, ctypes.c_void_p), pref_dev.data_ptr() if pref_dev is not None else None,
                     shift, radix_bits, bits - shift - radix_bits, plan.tbits, plan.copies, plan.hist_smem,
-                    len(collect) if g == 0 else 0, len(tee) if g == 0 else 0,
+                    len(collect) if g == 0 else 0, lay.n_other if g == 0 else 0, int(g == 0 and bool(tee)),
+                    lay.n_teed if g == 0 else 0,
                     ctypes.cast(lay.specs, ctypes.c_void_p), spec_dev.data_ptr() if spec_dev is not None else None,
                     int(g == 0 and vkey is not None), 0 if vkey is None else int(vkey),
                     sketch_bits if g == 0 else 0, plan.deep_smem,

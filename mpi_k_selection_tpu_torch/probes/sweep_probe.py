@@ -2,8 +2,8 @@
 # ksel-torch: noqa-file[KSL009] -- a command-line probe: its printed lines are its report
 """Probe of the sweep kernel's order-free route (``csrc/sweep_ingest.cu``)
 on one CUDA card: ``python3 mpi_k_selection_tpu_torch/probes/sweep_probe.py
-[loads] [copies] [sketch] [kinds] [placement] [context] [--package DIR]`` from the root of the
-repository.
+[loads] [copies] [sketch] [kinds] [variants] [placement] [context] [--package DIR]`` from the
+root of the repository.
 
 1. Loads: the shipped kernel and the two kernels of ``sweep_loads.cu`` beside
    this file (built here with ``nvcc`` into the package's ``_build/``) count one digit histogram under one prefix and
@@ -35,8 +35,9 @@ repository.
    sketch consumer's launch (a 16-bit histogram, a 1-bit sketch); each
    equal to the plain version.
 4. Launch kinds: the sweep kernel of the package in use on each launch
-   kind ``chip_smoke.py`` times for PERF.md's row 8 (``sweep_kinds`` on
-   the streamed int32 and float64 chunks 0) and on the ordered route's
+   kind ``chip_smoke.py`` times for PERF.md's row 8 (``sweep_kinds`` and
+   the spill passes' histogram + tee kinds, ``tee_kinds``, on the streamed
+   int32 and float64 chunks 0) and on the ordered route's
    checked kernel (a histogram of the top digit beside one collect spec,
    and all five parts with a 20-bit sketch, each on 2^26 words, as in
    ``chip_smoke.py`` phase 4), each equal to the plain version, its device
@@ -44,14 +45,23 @@ repository.
    ``mpi_k_selection_tpu_torch`` from the checkout at DIR (another
    commit's package, built in its own ``_build/``), so that two versions
    can be timed in one call: parent, change, change, parent.
-5. Placement: the 64-bit all-parts launch of section 4 with its arena
+5. Variants: the tee kinds, the collect kinds and one order-free kind
+   (a control) on the same chunks under other builds and layouts of the
+   ordered route (``VARIANTS``): the checked kernel for histogram launches,
+   the next tile's loads issued after the count (not before it), 8
+   sub-histogram copies in place of 16, every tee spec compared
+   (no lookup), and blocks of 512 threads in place of 1024; the shipped
+   build
+   first and last, each equal to the plain version. The builds are copies
+   of ``csrc/sweep_ingest.cu`` made in the build directory.
+6. Placement: the 64-bit all-parts launch of section 4 with its arena
    of counters placed after pads of growing size held on the card, each
    time beside the address of its sketch counters.
-6. Context: the same launch in a fresh process, then after
+7. Context: the same launch in a fresh process, then after
    ``chip_smoke.py``'s phase-2 checks of the sweep kernel in that process.
 
 Sections named on the command line (``loads``, ``copies``, ``sketch``,
-``kinds``, ``placement``, ``context``) run alone; with none, the first three. Prints the card's name
+``kinds``, ``variants``, ``placement``, ``context``) run alone; with none, the first three. Prints the card's name
 and power limit first and a JSON summary last.
 """
 
@@ -313,7 +323,7 @@ def kinds() -> list:
     for bits, c, key_op, key_xor in ((32, ints[0], "xor", 1 << 31), (64, f64[0], "float", 0)):
         w = torch.from_numpy(c.view(np.int32 if bits == 32 else np.int64)).cuda()
         w26 = w if bits == 32 else torch.from_numpy(np.concatenate(f64).view(np.int64)).cuda()
-        for words, group in ((w, cs.sweep_kinds(bits, c)), (w26, checked_kinds(bits, c))):
+        for words, group in ((w, cs.sweep_kinds(bits, c) + cs.tee_kinds(bits, c)), (w26, checked_kinds(bits, c))):
             n = words.numel()
             for label, parts in group:
                 kw = dict(key_op=key_op, key_xor=key_xor, **parts)
@@ -325,6 +335,108 @@ def kinds() -> list:
                 out.append({"bits": bits, "kind": label, "words": n, "ms": ms})
         del w, w26
         torch.cuda.empty_cache()
+    return out
+
+
+# The ordered route built and laid out other ways: name -> (text swaps of
+# csrc/sweep_ingest.cu, made in a copy in the build directory; attributes
+# of ops/cuda/sweep_ingest.py set for the variant's launches).
+VARIANTS = {
+    "shipped": ((), ()),
+    "the checked kernel for histogram launches": (
+        (("parts == kPartHist ? sweep_ingest_kernel<W, true, kPartHist, false>",
+          "parts == kPartHist ? sweep_ingest_kernel<W, true, kPartsChecked, false>"),), ()),
+    "the next tile's loads issued after the count": (
+        (("      if (takes) {\n        const int nst", "      if (false) {\n        const int nst"),
+         ("        if (!kHist || nd <= 1)\n          count_rows(Int<0>{});",
+          "        if (takes) {\n          const int nst = (cur.st + 1) % kStages;\n"
+          "          const long long t = __shfl_sync(0xffffffffu, (long long)ticket, 0);\n"
+          "          if (lane == 0) s_ticket[nst] = t;\n          if (t < n_tiles) load_tile(t, nst);\n        }\n"
+          "        if (!kHist || nd <= 1)\n          count_rows(Int<0>{});")), ()),
+    "8 sub-histogram copies (four warps a copy)": ((), (("ORDERED_COPIES", (8, 4, 2)),)),
+    "every tee spec compared (no lookup)": ((), (("teed_prefixes", lambda shift, rb, distinct, tee: ([], list(tee))),)),
+    "512 threads (16 warps) a block": (
+        (("constexpr int kOrdThreads = 1024;", "constexpr int kOrdThreads = 512;"),), (("ORD_THREADS", 512),)),
+}
+
+
+def build_variant(i: int) -> pathlib.Path:
+    """The library of variant ``i`` of :data:`VARIANTS` (the shipped one
+    as it is), its ordered kernels' registers and spills printed."""
+    name, (swaps, _) = list(VARIANTS.items())[i]
+    src = build.SRC_DIR / "sweep_ingest.cu"
+    if swaps:
+        text = src.read_text()
+        for old, new in swaps:
+            if text.count(old) != 1:
+                raise SystemExit(f"sweep_probe: csrc/sweep_ingest.cu no longer holds {old!r} once")
+            text = text.replace(old, new)
+        src = build.BUILD_DIR / f"sweep_ingest-var{i}.cu"
+        src.write_text(text)
+    lib = build.BUILD_DIR / f"libsweep_ingest-var{i}.so"
+    r = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib), str(src)],
+                       capture_output=True, text=True, timeout=900)
+    if r.returncode:
+        raise SystemExit(f"nvcc failed (variant {name}):\n{r.stdout}{r.stderr}")
+    entry = ""
+    for line in (r.stdout + r.stderr).splitlines():
+        if "entry function" in line:
+            entry = "ordered" if "Lb1ELi" in line else ""  # sweep_ingest_kernel<W, true, ...>
+            kernel = line.split("'")[1] if "'" in line else line
+        elif entry and ("registers" in line or "spill" in line):
+            print(f"[variants] {name}: {kernel[-40:]}: {line.strip()}")
+    return lib
+
+
+def variants() -> list:
+    """The tee kinds, the collect kinds and one order-free kind (a
+    control) on the streams' chunks 0 under each of :data:`VARIANTS`, the
+    shipped one first and last, each equal to the plain version."""
+    import concurrent.futures
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with concurrent.futures.ThreadPoolExecutor(len(VARIANTS)) as pool:  # one nvcc each, all at once
+        libs = list(pool.map(build_variant, range(len(VARIANTS))))
+    ints = cs.make_chunks(1, cs.STREAM_CHUNK, "uniform", np.int32)
+    f64 = cs.make_chunks(1, cs.F64_CHUNK, "normal", np.float64)
+    chunks = []
+    for bits, c, key_op, key_xor in ((32, ints[0], "xor", 1 << 31), (64, f64[0], "float", 0)):
+        kinds = [k for k in cs.sweep_kinds(bits, c) if k[0].startswith(("collect", "hist, 1 prefix"))]
+        chunks.append((bits, torch.from_numpy(c.view(np.int32 if bits == 32 else np.int64)).cuda(), key_op, key_xor,
+                       kinds + cs.tee_kinds(bits, c)))
+    shipped = build._libs.pop("sweep_ingest", None)
+    order = list(range(len(VARIANTS))) + [0]
+    out = []
+    try:
+        for i in order:
+            name, (_, attrs) = list(VARIANTS.items())[i]
+            saved = {a: getattr(S, a) for a, _ in attrs}
+            build._libs["sweep_ingest"] = ctypes.CDLL(str(libs[i]))
+            try:
+                for a, v in attrs:
+                    setattr(S, a, v)
+                S._layout.cache_clear()
+                for bits, w, key_op, key_xor, kinds in chunks:
+                    n = w.numel()
+                    for label, parts in kinds:
+                        kw = dict(key_op=key_op, key_xor=key_xor, **parts)
+                        cs.sweep_err(S.sweep_ingest(w, n, **kw), S.sweep_ingest_plain(w, n, **kw),
+                                     f"variant {name}: sweep_ingest{bits} {label}")
+                        ms = cs.kernel_device_ms(lambda: S.sweep_ingest(w, n, **kw), "sweep_ingest_kernel")
+                        shown = "not measured (the profiler saw no kernel)" if ms is None else f"{ms:.4f} ms"
+                        print(f"[variants] {name}: sweep_ingest{bits} {label}: kernel alone {shown}; "
+                              f"equal to the plain version")
+                        out.append({"variant": name, "bits": bits, "kind": label, "ms": ms})
+            finally:
+                for a, v in saved.items():
+                    setattr(S, a, v)
+                S._layout.cache_clear()
+    finally:
+        build._libs.pop("sweep_ingest", None)
+        if shipped is not None:
+            build._libs["sweep_ingest"] = shipped
+    del chunks
+    torch.cuda.empty_cache()
     return out
 
 
@@ -400,9 +512,9 @@ def main() -> int:
     if "--package" in args:
         del args[args.index("--package"):args.index("--package") + 2]
     sections = args or ["loads", "copies", "sketch"]
-    if set(sections) - {"loads", "copies", "sketch", "kinds", "placement", "context"}:
+    if set(sections) - {"loads", "copies", "sketch", "kinds", "variants", "placement", "context"}:
         raise SystemExit(f"sweep_probe: unknown sections {sections}; choose from loads, copies, sketch, kinds, "
-                         "placement, context")
+                         "variants, placement, context")
     build.build_all(["sweep_ingest"])
     summary = {"device": smi}
     if "loads" in sections:
@@ -413,6 +525,8 @@ def main() -> int:
         summary["sketch_agg"] = sketch_agg()
     if "kinds" in sections:
         summary["kinds"] = kinds()
+    if "variants" in sections:
+        summary["variants"] = variants()
     if "placement" in sections:
         summary["placement"] = placement()
     if "context" in sections:

@@ -38,7 +38,9 @@ from mpi_k_selection_tpu_torch.streaming import spill as sp
 from mpi_k_selection_tpu_torch.streaming.sketch import LATER_KNOBS, RadixSketch
 from mpi_k_selection_tpu_torch.streaming.spill import SpillStore
 from mpi_k_selection_tpu_torch.utils import dtypes as dt
-from test_torch_streaming import DTYPES, bits, cuda_device, key_oracle, stream  # noqa: F401 (a fixture)
+from test_torch_streaming import (  # noqa: F401 (a fixture)
+    DTYPES, N_TEE_CASES, bits, cuda_device, key_oracle, stream, tee_cases,
+)
 
 NARROW = dict(radix_bits=4, collect_budget=64)  # several passes, so several generations
 
@@ -712,3 +714,40 @@ def test_tee_launch_matches_plain_on_card(cuda_device, bits_):
     want = S.sweep_ingest_plain(w.cpu(), n - 5, **kw)
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[2][0].cpu(), want[2][0]) and int(got[2][1]) == int(want[2][1]) > 0
+
+
+# (L, n_valid, offset) of each edge shape: the bucket is words[offset:offset + L]
+TEE_EDGES = {
+    "more tiles than resident blocks (the look-back)": ((1 << 22) + 3, (1 << 22) - 5, 0),
+    "a base not 16-byte aligned": ((1 << 20) + 1, (1 << 20) - 9, 1),
+    "n_valid inside the last tile": ((1 << 20) + 77, (1 << 20) + 40, 0),
+    "a bucket below one tile": (5000, 4990, 0),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits_", [32, 64])
+@pytest.mark.parametrize("case", range(N_TEE_CASES))
+@pytest.mark.parametrize("edge", list(TEE_EDGES))
+def test_tee_kinds_match_plain_on_card(cuda_device, bits_, case, edge):
+    """Row 8's histogram + tee launch at each shape of ``tee_cases`` (the
+    tee's survivor shares, a union of teed prefixes with a parked spec,
+    pass 0's every-key tee) and each edge shape, pads of random bits
+    present, against the plain version on the same words: every output
+    exactly, the tee buffer to its last word."""
+    L, n_valid, off = TEE_EDGES[edge]
+    rng = np.random.default_rng(1000 * bits_ + case)
+    label, keys, parts = tee_cases(bits_, L, rng)[case]
+    raw = keys ^ keys.dtype.type(1 << (bits_ - 1))
+    raw[n_valid:] = rng.integers(0, 1 << bits_, size=L - n_valid, dtype=np.uint64).astype(raw.dtype)
+    words = np.zeros(L + off, raw.dtype)
+    words[off:] = raw
+    w = torch.from_numpy(words.view(np.int32 if bits_ == 32 else np.int64)).to(cuda_device)[off:]
+    kw = dict(key_op="xor", key_xor=1 << (bits_ - 1), **parts)
+    S.reset_counts()
+    got = S.sweep_ingest(w, n_valid, **kw)
+    assert S.LAUNCHES[f"sweep_ingest{bits_}"] == 1 and S.PLAIN_CALLS["sweep_ingest"] == 0
+    want = S.sweep_ingest_plain(w, n_valid, **kw)
+    assert torch.equal(got[0], want[0]), label
+    assert torch.equal(got[2][0], want[2][0]) and int(got[2][1]) == int(want[2][1]), label
+

@@ -248,6 +248,13 @@ _PLAN_CASES = {  # label: (sweep_plan keywords, route)
     "all five": (dict(nd=4, shift=-16, radix_bits=8, n_collect=2, n_tee=2, sketch_bits=20), S.ORDERED),
     "all five, a sketch of 16 bits": (dict(nd=4, shift=-16, radix_bits=8, n_collect=2, n_tee=2, sketch_bits=16),
                                       S.ORDERED),
+    "hist, 1 prefix, and its tee (a spill pass)": (dict(nd=1, shift=-16, radix_bits=8, n_tee=1, n_teed=1), S.ORDERED),
+    "hist, no prefix, and the every-key tee (pass 0)": (dict(nd=1, shift=-8, radix_bits=8, n_tee=1, n_teed=1),
+                                                       S.ORDERED),
+    "hist, 4 prefixes, their tee and a parked spec": (dict(nd=4, shift=-24, radix_bits=8, n_tee=5, n_teed=4),
+                                                      S.ORDERED),
+    "hist, 8 prefixes, and 8 teed of 9 tee specs": (dict(nd=8, shift=-24, radix_bits=8, n_tee=9, n_teed=8),
+                                                     S.ORDERED),
 }
 
 
@@ -259,7 +266,10 @@ def test_sweep_plan_routes_tiles_grid_and_budget(bits, case):
     chunk takes 4096 tickets; the grid within the blocks an SM holds (by
     threads and shared memory) and within the work; shared memory within a
     block's 227 KB; sub-histogram copies within ``COPIES_SMEM`` and no more
-    when twice as many would fit; int32 counters in shared memory up to
+    when twice as many would fit (in the cap and the block), up to 16 on
+    the ordered route and 8 on the other; tee specs that are the histogram's prefixes
+    (``n_teed``) take no place among the specs the kernel compares; int32
+    counters in shared memory up to
     ``HIST_SMEM``, 16-bit ones for a histogram of one prefix or a sketch at
     ``PACKED_BITS`` on the order-free route, in the wide block, one an SM;
     parameters by value up to the capacity, in a device array above it."""
@@ -278,9 +288,9 @@ def test_sweep_plan_routes_tiles_grid_and_budget(bits, case):
     else:
         assert plan.tile_words == plan.n_tiles == 0
         work = -(-n // (plan.threads * S.UNROLL * 16 // (bits // 8)))
+    n_specs = kw.get("n_collect", 0) + kw.get("n_tee", 0) - kw.get("n_teed", 0)  # the specs the kernel compares
     assert plan.smem == S._smem_bytes(plan.route, bits, kw["nd"], plan.tbits, plan.copies, kw.get("radix_bits", 1),
-                                      plan.hist_smem, kw.get("n_collect", 0) + kw.get("n_tee", 0),
-                                      kw.get("sketch_bits", 0), plan.deep_smem)
+                                      plan.hist_smem, n_specs, kw.get("sketch_bits", 0), plan.deep_smem)
     assert plan.smem <= S.SMEM_PER_BLOCK
     assert 1 <= plan.per_sm * plan.threads <= S.MAX_THREADS_PER_SM
     assert plan.per_sm * (plan.smem + S.SMEM_RESERVED) <= S.SMEM_PER_SM
@@ -289,12 +299,16 @@ def test_sweep_plan_routes_tiles_grid_and_budget(bits, case):
     order_free = route == S.ORDER_FREE
     packed_hist = order_free and kw["nd"] == 1 and kw.get("radix_bits") in S.PACKED_BITS
     assert plan.hist_smem == (4 if 0 < copy <= S.HIST_SMEM else 2 if packed_hist else 0)
-    assert plan.copies in (8, 4, 2, 1) and (plan.copies == 1 or plan.copies * copy <= S.COPIES_SMEM)
-    if plan.hist_smem == 4 and plan.copies < 8:
-        assert 2 * plan.copies * copy > S.COPIES_SMEM
+    most = 16 if route == S.ORDERED else 8
+    assert plan.copies in (16, 8, 4, 2, 1)[(route != S.ORDERED):]
+    assert plan.copies == 1 or plan.copies * copy <= S.COPIES_SMEM
+    if plan.hist_smem == 4 and plan.copies < most:  # twice as many would pass the cap or the block
+        twice = S._smem_bytes(plan.route, bits, kw["nd"], plan.tbits, 2 * plan.copies, kw.get("radix_bits", 1),
+                              4, n_specs, kw.get("sketch_bits", 0), plan.deep_smem)
+        assert 2 * plan.copies * copy > S.COPIES_SMEM or twice > S.SMEM_PER_BLOCK
     assert plan.tbits == (min(bits - kw["shift"] - kw["radix_bits"], S.TABLE_BITS) if kw["nd"] > 1 else 0)
     assert plan.prefixes_by_value == (kw["nd"] <= S.PARAM_PREFIXES)
-    assert plan.specs_by_value == (kw.get("n_collect", 0) + kw.get("n_tee", 0) <= S.PARAM_SPECS)
+    assert plan.specs_by_value == (n_specs <= S.PARAM_SPECS)
     sketch_bits = kw.get("sketch_bits", 0)
     in_registers = order_free and sketch_bits == 1  # the order-free route's 1-bit sketch
     assert plan.deep_smem == (4 if sketch_bits and not in_registers and (4 << sketch_bits) <= S.HIST_SMEM
@@ -354,6 +368,41 @@ def test_sweep_plan_refuses_a_table_past_half_full():
     S.sweep_plan(32, 1 << 20, nd=S.MAX_TABLE_PREFIXES, shift=0, radix_bits=8, sms=132)
     with pytest.raises(ValueError):
         S.sweep_plan(32, 1 << 20, nd=S.MAX_TABLE_PREFIXES + 1, shift=0, radix_bits=8, sms=132)
+    for nd, n_tee, n_teed in ((1, 1, 2), (2, 1, 2), (0, 1, 1)):  # more teed prefixes than prefixes or tee specs
+        with pytest.raises(ValueError):
+            S.sweep_plan(32, 1 << 20, nd=nd, shift=16, radix_bits=8, n_tee=n_tee, n_teed=n_teed, sms=132)
+
+
+@pytest.mark.parametrize("bits", [32, 64])
+def test_launch_tees_the_histograms_prefixes_on_its_lookup(bits):
+    """The wrapper's layout of a histogram + tee launch (``_layout``): a tee
+    spec at the histogram's prefix width whose prefix the launch counts
+    joins the lookup, its prefix placed among the first ``n_teed`` rows;
+    every other tee spec is compared; each query's row still names its
+    prefix; and on random keys, a key is teed (its row below ``n_teed``, or
+    a compared spec) exactly when the plain version's union takes it."""
+    rng = np.random.default_rng(bits)
+    shift, rb = bits - 24, 8
+    keys = rng.integers(0, 1 << bits, size=4000, dtype=np.uint64).astype(object)
+    q = sorted({int(k) >> (bits - 16) for k in keys[:5]})
+    prefixes = (q[0], q[1], q[2], q[1], 1 << 17)  # a repeat, and a prefix no key can hold
+    tee = ((bits - 16, q[2]), (bits - 16, q[1]), (bits - 12, int(keys[7]) >> (bits - 12)), (bits - 16, q[3]),
+           (bits - 16, q[1]))
+    lay = S._layout(bits, 1 << 20, shift, rb, prefixes, (), tee, 0, 132)
+    distinct = lay.groups[0][0]
+    assert lay.n_teed == 2 and list(distinct) == [q[1], q[2], q[0]]  # the teed first, in the prefixes' order
+    for p, r in zip(prefixes, lay.rows):
+        assert distinct[r] == p if r < len(distinct) else p >> 16
+    other = [tee[2], tee[3]]  # another width; a prefix the histogram does not count
+    masks, wants = S.spec_masks(bits, other)
+    assert lay.spec_words == tuple(masks + wants) and lay.n_other == 2 and lay.n_surv == 1
+    plan = lay.groups[0][2]
+    assert plan.route == S.ORDERED and plan.specs_by_value
+    keys = list(keys[:3000]) + [int(k) ^ (int(k) & ((1 << (bits - 16)) - 1)) ^ 5 for k in keys[:1000]]
+    for k in keys:
+        row = distinct.index(k >> (shift + rb)) if k >> (shift + rb) in distinct else -1
+        teed = 0 <= row < lay.n_teed or any(k & m == w for m, w in zip(masks, wants))
+        assert teed == any(k >> s == p for s, p in tee), k
 
 
 @pytest.mark.parametrize("bits", [32, 64])
@@ -383,6 +432,92 @@ def test_launch_folds_prefixes_and_specs_as_the_plain_version_reads_them(bits):
     for (s, p), m, w in zip(specs, masks, wants):
         for k in keys[:64] + [keys[2], keys[5], 0, full]:
             assert ((k & m) == w) == ((p == 0) if s >= bits else ((k >> s) == p)), (s, p, k)
+
+
+TEE_SHARES = (0.01, 0.17, 0.5, 1.0)  # the tee kind's survivor shares under its one 8-bit prefix
+N_TEE_CASES = len(TEE_SHARES) + 2
+
+
+def tee_cases(bits, size, rng):
+    """(label, keys, parts) of the spill passes' histogram + tee launch on
+    ``size`` random ``bits``-wide keys: the histogram of the 8 bits below
+    one 8-bit prefix (``radix_bits=8``, ``shift=bits-16``) beside the tee
+    of that prefix, on keys of which about 1%, 17%, 50% and 100% hold it;
+    4 such 16-bit prefixes (each on a tenth of the keys) beside the tee of
+    their union and of a parked rank's 12-bit spec (on 1%); and pass 0's
+    every-key tee beside the prefix-free first pass."""
+    kdt = np.uint32 if bits == 32 else np.uint64
+    base = rng.integers(0, 1 << bits, size=size, dtype=np.uint64).astype(kdt)
+
+    def holding(keys, share, width, prefix):  # a share of the keys moved under the prefix
+        low = kdt((1 << (bits - width)) - 1)
+        moved = (keys & low) | kdt(prefix << (bits - width))
+        return np.where(rng.random(size) < share, moved, keys).astype(kdt)
+
+    p8 = int(base[0]) >> (bits - 8)
+    one = dict(hist_prefixes=[p8], shift=bits - 16, radix_bits=8, tee=[(bits - 8, p8)])
+    cases = [(f"one 8-bit prefix, {share:.0%} of keys", holding(base, share, 8, p8), one) for share in TEE_SHARES]
+    q16 = sorted({int(k) >> (bits - 16) for k in base[1:9]})[:4]
+    keys = base
+    for q in q16:
+        keys = holding(keys, 0.1, 16, q)
+    p12 = int(base[9]) >> (bits - 12)
+    cases.append(("4 16-bit prefixes and a parked 12-bit spec", holding(keys, 0.01, 12, p12), dict(
+        hist_prefixes=q16, shift=bits - 24, radix_bits=8, tee=[(bits - 16, q) for q in q16] + [(bits - 12, p12)])))
+    cases.append(("every key (pass 0)", base, dict(hist_prefixes=[0], shift=bits - 8, radix_bits=8, tee=[(bits, 0)])))
+    return cases
+
+
+@pytest.mark.parametrize("bits", [32, 64])
+@pytest.mark.parametrize("case", range(N_TEE_CASES))
+def test_plain_matches_jax_on_the_tee_kinds(bits, case):
+    """Row 8's histogram + tee launch at each shape of :func:`tee_cases`,
+    pads present, against the JAX package: ``sweep_ingest_core`` in
+    interpret mode for 32-bit keys, its XLA fusion tier
+    (``fused_ingest_core``, the JAX package's path for 64-bit key spaces,
+    x64 enabled in scope) for 64-bit keys; counts and the whole tee buffer
+    exactly, under each key op."""
+    import jax.numpy as jnp
+
+    from mpi_k_selection_tpu.ops.pallas import fused_ingest as fi
+    from mpi_k_selection_tpu.ops.pallas import sweep_ingest as si
+    from mpi_k_selection_tpu.utils.x64 import enable_x64
+
+    rng = np.random.default_rng(100 + bits)
+    bucket = 1 << 12
+    n_valid = bucket - 37
+    label, keys, parts = tee_cases(bits, bucket, rng)[case]
+    kdt = keys.dtype.type
+    keys = keys.copy()
+    keys[n_valid:] = 0  # the JAX staging contract: pads are key 0
+    ts, tp = _spec_arrays(parts["tee"], kdt)
+    none = np.zeros(0, kdt)
+    common = dict(shift=parts["shift"], radix_bits=parts["radix_bits"], hist_mode="multi", n_collect=0,
+                  n_tee=len(parts["tee"]))
+
+    def args():  # made in the x64 scope of the 64-bit call
+        return (jnp.asarray(keys), np.int32(n_valid), jnp.asarray(np.array(parts["hist_prefixes"], kdt)),
+                jnp.asarray(none), jnp.asarray(none), jnp.asarray(ts), jnp.asarray(tp))
+
+    if bits == 32:
+        ref = si.sweep_ingest_core(*args(), np.uint32(0), cert=False, sketch_bits=0, block_rows=8, interpret=True,
+                                   **common)
+        want_hist, want_tee = np.asarray(ref[0]), (np.asarray(ref[2][0]), int(ref[2][1]))
+    else:
+        with enable_x64():
+            hist, _, tee = fi.fused_ingest_core(*args(), method="scatter", **common)
+            want_hist, want_tee = np.asarray(hist), (np.asarray(tee[0]), int(tee[1]))
+    valid = keys[:n_valid]
+    held = np.zeros(n_valid, bool)
+    for s, p in parts["tee"]:
+        held |= (valid >> kdt(s) if s < bits else np.zeros_like(valid)) == p
+    assert want_tee[1] == np.count_nonzero(held) > 0  # the reference against numpy first
+    for key_op in ("none", "xor", "float"):
+        hist, collect, tee, cert, sketch = _port_sweep(keys, n_valid, key_op, rng, **parts)
+        assert collect == () and cert is None and sketch is None, label
+        np.testing.assert_array_equal(hist.numpy(), want_hist, err_msg=label)
+        assert tee[0].numpy().view(kdt).tobytes() == want_tee[0].tobytes(), label  # the whole buffer, zeros after
+        assert int(tee[1]) == want_tee[1], label
 
 
 def test_plain64_matches_jax_fused_ingest_and_numpy():
