@@ -14,7 +14,11 @@ Phases, each of which must pass (any failure exits non-zero):
    in {1, 3, 64} with a repeated prefix and radix widths 4 and 8 and on
    its hardest prefix sets (reversed, shuffled, 16 prefixes 4 times each,
    absent from the data, all equal on all-equal words, K=300 at radix
-   width 8, a misaligned view), and
+   width 8, a misaligned view), ``match_counts`` also at K in {1, 3, 4,
+   64, 120, 160, 2100} (two launches) with repeated prefixes and prefixes
+   no key holds, at every resolved width under both of its lookups, on one
+   hot prefix every key holds, on misaligned views and ragged tails and at
+   K=64 on widened 8- and 16-bit keys, and
    ``tau_counts`` in both directions against a key of the data and one
    absent from it; and the batched top-k kernel at (4096, 32768) float32
    for k in {1, 8, 9, 16} and bfloat16 for k in {8, 16}, values and
@@ -74,7 +78,11 @@ Phases, each of which must pass (any failure exits non-zero):
    the multi-prefix histogram at the answers' prefixes: K=4 at pass 1 of
    2^30 int32, 2^27 float64 and 2^27 int32 ``equal``, K=64 and 128 at pass
    1 and K=64 at a deep pass of 2^27 int32, K=64 at pass 1 of 2^27 float64,
-   each with its share of the bound;
+   each with its share of the bound; the match count at the collects of
+   more than one rank (the quantiles' K=4 of 2^30 int32 and 2^27 float64,
+   the many-ranks walk's K=64 and K=120 of 2^27 int32, at the cutover
+   width), beside its bound (the read and the K x R counts), its plain
+   version and ``searchsorted`` + ``bincount``;
    ``topk`` against ``torch.topk`` and a full ``torch.sort`` (yardsticks
    only: the port calls neither for top-k); the batched top-k kernel
    (values and positions, and its values-only launch), ``batched_topk``
@@ -538,6 +546,16 @@ def phase_kernels_vs_plain(gen):
             if not torch.equal(H.radix_histogram_multi(words, **kw), H.radix_histogram_multi_plain(words, **kw)):
                 fail(f"radix_histogram_multi{bits} != plain on {label}")
             print(f"[check] radix_histogram_multi{bits} == plain on {label}")
+        cases = match_count_cases(w, bits, gen)
+        for label, kw in cases:
+            H.reset_counts()
+            hold(f"match_counts{bits}", H.match_counts, match_plain, label, **kw)
+            want = -(-kw["prefixes"].numel() // H.MATCH_MAX_QUERIES)
+            if H.LAUNCHES[f"match_counts{bits}"] != want:
+                fail(f"match_counts{bits} at {label}: {H.LAUNCHES[f'match_counts{bits}']} launches, not {want}")
+        print(f"[check] match_counts{bits} == plain on {len(cases)} cases: K in {{1, 3, 4, 64, 120, 160, 2100}} "
+              "(two launches), every resolved width at both lookups, a hot prefix, misaligned views")
+        del cases
         del w
     # widened 8- and 16-bit keys (the key in a word's low bits, key_op
     # "none"): the early exit's collect at r key bits reads r + 32 - key
@@ -546,12 +564,16 @@ def phase_kernels_vs_plain(gen):
         kb = dt.key_bits(dtype)
         w = dt.to_sortable_bits(torch.randint(-(1 << (kb - 1)), 1 << (kb - 1), (n,), dtype=torch.int32,
                                               device="cuda", generator=gen).to(dtype))
+        picks = w[torch.randint(0, n, (64,), device="cuda", generator=gen)]
         for res in range(1, kb):
             wres = res + 32 - kb
             p = dt.shift_right_logical(w[n // 3 : n // 3 + 1], 32 - wres, 32).contiguous()
             hold("match_counts32", H.match_counts, H.match_counts_plain, f"widened {dtype} res={res}",
                  words=w, resolved_bits=wres, prefixes=p)
-        print(f"[check] match_counts32 == plain on {n} widened {dtype} keys at K=1, key bits 1-{kb - 1} "
+            p = dt.shift_right_logical(picks, 32 - wres, 32).contiguous()
+            hold("match_counts32", H.match_counts, match_plain, f"widened {dtype} res={res} K=64",
+                 words=w, resolved_bits=wres, prefixes=p, key_op="none", key_xor=0)
+        print(f"[check] match_counts32 == plain on {n} widened {dtype} keys at K=1 and 64, key bits 1-{kb - 1} "
               f"(word bits {33 - kb}-31)")
         del w
     from mpi_k_selection_tpu_torch.ops.cuda import topk as T
@@ -624,6 +646,61 @@ def multi_prefix_sets(w: torch.Tensor, bits: int, gen):
     out.append(("K=300 rb=8 (more than one launch)", w, dict(kw, shift=bits - 16, radix_bits=8, prefixes=p300)))
     out.append(("a misaligned view, K=64 shuffled with repeats", w[1:],
                 dict(kw, shift=bits - 12, prefixes=shuffled(top(picks[:16], bits - 12).repeat(4)))))
+    return out
+
+
+def match_count_cases(w: torch.Tensor, bits: int, gen):
+    """(label, kwargs) of the match count's checks on views of the random
+    words ``w`` (keys: the sign bit flipped), each with prefixes of data
+    keys, the second repeated at the end, one past every key's top bits and
+    one in range that no key holds where the width has one: K in {1, 3, 4,
+    64, 120, 160, 2100} (the last over two launches) at 24 resolved bits
+    (40 of 64-bit keys) on 2^22 + 37 words (a ragged tail, not a multiple of
+    4); every resolved width at K = 1, MATCH_COMPARE_MAX (the compare in
+    registers) and one more (the prefix table: exact up to 12 bits, hashed
+    beyond) on 2^20 + 5 words; one hot prefix every key holds, repeated
+    among K = 8 and 64; misaligned views (a storage offset of one and of
+    three words) at K = 1 and 64."""
+    from mpi_k_selection_tpu_torch.ops.cuda import histogram as H
+    from mpi_k_selection_tpu_torch.utils import dtypes as dt
+
+    sign = -(1 << (bits - 1))
+    base = dict(key_op="xor", key_xor=1 << (bits - 1))
+
+    def prefixes(words, res, nq):
+        keys = words ^ sign
+        tops = dt.shift_right_logical(keys, bits - res, bits)
+        live = tops[torch.randint(0, words.numel(), (max(1, nq - 3),), device="cuda", generator=gen)]
+        extra = [live[1:2]]
+        if res < bits:  # past any key's top bits
+            extra.append(torch.tensor([dt.signed_const(1 << res, bits)], dtype=w.dtype, device="cuda"))
+        cand = torch.unique(live ^ 1)
+        absent = cand[~torch.isin(cand, tops)][:1]
+        p = torch.cat([live, *extra, absent])
+        return p.repeat(-(-nq // p.numel()))[:nq].contiguous()
+
+    out = []
+    ragged = w[: (1 << 22) + 37]
+    wide = 24 if bits == 32 else 40
+    for nq in (1, 3, 4, 64, 120, 160, 2100):
+        out.append((f"K={nq} res={wide} on {ragged.numel()} words",
+                    dict(base, words=ragged, resolved_bits=wide, prefixes=prefixes(ragged, wide, nq))))
+    small = w[: (1 << 20) + 5]
+    for res in range(1, bits + 1):
+        for nq in (1, H.MATCH_COMPARE_MAX, H.MATCH_COMPARE_MAX + 1):
+            out.append((f"K={nq} res={res} on {small.numel()} words",
+                        dict(base, words=small, resolved_bits=res, prefixes=prefixes(small, res, nq))))
+    equal = torch.full(((1 << 22) + 37,), 42, dtype=w.dtype, device="cuda")
+    hot = dt.shift_right_logical(equal[:1] ^ sign, bits - 24, bits)
+    for nq in (1, 8, 64):
+        others = hot + 1 + torch.arange(max(0, nq - 2), device="cuda", dtype=w.dtype)
+        p = torch.cat([hot, others, hot])[:nq].contiguous()
+        out.append((f"one hot prefix (all-equal words) K={nq}", dict(base, words=equal, resolved_bits=24, prefixes=p)))
+    for lo in (1, 3):
+        view = w[lo : lo + (1 << 22) + 3]
+        for nq in (1, 64):
+            out.append((f"a misaligned view (offset {lo}) K={nq}",
+                        dict(base, words=view, resolved_bits=wide, prefixes=prefixes(view, wide, nq))))
     return out
 
 
@@ -1075,13 +1152,43 @@ def library_histogram_multi(words, shift, radix_bits, prefixes, key_op, key_xor)
 
 
 def library_match_counts(words, resolved_bits, prefixes, key_op, key_xor):
-    """Row 5's nearest torch composition: the row-wise compare-and-sum of
-    each 128-key row's prefix matches (one prefix, the main path's)."""
+    """Row 5's nearest torch composition. One prefix: the row-wise
+    compare-and-sum of each 128-key row's matches. K prefixes: each key's
+    top bits looked up in the sorted distinct prefixes
+    (``torch.searchsorted``), one ``torch.bincount`` of (prefix slot * R +
+    row) over the keys that match, spread back to the K queries. Takes n a
+    multiple of 128 (the main path's arrays)."""
     from mpi_k_selection_tpu_torch.utils import dtypes as dt
 
     bits = words.element_size() * 8
     top = dt.shift_right_logical(dt.keys_from_raw(words, key_op, key_xor), bits - resolved_bits, bits)
-    return (top.view(-1, 128) == prefixes.view(-1)[:1]).sum(1, dtype=torch.int32)[None]
+    if prefixes.numel() == 1:
+        return (top.view(-1, 128) == prefixes.view(-1)).sum(1, dtype=torch.int32)[None]
+    rows = top.numel() // 128
+    uniq, inv = torch.unique(prefixes, return_inverse=True)  # ascending, as searchsorted compares
+    slot = torch.searchsorted(uniq, top).clamp_(max=uniq.numel() - 1)
+    hit = uniq[slot] == top
+    row = torch.arange(top.numel(), device=top.device) // 128
+    counts = torch.bincount((slot * rows + row)[hit], minlength=uniq.numel() * rows)
+    return counts.view(-1, rows).to(torch.int32)[inv]
+
+
+def match_bytes(n: int, bits: int, nq: int) -> int:
+    """The bytes a match count must move: the n words read once and the
+    (K, R) int32 counts written once."""
+    return n * bits // 8 + nq * -(-n // 128) * 4
+
+
+def match_plain(words, resolved_bits, prefixes, key_op, key_xor):
+    """Row 5's plain version (``match_counts_plain``) over slices of the
+    prefixes, at most 24 GiB of its (K, n) temporaries a slice: whole, it
+    needs 60 GiB at K=120 of 2^27 words."""
+    from mpi_k_selection_tpu_torch.ops.cuda import histogram as H
+
+    step = max(1, (24 << 30) // (6 * words.numel()))
+    return torch.cat([H.match_counts_plain(words, resolved_bits=resolved_bits, prefixes=prefixes[i:i + step],
+                                           key_op=key_op, key_xor=key_xor)
+                      for i in range(0, prefixes.numel(), step)])
 
 
 def library_tau_counts(words, tau, largest, key_op, key_xor):
@@ -1201,12 +1308,37 @@ def phase_timing(data):
         mpms = cuda_ms(lambda: H.match_counts_plain(**mkw), iters=3, warmup=1)
         mlms = library_ms(lambda: library_match_counts(**mkw), H.match_counts(**mkw), f"match_counts{name}")
         b, by = row(f"match_counts{name}", n, bits // 8, mms, f"   plain {mpms:.4f} ms; library {mlms:.4f} ms",
-                    nbytes=n * bits // 8 + -(-n // 128) * 4)
+                    nbytes=match_bytes(n, bits, 1))
         if name in ("32 int32 2^30", "64 float64 2^27"):
             kern[f"radix_histogram{bits}"] = (ms, pms, *bound(n * bits // 8, n), herr)
             kern[f"match_counts{bits}"] = (mms, mpms, b, by, merr)
             library[f"radix_histogram{bits}"] = lms
             library[f"match_counts{bits}"] = mlms
+        torch.cuda.empty_cache()
+
+    # the match count at the collects of more than one rank, on the answers'
+    # prefixes at the cutover width: the quantiles of 2^30 int32 (K=4, 24
+    # bits) and of 2^27 float64 (K=4, 20 bits), and the many-ranks walk of
+    # 2^27 int32 at K=64 and K=120 evenly spaced ranks (20 bits)
+    for name, words, key_op, key_xor, bits, nq, res in (
+        ("32 int32 2^30 K=4", x30, "xor", 1 << 31, 32, 4, 24),
+        ("64 float64 2^27 K=4", f64, "float", 0, 64, 4, 20),
+        ("32 int32 2^27 K=64", x27, "xor", 1 << 31, 32, 64, 20),
+        ("32 int32 2^27 K=120", x27, "xor", 1 << 31, 32, 120, 20),
+    ):
+        w = words.view(torch.int32 if bits == 32 else torch.int64)
+        n = w.numel()
+        ranks = api.quantile_ranks(QS, n) if nq == 4 else [round(n * (i + 1) / nq) for i in range(nq)]
+        qkeys = dt.to_sortable_bits(kt.kselect_many(words, ranks))
+        mkw = dict(words=w, resolved_bits=res, key_op=key_op, key_xor=key_xor,
+                   prefixes=dt.shift_right_logical(qkeys, bits - res, bits).contiguous())
+        err = exact(H.match_counts, match_plain, f"match_counts{name}", **mkw)
+        mms = cuda_ms(lambda: H.match_counts(**mkw))
+        mpms = cuda_ms(lambda: match_plain(**mkw), iters=3, warmup=1)
+        mlms = library_ms(lambda: library_match_counts(**mkw), H.match_counts(**mkw), f"match_counts{name}")
+        b, _ = row(f"match_counts{name}", n, bits // 8, mms, f"   plain {mpms:.4f} ms; library {mlms:.4f} ms",
+                   nbytes=match_bytes(n, bits, nq))
+        print(f"[check] match_counts{name} == plain: max_abs_err {err}; {b / mms:.0%} of bound")
         torch.cuda.empty_cache()
 
     # the multi-prefix histogram at the many-ranks passes: the answers' K=4

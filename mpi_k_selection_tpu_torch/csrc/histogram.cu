@@ -23,10 +23,34 @@
 //   the keys of the row whose top resolved bits equal prefixes[q] (the
 //   caller passes mshift = key bits - resolved bits). Elements past n are
 //   masked. 64-bit keys are read as whole words: no hi plane.
-//   Bound: bytes. One read of the n words plus 4 * nq * rows bytes written.
-//   The design gives each row to one warp: lane l reads elements l, l+32,
-//   l+64 and l+96 (four coalesced loads), and each prefix's count is the
-//   population count of four warp ballots.
+//   Bound: bytes. One read of the n words plus 4 * nq * rows bytes written:
+//   at nq = 64 the mostly-zero counts are half the read, at nq = 128 as
+//   much as it, so the writes stream too. A block of 256 threads takes a
+//   tile of T consecutive rows a step (T = 8, 16 or 32: at most 16 KB of
+//   words); warp w counts rows w, w + 8, ... from 16-byte loads, a lane
+//   holding 4 words of each (one load, or two of 64-bit words), every load
+//   of the tile issued before any is counted, and the next tile's loads
+//   issued as soon as this one is counted, so they fly while the counts
+//   are written. A base that is not 16-byte aligned, and the tile holding
+//   the ragged tail, take masked scalar loads. The counts go to a shared
+//   (T, nq) tile whose row stride is odd, and at the step's end each query
+//   writes its T counts as one run at out[q, r0 .. r0 + T - 1], with
+//   16-byte stores where aligned. A key finds its prefixes one of two ways,
+//   both a few instructions a key: with few queries
+//   (ops/cuda/histogram.py:MATCH_COMPARE_MAX, by measurement) it compares
+//   its top bits with each prefix in registers, one byte of a packed
+//   counter a query, and one warp reduction sums four queries' row counts;
+//   with more, it looks them up in radix_histogram_multi's shared prefix
+//   table (exact up to kTableBits resolved bits, hashed with linear
+//   probing beyond; a repeated prefix takes its owner's column and a
+//   prefix no key can hold keeps its own, all zero), a key outside
+//   [smallest, largest] valid prefix touching no shared memory. The
+//   collect runs only once each query's population fits its budget, so
+//   nearly every key misses and a row with no hit costs one vote; a row
+//   with hits adds each group of lanes with equal hits once
+//   (__match_any_sync), so one hot prefix costs one shared atomic a warp
+//   load, not 32. Queries beyond 2048 (the table's half) go to further
+//   launches, and fewer rows a tile keep the count tile within 56 KB.
 //
 // radix_histogram_multi<W>  replaces mpi_k_selection_tpu/ops/pallas/histogram.py:
 //                     pallas_radix_histogram_multi (W = uint32) and
@@ -68,8 +92,8 @@
 //   order) and out[rows + r] the keys equal to it. Elements past n are
 //   masked. tau is read through a device pointer, so the caller never
 //   syncs for it.
-//   Bound: bytes. One read of the n words plus 8 * rows bytes written. The
-//   geometry is match_counts': one warp per row, two ballots per load.
+//   Bound: bytes. One read of the n words plus 8 * rows bytes written. One
+//   warp per row, four scalar loads a lane, two ballots per load.
 //
 // Launches go on the caller's stream; each entry point returns
 // cudaGetLastError() so that the Python wrapper raises on a refused launch.
@@ -174,36 +198,6 @@ radix_histogram_kernel(const W* __restrict__ data, long long n, int shift,
   }
 }
 
-template <typename W>
-__global__ void __launch_bounds__(kThreads)
-match_counts_kernel(const W* __restrict__ data, long long n, long long rows,
-                    int mshift, int is_float, W key_xor,
-                    const W* __restrict__ prefixes, int nq,
-                    int* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const long long nwarp = ((long long)gridDim.x * blockDim.x) >> 5;
-  const bool fl = is_float != 0;
-  for (long long r = warp; r < rows; r += nwarp) {  // warp-uniform loop
-    W top[kRow / 32];
-    bool ok[kRow / 32];
-#pragma unroll
-    for (int j = 0; j < kRow / 32; ++j) {
-      const long long pos = r * kRow + j * 32 + lane;
-      ok[j] = pos < n;
-      top[j] = ok[j] ? to_key(data[pos], fl, key_xor) >> mshift : (W)0;
-    }
-    for (int q = 0; q < nq; ++q) {
-      const W p = prefixes[q];
-      int c = 0;
-#pragma unroll
-      for (int j = 0; j < kRow / 32; ++j)
-        c += __popc(__ballot_sync(0xffffffffu, ok[j] && top[j] == p));
-      if (lane == 0) out[(long long)q * rows + r] = c;
-    }
-  }
-}
-
 // The prefix table of radix_histogram_multi (ops/cuda/histogram.py mirrors
 // both numbers): at most 2^kTableBits entries, at most half of them used.
 constexpr int kTableBits = 12;
@@ -296,6 +290,219 @@ radix_histogram_multi_kernel(const W* __restrict__ data, long long n,
   }
 }
 
+// match_counts: the most queries the compare in registers takes, a
+// launch's most queries (the prefix table's), and a tile's most bytes of
+// words (4 16-byte loads a thread; ops/cuda/histogram.py mirrors all three).
+constexpr int kCompareMax = 8;
+constexpr int kMaxMatchQueries = kMaxMultiQueries;
+constexpr int kMatchTileBytes = kThreads * 4 * 16;
+// At least four blocks an SM, 64 registers a thread: 64 KB of loads in
+// flight on each SM (unbounded, the 32-bit compare takes 104 registers,
+// two blocks an SM).
+constexpr int kMatchBlocksPerSM = 4;
+
+// Shared memory of one match_counts block, in order: the (T, nq) int count
+// tile, row stride nq | 1; with a table also, ahead of it, the smallest and
+// largest valid prefix (two 64-bit words) and the nq prefixes, and after
+// it the nq owners and the 2^kTableBits table entries
+// (ops/cuda/histogram.py:_match_smem_bytes).
+template <typename W>
+size_t match_smem_bytes(int nq, int tile_rows, bool compare) {
+  const size_t tile = (size_t)tile_rows * (nq | 1) * sizeof(int);
+  if (compare) return tile;
+  return 2 * sizeof(unsigned long long) + (size_t)nq * sizeof(W) + tile +
+         (size_t)nq * sizeof(unsigned short) + ((size_t)1 << kTableBits) * sizeof(unsigned short);
+}
+
+// The 4 words of one row a lane holds after a tile's 16-byte loads: one
+// load of 32-bit words, two of 64-bit words.
+__device__ __forceinline__ void row_words(const uint4* v, uint32_t (&w)[4]) { unpack(v[0], w); }
+__device__ __forceinline__ void row_words(const uint4* v, uint64_t (&w)[4]) {
+  uint64_t a[2], b[2];
+  unpack(v[0], a);
+  unpack(v[1], b);
+  w[0] = a[0]; w[1] = a[1]; w[2] = b[0]; w[3] = b[1];
+}
+
+// out[q, r] for the nq queries and every 128-key row r, a tile of T = 8 * G
+// rows a step (the note at the top). Compare: the prefixes in registers,
+// NQ of them (nq rounded up: the padding repeats query 0, its counts never
+// written); else radix_histogram_multi's prefix table, exact when the
+// resolved bits fit it (NQ = 1).
+template <typename W, bool Compare, int NQ, int G>
+__global__ void __launch_bounds__(kThreads, kMatchBlocksPerSM)
+match_counts_kernel(const W* __restrict__ data, long long n, long long rows,
+                    int mshift, int is_float, W key_xor,
+                    const W* __restrict__ prefixes, int nq,
+                    int* __restrict__ out, int vec) {
+  constexpr int B = sizeof(W) * 8;
+  constexpr int T = kWarps * G;             // rows a tile
+  constexpr int RV = sizeof(W) / 4;         // 16-byte loads a lane per row
+  constexpr int RQ = kRow * sizeof(W) / 16;  // 16-byte loads a row
+  const int S = nq | 1;  // the count tile's row stride: odd, so a query's T counts lie in distinct banks
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool fl = is_float != 0;
+
+  extern __shared__ unsigned long long smem_match[];
+  int* cnt = reinterpret_cast<int*>(smem_match);
+  const W* pref = nullptr;
+  const unsigned short* owner = nullptr;
+  const unsigned short* table = nullptr;
+  W p[NQ];
+  W lo = 0, hi = 0;
+  unsigned tmask = 0;
+  const bool exact = B - mshift <= kTableBits;  // then the table index is the prefix
+  if constexpr (Compare) {
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) p[q] = prefixes[q < nq ? q : 0];
+  } else {
+    unsigned long long* range = smem_match;  // smallest, largest valid prefix
+    W* spref = reinterpret_cast<W*>(range + 2);
+    cnt = reinterpret_cast<int*>(spref + nq);
+    unsigned short* sowner = reinterpret_cast<unsigned short*>(cnt + T * S);
+    unsigned short* stable = sowner + nq;
+    tmask = (1u << (exact ? B - mshift : kTableBits)) - 1;
+    if (threadIdx.x == 0) {
+      range[0] = ~0ull;
+      range[1] = 0;
+    }
+    for (int i = threadIdx.x; i < nq; i += kThreads) spref[i] = prefixes[i];
+    for (int i = threadIdx.x; i <= (int)tmask; i += kThreads) stable[i] = 0;
+    __syncthreads();
+    for (int q = threadIdx.x; q < nq; q += kThreads) {
+      const W pq = spref[q];
+      sowner[q] = q;  // a prefix no key can hold keeps its own column, all zero
+      if (mshift != 0 && (pq >> (B - mshift)) != 0) continue;
+      atomicMin(range, (unsigned long long)pq);
+      atomicMax(range + 1, (unsigned long long)pq);
+      for (unsigned h = table_home(pq, exact, kTableBits);; h = (h + 1) & tmask) {
+        const unsigned short e = atomicCAS(stable + h, (unsigned short)0, (unsigned short)(q + 1));
+        if (e == 0) break;                                     // q owns pq
+        if (spref[e - 1] == pq) { sowner[q] = e - 1; break; }  // pq is already owned
+      }
+    }
+    __syncthreads();
+    pref = spref;
+    owner = sowner;
+    table = stable;
+    lo = (W)range[0];  // no valid prefix: lo > hi
+    hi = (W)range[1];
+  }
+
+  // Counts row t of the tile into column t of cnt from the lane's 4 words
+  // (bit j of ok: word j lies before n). Warp-uniform.
+  auto count_row = [&](int t, const W (&w)[4], unsigned ok) {
+    int* col = cnt + t * S;
+    if constexpr (Compare) {
+      unsigned acc[(NQ + 3) / 4] = {};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const W top = to_key(w[j], fl, key_xor) >> mshift;
+#pragma unroll
+        for (int q = 0; q < NQ; ++q)
+          acc[q / 4] += (unsigned)((ok >> j & 1u) && top == p[q]) << (8 * (q % 4));
+      }
+#pragma unroll
+      for (int a = 0; a < (NQ + 3) / 4; ++a) {
+        const unsigned s = __reduce_add_sync(0xffffffffu, acc[a]);  // a row's count fits a byte
+        if (lane < 4 && 4 * a + lane < nq) col[4 * a + lane] = (s >> (8 * lane)) & 0xffu;
+      }
+    } else {
+      for (int e = lane; e < nq; e += 32) col[e] = 0;
+      __syncwarp();
+      unsigned hit[4];  // the owner's column + 1, 0 for a miss
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const W top = to_key(w[j], fl, key_xor) >> mshift;
+        unsigned e = 0;
+        if ((ok >> j & 1u) && top >= lo && top <= hi) {
+          for (unsigned h = table_home(top, exact, kTableBits);; h = (h + 1) & tmask) {
+            const unsigned c = table[h];
+            if (c == 0) break;
+            if (exact || pref[c - 1] == top) {
+              e = c;
+              break;
+            }
+          }
+        }
+        hit[j] = e;
+      }
+      if (__any_sync(0xffffffffu, (hit[0] | hit[1] | hit[2] | hit[3]) != 0)) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (!__any_sync(0xffffffffu, hit[j] != 0)) continue;
+          const unsigned same = __match_any_sync(0xffffffffu, hit[j]);
+          if (hit[j] != 0 && lane == __ffs(same) - 1) atomicAdd(col + hit[j] - 1, __popc(same));
+        }
+      }
+    }
+  };
+
+  const uint4* vdata = reinterpret_cast<const uint4*>(data);
+  const long long ntiles = (rows + T - 1) / T;
+  const long long nfull = vec ? n / kRow : 0;  // rows read with 16-byte loads
+  uint4 v[G * RV];
+  auto load_tile = [&](long long tile) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const uint4* row = vdata + (tile * T + g * kWarps + warp) * RQ;
+#pragma unroll
+      for (int u = 0; u < RV; ++u) v[g * RV + u] = __ldg(row + u * 32 + lane);
+    }
+  };
+
+  long long tile = blockIdx.x;
+  if (tile < ntiles && (tile + 1) * T <= nfull) load_tile(tile);
+  for (; tile < ntiles; tile += gridDim.x) {
+    const long long r0 = tile * T;
+    if ((tile + 1) * T <= nfull) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        W w[4];
+        row_words(v + g * RV, w);
+        count_row(g * kWarps + warp, w, 0xfu);
+      }
+    } else {  // misaligned base or the ragged tail: masked scalar loads
+      W w[G][4];
+      unsigned ok[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        ok[g] = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const long long pos = (r0 + g * kWarps + warp) * kRow + j * 32 + lane;
+          w[g][j] = pos < n ? data[pos] : (W)0;
+          ok[g] |= (unsigned)(pos < n) << j;
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        if (r0 + g * kWarps + warp < rows) count_row(g * kWarps + warp, w[g], ok[g]);
+    }
+    __syncthreads();
+    const long long next = tile + gridDim.x;
+    if (next < ntiles && (next + 1) * T <= nfull) load_tile(next);  // in flight while the counts go out
+    const int nr = rows - r0 < T ? (int)(rows - r0) : T;
+    constexpr int C = T / 4;  // 16-byte runs a query
+    for (int i = threadIdx.x; i < nq * C; i += kThreads) {
+      const int q = i / C, c = (i % C) * 4;
+      const int e = Compare ? q : owner[q];
+      int x[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) x[k] = cnt[(c + k) * S + e];
+      int* dst = out + (long long)q * rows + r0 + c;
+      if (c + 4 <= nr && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+        __stcs(reinterpret_cast<int4*>(dst), make_int4(x[0], x[1], x[2], x[3]));
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (c + k < nr) __stcs(dst + k, x[k]);
+      }
+    }
+    __syncthreads();
+  }
+}
+
 template <typename W>
 __global__ void __launch_bounds__(kThreads)
 tau_counts_kernel(const W* __restrict__ data, long long n, long long rows,
@@ -342,13 +549,43 @@ int launch_histogram(const void* data, long long n, int shift, int radix_bits,
 }
 
 template <typename W>
+using MatchKernel = void (*)(const W*, long long, long long, int, int, W, const W*, int, int*, int);
+
+// tile_rows: T = 8, 16 or 32 rows (at most kMatchTileBytes of words; the
+// compare's tile is always the largest); compare: the lookup in registers
+// (nq <= kCompareMax), else the table.
+template <typename W>
 int launch_match_counts(const void* data, long long n, long long rows,
                         int mshift, int is_float, W key_xor,
-                        const void* prefixes, int nq, void* out, int grid,
-                        void* stream) {
-  match_counts_kernel<W><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+                        const void* prefixes, int nq, int tile_rows,
+                        int compare, void* out, int grid, void* stream) {
+  constexpr int B = sizeof(W) * 8;
+  constexpr int kMaxG = kMatchTileBytes / (kWarps * kRow * (int)sizeof(W));
+  const int g = tile_rows / kWarps;
+  if (nq < 1 || nq > (compare ? kCompareMax : kMaxMatchQueries) || mshift < 0 || mshift >= B ||
+      g * kWarps != tile_rows || g < 1 || g > kMaxG || (g & (g - 1)) != 0 || (compare && g != kMaxG))
+    return (int)cudaErrorInvalidValue;
+  const MatchKernel<W> kernel =
+      compare ? (nq <= 1   ? match_counts_kernel<W, true, 1, kMaxG>
+                 : nq <= 4 ? match_counts_kernel<W, true, 4, kMaxG>
+                           : match_counts_kernel<W, true, kCompareMax, kMaxG>)
+              : (g == 1   ? match_counts_kernel<W, false, 1, 1>
+                 : g == 2 ? match_counts_kernel<W, false, 1, 2>
+                          : match_counts_kernel<W, false, 1, kMaxG>);
+  const size_t smem = match_smem_bytes<W>(nq, tile_rows, compare != 0);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) != cudaSuccess)
+    return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  if (grid > per_sm * sms) grid = per_sm * sms;
+  const int vec = (reinterpret_cast<uintptr_t>(data) % 16) == 0;
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const W*>(data), n, rows, mshift, is_float, key_xor,
-      static_cast<const W*>(prefixes), nq, static_cast<int*>(out));
+      static_cast<const W*>(prefixes), nq, static_cast<int*>(out), vec);
   return (int)cudaGetLastError();
 }
 
@@ -415,20 +652,20 @@ int ksel_radix_histogram64(const void* data, long long n, int shift,
 
 int ksel_match_counts32(const void* data, long long n, long long rows,
                         int mshift, int is_float, unsigned int key_xor,
-                        const void* prefixes, int nq, void* out, int grid,
-                        void* stream) {
+                        const void* prefixes, int nq, int tile_rows, int compare,
+                        void* out, int grid, void* stream) {
   return launch_match_counts<uint32_t>(data, n, rows, mshift, is_float,
-                                       key_xor, prefixes, nq, out, grid,
-                                       stream);
+                                       key_xor, prefixes, nq, tile_rows,
+                                       compare, out, grid, stream);
 }
 
 int ksel_match_counts64(const void* data, long long n, long long rows,
                         int mshift, int is_float, unsigned long long key_xor,
-                        const void* prefixes, int nq, void* out, int grid,
-                        void* stream) {
+                        const void* prefixes, int nq, int tile_rows, int compare,
+                        void* out, int grid, void* stream) {
   return launch_match_counts<uint64_t>(data, n, rows, mshift, is_float,
-                                       key_xor, prefixes, nq, out, grid,
-                                       stream);
+                                       key_xor, prefixes, nq, tile_rows,
+                                       compare, out, grid, stream);
 }
 
 int ksel_radix_histogram_multi32(const void* data, long long n, int shift,

@@ -75,6 +75,17 @@ MULTI_TABLE_BITS = 12
 MULTI_MAX_QUERIES = 1 << (MULTI_TABLE_BITS - 1)
 MULTI_SMEM_PER_BLOCK = 228 * 1024 // 2 - 1024
 MULTI_COPIES_SMEM = 228 * 1024 // 8
+# match_counts: the queries up to which a key compares its top bits with
+# each prefix in registers, more looking it up in the prefix table (on an
+# H100 the compare was as fast or faster at every K from 1 to 8, the most
+# it takes, kCompareMax; PERF.md); the queries of one launch (the table's;
+# kMaxMatchQueries); the words of one block's tile of rows (4 16-byte loads
+# a thread in flight; kMatchTileBytes); and the shared memory below which a
+# tile keeps its most rows (four blocks an SM).
+MATCH_COMPARE_MAX = 8
+MATCH_MAX_QUERIES = MULTI_MAX_QUERIES
+MATCH_TILE_BYTES = _THREADS * 4 * 16
+MATCH_SMEM_TARGET = 228 * 1024 // 4 - 1024
 
 
 def reset_counts() -> None:
@@ -188,7 +199,7 @@ def _lib():
             f.argtypes = [p, ll, i, i, i, xt, p, p, i, p]
             f.restype = i
             f = getattr(lib, f"ksel_match_counts{bits}")
-            f.argtypes = [p, ll, ll, i, i, xt, p, i, p, i, p]
+            f.argtypes = [p, ll, ll, i, i, xt, p, i, i, i, p, i, p]
             f.restype = i
             f = getattr(lib, f"ksel_radix_histogram_multi{bits}")
             f.argtypes = [p, ll, i, i, i, xt, p, i, i, p, i, p]
@@ -270,12 +281,43 @@ def radix_histogram(words, *, shift, radix_bits, prefix=None, key_op="none", key
     return out
 
 
+def _match_smem_bytes(bits: int, nq: int, tile_rows: int, compare: bool) -> int:
+    """Shared memory of one match_counts block
+    (``csrc/histogram.cu:match_smem_bytes``): the (tile_rows, nq) int32
+    count tile, row stride ``nq | 1``; with the prefix table also the
+    smallest and largest prefix, the nq prefixes, the nq owners and the
+    2^MULTI_TABLE_BITS entries (16 bits each)."""
+    tile = 4 * tile_rows * (nq | 1)
+    if compare:
+        return tile
+    return 16 + nq * (bits // 8) + tile + 2 * nq + (2 << MULTI_TABLE_BITS)
+
+
+def _match_plan(bits: int, nq: int) -> tuple[int, int, bool]:
+    """(queries per launch, tile rows, compare) of match_counts. The K
+    queries go to as few launches of at most ``MATCH_MAX_QUERIES`` as
+    there can be, split evenly; a launch of at most ``MATCH_COMPARE_MAX``
+    compares in registers. A tile holds ``MATCH_TILE_BYTES`` of words (32
+    rows of 32-bit words, 16 of 64-bit), halved down to 8 rows while the
+    block's shared memory exceeds ``MATCH_SMEM_TARGET``."""
+    launches = -(-nq // MATCH_MAX_QUERIES)
+    per_launch = -(-nq // launches)
+    compare = per_launch <= MATCH_COMPARE_MAX
+    tile_rows = MATCH_TILE_BYTES // (ROW * bits // 8)
+    while tile_rows > _THREADS // 32 and _match_smem_bytes(bits, per_launch, tile_rows, compare) > MATCH_SMEM_TARGET:
+        tile_rows //= 2
+    return per_launch, tile_rows, compare
+
+
 def match_counts(words, *, resolved_bits, prefixes, key_op="none", key_xor=0):
     """``(K, R)`` int32 counts, ``R = ceil(n / 128)``: ``out[q, r]`` is the
     number of elements ``r*128 .. r*128+127`` of ``words`` whose key's top
     ``resolved_bits`` bits equal ``prefixes[q]``. Keys as in
     :func:`radix_histogram`; ``prefixes`` is a contiguous (K,) tensor of
-    the words' int32/int64 view dtype on the same device."""
+    the words' int32/int64 view dtype on the same device. On the card its
+    least time is one read of the n words plus the K x R counts written
+    (4 K R bytes); more than ``MATCH_MAX_QUERIES`` prefixes take further
+    launches, each reading the words again."""
     w = _signed_words(words)
     bits = w.element_size() * 8
     _check_key_op(key_op)
@@ -296,14 +338,18 @@ def match_counts(words, *, resolved_bits, prefixes, key_op="none", key_xor=0):
     out = torch.empty((nq, rows), dtype=torch.int32, device=w.device)
     if n == 0:
         return out
-    blocks = max(1, min(cap, -(-rows // (_THREADS // 32))))
+    per_launch, tile_rows, compare = _match_plan(bits, nq)
+    # the kernel clamps the grid to the blocks resident at once
+    blocks = max(1, min(cap, -(-rows // tile_rows)))
     with torch.cuda.device(w.device):
-        rc = getattr(lib, f"ksel_match_counts{bits}")(
-            w.data_ptr(), n, rows, bits - resolved_bits, is_float, xor,
-            prefixes.data_ptr(), nq, out.data_ptr(), blocks, stream,
-        )
-    _raise_on(lib, rc, f"match_counts{bits}")
-    LAUNCHES[f"match_counts{bits}"] += 1
+        for q0 in range(0, nq, per_launch):
+            q1 = min(nq, q0 + per_launch)
+            rc = getattr(lib, f"ksel_match_counts{bits}")(
+                w.data_ptr(), n, rows, bits - resolved_bits, is_float, xor, prefixes[q0:q1].data_ptr(),
+                q1 - q0, tile_rows, int(compare), out[q0:q1].data_ptr(), blocks, stream,
+            )
+            _raise_on(lib, rc, f"match_counts{bits}")
+            LAUNCHES[f"match_counts{bits}"] += 1
     return out
 
 

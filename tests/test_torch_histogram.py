@@ -1,5 +1,6 @@
 """The port's histogram and match-count functions against the JAX package's
-Pallas kernels (interpret mode on the CPU) and against NumPy.
+Pallas kernels (interpret mode on the CPU) and against NumPy, and the
+match-count launcher's plan of the kernel's shared memory.
 
 Counts are integers and compared exactly: no tolerance. On the CPU the
 wrappers run their plain PyTorch versions; the kernels themselves are
@@ -10,6 +11,9 @@ checked against those plain versions on the card by the ``gpu`` tests:
 The JAX package is imported inside the tests that use it, so that this
 file also collects where only PyTorch is installed.
 """
+
+import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -319,3 +323,231 @@ def test_match_counts_kernel_matches_plain_on_card(cuda_device, dtype):
         )
         kw = dict(resolved_bits=res, prefixes=p, key_op=key_op, key_xor=key_xor)
         assert torch.equal(H.match_counts(words, **kw), H.match_counts_plain(words, **kw)), res
+
+
+# --- match counts at many prefixes: the plain version, the launcher's plan,
+# and on the card the kernel at every query count, width and edge case -------
+
+
+SMEM_TWO_BLOCKS = 228 * 1024 // 2 - 1024  # the shared memory of a block that leaves two on an SM
+
+
+def _prefix_set(x, res, nq, seed=7):
+    """``nq`` prefixes at ``res`` resolved bits: the top bits of keys of
+    ``x`` at evenly spaced ranks, the second one repeated at the end, one
+    value past every key's top bits (2^res, below the full width) and,
+    where one exists, an in-range value that no key holds."""
+    bits = x.dtype.itemsize * 8
+    keys = np.sort(dt.np_to_sortable_bits(x).astype(np.uint64))
+    tops = keys >> np.uint64(bits - res)
+    live = [int(tops[i]) for i in np.linspace(0, len(x) - 1, max(1, nq - 3)).astype(int)]
+    out = live + live[1:2]
+    if res < bits:
+        out.append(1 << res)  # past any key's top bits
+    have = set(int(t) for t in np.unique(tops))
+    rng = np.random.default_rng(seed)
+    for _ in range(64):
+        cand = int(rng.integers(0, 1 << min(res, 62)))
+        if cand not in have:
+            out.append(cand)
+            break
+    while len(out) < nq:
+        out.append(live[len(out) % len(live)])
+    return out[:nq]
+
+
+def _prefixes_tensor(prefixes, bits, device="cpu"):
+    return torch.tensor(
+        [dt.signed_const(v, bits) for v in prefixes], dtype=torch.int32 if bits == 32 else torch.int64, device=device
+    )
+
+
+def _match_kw(x, res, prefixes, device="cpu"):
+    bits = x.dtype.itemsize * 8
+    key_op, key_xor = _fold(x.dtype)
+    return dict(resolved_bits=res, prefixes=_prefixes_tensor(prefixes, bits, device), key_op=key_op, key_xor=key_xor)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_match_counts_plain_matches_pallas_at_64_prefixes(dtype):
+    """64 prefixes, one repeated and two that no key holds (one past every
+    key's top bits), through the Pallas kernel in interpret mode."""
+    import jax.numpy as jnp
+
+    from mpi_k_selection_tpu.ops.pallas.histogram import pallas_match_counts, prepare_raw_tiles32
+
+    res = 12
+    x = _raw_case(dtype, N32)
+    prefixes = _prefix_set(x, res, 64)
+    assert len(set(prefixes)) < 64 and (1 << res) in prefixes
+    key_op, key_xor = _fold(dtype)
+    tiles, n = prepare_raw_tiles32(jnp.asarray(x), 128)
+    want = np.asarray(pallas_match_counts(
+        resolved_bits=res, prefixes=jnp.asarray(np.array(prefixes, np.uint32)), tiles=tiles,
+        orig_n=n, key_op=key_op, key_xor=key_xor, block_rows=128,
+    ))
+    kw = _match_kw(x, res, prefixes)
+    got = H.match_counts_plain(tensor_from_numpy(x, "cpu"), **kw).numpy()
+    rows = got.shape[1]
+    np.testing.assert_array_equal(got, want[:, :rows])
+    assert not want[:, rows:].any()
+    assert not got[prefixes.index(1 << res)].any()
+
+
+@pytest.mark.parametrize("dtype,res", [(np.int32, 20), (np.uint32, 32), (np.float32, 9), (np.int64, 44),
+                                       (np.float64, 64), (np.uint64, 3)])
+def test_match_counts_plain_matches_numpy_at_130_prefixes(dtype, res):
+    x = _raw_case(dtype, 3 * 128 + 45)
+    prefixes = _prefix_set(x, res, 130)
+    got = H.match_counts_plain(tensor_from_numpy(x, "cpu"), **_match_kw(x, res, prefixes)).numpy()
+    np.testing.assert_array_equal(got, _numpy_match(x, res, prefixes))
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float64])
+def test_match_counts_plain_counts_a_hot_prefix(dtype):
+    """One prefix that every key holds, among others that none holds: each
+    full row counts 128, the tail row its length."""
+    n = 5 * 128 + 3
+    x = np.full(n, 42, dtype)
+    bits = x.dtype.itemsize * 8
+    hot = int(dt.np_to_sortable_bits(x[:1]).astype(np.uint64)[0]) >> (bits - 20)
+    prefixes = [hot + 1, hot, hot - 1, hot]
+    got = H.match_counts_plain(tensor_from_numpy(x, "cpu"), **_match_kw(x, 20, prefixes)).numpy()
+    np.testing.assert_array_equal(got, _numpy_match(x, 20, prefixes))
+    np.testing.assert_array_equal(got[1], [128] * 5 + [3])
+    assert not got[0].any() and not got[2].any()
+
+
+def test_match_counts_cpu_tensor_runs_the_plain_version():
+    H.reset_counts()
+    x = _raw_case(np.int32, 1000)
+    got = H.match_counts(tensor_from_numpy(x, "cpu"), **_match_kw(x, 20, _prefix_set(x, 20, 70)))
+    assert got.shape == (70, 8)
+    assert H.PLAIN_CALLS["match_counts"] == 1
+    assert all(v == 0 for v in H.LAUNCHES.values())
+
+
+# --- the launcher's plan -------------------------------------------------------
+
+
+@pytest.mark.parametrize("bits", [32, 64])
+def test_match_plan_fits_every_query_count(bits):
+    """Over K in 1 .. 5000: at most MATCH_MAX_QUERIES a launch, as few
+    launches as that allows, split evenly; the compare only where a launch
+    holds at most MATCH_COMPARE_MAX, always with the largest tile; a tile
+    of 8, 16 or 32 rows (16 KB of words at most), its most rows while the
+    block's shared memory stays within MATCH_SMEM_TARGET, and every block
+    leaving two on an SM."""
+    most_rows = H.MATCH_TILE_BYTES // (128 * bits // 8)
+    assert most_rows == (32 if bits == 32 else 16)
+    seen = set()
+    for nq in range(1, 5001):
+        per_launch, tile_rows, compare = H._match_plan(bits, nq)
+        launches = -(-nq // per_launch)
+        assert per_launch <= H.MATCH_MAX_QUERIES and launches == -(-nq // H.MATCH_MAX_QUERIES), nq
+        assert per_launch * launches - nq < launches, nq  # an even split
+        assert compare == (nq <= H.MATCH_COMPARE_MAX), nq
+        assert tile_rows in (8, 16, 32) and tile_rows <= most_rows, nq
+        assert not compare or tile_rows == most_rows, nq  # the kernel's compare takes the largest tile only
+        smem = H._match_smem_bytes(bits, per_launch, tile_rows, compare)
+        assert smem <= SMEM_TWO_BLOCKS, nq
+        if tile_rows < most_rows:
+            assert H._match_smem_bytes(bits, per_launch, 2 * tile_rows, compare) > H.MATCH_SMEM_TARGET, nq
+        seen.add((tile_rows, compare))
+    assert (most_rows, True) in seen and (most_rows, False) in seen and (8, False) in seen
+
+
+def test_match_plan_mirrors_the_kernel_source():
+    """The launcher's constants against csrc/histogram.cu: the compare's
+    most queries, the table's queries a launch and a tile's bytes."""
+    text = (pathlib.Path(H.__file__).parents[2] / "csrc" / "histogram.cu").read_text()
+    compare_max = int(re.search(r"constexpr int kCompareMax = (\d+);", text).group(1))
+    assert 1 <= H.MATCH_COMPARE_MAX <= compare_max
+    assert "constexpr int kMaxMatchQueries = kMaxMultiQueries;" in text
+    assert H.MATCH_MAX_QUERIES == H.MULTI_MAX_QUERIES == 1 << (H.MULTI_TABLE_BITS - 1)
+    assert "constexpr int kMatchTileBytes = kThreads * 4 * 16;" in text
+    assert H.MATCH_TILE_BYTES == 256 * 4 * 16
+    assert H._match_smem_bytes(32, 1, 32, True) == 4 * 32
+    assert H._match_smem_bytes(64, 64, 16, False) == 16 + 64 * 8 + 4 * 16 * 65 + 2 * 64 + 2 * 4096
+
+
+# --- on the card: the match-count kernel at chip_smoke.py's phase-2 shapes --------
+
+
+def _hold_on_card(x, res, prefixes, device, launches=1, words=None):
+    words = tensor_from_numpy(x, device) if words is None else words
+    kw = _match_kw(x, res, prefixes, device)
+    bits = x.dtype.itemsize * 8
+    H.reset_counts()
+    got = H.match_counts(words, **kw)
+    torch.cuda.synchronize()
+    assert H.LAUNCHES[f"match_counts{bits}"] == launches and H.PLAIN_CALLS["match_counts"] == 0
+    want = torch.cat([H.match_counts_plain(words, **dict(kw, prefixes=kw["prefixes"][i:i + 256]))
+                      for i in range(0, len(prefixes), 256)])
+    assert torch.equal(got, want), (x.dtype, res, len(prefixes))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.int32, np.uint32, np.float32, np.int64, np.float64])
+@pytest.mark.parametrize("nq", [1, 3, 4, 64, 120, 160, 2100])
+def test_match_counts_kernel_every_query_count_on_card(cuda_device, dtype, nq):
+    """K in {1, 3, 4, 64, 120, 160, 2100} (two launches) at a ragged n, with
+    repeated prefixes and prefixes no key holds."""
+    x = _raw_case(dtype, (1 << 18) + 37)
+    res = 20 if x.dtype.itemsize == 4 else 40
+    _hold_on_card(x, res, _prefix_set(x, res, nq), cuda_device, launches=-(-nq // H.MATCH_MAX_QUERIES))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.int32, np.float64])
+def test_match_counts_kernel_every_width_on_card(cuda_device, dtype):
+    """Every resolved width of the key, at K=1, 4 (the compare) and 9 (the
+    exact table up to 12 bits, the hashed one beyond)."""
+    x = _raw_case(dtype, (1 << 16) + 128 * 3 + 5)
+    words = tensor_from_numpy(x, cuda_device)
+    for res in range(1, x.dtype.itemsize * 8 + 1):
+        for nq in (1, 4, 9):
+            _hold_on_card(x, res, _prefix_set(x, res, nq), cuda_device, words=words)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("nq", [1, 8, 64])
+def test_match_counts_kernel_hot_prefix_on_card(cuda_device, dtype, nq):
+    """Every key holds one prefix (and it is repeated among K), so every lane
+    of every row hits: the warp's equal hits counted once a group."""
+    x = np.full((1 << 18) + 100, -7, dtype)
+    bits = x.dtype.itemsize * 8
+    hot = int(dt.np_to_sortable_bits(x[:1]).astype(np.uint64)[0]) >> (bits - 24)
+    prefixes = ([hot] + [hot + 1 + i for i in range(nq - 2)] + [hot])[:nq]
+    _hold_on_card(x, 24, prefixes, cuda_device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.int32, np.float32, np.int64])
+@pytest.mark.parametrize("nq", [1, 64])
+def test_match_counts_kernel_misaligned_and_ragged_on_card(cuda_device, dtype, nq):
+    """A view that is not 16-byte aligned (the scalar loads), and lengths
+    not a multiple of 128 or of 4 (the masked tail tile)."""
+    x = _raw_case(dtype, (1 << 17) + 64)
+    whole = tensor_from_numpy(x, cuda_device)
+    for lo, hi in ((1, len(x)), (3, len(x) - 5), (0, len(x) - 3), (0, 1000 * 128 + 1)):
+        sub = x[lo:hi]
+        res = 16
+        _hold_on_card(sub, res, _prefix_set(sub, res, nq), cuda_device, words=whole[lo:hi])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.int8, np.int16])
+def test_match_counts_kernel_widened_keys_on_card(cuda_device, dtype):
+    """8- and 16-bit keys widened into 32-bit words (the early exit's and the
+    collect's form), every key width at K=1 and K=64."""
+    rng = np.random.default_rng(3)
+    kb = np.dtype(dtype).itemsize * 8
+    small = rng.integers(-(1 << (kb - 1)), 1 << (kb - 1), size=(1 << 16) + 11).astype(dtype)
+    words = dt.to_sortable_bits(torch.from_numpy(small)).to(cuda_device)
+    x = words.cpu().numpy().view(np.uint32)
+    for res in range(1, kb):
+        wres = res + 32 - kb
+        for nq in (1, 64):
+            _hold_on_card(x, wres, _prefix_set(x, wres, nq), cuda_device, words=words)
