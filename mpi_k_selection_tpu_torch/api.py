@@ -5,6 +5,11 @@ Entry points run on the CUDA device unless the caller passes
 :func:`kselect` and :func:`kselect_many` records each resolved dispatch as
 one ``resident.select`` event; every call reports to the process ledger's
 ``api.select`` site under the JAX package's key.
+
+Each entry point is one span (utils/profiling.py:``span``): ``ksel.kselect``,
+``ksel.kselect_many`` and ``ksel.quantiles`` (around its ranks and the
+``ksel.kselect_many`` it calls), so a call of a closed loop is one entry
+span in a ``torch.profiler`` trace.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from mpi_k_selection_tpu_torch.streaming import chunked as _chunked
 from mpi_k_selection_tpu_torch.utils import dtypes as _dt
 from mpi_k_selection_tpu_torch.utils.debug import check_concrete_k, check_concrete_ks
 from mpi_k_selection_tpu_torch.utils.interop import tensor_from_numpy
+from mpi_k_selection_tpu_torch.utils.profiling import span
 
 ALGORITHMS = ("auto", "radix", "sort")
 
@@ -81,17 +87,18 @@ def kselect(x, k, *, algorithm: str = "auto", device=None, obs=None, **kwargs) -
     :func:`~mpi_k_selection_tpu_torch.ops.radix.radix_select`
     (``radix_bits``, ``early_exit_budget``, ``cutover``,
     ``cutover_budget``); the sort path ignores them."""
-    x = as_selection_array(x, device)
-    if x.numel() == 0:
-        raise ValueError("kselect requires a non-empty input")
-    check_concrete_k(k, x.numel())
-    algorithm = resolve_algorithm(algorithm, x.numel())
-    if obs is not None:
-        obs.emit(ResidentSelectEvent(n=x.numel(), queries=1, algorithm=algorithm, dtype=_dtype_name(x)))
-    with _ldg.ledger_dispatch("api.select", (x.numel(), _dtype_name(x), algorithm, 1), obs):
-        if algorithm == "radix":
-            return radix_select(x, k, **kwargs)
-        return sort_select(x, k)
+    with span("ksel.kselect"):
+        x = as_selection_array(x, device)
+        if x.numel() == 0:
+            raise ValueError("kselect requires a non-empty input")
+        check_concrete_k(k, x.numel())
+        algorithm = resolve_algorithm(algorithm, x.numel())
+        if obs is not None:
+            obs.emit(ResidentSelectEvent(n=x.numel(), queries=1, algorithm=algorithm, dtype=_dtype_name(x)))
+        with _ldg.ledger_dispatch("api.select", (x.numel(), _dtype_name(x), algorithm, 1), obs):
+            if algorithm == "radix":
+                return radix_select(x, k, **kwargs)
+            return sort_select(x, k)
 
 
 def kselect_many(x, ks, *, device=None, obs=None, **kwargs) -> torch.Tensor:
@@ -105,29 +112,30 @@ def kselect_many(x, ks, *, device=None, obs=None, **kwargs) -> torch.Tensor:
     (:func:`~mpi_k_selection_tpu_torch.ops.radix.radix_select_many`, which
     ``kwargs`` go to). ``obs`` records the dispatch (``sort-many`` or
     ``radix-many``, and the query count) as :func:`kselect` does."""
-    x = as_selection_array(x, device)
-    n = x.numel()
-    if n == 0:
-        raise ValueError("kselect_many requires a non-empty input")
-    check_concrete_ks(ks, n)
-    n_queries = ks.numel() if isinstance(ks, torch.Tensor) else int(np.size(ks))
-    use_sort = many_takes_sort(n, n_queries)
-    algorithm = "sort-many" if use_sort else "radix-many"
-    if obs is not None:
-        obs.emit(ResidentSelectEvent(n=n, queries=n_queries, algorithm=algorithm, dtype=_dtype_name(x)))
-    with _ldg.ledger_dispatch("api.select", (n, _dtype_name(x), algorithm, n_queries), obs):
-        if use_sort:
-            if kwargs:
-                warnings.warn(
-                    f"kselect_many: this shape takes the sort path (small input or "
-                    f">= {many_sort_dispatch_queries(n)} queries at this n); radix options "
-                    f"{sorted(kwargs)} are ignored",
-                    stacklevel=2,
-                )
-            out = sort_select(x, ks)
-        else:
-            out = radix_select_many(x, ks, **kwargs)
-    return restore_k_shape(out, ks)
+    with span("ksel.kselect_many"):
+        x = as_selection_array(x, device)
+        n = x.numel()
+        if n == 0:
+            raise ValueError("kselect_many requires a non-empty input")
+        check_concrete_ks(ks, n)
+        n_queries = ks.numel() if isinstance(ks, torch.Tensor) else int(np.size(ks))
+        use_sort = many_takes_sort(n, n_queries)
+        algorithm = "sort-many" if use_sort else "radix-many"
+        if obs is not None:
+            obs.emit(ResidentSelectEvent(n=n, queries=n_queries, algorithm=algorithm, dtype=_dtype_name(x)))
+        with _ldg.ledger_dispatch("api.select", (n, _dtype_name(x), algorithm, n_queries), obs):
+            if use_sort:
+                if kwargs:
+                    warnings.warn(
+                        f"kselect_many: this shape takes the sort path (small input or "
+                        f">= {many_sort_dispatch_queries(n)} queries at this n); radix options "
+                        f"{sorted(kwargs)} are ignored",
+                        stacklevel=2,
+                    )
+                out = sort_select(x, ks)
+            else:
+                out = radix_select_many(x, ks, **kwargs)
+        return restore_k_shape(out, ks)
 
 
 def quantile_ranks(qs, n: int) -> list[int]:
@@ -159,11 +167,13 @@ def restore_k_shape(out: torch.Tensor, ks) -> torch.Tensor:
 def quantiles(x, qs, *, device=None, **kwargs) -> torch.Tensor:
     """Exact order statistics at quantiles ``qs`` (nearest rank: every
     answer is an element of ``x``), a (len(qs),) tensor on the input's
-    device."""
-    x = as_selection_array(x, device)
-    if x.numel() == 0:
-        raise ValueError("quantiles requires a non-empty input")
-    return kselect_many(x, quantile_ks(qs, x.numel(), x.device), **kwargs)
+    device. One ``ksel.quantiles`` span holds the ranks' computation and
+    the ``ksel.kselect_many`` span of the selection."""
+    with span("ksel.quantiles"):
+        x = as_selection_array(x, device)
+        if x.numel() == 0:
+            raise ValueError("quantiles requires a non-empty input")
+        return kselect_many(x, quantile_ks(qs, x.numel(), x.device), **kwargs)
 
 
 def median(x, *, device=None, **kwargs) -> torch.Tensor:

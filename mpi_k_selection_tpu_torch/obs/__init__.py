@@ -12,7 +12,12 @@ One :class:`Observability` bundle carries up to four channels:
   hits and misses, ``pipeline.stall`` seconds, in-flight window occupancy,
   spilled bytes, chunks per slot) with JSON and Prometheus-text exposition;
 - **trace** (obs/trace.py): producer and consumer host spans as Chrome
-  trace-event JSON, over utils/profiling.py:``PhaseTimer``;
+  trace-event JSON, over utils/profiling.py:``PhaseTimer``. The same
+  phases, and the resident paths' ``ksel.*`` spans
+  (utils/profiling.py:``span``), also land in any ``torch.profiler``
+  trace (the CLI's ``--trace-dir``) as ``record_function`` ranges on the
+  kernels' clock; with the profiler off and no timer a span is one
+  shared null context (one C call, no allocation);
 - **flight** (obs/flight.py): a bounded ring of the recent events and spans
   that a terminal failure (or ``--debug-bundle``) dumps as a JSON debug
   bundle.

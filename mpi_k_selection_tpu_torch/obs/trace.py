@@ -13,6 +13,13 @@ The recorder never reads a clock: :class:`~mpi_k_selection_tpu_torch.
 utils.profiling.PhaseTimer` timestamps each phase and, with a recorder
 attached, hands the finished ``(name, t0, t1)`` over on the thread that
 ran it; the recorder adds the thread's identity.
+
+These spans carry ``perf_counter`` times rebased to the earliest one, so
+they do not line up with a kernel. To see them beside the kernels, trace
+under ``torch.profiler`` (``--trace-dir``): while it records, every
+``PhaseTimer`` phase and every ``ksel.*`` span of the resident paths
+(utils/profiling.py:``span``) is also a ``record_function`` range there,
+on the profiler's clock. Off, a span costs one C call.
 """
 
 from __future__ import annotations

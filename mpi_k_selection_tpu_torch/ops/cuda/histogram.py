@@ -34,7 +34,9 @@ A wrapper given a CUDA tensor launches its kernel or raises; given a CPU
 tensor it computes the same function with plain tensor ops
 (the ``*_plain`` functions). ``LAUNCHES``
 counts kernel launches and ``PLAIN_CALLS`` the plain versions' calls, so a
-run can show which one it went through.
+run can show which one it went through. Each wrapper call is one
+``ksel.launch`` span (utils/profiling.py:``span``): its checks, its
+output's allocation and its launches, or its plain version.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ import torch
 
 from mpi_k_selection_tpu_torch.ops.cuda.books import Book
 from mpi_k_selection_tpu_torch.utils import dtypes as _dt
+from mpi_k_selection_tpu_torch.utils.profiling import span
 
 ROW = 128  # elements per row of match_counts (the collect's gather unit)
 NARROW_BITS = 8  # the widest digit csrc/histogram.cu counts
@@ -236,49 +239,50 @@ def radix_histogram(words, *, shift, radix_bits, prefix=None, key_op="none", key
     ``words`` is a contiguous 1-D tensor of a 4- or 8-byte dtype, read in
     place. ``prefix`` is a one-element tensor of the words' int32/int64
     view dtype on the same device."""
-    w = _signed_words(words)
-    bits = w.element_size() * 8
-    _check_key_op(key_op)
-    _check_width(radix_bits)
-    if shift < 0 or shift + radix_bits > bits:
-        raise ValueError(f"digit at shift={shift}, radix_bits={radix_bits} outside a {bits}-bit key")
-    if prefix is not None:
-        _check_keys_like(prefix, w, "prefix")
-        if prefix.numel() != 1 or shift + radix_bits == bits:
-            raise ValueError("prefix must be one key with prefix bits above the digit")
-    elif radix_bits > NARROW_BITS and shift + radix_bits < bits:
-        raise ValueError(
-            f"a digit of {radix_bits} bits below the key's top (shift={shift} in a {bits}-bit key) "
-            "counts under a prefix"
-        )
-    if resolve_hist_method(w.device) == "plain":
-        PLAIN_CALLS["radix_histogram"] += 1
-        return radix_histogram_plain(
-            w, shift=shift, radix_bits=radix_bits, prefix=prefix, key_op=key_op, key_xor=key_xor
-        )
-    if radix_bits > NARROW_BITS:  # the sweep kernel's histogram part
-        from mpi_k_selection_tpu_torch.ops.cuda.sweep_ingest import wide_histogram
+    with span("ksel.launch"):
+        w = _signed_words(words)
+        bits = w.element_size() * 8
+        _check_key_op(key_op)
+        _check_width(radix_bits)
+        if shift < 0 or shift + radix_bits > bits:
+            raise ValueError(f"digit at shift={shift}, radix_bits={radix_bits} outside a {bits}-bit key")
+        if prefix is not None:
+            _check_keys_like(prefix, w, "prefix")
+            if prefix.numel() != 1 or shift + radix_bits == bits:
+                raise ValueError("prefix must be one key with prefix bits above the digit")
+        elif radix_bits > NARROW_BITS and shift + radix_bits < bits:
+            raise ValueError(
+                f"a digit of {radix_bits} bits below the key's top (shift={shift} in a {bits}-bit key) "
+                "counts under a prefix"
+            )
+        if resolve_hist_method(w.device) == "plain":
+            PLAIN_CALLS["radix_histogram"] += 1
+            return radix_histogram_plain(
+                w, shift=shift, radix_bits=radix_bits, prefix=prefix, key_op=key_op, key_xor=key_xor
+            )
+        if radix_bits > NARROW_BITS:  # the sweep kernel's histogram part
+            from mpi_k_selection_tpu_torch.ops.cuda.sweep_ingest import wide_histogram
 
-        return wide_histogram(w, shift=shift, radix_bits=radix_bits, prefixes=[0] if prefix is None else prefix,
-                              key_op=key_op, key_xor=key_xor)[0]
-    lib, cap, stream, is_float, xor = _launch_args(w, key_op, key_xor)
-    n = w.numel()
-    out = torch.zeros(1 << radix_bits, dtype=torch.int64, device=w.device)
-    if n == 0:
+            return wide_histogram(w, shift=shift, radix_bits=radix_bits, prefixes=[0] if prefix is None else prefix,
+                                  key_op=key_op, key_xor=key_xor)[0]
+        lib, cap, stream, is_float, xor = _launch_args(w, key_op, key_xor)
+        n = w.numel()
+        out = torch.zeros(1 << radix_bits, dtype=torch.int64, device=w.device)
+        if n == 0:
+            return out
+        blocks = max(1, min(cap, -(-n // (_THREADS * 16))))
+        # a warp's shared sub-histogram bins are 32-bit; a thread takes at
+        # most ceil(n / threads) keys plus part of one 16-byte load
+        if (-(-n // (blocks * _THREADS)) + 4) * 32 >= 1 << 32:
+            raise ValueError(f"n={n} overflows the per-warp counters")
+        with torch.cuda.device(w.device):
+            rc = getattr(lib, f"ksel_radix_histogram{bits}")(
+                w.data_ptr(), n, shift, radix_bits, is_float, xor,
+                None if prefix is None else prefix.data_ptr(), out.data_ptr(), blocks, stream,
+            )
+        _raise_on(lib, rc, f"radix_histogram{bits}")
+        LAUNCHES[f"radix_histogram{bits}"] += 1
         return out
-    blocks = max(1, min(cap, -(-n // (_THREADS * 16))))
-    # a warp's shared sub-histogram bins are 32-bit; a thread takes at
-    # most ceil(n / threads) keys plus part of one 16-byte load
-    if (-(-n // (blocks * _THREADS)) + 4) * 32 >= 1 << 32:
-        raise ValueError(f"n={n} overflows the per-warp counters")
-    with torch.cuda.device(w.device):
-        rc = getattr(lib, f"ksel_radix_histogram{bits}")(
-            w.data_ptr(), n, shift, radix_bits, is_float, xor,
-            None if prefix is None else prefix.data_ptr(), out.data_ptr(), blocks, stream,
-        )
-    _raise_on(lib, rc, f"radix_histogram{bits}")
-    LAUNCHES[f"radix_histogram{bits}"] += 1
-    return out
 
 
 def _match_smem_bytes(bits: int, nq: int, tile_rows: int, compare: bool) -> int:
@@ -318,39 +322,40 @@ def match_counts(words, *, resolved_bits, prefixes, key_op="none", key_xor=0):
     least time is one read of the n words plus the K x R counts written
     (4 K R bytes); more than ``MATCH_MAX_QUERIES`` prefixes take further
     launches, each reading the words again."""
-    w = _signed_words(words)
-    bits = w.element_size() * 8
-    _check_key_op(key_op)
-    if not 1 <= resolved_bits <= bits:
-        raise ValueError(f"resolved_bits={resolved_bits} outside a {bits}-bit key")
-    _check_keys_like(prefixes, w, "prefixes")
-    if prefixes.dim() != 1 or prefixes.numel() == 0:
-        raise ValueError(f"prefixes must be a non-empty (K,) tensor, got {tuple(prefixes.shape)}")
-    if resolve_hist_method(w.device) == "plain":
-        PLAIN_CALLS["match_counts"] += 1
-        return match_counts_plain(
-            w, resolved_bits=resolved_bits, prefixes=prefixes, key_op=key_op, key_xor=key_xor
-        )
-    lib, cap, stream, is_float, xor = _launch_args(w, key_op, key_xor)
-    n = w.numel()
-    rows = -(-n // ROW)
-    nq = prefixes.numel()
-    out = torch.empty((nq, rows), dtype=torch.int32, device=w.device)
-    if n == 0:
-        return out
-    per_launch, tile_rows, compare = _match_plan(bits, nq)
-    # the kernel clamps the grid to the blocks resident at once
-    blocks = max(1, min(cap, -(-rows // tile_rows)))
-    with torch.cuda.device(w.device):
-        for q0 in range(0, nq, per_launch):
-            q1 = min(nq, q0 + per_launch)
-            rc = getattr(lib, f"ksel_match_counts{bits}")(
-                w.data_ptr(), n, rows, bits - resolved_bits, is_float, xor, prefixes[q0:q1].data_ptr(),
-                q1 - q0, tile_rows, int(compare), out[q0:q1].data_ptr(), blocks, stream,
+    with span("ksel.launch"):
+        w = _signed_words(words)
+        bits = w.element_size() * 8
+        _check_key_op(key_op)
+        if not 1 <= resolved_bits <= bits:
+            raise ValueError(f"resolved_bits={resolved_bits} outside a {bits}-bit key")
+        _check_keys_like(prefixes, w, "prefixes")
+        if prefixes.dim() != 1 or prefixes.numel() == 0:
+            raise ValueError(f"prefixes must be a non-empty (K,) tensor, got {tuple(prefixes.shape)}")
+        if resolve_hist_method(w.device) == "plain":
+            PLAIN_CALLS["match_counts"] += 1
+            return match_counts_plain(
+                w, resolved_bits=resolved_bits, prefixes=prefixes, key_op=key_op, key_xor=key_xor
             )
-            _raise_on(lib, rc, f"match_counts{bits}")
-            LAUNCHES[f"match_counts{bits}"] += 1
-    return out
+        lib, cap, stream, is_float, xor = _launch_args(w, key_op, key_xor)
+        n = w.numel()
+        rows = -(-n // ROW)
+        nq = prefixes.numel()
+        out = torch.empty((nq, rows), dtype=torch.int32, device=w.device)
+        if n == 0:
+            return out
+        per_launch, tile_rows, compare = _match_plan(bits, nq)
+        # the kernel clamps the grid to the blocks resident at once
+        blocks = max(1, min(cap, -(-rows // tile_rows)))
+        with torch.cuda.device(w.device):
+            for q0 in range(0, nq, per_launch):
+                q1 = min(nq, q0 + per_launch)
+                rc = getattr(lib, f"ksel_match_counts{bits}")(
+                    w.data_ptr(), n, rows, bits - resolved_bits, is_float, xor, prefixes[q0:q1].data_ptr(),
+                    q1 - q0, tile_rows, int(compare), out[q0:q1].data_ptr(), blocks, stream,
+                )
+                _raise_on(lib, rc, f"match_counts{bits}")
+                LAUNCHES[f"match_counts{bits}"] += 1
+        return out
 
 
 def _multi_smem_bytes(bits: int, radix_bits: int, table_bits: int, nq: int, copies: int) -> int:
@@ -384,51 +389,53 @@ def radix_histogram_multi(words, *, shift, radix_bits, prefixes, key_op="none", 
     :func:`radix_histogram`; ``prefixes`` is a contiguous non-empty (K,)
     tensor of the words' int32/int64 view dtype on the same device, and
     every query has prefix bits above the digit."""
-    w = _signed_words(words)
-    bits = w.element_size() * 8
-    _check_key_op(key_op)
-    _check_width(radix_bits)
-    if shift < 0 or shift + radix_bits >= bits:
-        raise ValueError(
-            f"digit at shift={shift}, radix_bits={radix_bits} leaves no prefix bits in a {bits}-bit key"
-        )
-    _check_keys_like(prefixes, w, "prefixes")
-    if prefixes.dim() != 1 or prefixes.numel() == 0:
-        raise ValueError(f"prefixes must be a non-empty (K,) tensor, got {tuple(prefixes.shape)}")
-    if resolve_hist_method(w.device) == "plain":
-        PLAIN_CALLS["radix_histogram_multi"] += 1
-        return radix_histogram_multi_plain(
-            w, shift=shift, radix_bits=radix_bits, prefixes=prefixes, key_op=key_op, key_xor=key_xor
-        )
-    if radix_bits > NARROW_BITS:  # the sweep kernel's histogram part
-        from mpi_k_selection_tpu_torch.ops.cuda.sweep_ingest import wide_histogram
-
-        return wide_histogram(w, shift=shift, radix_bits=radix_bits, prefixes=prefixes, key_op=key_op, key_xor=key_xor)
-    lib, cap, stream, is_float, xor = _launch_args(w, key_op, key_xor)
-    n = w.numel()
-    nq = prefixes.numel()
-    out = torch.zeros((nq, 1 << radix_bits), dtype=torch.int64, device=w.device)
-    if n == 0:
-        return out
-    per_launch, copies = multi_plan(bits, shift, radix_bits, nq)
-    # the kernel clamps the grid to the blocks resident at once, at least
-    # one per SM; a sub-histogram is shared by at most all of a block's
-    # threads, each of which counts ceil(n / threads) keys plus part of
-    # one 16-byte load
-    blocks = max(1, min(cap, -(-n // (_THREADS * 16))))
-    fewest = min(blocks, cap // _BLOCKS_PER_SM)
-    if (-(-n // (fewest * _THREADS)) + 4) * _THREADS >= 1 << 32:
-        raise ValueError(f"n={n} overflows the per-block counters")
-    with torch.cuda.device(w.device):
-        for q0 in range(0, nq, per_launch):
-            q1 = min(nq, q0 + per_launch)
-            rc = getattr(lib, f"ksel_radix_histogram_multi{bits}")(
-                w.data_ptr(), n, shift, radix_bits, is_float, xor,
-                prefixes[q0:q1].data_ptr(), q1 - q0, copies, out[q0:q1].data_ptr(), blocks, stream,
+    with span("ksel.launch"):
+        w = _signed_words(words)
+        bits = w.element_size() * 8
+        _check_key_op(key_op)
+        _check_width(radix_bits)
+        if shift < 0 or shift + radix_bits >= bits:
+            raise ValueError(
+                f"digit at shift={shift}, radix_bits={radix_bits} leaves no prefix bits in a {bits}-bit key"
             )
-            _raise_on(lib, rc, f"radix_histogram_multi{bits}")
-            LAUNCHES[f"radix_histogram_multi{bits}"] += 1
-    return out
+        _check_keys_like(prefixes, w, "prefixes")
+        if prefixes.dim() != 1 or prefixes.numel() == 0:
+            raise ValueError(f"prefixes must be a non-empty (K,) tensor, got {tuple(prefixes.shape)}")
+        if resolve_hist_method(w.device) == "plain":
+            PLAIN_CALLS["radix_histogram_multi"] += 1
+            return radix_histogram_multi_plain(
+                w, shift=shift, radix_bits=radix_bits, prefixes=prefixes, key_op=key_op, key_xor=key_xor
+            )
+        if radix_bits > NARROW_BITS:  # the sweep kernel's histogram part
+            from mpi_k_selection_tpu_torch.ops.cuda.sweep_ingest import wide_histogram
+
+            return wide_histogram(w, shift=shift, radix_bits=radix_bits, prefixes=prefixes, key_op=key_op,
+                                  key_xor=key_xor)
+        lib, cap, stream, is_float, xor = _launch_args(w, key_op, key_xor)
+        n = w.numel()
+        nq = prefixes.numel()
+        out = torch.zeros((nq, 1 << radix_bits), dtype=torch.int64, device=w.device)
+        if n == 0:
+            return out
+        per_launch, copies = multi_plan(bits, shift, radix_bits, nq)
+        # the kernel clamps the grid to the blocks resident at once, at least
+        # one per SM; a sub-histogram is shared by at most all of a block's
+        # threads, each of which counts ceil(n / threads) keys plus part of
+        # one 16-byte load
+        blocks = max(1, min(cap, -(-n // (_THREADS * 16))))
+        fewest = min(blocks, cap // _BLOCKS_PER_SM)
+        if (-(-n // (fewest * _THREADS)) + 4) * _THREADS >= 1 << 32:
+            raise ValueError(f"n={n} overflows the per-block counters")
+        with torch.cuda.device(w.device):
+            for q0 in range(0, nq, per_launch):
+                q1 = min(nq, q0 + per_launch)
+                rc = getattr(lib, f"ksel_radix_histogram_multi{bits}")(
+                    w.data_ptr(), n, shift, radix_bits, is_float, xor,
+                    prefixes[q0:q1].data_ptr(), q1 - q0, copies, out[q0:q1].data_ptr(), blocks, stream,
+                )
+                _raise_on(lib, rc, f"radix_histogram_multi{bits}")
+                LAUNCHES[f"radix_histogram_multi{bits}"] += 1
+        return out
 
 
 def tau_counts(words, *, tau, largest=True, key_op="none", key_xor=0):
@@ -438,27 +445,28 @@ def tau_counts(words, *, tau, largest=True, key_op="none", key_xor=0):
     unsigned key order, and ``out[1, r]`` the number equal to it. Keys as
     in :func:`radix_histogram`; ``tau`` is a one-element key-space tensor of
     the words' int32/int64 view dtype on the same device."""
-    w = _signed_words(words)
-    bits = w.element_size() * 8
-    _check_key_op(key_op)
-    _check_keys_like(tau, w, "tau")
-    if tau.numel() != 1:
-        raise ValueError(f"tau must hold one key, got shape {tuple(tau.shape)}")
-    if resolve_hist_method(w.device) == "plain":
-        PLAIN_CALLS["tau_counts"] += 1
-        return tau_counts_plain(w, tau=tau, largest=largest, key_op=key_op, key_xor=key_xor)
-    lib, cap, stream, is_float, xor = _launch_args(w, key_op, key_xor)
-    n = w.numel()
-    rows = -(-n // ROW)
-    out = torch.empty((2, rows), dtype=torch.int32, device=w.device)
-    if n == 0:
+    with span("ksel.launch"):
+        w = _signed_words(words)
+        bits = w.element_size() * 8
+        _check_key_op(key_op)
+        _check_keys_like(tau, w, "tau")
+        if tau.numel() != 1:
+            raise ValueError(f"tau must hold one key, got shape {tuple(tau.shape)}")
+        if resolve_hist_method(w.device) == "plain":
+            PLAIN_CALLS["tau_counts"] += 1
+            return tau_counts_plain(w, tau=tau, largest=largest, key_op=key_op, key_xor=key_xor)
+        lib, cap, stream, is_float, xor = _launch_args(w, key_op, key_xor)
+        n = w.numel()
+        rows = -(-n // ROW)
+        out = torch.empty((2, rows), dtype=torch.int32, device=w.device)
+        if n == 0:
+            return out
+        blocks = max(1, min(cap, -(-rows // (_THREADS // 32))))
+        with torch.cuda.device(w.device):
+            rc = getattr(lib, f"ksel_tau_counts{bits}")(
+                w.data_ptr(), n, rows, is_float, xor, tau.data_ptr(), int(largest),
+                out.data_ptr(), blocks, stream,
+            )
+        _raise_on(lib, rc, f"tau_counts{bits}")
+        LAUNCHES[f"tau_counts{bits}"] += 1
         return out
-    blocks = max(1, min(cap, -(-rows // (_THREADS // 32))))
-    with torch.cuda.device(w.device):
-        rc = getattr(lib, f"ksel_tau_counts{bits}")(
-            w.data_ptr(), n, rows, is_float, xor, tau.data_ptr(), int(largest),
-            out.data_ptr(), blocks, stream,
-        )
-    _raise_on(lib, rc, f"tau_counts{bits}")
-    LAUNCHES[f"tau_counts{bits}"] += 1
-    return out

@@ -33,6 +33,12 @@ the passes before the cutover queue without a host sync. Each rung of the
 ladder reads one population to the host (the JAX package's ``lax.cond``).
 The early exit reads one population a pass, after pass 0, until one fits
 the budget: each read drains the launch queue before the next pass.
+
+Spans (utils/profiling.py:``span``, read by the benchmark's descent
+metrics): ``ksel.descent.pass`` around each pass, ``ksel.descent.host_read``
+around each population read, ``ksel.collect`` around the collect rung with
+its steps ``ksel.collect.match``, ``ksel.collect.gather`` and
+``ksel.collect.pick``. None of them reads a device value.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from mpi_k_selection_tpu_torch.ops.histogram import (
     prepare_raw,
 )
 from mpi_k_selection_tpu_torch.utils import dtypes as _dt
+from mpi_k_selection_tpu_torch.utils.profiling import span
 
 
 def default_radix_bits() -> int:
@@ -108,6 +115,13 @@ def run_cutover_ladder(ncut, npasses, pop0, pred, step, finish_small, finish_ful
             return finish_small(ncut + 1)(state)
         return finish_full_from(ncut + 1)(state)
     return finish_full_from(ncut)(state)
+
+
+def _fits(pop, budget: int) -> bool:
+    """Whether the population ``pop`` (one count, or the largest of K) fits
+    ``budget``: the descent's host read, one span."""
+    with span("ksel.descent.host_read"):
+        return int(pop if pop.numel() == 1 else pop.max()) <= budget
 
 
 def bucket_walk_step(hist, kk, prefix, kdt, radix_bits):
@@ -187,37 +201,39 @@ class _Descent:
         return _dt.keys_from_raw(words, self.key_op, self.key_xor)
 
     def one_pass(self, p, prefix, kk):
-        shift = self.total_bits - (p + 1) * self.radix_bits
-        hist = masked_radix_histogram(
-            self.words,
-            shift=shift,
-            radix_bits=self.radix_bits,
-            prefix=prefix if p else self.top_prefix,
-            key_op=self.key_op,
-            key_xor=self.key_xor,
-        )
-        return bucket_walk_step(self.reduce(hist), kk, prefix if p else None, self.kdt, self.radix_bits)
+        with span("ksel.descent.pass"):
+            hist = masked_radix_histogram(
+                self.words,
+                shift=self.total_bits - (p + 1) * self.radix_bits,
+                radix_bits=self.radix_bits,
+                prefix=prefix if p else self.top_prefix,
+                key_op=self.key_op,
+                key_xor=self.key_xor,
+            )
+            return bucket_walk_step(self.reduce(hist), kk, prefix if p else None, self.kdt, self.radix_bits)
 
     def multi_pass(self, p, prefixes, kk):
         """Pass ``p >= 1`` for K queries: one read, K histograms."""
-        hist = multi_masked_radix_histogram(
-            self.words,
-            shift=self.total_bits - (p + 1) * self.radix_bits,
-            radix_bits=self.radix_bits,
-            prefixes=prefixes,
-            key_op=self.key_op,
-            key_xor=self.key_xor,
-        )
-        return bucket_walk_step_multi(self.reduce(hist), kk, prefixes, self.kdt, self.radix_bits)
+        with span("ksel.descent.pass"):
+            hist = multi_masked_radix_histogram(
+                self.words,
+                shift=self.total_bits - (p + 1) * self.radix_bits,
+                radix_bits=self.radix_bits,
+                prefixes=prefixes,
+                key_op=self.key_op,
+                key_xor=self.key_xor,
+            )
+            return bucket_walk_step_multi(self.reduce(hist), kk, prefixes, self.kdt, self.radix_bits)
 
     def first_multi_pass(self, kk):
         """The prefix-free pass shared by K queries: one histogram serves
         every query."""
-        hist = masked_radix_histogram(
-            self.words, shift=self.total_bits - self.radix_bits, radix_bits=self.radix_bits,
-            prefix=self.top_prefix, key_op=self.key_op, key_xor=self.key_xor,
-        )
-        return bucket_walk_step_multi(self.reduce(hist), kk, None, self.kdt, self.radix_bits)
+        with span("ksel.descent.pass"):
+            hist = masked_radix_histogram(
+                self.words, shift=self.total_bits - self.radix_bits, radix_bits=self.radix_bits,
+                prefix=self.top_prefix, key_op=self.key_op, key_xor=self.key_xor,
+            )
+            return bucket_walk_step_multi(self.reduce(hist), kk, None, self.kdt, self.radix_bits)
 
 
 def _same(t):
@@ -271,11 +287,13 @@ def _collect_via_counts(prep: _Descent, resolved_passes: int, prefixes, budget: 
     ``_collect_prefix_matches{,_multi}``, whose K-wide match mask would be
     a (K, n) tensor)."""
     res = resolved_passes * prep.radix_bits
-    cnt = match_counts(
-        prep.words, resolved_bits=res + prep.word_bits - prep.total_bits, prefixes=prefixes,
-        key_op=prep.key_op, key_xor=prep.key_xor,
-    )
-    return _gather_candidates(prep, cnt, res, prefixes, budget)
+    with span("ksel.collect.match"):
+        cnt = match_counts(
+            prep.words, resolved_bits=res + prep.word_bits - prep.total_bits, prefixes=prefixes,
+            key_op=prep.key_op, key_xor=prep.key_xor,
+        )
+    with span("ksel.collect.gather"):
+        return _gather_candidates(prep, cnt, res, prefixes, budget)
 
 
 def _sorted_pick(prep: _Descent, cand, kk):
@@ -288,8 +306,10 @@ def _sorted_pick(prep: _Descent, cand, kk):
 def _collect_and_pick(prep: _Descent, resolved_passes: int, prefixes, kk, budget: int):
     """The collect rung: up to ``budget`` candidates per prefix (from every
     rank, through ``prep.gather``), then each query's pick."""
-    cand, _ = _collect_via_counts(prep, resolved_passes, prefixes, budget)
-    return _sorted_pick(prep, prep.gather(cand), kk)
+    with span("ksel.collect"):
+        cand, _ = _collect_via_counts(prep, resolved_passes, prefixes, budget)
+        with span("ksel.collect.pick"):
+            return _sorted_pick(prep, prep.gather(cand), kk)
 
 
 def _early_exit(prep: _Descent, prefix, kk, budget: int):
@@ -303,7 +323,7 @@ def _early_exit(prep: _Descent, prefix, kk, budget: int):
     picks the same bits)."""
     prefix, kk, pop = prep.one_pass(0, prefix, kk)
     for p in range(1, prep.npasses):
-        if int(pop) <= budget:
+        if _fits(pop, budget):
             return _collect_and_pick(prep, p, prefix, kk, budget)
         prefix, kk, pop = prep.one_pass(p, prefix, kk)
     return prefix
@@ -351,7 +371,7 @@ def _select_key_on_prep(prep: _Descent, k, *, early_exit_budget: int | None = No
         return (prefix, kk), pop
 
     return run_cutover_ladder(
-        ncut, npasses, pop, lambda q: int(q) <= cutover_budget, step,
+        ncut, npasses, pop, lambda q: _fits(q, cutover_budget), step,
         finish_small, finish_full_from, (prefix, kk),
     )
 
@@ -422,7 +442,7 @@ def _select_many_on_prep(prep: _Descent, kk, *, cutover="auto", cutover_budget: 
         return (prefixes, kk), pops
 
     return run_cutover_ladder(
-        ncut, npasses, pops, lambda q: int(q.max()) <= cutover_budget, step,
+        ncut, npasses, pops, lambda q: _fits(q, cutover_budget), step,
         finish_small, finish_full_from, (prefixes, kk),
     )
 

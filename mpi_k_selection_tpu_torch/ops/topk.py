@@ -30,7 +30,8 @@ Methods:
   flag per row and a rescue of the rows it cannot resolve; here nothing
   is recovered or rescued, so no such flag exists.
 
-Indices are int64, torch's index dtype.
+Indices are int64, torch's index dtype. A call of :func:`topk` is one
+``ksel.topk`` span (utils/profiling.py:``span``).
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from mpi_k_selection_tpu_torch.ops.cuda import topk as _block
 from mpi_k_selection_tpu_torch.ops.cuda.histogram import ROW, tau_counts
 from mpi_k_selection_tpu_torch.ops.radix import _Descent, _select_key_on_prep, row_cumsum
 from mpi_k_selection_tpu_torch.utils import dtypes as _dt
+from mpi_k_selection_tpu_torch.utils.profiling import span
 
 METHODS = ("auto", "threshold", "tournament", "chunked", "flat", "block")
 
@@ -100,38 +102,39 @@ def topk(x, k: int, *, largest: bool = True, method: str = "auto", num_chunks: i
     position). Leading axes batch, except for the 1-D-only ``threshold``
     and ``tournament`` methods. Runs on ``x``'s device (a non-tensor input
     goes to ``device``, default ``"cuda"``)."""
-    x = _api.as_selection_array(x, device)
-    if x.dim() == 0:
-        raise ValueError("topk needs at least one axis")
-    d = x.shape[-1]
-    if not 1 <= k <= d:
-        raise ValueError(f"k={k} out of range for last axis of size {d}")
-    method = resolve_topk_method(method, tuple(x.shape), k, x.dtype, x.device, largest)
-    if method == "block":
-        if x.dim() != 2 or not largest:
-            raise ValueError("block method applies to 2-D inputs, largest=True")
-        return _block.batched_topk(x.contiguous(), k)
-    if method in ("threshold", "tournament"):
-        if x.dim() != 1:
-            raise ValueError(f"{method} method applies to 1-D inputs")
-        if method == "threshold":
-            idx = _threshold_topk_indices(x, k, largest)
+    with span("ksel.topk"):
+        x = _api.as_selection_array(x, device)
+        if x.dim() == 0:
+            raise ValueError("topk needs at least one axis")
+        d = x.shape[-1]
+        if not 1 <= k <= d:
+            raise ValueError(f"k={k} out of range for last axis of size {d}")
+        method = resolve_topk_method(method, tuple(x.shape), k, x.dtype, x.device, largest)
+        if method == "block":
+            if x.dim() != 2 or not largest:
+                raise ValueError("block method applies to 2-D inputs, largest=True")
+            return _block.batched_topk(x.contiguous(), k)
+        if method in ("threshold", "tournament"):
+            if x.dim() != 1:
+                raise ValueError(f"{method} method applies to 1-D inputs")
+            if method == "threshold":
+                idx = _threshold_topk_indices(x, k, largest)
+            else:
+                idx = _tournament_topk_indices(_signed_keys(x, largest), k)
+            # through the signed view: CUDA has no index kernel for uint16/32/64
+            return _dt.bit_view(x)[idx].view(x.dtype), idx
+        keys = _signed_keys(x, largest)
+        c = 1 if method == "flat" else (num_chunks or _pick_num_chunks(d, k))
+        if c <= 1 or d % c:
+            kv, idx = _sorted_topk(keys, k)
         else:
-            idx = _tournament_topk_indices(_signed_keys(x, largest), k)
-        # through the signed view: CUDA has no index kernel for uint16/32/64
-        return _dt.bit_view(x)[idx].view(x.dtype), idx
-    keys = _signed_keys(x, largest)
-    c = 1 if method == "flat" else (num_chunks or _pick_num_chunks(d, k))
-    if c <= 1 or d % c:
-        kv, idx = _sorted_topk(keys, k)
-    else:
-        sub = d // c
-        subvals, subidx = _sorted_topk(keys.reshape(*keys.shape[:-1], c, sub), min(k, sub))
-        base = torch.arange(c, device=x.device)[:, None] * sub
-        cand_idx = (subidx + base).reshape(*keys.shape[:-1], -1)
-        kv, pos = _sorted_topk(subvals.reshape(*keys.shape[:-1], -1), k)
-        idx = cand_idx.gather(-1, pos)
-    return _decode_keys(kv, x.dtype, largest), idx
+            sub = d // c
+            subvals, subidx = _sorted_topk(keys.reshape(*keys.shape[:-1], c, sub), min(k, sub))
+            base = torch.arange(c, device=x.device)[:, None] * sub
+            cand_idx = (subidx + base).reshape(*keys.shape[:-1], -1)
+            kv, pos = _sorted_topk(subvals.reshape(*keys.shape[:-1], -1), k)
+            idx = cand_idx.gather(-1, pos)
+        return _decode_keys(kv, x.dtype, largest), idx
 
 
 def _threshold_topk_indices(x: torch.Tensor, k: int, largest: bool) -> torch.Tensor:
